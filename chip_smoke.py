@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device (H100-class, sm_90a), ``nvcc`` and ``nvidia-smi``.
+Run from the root of a checkout: it imports the port
+(``distributed_training_with_pipeline_parallelism_tpu_torch``) and never
+JAX. Phases, each fatal on failure:
+
+1. Device and toolchain: the card's name and power limit, the CUDA and
+   nvcc versions; build every kernel from ``csrc/`` (one nvcc per source,
+   all started together).
+2. Every kernel against its plain PyTorch version on the card at the
+   decode path's shapes, with stated tolerances, timed beside its plain
+   version, its bound and one library call that computes the same
+   function (a yardstick only; the port never calls it).
+3. The main path: GPT-2-small at full width, random weights from a seed,
+   D = 4 lockstep pipeline stages, M = 4 streams, B = 16 prompts of 512
+   tokens, 32 new tokens, greedy, log-probs through the fused-xent
+   kernel, prefill through the flash kernel. In f32 the kernel run must
+   give the tokens of a run on the plain paths and of the single-device
+   ``generate`` (a mismatch only where the reference's top-2 logit gap is
+   below 1e-4), with log-probs within 1e-4; both kernels must have been
+   launched. In bf16 the prefill time and decode tokens/s are measured.
+
+Then it prints the kernel record as one JSON line, the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Details go to ``chip_smoke_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+PKG = "distributed_training_with_pipeline_parallelism_tpu_torch"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores / f32 FMA
+B, P, N, D, M = 16, 512, 32, 4, 4
+SEED = 0
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Device time of one call, after three warm-up calls: the summed time
+    of the CUDA kernels that a ``torch.profiler`` trace of ``iters`` calls
+    records, per call, so the host's gaps between launches are excluded.
+    Fails if the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages())
+    check(dev_us > 0, "torch.profiler recorded no device time")
+    return dev_us / 1e3 / iters
+
+
+def bound(nbytes: float, ops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def main_config():
+    """GPT-2-small at full width, with both kernels routed."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import gpt2_config
+    return gpt2_config("small", use_flash_attention="auto",
+                       use_fused_xent=True)
+
+
+def phase_toolchain(report):
+    import torch
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops._build import (
+        build_all, nvcc_version)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
+        FLASH_FWD)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
+        XENT_FWD)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    report["card"] = smi
+    report["torch"] = torch.__version__
+    report["cuda"] = torch.version.cuda
+    report["nvcc"] = nvcc_version()
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
+          f"{report['nvcc']}")
+    t0 = time.perf_counter()
+    build_all([FLASH_FWD, XENT_FWD])
+    report["build_s"] = time.perf_counter() - t0
+    print(f"built {FLASH_FWD.source.name}, {XENT_FWD.source.name} in "
+          f"{report['build_s']:.1f} s")
+    report["ptxas"] = {k.name: [ln.strip() for ln in k.build_log.splitlines()
+                                if "registers" in ln or "spill" in ln]
+                       for k in (FLASH_FWD, XENT_FWD)}
+    for name, lines in report["ptxas"].items():
+        for ln in lines:
+            print(f"  ptxas {name}: {ln}")
+
+
+def phase_kernels(report):
+    """Each kernel against its plain version on the card; returns the
+    records of the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.attention import band_mask
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_plain)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
+        xent_fwd, xent_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+
+    def flash_case(b, s, h, dh, dtype, causal, window, layout, tol):
+        dt = getattr(torch, dtype)
+        if layout == "packed":  # [b, s, h*dh] as the projection writes it
+            mk = lambda: torch.randn(b, s, h * dh, generator=gen, device="cuda",  # noqa: E731
+                                     dtype=dt).view(b, s, h, dh)
+        else:  # [b, h, s, dh] storage read through [b, s, h, dh] strides
+            mk = lambda: torch.randn(b, h, s, dh, generator=gen, device="cuda",  # noqa: E731
+                                     dtype=dt).transpose(1, 2)
+        q, k, v = mk(), mk(), mk()
+        o, lse = flash_fwd(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_fwd_plain(q, k, v, causal, window)
+        err = (o.float() - o_ref.float()).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        check(torch.isfinite(o).all().item(), "flash: non-finite output")
+        check(err <= tol, f"flash {layout} {[b, s, h, dh]} {dtype} causal="
+              f"{causal} window={window}: max |o - plain| {err} > {tol}")
+        check(lse_err <= 1e-3, f"flash: lse differs from plain by {lse_err}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal)
+        else:
+            mask = band_mask(s, s, window, device="cuda")
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask)
+        if causal:
+            w = window or s
+            pairs = sum(min(i + 1, w) for i in range(s))
+        else:
+            pairs = s * s
+        itemsize = q.element_size()
+        bms, by = bound(4 * b * s * h * dh * itemsize + b * h * s * 4,
+                        4 * b * h * dh * pairs, dtype)
+        rec = dict(kernel="flash_fwd", shape=[b, s, h, dh], dtype=dtype,
+                   causal=causal, window=window, layout=layout,
+                   max_abs_err=err, tol=tol, bound_ms=bms, bound_by=by)
+        rec["ms"] = time_ms(lambda: flash_fwd(q, k, v, causal, window))
+        rec["plain_ms"] = time_ms(lambda: flash_fwd_plain(q, k, v, causal,
+                                                          window))
+        rec["library_ms"] = time_ms(lib)
+        rows.append(rec)
+        return rec
+
+    def xent_case(n, v, dtype, rtol):
+        dt = getattr(torch, dtype)
+        logits = 3 * torch.randn(n, v, generator=gen, device="cuda", dtype=dt)
+        tg = torch.randint(0, v, (n,), generator=gen, device="cuda")
+        nll, lse = xent_fwd(logits, tg)
+        torch.cuda.synchronize()
+        nll_ref, lse_ref = xent_fwd_plain(logits, tg)
+        rel = ((nll - nll_ref).abs() / nll_ref.abs().clamp_min(1.0)).max().item()
+        err = (nll - nll_ref).abs().max().item()
+        lse_rel = ((lse - lse_ref).abs() / lse_ref.abs()).max().item()
+        check(rel <= rtol and lse_rel <= rtol,
+              f"xent {[n, v]} {dtype}: relative nll err {rel}, lse err "
+              f"{lse_rel} > {rtol}")
+        itemsize = logits.element_size()
+        bms, by = bound(n * v * itemsize + n * 8 + 2 * n * 4, 4 * n * v,
+                        "float32")
+        rec = dict(kernel="xent_fwd", shape=[n, v], dtype=dtype,
+                   max_abs_err=err, rel_err=rel, rtol=rtol, bound_ms=bms,
+                   bound_by=by)
+        rec["ms"] = time_ms(lambda: xent_fwd(logits, tg), 50)
+        rec["plain_ms"] = time_ms(lambda: xent_fwd_plain(logits, tg), 50)
+        rec["library_ms"] = time_ms(lambda: F.cross_entropy(
+            logits, tg, reduction="none"), 50)
+        rows.append(rec)
+        return rec
+
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}
+    main = {}
+    for dtype in ("bfloat16", "float32"):
+        # the main path's prefill: one stream of B/M prompts per stage call
+        main[("flash_fwd", dtype)] = flash_case(B // M, P, 12, 64, dtype,
+                                                True, None, "packed",
+                                                tol[dtype])
+        flash_case(16, 512, 12, 64, dtype, True, None, "packed", tol[dtype])
+        # the K2 route: a window, a ragged length, head_dim 128, transposed
+        flash_case(2, 1000, 8, 128, dtype, True, 256, "transposed",
+                   tol[dtype])
+        flash_case(2, 256, 4, 64, dtype, False, None, "packed", tol[dtype])
+        flash_case(1, 130, 2, 256, dtype, True, None, "transposed",
+                   tol[dtype])
+    for dtype, rtol in (("bfloat16", 1e-3), ("float32", 1e-5)):
+        # the main path's head: B/M rows of the GPT-2 vocab per stage call
+        main[("xent_fwd", dtype)] = xent_case(B // M, 50257, dtype, rtol)
+        xent_case(7, 50257, dtype, rtol)
+    for r in rows:
+        print(f"  {r['kernel']} {r['shape']} {r['dtype']}"
+              + (f" causal={r['causal']} window={r['window']} {r['layout']}"
+                 if r["kernel"] == "flash_fwd" else "")
+              + f": max_abs_err {r['max_abs_err']:.3g}  kernel "
+              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library "
+              f"{r['library_ms']:.4f} ms")
+    report["kernel_checks"] = rows
+    return main
+
+
+def compare_tokens(name, toks, ref, lps, ref_lps, gap, lp_tol=1e-4,
+                   gap_tol=1e-4):
+    """Rows must agree with ``ref`` token for token; a row may part only at
+    a step where the reference's top-2 logit gap is below ``gap_tol`` and
+    is not compared past it. Log-probs agree within ``lp_tol`` up to
+    there. Returns the rows that parted at a near-tie."""
+    new, ref_new = toks[:, P:], ref[:, P:]
+    parted = []
+    worst_lp = 0.0
+    for r in range(new.shape[0]):
+        diff = (new[r] != ref_new[r]).nonzero()
+        j = int(diff[0]) if len(diff) else N
+        if j < N:
+            check(gap[r, j].item() < gap_tol,
+                  f"{name}: row {r} step {j}: token {int(new[r, j])} vs "
+                  f"{int(ref_new[r, j])} with top-2 gap {gap[r, j].item()}")
+            parted.append(dict(row=r, step=j, gap=gap[r, j].item()))
+        if j:
+            worst_lp = max(worst_lp,
+                           (lps[r, :j] - ref_lps[r, :j]).abs().max().item())
+    check(worst_lp <= lp_tol,
+          f"{name}: log-probs differ by {worst_lp} > {lp_tol}")
+    print(f"  {name}: tokens agree "
+          f"({len(parted)} rows part at near-ties: {parted}); "
+          f"max |logprob diff| {worst_lp:.3g}")
+    return dict(parted=parted, max_lp_diff=worst_lp)
+
+
+def phase_main_path(report, device="cuda"):
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        transformer_apply)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
+        FLASH_FWD)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
+        XENT_FWD)
+    kernels = (FLASH_FWD, XENT_FWD)
+    cfg = main_config()
+    plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                use_fused_xent=False)
+    g = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = port.init_params(cfg, g, device)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g).to(device)
+    print(f"  GPT-2-small ({sum(p.numel() for p in model.parameters())} "
+          f"params) initialised in {time.perf_counter() - t0:.1f} s")
+
+    def top2_gap(toks):
+        with torch.no_grad():
+            logits = transformer_apply(plain, model, toks[:, :P + N - 1])
+            top = logits[:, P - 1:].float().topk(2, dim=-1).values
+        return top[..., 0] - top[..., 1]
+
+    # the counted run: the f32 pipelined decoder through both kernels
+    for k in kernels:
+        k.launches = 0
+    toks, lps = port.make_pipeline_generate_fn(
+        cfg, D, N, n_streams=M, return_logprobs=True,
+        device=device)(model, prompt)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    print(f"  f32 pipelined decode (D={D}, M={M}, B={B}, P={P}, N={N}): "
+          f"kernel launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"the main path launched {name} no time")
+    check(toks.shape == (B, P + N), f"tokens shape {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "token out of vocab")
+    check(bool(torch.isfinite(lps).all() and (lps <= 0).all()),
+          "log-probs not finite and <= 0")
+
+    toks_p, lps_p = port.make_pipeline_generate_fn(
+        plain, D, N, n_streams=M, return_logprobs=True,
+        device=device)(model, prompt)
+    check(all(k.launches == launches[k.name] for k in kernels),
+          "the plain run launched a kernel")
+    toks_s, lps_s = port.generate(cfg, model, prompt, N,
+                                  return_logprobs=True, device=device)
+    res = dict(launches=launches)
+    res["kernel_vs_plain"] = compare_tokens(
+        "f32 kernel run vs plain run", toks, toks_p, lps, lps_p,
+        top2_gap(toks_p))
+    res["pipelined_vs_single"] = compare_tokens(
+        "f32 pipelined vs single-device generate", toks, toks_s, lps, lps_s,
+        top2_gap(toks_s))
+
+    # bf16 compute over the f32 weights: prefill time and decode rate
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="float32")
+    fn1 = port.make_pipeline_generate_fn(cfg16, D, 1, n_streams=M,
+                                         return_logprobs=True, device=device)
+    fnn = port.make_pipeline_generate_fn(cfg16, D, N, n_streams=M,
+                                         return_logprobs=True, device=device)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(model, prompt)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    run(fn1), run(fnn)  # warm-up
+    for k in kernels:
+        k.launches = 0
+    times1 = [run(fn1)[1] for _ in range(3)]
+    (toks16, lps16), _ = run(fnn)
+    timesn = [run(fnn)[1] for _ in range(3)]
+    check(bool(((toks16 >= 0) & (toks16 < cfg.vocab_size)).all()
+               and torch.isfinite(lps16).all()), "bf16 run: bad output")
+    t1, tn = min(times1), min(timesn)
+    res["bf16"] = dict(prefill_ms=t1 * 1e3, total_ms=tn * 1e3,
+                       decode_tokens_per_s=B * (N - 1) / (tn - t1),
+                       runs_n1_s=times1, runs_n_s=timesn,
+                       launches={k.name: k.launches for k in kernels},
+                       agree_with_f32=float((toks16 == toks).float().mean()))
+    for k in kernels:
+        check(k.launches > 0, f"the bf16 run launched {k.name} no time")
+    print(f"  bf16 pipelined decode: prefill (N=1 run) {t1 * 1e3:.1f} ms, "
+          f"N={N} run {tn * 1e3:.1f} ms, decode "
+          f"{res['bf16']['decode_tokens_per_s']:.1f} tokens/s, launches "
+          f"{res['bf16']['launches']}")
+
+    # where the time goes: device kernel time against wall time of one
+    # bf16 N-token run, under the profiler (which adds some host time)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = run(fnn)
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                         for e in prof.key_averages()
+                         if e.self_device_time_total > 0),
+                        key=lambda x: -x[1])
+    busy = sum(ms for _, ms, _ in per_kernel)
+    res["bf16"]["profile"] = dict(
+        wall_ms=wall * 1e3, device_busy_ms=busy,
+        idle_share=1 - busy / (wall * 1e3),
+        top_kernels=[dict(name=n[:120], ms=ms, count=c)
+                     for n, ms, c in per_kernel[:12]])
+    print(f"  bf16 N={N} run under the profiler: wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy:.1f} ms, idle share "
+          f"{res['bf16']['profile']['idle_share']:.3f}")
+    for n, ms, c in per_kernel[:8]:
+        print(f"    {ms:9.3f} ms  {c:6d}x  {n[:100]}")
+    report["main_path"] = res
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    try:
+        import distributed_training_with_pipeline_parallelism_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout ({e})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    t0 = time.perf_counter()
+    print("[1] device and toolchain")
+    phase_toolchain(report)
+    print("[2] kernels against their plain versions")
+    main_shapes = phase_kernels(report)
+    print("[3] main path: GPT-2-small, 4 lockstep stages")
+    launches = phase_main_path(report)
+    report["seconds"] = time.perf_counter() - t0
+    out = Path("chip_smoke_out")
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    sources = {"flash_fwd": (
+        f"{PKG}/csrc/flash_fwd.cu",
+        "distributed_training_with_pipeline_parallelism_tpu/ops/"
+        "pallas_attention.py:453 (_flash_fwd_kernel_packed, K4; the same "
+        "kernel serves :126 _flash_fwd_kernel, K2)"),
+        "xent_fwd": (
+        f"{PKG}/csrc/xent_fwd.cu",
+        "distributed_training_with_pipeline_parallelism_tpu/ops/"
+        "pallas_xent.py:48 (_xent_fwd_kernel, K1)")}
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        r = main_shapes[(name, "bfloat16")]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"], dtype=r["dtype"]))
+    print(json.dumps({"kernels": kernels}))
+    print(report["card"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
