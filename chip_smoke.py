@@ -12,10 +12,10 @@ JAX. Phases, each fatal on failure:
    nvcc versions; build every kernel from ``csrc/`` (one nvcc per source,
    all started together).
 2. Every kernel against its plain PyTorch version on the card at the
-   decode path's shapes, with stated tolerances, timed beside its plain
-   version, its bound and one library call that computes the same
-   function (a yardstick only; the port never calls it).
-3. The main path: GPT-2-small at full width, random weights from a seed,
+   decode and training paths' shapes, with stated tolerances, timed beside
+   its plain version, its bound and one library call that computes the
+   same function (a yardstick only; the port never calls it).
+3. The decode path: GPT-2-small at full width, random weights from a seed,
    D = 4 lockstep pipeline stages, M = 4 streams, B = 16 prompts of 512
    tokens, 32 new tokens, greedy, log-probs through the fused-xent
    kernel, prefill through the flash kernel. In f32 the kernel run must
@@ -23,6 +23,17 @@ JAX. Phases, each fatal on failure:
    ``generate`` (a mismatch only where the reference's top-2 logit gap is
    below 1e-4), with log-probs within 1e-4; both kernels must have been
    launched. In bf16 the prefill time and decode tokens/s are measured.
+4. The training path: tied GPT-2-small (124M) at full width, random
+   weights from a seed, B = 24 sequences of 1024 tokens, M = 4
+   microbatches. In f32, one pipelined 1F1B step at D = 4 through all four
+   kernels must match the same step on the plain versions and
+   single-device autograd of ``transformer_loss`` (loss and every
+   gradient leaf), and each kernel's launches must be the count the tick
+   table predicts. In bf16 (f32 master weights) ``make_train_step`` with
+   ``adamw`` runs 2 warm-up and 5 timed steps under GPipe (D = 4), 1F1B
+   (D = 4) and Interleaved1F1B (D = 2, V = 2): tokens/s, the analytic
+   bubble and every step's loss, which must be finite and fall; one step
+   runs under the profiler for its idle share.
 
 Then it prints the kernel record as one JSON line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -33,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -42,6 +54,8 @@ PKG = "distributed_training_with_pipeline_parallelism_tpu_torch"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores / f32 FMA
 B, P, N, D, M = 16, 512, 32, 4, 4
+# the training path: the JAX bench rung gpt2_small_seq1024_bs24, over stages
+TRAIN_B, TRAIN_S, TRAIN_M = 24, 1024, 4
 SEED = 0
 
 
@@ -58,19 +72,25 @@ def time_ms(fn, iters: int = 20) -> float:
     """Device time of one call, after three warm-up calls: the summed time
     of the CUDA kernels that a ``torch.profiler`` trace of ``iters`` calls
     records, per call, so the host's gaps between launches are excluded.
-    Fails if the profiler records no device time."""
+    A trace now and then comes back empty (seen on the H100 host after
+    some dozens of profiler sessions in one process), so an empty trace is
+    taken again, up to three times in all; fails if none records device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages())
-    check(dev_us > 0, "torch.profiler recorded no device time")
-    return dev_us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages())
+        if dev_us > 0:
+            return dev_us / 1e3 / iters
+    raise SmokeFailure("torch.profiler recorded no device time in three "
+                       "traces")
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -78,6 +98,15 @@ def bound(nbytes: float, ops: float, dtype: str):
     t_ops = ops / PEAK_OPS_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def all_kernels():
+    """Every kernel of the port, in the kernel line's order."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
+        FLASH_BWD, FLASH_FWD)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
+        XENT_BWD, XENT_FWD)
+    return (FLASH_FWD, XENT_FWD, FLASH_BWD, XENT_BWD)
 
 
 def main_config():
@@ -91,10 +120,6 @@ def phase_toolchain(report):
     import torch
     from distributed_training_with_pipeline_parallelism_tpu_torch.ops._build import (
         build_all, nvcc_version)
-    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
-        FLASH_FWD)
-    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
-        XENT_FWD)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -107,13 +132,14 @@ def phase_toolchain(report):
     print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
           f"{report['nvcc']}")
     t0 = time.perf_counter()
-    build_all([FLASH_FWD, XENT_FWD])
+    kernels = all_kernels()
+    build_all(kernels)
     report["build_s"] = time.perf_counter() - t0
-    print(f"built {FLASH_FWD.source.name}, {XENT_FWD.source.name} in "
+    print(f"built {', '.join(k.source.name for k in kernels)} in "
           f"{report['build_s']:.1f} s")
     report["ptxas"] = {k.name: [ln.strip() for ln in k.build_log.splitlines()
                                 if "registers" in ln or "spill" in ln]
-                       for k in (FLASH_FWD, XENT_FWD)}
+                       for k in kernels}
     for name, lines in report["ptxas"].items():
         for ln in lines:
             print(f"  ptxas {name}: {ln}")
@@ -121,14 +147,15 @@ def phase_toolchain(report):
 
 def phase_kernels(report):
     """Each kernel against its plain version on the card; returns the
-    records of the main path's shapes."""
+    records of the training path's shapes (this slice's main path; the
+    decode path's shapes are checked and timed too)."""
     import torch
     import torch.nn.functional as F
     from distributed_training_with_pipeline_parallelism_tpu_torch.ops.attention import band_mask
     from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
-        flash_fwd, flash_fwd_plain)
+        flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain)
     from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
-        xent_fwd, xent_fwd_plain)
+        xent_bwd, xent_bwd_plain, xent_fwd, xent_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
 
@@ -202,13 +229,107 @@ def phase_kernels(report):
         rows.append(rec)
         return rec
 
+    def causal_pairs(s, causal, window):
+        if not causal:
+            return s * s
+        w = window or s
+        return sum(min(i + 1, w) for i in range(s))
+
+    def rel_err(got, want):
+        """max |got - want| over max |want|, both as f32."""
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    def flash_bwd_case(b, s, h, dh, dtype, causal, window, layout, rtol):
+        dt = getattr(torch, dtype)
+        if layout == "packed":
+            mk = lambda: torch.randn(b, s, h * dh, generator=gen, device="cuda",  # noqa: E731
+                                     dtype=dt).view(b, s, h, dh)
+        else:  # [b, h, s, dh] storage, the cotangent too
+            mk = lambda: torch.randn(b, h, s, dh, generator=gen, device="cuda",  # noqa: E731
+                                     dtype=dt).transpose(1, 2)
+        q, k, v, do = mk(), mk(), mk(), mk()
+        o, lse = flash_fwd(q, k, v, causal, window)
+        got = flash_bwd(q, k, v, o, lse, do, causal, window)
+        torch.cuda.synchronize()
+        want = flash_bwd_plain(q, k, v, o, lse, do, causal, window)
+        errs = [rel_err(x, w) for x, w in zip(got, want)]
+        check(all(torch.isfinite(x).all().item() for x in got),
+              "flash_bwd: non-finite gradient")
+        check(max(errs) <= rtol, f"flash_bwd {layout} {[b, s, h, dh]} {dtype} "
+              f"causal={causal} window={window}: max |d - plain| / max "
+              f"|plain| (dq, dk, dv) {errs} > {rtol}")
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        if window is None:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        else:
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band_mask(s, s, window, device="cuda"))
+        dot = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,  # noqa: E731
+                                          retain_graph=True)
+        bms, by = bound(8 * b * s * h * dh * q.element_size() + b * h * s * 4,
+                        10 * b * h * dh * causal_pairs(s, causal, window),
+                        dtype)
+        err = max((x.float() - w.float()).abs().max().item()
+                  for x, w in zip(got, want))
+        rec = dict(kernel="flash_bwd", shape=[b, s, h, dh], dtype=dtype,
+                   causal=causal, window=window, layout=layout,
+                   max_abs_err=err, rel_err=max(errs), rtol=rtol,
+                   bound_ms=bms, bound_by=by)
+        rec["ms"] = time_ms(lambda: flash_bwd(q, k, v, o, lse, do, causal,
+                                              window))
+        rec["plain_ms"] = time_ms(lambda: flash_bwd_plain(
+            q, k, v, o, lse, do, causal, window), 5)
+        rec["library_ms"] = time_ms(lib)
+        rows.append(rec)
+        return rec
+
+    def xent_bwd_case(n, v, dtype, rtol, pad_row=None):
+        dt = getattr(torch, dtype)
+        logits = 3 * torch.randn(n, v, generator=gen, device="cuda", dtype=dt)
+        tg = torch.randint(0, v, (n,), generator=gen, device="cuda")
+        g = torch.rand(n, generator=gen, device="cuda") / n
+        if pad_row is not None:
+            g[pad_row] = 0.0
+        _, lse = xent_fwd(logits, tg)
+        got = xent_bwd(logits, tg, lse, g)
+        torch.cuda.synchronize()
+        want = xent_bwd_plain(logits, tg, lse, g)
+        rel = rel_err(got, want)
+        check(torch.isfinite(got).all().item(), "xent_bwd: non-finite")
+        check(rel <= rtol, f"xent_bwd {[n, v]} {dtype}: max |grad - plain| / "
+              f"max |plain| {rel} > {rtol}")
+        if pad_row is not None:
+            check(bool((got[pad_row] == 0).all()),
+                  "xent_bwd: a pad row's gradient is not exactly 0")
+        x = logits.detach().requires_grad_()
+        nll = F.cross_entropy(x, tg, reduction="none")
+        lib = lambda: torch.autograd.grad(nll, x, g, retain_graph=True)  # noqa: E731
+        itemsize = logits.element_size()
+        bms, by = bound(2 * n * v * itemsize + n * (8 + 4 + 4), 4 * n * v,
+                        "float32")
+        rec = dict(kernel="xent_bwd", shape=[n, v], dtype=dtype,
+                   max_abs_err=(got.float() - want.float()).abs().max().item(),
+                   rel_err=rel, rtol=rtol, pad_row=pad_row, bound_ms=bms,
+                   bound_by=by)
+        rec["ms"] = time_ms(lambda: xent_bwd(logits, tg, lse, g))
+        rec["plain_ms"] = time_ms(lambda: xent_bwd_plain(logits, tg, lse, g),
+                                  5)
+        rec["library_ms"] = time_ms(lib)
+        rows.append(rec)
+        return rec
+
     tol = {"float32": 2e-5, "bfloat16": 2e-2}
     main = {}
     for dtype in ("bfloat16", "float32"):
-        # the main path's prefill: one stream of B/M prompts per stage call
-        main[("flash_fwd", dtype)] = flash_case(B // M, P, 12, 64, dtype,
-                                                True, None, "packed",
-                                                tol[dtype])
+        # the training path's attention: one microbatch of B/M sequences
+        main[("flash_fwd", dtype)] = flash_case(
+            TRAIN_B // TRAIN_M, TRAIN_S, 12, 64, dtype, True, None, "packed",
+            tol[dtype])
+        # the decode path's prefill: one stream of B/M prompts per stage call
+        flash_case(B // M, P, 12, 64, dtype, True, None, "packed", tol[dtype])
         flash_case(16, 512, 12, 64, dtype, True, None, "packed", tol[dtype])
         # the K2 route: a window, a ragged length, head_dim 128, transposed
         flash_case(2, 1000, 8, 128, dtype, True, 256, "transposed",
@@ -217,13 +338,36 @@ def phase_kernels(report):
         flash_case(1, 130, 2, 256, dtype, True, None, "transposed",
                    tol[dtype])
     for dtype, rtol in (("bfloat16", 1e-3), ("float32", 1e-5)):
-        # the main path's head: B/M rows of the GPT-2 vocab per stage call
-        main[("xent_fwd", dtype)] = xent_case(B // M, 50257, dtype, rtol)
+        # the training path's loss: one microbatch's rows of the vocab
+        main[("xent_fwd", dtype)] = xent_case(TRAIN_B // TRAIN_M * TRAIN_S,
+                                              50257, dtype, rtol)
+        # the decode path's head: B/M rows per stage call
+        xent_case(B // M, 50257, dtype, rtol)
         xent_case(7, 50257, dtype, rtol)
+    # backward tolerances, relative to the largest reference gradient:
+    # f32 differs by summation order only; bf16 outputs round once (one
+    # bf16 ulp is 2^-8 of the value)
+    bwd_tol = {"float32": 1e-4, "bfloat16": 1e-2}
+    for dtype in ("bfloat16", "float32"):
+        # the training path's attention: one microbatch of B/M sequences
+        main[("flash_bwd", dtype)] = flash_bwd_case(
+            TRAIN_B // TRAIN_M, TRAIN_S, 12, 64, dtype, True, None, "packed",
+            bwd_tol[dtype])
+        # the K3 route: a window, a ragged length, head_dim 128, transposed
+        flash_bwd_case(2, 1000, 8, 128, dtype, True, 256, "transposed",
+                       bwd_tol[dtype])
+        flash_bwd_case(2, 256, 4, 64, dtype, False, None, "packed",
+                       bwd_tol[dtype])
+        flash_bwd_case(1, 130, 2, 256, dtype, True, None, "transposed",
+                       bwd_tol[dtype])
+        # the training path's head: one microbatch's rows of the vocab
+        main[("xent_bwd", dtype)] = xent_bwd_case(
+            TRAIN_B // TRAIN_M * TRAIN_S, 50257, dtype, bwd_tol[dtype])
+        xent_bwd_case(7, 50257, dtype, bwd_tol[dtype], pad_row=3)
     for r in rows:
         print(f"  {r['kernel']} {r['shape']} {r['dtype']}"
               + (f" causal={r['causal']} window={r['window']} {r['layout']}"
-                 if r["kernel"] == "flash_fwd" else "")
+                 if r["kernel"].startswith("flash") else "")
               + f": max_abs_err {r['max_abs_err']:.3g}  kernel "
               f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library "
@@ -378,6 +522,182 @@ def phase_main_path(report, device="cuda"):
     return launches
 
 
+def grad_errors(grads, ref):
+    """Per-leaf ||g - g_ref|| against the bound 1e-4 ||g_ref|| + 1e-6 ||G_ref||
+    (G_ref the global reference gradient): the absolute term covers
+    leaves whose true gradient is 0 (the k bias: softmax is
+    shift-invariant), where both sides hold rounding noise. Returns the
+    worst leaf's ratio to its bound and its name, and the largest relative
+    error ||g - g_ref|| / ||g_ref|| over the leaves whose reference norm
+    is above 1e-3 ||G_ref||."""
+    import torch
+    g_norm = torch.sqrt(sum((r.double() ** 2).sum() for r in ref.values()))
+    worst, leaf, worst_rel = -1.0, None, 0.0
+    for name, r in ref.items():
+        r = r.double()
+        err = (grads[name].double() - r).norm()
+        ratio = (err / (1e-4 * r.norm() + 1e-6 * g_norm)).item()
+        if ratio > worst:
+            worst, leaf = ratio, name
+        if r.norm() > 1e-3 * g_norm:
+            worst_rel = max(worst_rel, (err / r.norm()).item())
+    return worst, leaf, worst_rel
+
+
+def phase_train(report, device="cuda"):
+    """The training main path (see the module doc); returns the kernel
+    launches of the counted f32 step."""
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        transformer_loss)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.schedules import (
+        analytic_bubble_fraction)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
+        virtual_stages_for)
+    kernels = all_kernels()
+    cfg = port.gpt2_config("small", tie_embeddings=True,
+                           use_flash_attention=True, use_fused_xent=True)
+    plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                use_fused_xent=False)
+    g = torch.Generator().manual_seed(SEED)
+    model = port.init_params(cfg, g, device)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                           generator=g).to(device)
+    targets = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                            generator=g).to(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  tied GPT-2-small ({n_params} params), B={TRAIN_B}, "
+          f"S={TRAIN_S}, M={TRAIN_M}")
+    res = dict(n_params=n_params)
+    sched = port.ScheduleConfig("1F1B", TRAIN_M)
+    lps = cfg.n_layers // D
+
+    def one_step(fn):
+        """One pipelined (or single-device) forward and backward from zero
+        gradients: (loss, gradients, wall seconds)."""
+        model.zero_grad(set_to_none=True)
+        t = time.perf_counter()
+        loss = fn(model, tokens, targets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}, wall
+
+    def single_device(m, t, y):
+        loss = transformer_loss(cfg, m, t, y)
+        loss.backward()
+        return loss.detach()
+
+    # (a) the counted run: f32, 1F1B at D = 4, both kernels routed
+    fn = port.make_pipeline_grad_fn(cfg, sched, D, device=device)
+    one_step(fn)  # warm-up (first launches, allocator)
+    for k in kernels:
+        k.launches = 0
+    loss_k, grads_k, wall_k = one_step(fn)
+    launches = {k.name: k.launches for k in kernels}
+    # the tick table runs each (stage, microbatch) forward unit once and its
+    # backward unit once; under remat the backward unit re-runs the stage
+    # forward, and only the last stage's backward unit takes the loss
+    want = {"flash_fwd": 2 * TRAIN_M * D * lps, "flash_bwd": TRAIN_M * D * lps,
+            "xent_fwd": TRAIN_M, "xent_bwd": TRAIN_M}
+    print(f"  f32 1F1B D={D} step (kernels): loss {loss_k:.6f}, "
+          f"{wall_k:.2f} s, launches {launches} (table predicts {want})")
+    check(launches == want, f"kernel launches {launches} != {want}")
+    # (b) the same step on the plain versions; (c) single-device autograd
+    # of the whole batch through both kernels
+    loss_p, grads_p, _ = one_step(
+        port.make_pipeline_grad_fn(plain, sched, D, device=device))
+    check(all(k.launches == launches[k.name] for k in kernels),
+          "the plain run launched a kernel")
+    loss_s, grads_s, _ = one_step(single_device)
+    res.update(loss_f32=loss_k, launches=launches, launches_predicted=want,
+               f32_step_s=wall_k)
+    for name, l_ref, g_ref in (("plain run", loss_p, grads_p),
+                               ("single device", loss_s, grads_s)):
+        rel = abs(loss_k - l_ref) / abs(l_ref)
+        ratio, leaf, worst_rel = grad_errors(grads_k, g_ref)
+        print(f"  f32 kernel step vs {name}: loss {l_ref:.6f} (rel err "
+              f"{rel:.2e}), worst leaf {leaf} at {ratio:.3f} of its bound, "
+              f"max leaf rel err {worst_rel:.2e}")
+        check(rel <= 1e-5, f"loss vs {name}: rel err {rel} > 1e-5")
+        check(ratio <= 1.0, f"grads vs {name}: leaf {leaf} over its bound "
+              f"({ratio})")
+        res[f"vs_{name.replace(' ', '_')}"] = dict(
+            loss=l_ref, loss_rel_err=rel, worst_bound_ratio=ratio,
+            worst_leaf=leaf, max_leaf_rel_err=worst_rel)
+    del grads_k, grads_p, grads_s
+    model.zero_grad(set_to_none=True)
+
+    # bf16 compute over f32 master weights: make_train_step + adamw
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="float32")
+    init_state = {n: p.detach().clone() for n, p in model.state_dict().items()}
+    runs = {}
+    for name, n_dev in (("GPipe", D), ("1F1B", D), ("Interleaved1F1B", 2)):
+        V = virtual_stages_for(name, cfg.n_layers, n_dev)
+        model.load_state_dict(init_state)
+        opt = port.adamw(warmup_steps=2, total_steps=100)
+        opt_state = opt.init(model)
+        step = port.make_train_step(cfg16, port.ScheduleConfig(
+            name, TRAIN_M, V), n_dev, opt, device=device)
+        losses = []
+
+        def counted(m, t, y):
+            loss = step(m, opt_state, t, y)
+            losses.append(loss)
+            return loss
+
+        metrics = port.run_train_iterations(counted, model, tokens, targets,
+                                            num_iterations=5,
+                                            warmup_iterations=2)
+        losses = [x.item() for x in losses]
+        bubble = analytic_bubble_fraction(name, n_dev, V, TRAIN_M)
+        runs[name] = dict(D=n_dev, V=V, tokens_per_s=metrics["throughput"],
+                          elapsed_s=metrics["elapsed_time"],
+                          step_s=metrics["elapsed_time"] / 5,
+                          bubble=bubble, losses=losses)
+        print(f"  bf16 {name} D={n_dev} V={V}: {metrics['throughput']:.1f} "
+              f"tokens/s ({metrics['elapsed_time'] / 5 * 1e3:.1f} ms/step), "
+              f"analytic bubble {100 * bubble:.1f}%, losses "
+              f"{[round(x, 4) for x in losses]}")
+        check(all(math.isfinite(x) for x in losses),
+              f"{name}: non-finite loss")
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall on the "
+              f"repeated batch ({losses})")
+    res["bf16"] = runs
+
+    # where the time goes: one bf16 1F1B step under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    model.load_state_dict(init_state)
+    opt = port.adamw(warmup_steps=2, total_steps=100)
+    opt_state = opt.init(model)
+    step = port.make_train_step(cfg16, sched, D, opt, device=device)
+    step(model, opt_state, tokens, targets)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(model, opt_state, tokens, targets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                         for e in prof.key_averages()
+                         if e.self_device_time_total > 0),
+                        key=lambda x: -x[1])
+    busy = sum(ms for _, ms, _ in per_kernel)
+    res["profile"] = dict(
+        schedule="1F1B", D=D, wall_ms=wall * 1e3, device_busy_ms=busy,
+        idle_share=1 - busy / (wall * 1e3),
+        top_kernels=[dict(name=n[:120], ms=ms, count=c)
+                     for n, ms, c in per_kernel[:15]])
+    print(f"  bf16 1F1B step under the profiler: wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy:.1f} ms, idle share "
+          f"{res['profile']['idle_share']:.3f}")
+    for n, ms, c in per_kernel[:10]:
+        print(f"    {ms:9.3f} ms  {c:6d}x  {n[:100]}")
+    report["train"] = res
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -398,8 +718,10 @@ def main() -> int:
     phase_toolchain(report)
     print("[2] kernels against their plain versions")
     main_shapes = phase_kernels(report)
-    print("[3] main path: GPT-2-small, 4 lockstep stages")
-    launches = phase_main_path(report)
+    print("[3] decode path: GPT-2-small, 4 lockstep stages")
+    decode_launches = phase_main_path(report)
+    print("[4] training path: tied GPT-2-small, pipelined steps")
+    launches = phase_train(report)
     report["seconds"] = time.perf_counter() - t0
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
@@ -413,7 +735,16 @@ def main() -> int:
         "xent_fwd": (
         f"{PKG}/csrc/xent_fwd.cu",
         "distributed_training_with_pipeline_parallelism_tpu/ops/"
-        "pallas_xent.py:48 (_xent_fwd_kernel, K1)")}
+        "pallas_xent.py:48 (_xent_fwd_kernel, K1)"),
+        "flash_bwd": (
+        f"{PKG}/csrc/flash_bwd.cu",
+        "distributed_training_with_pipeline_parallelism_tpu/ops/"
+        "pallas_attention.py:496 (_flash_bwd_kernel_packed, K5; the same "
+        "kernel serves :253 _flash_bwd_kernel, K3)"),
+        "xent_bwd": (
+        f"{PKG}/csrc/xent_bwd.cu",
+        "distributed_training_with_pipeline_parallelism_tpu/ops/"
+        "pallas_xent.py:92 (_xent_vjp_bwd, the XLA-fused backward of K1)")}
     kernels = []
     for name, (source, replaces) in sources.items():
         r = main_shapes[(name, "bfloat16")]
@@ -422,7 +753,9 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"], dtype=r["dtype"]))
+            shape=r["shape"], dtype=r["dtype"],
+            launches_by_path={"train": launches[name],
+                              "decode": decode_launches.get(name, 0)}))
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

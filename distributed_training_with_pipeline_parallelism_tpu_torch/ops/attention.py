@@ -4,7 +4,7 @@ and scaled dot-product attention on ``[b, s, h, dh]``."""
 
 from __future__ import annotations
 
-import math
+import functools
 from typing import Optional
 
 import torch
@@ -38,15 +38,23 @@ def gqa_expand(k: torch.Tensor, v: torch.Tensor, n_heads: int):
     return k, v
 
 
+@functools.lru_cache(maxsize=None)
+def attention_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """``1 / sqrt(head_dim)`` computed in ``dtype``, as the JAX
+    ``scaled_dot_attention`` computes it: the square root rounded to the
+    dtype, then its reciprocal rounded again. Returned as a Python float
+    (exact in ``dtype``), so a device tensor never waits on a host copy."""
+    return float(1.0 / torch.sqrt(torch.tensor(head_dim, dtype=dtype)))
+
+
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [b,s,h,d] x k/v [b,t,h,d] -> [b,s,h,d]. ``mask`` broadcasts
     against the [b,h,s,t] scores; False positions get the dtype's most
     negative finite value. Softmax runs in f32 whatever the activation
     dtype, as in the JAX package."""
-    # a Python scale: a device tensor made from a host number would copy
-    # (and synchronise) once per call
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    scale = attention_scale(q.shape[-1], q.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)

@@ -137,8 +137,8 @@ def make_pipeline_generate_fn(cfg: ModelConfig, n_stages: int,
         model_on(model, device)
         model_c = compute_cast(cfg, model)
         Bg = B // M
-        stages = [_Stage(cfg, layers, B, mlen, device)
-                  for layers in stack_stage_layers(model_c.layers, D)]
+        stages = [_Stage(cfg, chunks[0], B, mlen, device)
+                  for chunks in stack_stage_layers(model_c.layers, D)]
         prompt_g = prompt.long().view(M, Bg, P)
         token_buf = torch.zeros((M, Bg), dtype=torch.long, device=device)
         out_buf = torch.zeros((N, M, Bg), dtype=torch.long, device=device)

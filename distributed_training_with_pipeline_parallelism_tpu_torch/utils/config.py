@@ -2,9 +2,10 @@
 
 The port's own copy of the fields of
 ``distributed_training_with_pipeline_parallelism_tpu/utils/config.py:ModelConfig``
-that the GPT-2 decode slice reads, under the same names, with the same
-defaults and the same validation (the llama-only fields, such as
-``n_kv_heads`` and ``sliding_window``, come with the llama arch). The one
+that the GPT-2 decode and training slices read, under the same names, with
+the same defaults and the same validation (the llama-only fields, such as
+``n_kv_heads`` and ``sliding_window``, come with the llama arch), plus
+``ScheduleConfig``, ``virtual_stages_for`` and ``RunConfig``. The one
 behavioural difference is :meth:`ModelConfig.flash_for`: the JAX package's ``"auto"`` cut-over
 (causal, seq >= 1024, TPU only) is a TPU measurement and does not carry
 over; here ``"auto"`` picks the hand-written kernel for every causal call
@@ -17,6 +18,8 @@ import dataclasses
 from typing import Optional, Union
 
 import torch
+
+from ..parallel.schedules import check_schedule_name
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +45,15 @@ class ModelConfig:
     # True: hand-written flash kernel; False: dense attention; "auto":
     # the kernel for causal attention on a CUDA tensor (see flash_for)
     use_flash_attention: Union[bool, str] = "auto"
-    # route token log-probabilities through the fused-xent kernel
+    # route the loss and token log-probabilities through the fused-xent
+    # kernels
     use_fused_xent: bool = False
+    # tie the output head to the token embedding: no "out" matrix; logits
+    # are norm(h) @ tok.T and tok takes gradient from both uses
+    tie_embeddings: bool = False
+    # ignore-index loss masking: targets equal to this id contribute
+    # nothing, and the mean divides by the global valid-token count
+    pad_token_id: Optional[int] = None
 
     def __post_init__(self):
         if self.dim % self.n_heads != 0:
@@ -105,3 +115,41 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain versions on the CPU")
     return device
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleConfig:
+    """Pipeline schedule selection (the JAX ``ScheduleConfig``).
+
+    ``name`` is one of the port's schedules: "GPipe", "1F1B",
+    "Interleaved1F1B" (the reference's three) or "BFS". ``n_virtual`` is
+    the number of virtual stages per device; :func:`virtual_stages_for`
+    gives the reference's rule."""
+
+    name: str = "GPipe"
+    n_microbatches: int = 4
+    n_virtual: int = 1
+
+    def __post_init__(self):
+        check_schedule_name(self.name)
+
+
+def virtual_stages_for(schedule_name: str, n_layers: int, n_pipe: int) -> int:
+    """The reference's stages-per-worker rule: 2 for Interleaved1F1B (and
+    BFS) when ``n_layers % (2 * n_pipe) == 0``, else 1."""
+    check_schedule_name(schedule_name)
+    if (schedule_name in ("Interleaved1F1B", "BFS")
+            and n_layers % (n_pipe * 2) == 0):
+        return 2
+    return 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """One experiment's run parameters."""
+
+    batch_size: int = 32
+    seq_length: int = 128
+    num_iterations: int = 5
+    warmup_iterations: int = 2
+    seed: int = 0

@@ -4,7 +4,11 @@ The caller turns the JAX pytree's leaves into numpy arrays
 (``jax.tree.map(np.asarray, params)``); the port never imports jax.
 Layouts: a JAX ``linear.w`` is ``[in, out]`` and becomes torch's
 ``[out, in]``; the ``layers`` leaves are stacked ``[L, ...]`` (the JAX
-``vmap`` over layers) and are split per block.
+``vmap`` over layers) and are split per block. Under
+``cfg.tie_embeddings`` the pytree's head has no ``out`` leaf (the head is
+the token table). The loader takes any pytree of that layout, so a JAX
+gradient pytree loads the same way, into a model whose parameters are
+the gradients (what the parity tests compare leaf by leaf).
 """
 
 from __future__ import annotations
@@ -28,13 +32,14 @@ def _tensor(x) -> torch.Tensor:
 def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda") -> Transformer:
     """The port's GPT-2 model holding the weights of the JAX pytree
     ``{"embed": {"tok", "pos"}, "layers": {...stacked [L, ...]},
-    "head": {"norm", "out"}}`` with numpy leaves, in
-    ``cfg.storage_dtype`` on ``device``."""
+    "head": {"norm", "out"}}`` (no ``out`` when tied) with numpy leaves,
+    in ``cfg.storage_dtype`` on ``device``."""
     device = resolve_device(device)
     state = {"tok": tree["embed"]["tok"], "pos": tree["embed"]["pos"],
              "norm.weight": tree["head"]["norm"]["scale"],
-             "norm.bias": tree["head"]["norm"]["bias"],
-             "out.weight": np.asarray(tree["head"]["out"]["w"]).T}
+             "norm.bias": tree["head"]["norm"]["bias"]}
+    if not cfg.tie_embeddings:
+        state["out.weight"] = np.asarray(tree["head"]["out"]["w"]).T
     layers = tree["layers"]
     for i in range(cfg.n_layers):
         for ln in ("ln1", "ln2"):

@@ -37,7 +37,8 @@ _CFG = port.gpt2_config("small", dim=32, n_layers=2, n_heads=2,
 
 
 @pytest.mark.parametrize("entry", ["init_params", "generate", "pipeline",
-                                   "from_jax_params"])
+                                   "from_jax_params", "pipeline_grad",
+                                   "train_step"])
 def test_entry_points_default_to_cuda(entry):
     """Without ``device=`` an entry point asks for CUDA: on a host without
     it the call raises instead of running on the CPU."""
@@ -52,6 +53,10 @@ def test_entry_points_default_to_cuda(entry):
         "generate": lambda: port.generate(_CFG, model, prompt, 2),
         "pipeline": lambda: port.make_pipeline_generate_fn(_CFG, 2, 2),
         "from_jax_params": lambda: port.from_jax_params(_CFG, {}),
+        "pipeline_grad": lambda: port.make_pipeline_grad_fn(
+            _CFG, port.ScheduleConfig("1F1B", 2), 2),
+        "train_step": lambda: port.make_train_step(
+            _CFG, port.ScheduleConfig("GPipe", 2), 2, port.adamw()),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
