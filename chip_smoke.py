@@ -10,11 +10,14 @@ JAX. Phases, each fatal on failure:
 
 1. Device and toolchain: the card's name and power limit, the CUDA and
    nvcc versions; build every kernel from ``csrc/`` (one nvcc per source,
-   all started together).
+   all started together); each kernel's registers and spills as ptxas
+   reports them, and no spill in a tensor-core kernel (``*_tc``).
 2. Every kernel against its plain PyTorch version on the card at the
    decode and training paths' shapes, with stated tolerances, timed beside
    its plain version, its bound and one library call that computes the
-   same function (a yardstick only; the port never calls it).
+   same function (a yardstick only; the port never calls it; the device
+   kernels it ran are recorded by name). The attention kernels' achieved
+   TFLOP/s are recorded beside their times.
 3. The decode path: GPT-2-small at full width, random weights from a seed,
    D = 4 lockstep pipeline stages, M = 4 streams, B = 16 prompts of 512
    tokens, 32 new tokens, greedy, log-probs through the fused-xent
@@ -22,21 +25,28 @@ JAX. Phases, each fatal on failure:
    give the tokens of a run on the plain paths and of the single-device
    ``generate`` (a mismatch only where the reference's top-2 logit gap is
    below 1e-4), with log-probs within 1e-4; both kernels must have been
-   launched. In bf16 the prefill time and decode tokens/s are measured.
+   launched. In bf16 one counted run must launch both kernels, and the
+   prefill time and decode tokens/s are measured.
 4. The training path: tied GPT-2-small (124M) at full width, random
    weights from a seed, B = 24 sequences of 1024 tokens, M = 4
    microbatches. In f32, one pipelined 1F1B step at D = 4 through all four
    kernels must match the same step on the plain versions and
    single-device autograd of ``transformer_loss`` (loss and every
    gradient leaf), and each kernel's launches must be the count the tick
-   table predicts. In bf16 (f32 master weights) ``make_train_step`` with
+   table predicts. The same step in bf16 compute (f32 master weights),
+   through the kernels (bf16 attention on the tensor cores), must match the
+   step on the plain versions in bf16 (loss within 1e-2 relative, each
+   gradient leaf within 5e-2 of its norm plus 1e-3 of the global norm)
+   with the same launch counts. In bf16 ``make_train_step`` with
    ``adamw`` runs 2 warm-up and 5 timed steps under GPipe (D = 4), 1F1B
    (D = 4) and Interleaved1F1B (D = 2, V = 2): tokens/s, the analytic
    bubble and every step's loss, which must be finite and fall; one step
    runs under the profiler for its idle share.
 
-Then it prints the kernel record as one JSON line, the card's name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Then it prints the kernel record as one JSON line (times at the training
+shape in bf16; launches from the counted bf16 runs, which take the
+tensor-core attention kernels that are timed), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 Details go to ``chip_smoke_out/chip_smoke.json``.
 """
 
@@ -56,6 +66,7 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores / f32 FM
 B, P, N, D, M = 16, 512, 32, 4, 4
 # the training path: the JAX bench rung gpt2_small_seq1024_bs24, over stages
 TRAIN_B, TRAIN_S, TRAIN_M = 24, 1024, 4
+TRAIN_SHAPE = [TRAIN_B // TRAIN_M, TRAIN_S, 12, 64]  # one microbatch's q/k/v
 SEED = 0
 
 
@@ -93,6 +104,20 @@ def time_ms(fn, iters: int = 20) -> float:
                        "traces")
 
 
+def device_kernels(fn):
+    """The names of the CUDA kernels one call of ``fn`` runs on the device
+    (after a warm-up call), as ``torch.profiler`` records them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:160] for e in prof.key_averages()
+                   if e.self_device_time_total > 0})
+
+
 def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -116,6 +141,27 @@ def main_config():
                        use_fused_xent=True)
 
 
+def ptxas_usage(build_log: str):
+    """One row per compiled entry function of an ``nvcc -Xptxas=-v`` log:
+    its (mangled) symbol, registers and spill bytes."""
+    import re
+    rows = []
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            rows.append(dict(function=m.group(1), registers=None,
+                             spill_stores=0, spill_loads=0))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and rows:
+            rows[-1].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
+
+
 def phase_toolchain(report):
     import torch
     from distributed_training_with_pipeline_parallelism_tpu_torch.ops._build import (
@@ -137,12 +183,14 @@ def phase_toolchain(report):
     report["build_s"] = time.perf_counter() - t0
     print(f"built {', '.join(k.source.name for k in kernels)} in "
           f"{report['build_s']:.1f} s")
-    report["ptxas"] = {k.name: [ln.strip() for ln in k.build_log.splitlines()
-                                if "registers" in ln or "spill" in ln]
-                       for k in kernels}
-    for name, lines in report["ptxas"].items():
-        for ln in lines:
-            print(f"  ptxas {name}: {ln}")
+    report["ptxas"] = {k.name: ptxas_usage(k.build_log) for k in kernels}
+    for name, rows in report["ptxas"].items():
+        for r in rows:
+            print(f"  ptxas {name}: {r['function']}: {r['registers']} registers, "
+                  f"spill stores {r['spill_stores']} B, loads {r['spill_loads']} B")
+    spilled = [r["function"] for rows in report["ptxas"].values() for r in rows
+               if "_tc" in r["function"] and r["spill_stores"] + r["spill_loads"]]
+    check(not spilled, f"ptxas spilled registers in {spilled}")
 
 
 def phase_kernels(report):
@@ -191,15 +239,27 @@ def phase_kernels(report):
         else:
             pairs = s * s
         itemsize = q.element_size()
+        flops = 4 * b * h * dh * pairs
         bms, by = bound(4 * b * s * h * dh * itemsize + b * h * s * 4,
-                        4 * b * h * dh * pairs, dtype)
+                        flops, dtype)
         rec = dict(kernel="flash_fwd", shape=[b, s, h, dh], dtype=dtype,
                    causal=causal, window=window, layout=layout,
                    max_abs_err=err, tol=tol, bound_ms=bms, bound_by=by)
+        if dtype == "bfloat16":
+            # a reading, not a check: the error in bf16 ulps of each output
+            # row's largest |o_plain| (the bf16 ulp of x is 2^(e - 7) for
+            # x in [2^e, 2^(e+1)))
+            row_max = o_ref.float().abs().amax(-1).clamp_min(2.0 ** -126)
+            ulp = torch.exp2(torch.floor(torch.log2(row_max)) - 7)
+            rec["row_ulp_err"] = ((o.float() - o_ref.float()).abs().amax(-1)
+                                  / ulp).max().item()
         rec["ms"] = time_ms(lambda: flash_fwd(q, k, v, causal, window))
+        rec["tflops"] = flops / rec["ms"] / 1e9
         rec["plain_ms"] = time_ms(lambda: flash_fwd_plain(q, k, v, causal,
                                                           window))
         rec["library_ms"] = time_ms(lib)
+        if [b, s, h, dh] == TRAIN_SHAPE:
+            rec["library_kernels"] = device_kernels(lib)
         rows.append(rec)
         return rec
 
@@ -269,9 +329,10 @@ def phase_kernels(report):
         dot = do.transpose(1, 2)
         lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,  # noqa: E731
                                           retain_graph=True)
+        # the algorithm's five products (the two-kernel form runs seven)
+        flops = 10 * b * h * dh * causal_pairs(s, causal, window)
         bms, by = bound(8 * b * s * h * dh * q.element_size() + b * h * s * 4,
-                        10 * b * h * dh * causal_pairs(s, causal, window),
-                        dtype)
+                        flops, dtype)
         err = max((x.float() - w.float()).abs().max().item()
                   for x, w in zip(got, want))
         rec = dict(kernel="flash_bwd", shape=[b, s, h, dh], dtype=dtype,
@@ -280,9 +341,12 @@ def phase_kernels(report):
                    bound_ms=bms, bound_by=by)
         rec["ms"] = time_ms(lambda: flash_bwd(q, k, v, o, lse, do, causal,
                                               window))
+        rec["tflops"] = flops / rec["ms"] / 1e9
         rec["plain_ms"] = time_ms(lambda: flash_bwd_plain(
             q, k, v, o, lse, do, causal, window), 5)
         rec["library_ms"] = time_ms(lib)
+        if [b, s, h, dh] == TRAIN_SHAPE:
+            rec["library_kernels"] = device_kernels(lib)
         rows.append(rec)
         return rec
 
@@ -326,7 +390,7 @@ def phase_kernels(report):
     for dtype in ("bfloat16", "float32"):
         # the training path's attention: one microbatch of B/M sequences
         main[("flash_fwd", dtype)] = flash_case(
-            TRAIN_B // TRAIN_M, TRAIN_S, 12, 64, dtype, True, None, "packed",
+            *TRAIN_SHAPE, dtype, True, None, "packed",
             tol[dtype])
         # the decode path's prefill: one stream of B/M prompts per stage call
         flash_case(B // M, P, 12, 64, dtype, True, None, "packed", tol[dtype])
@@ -351,7 +415,7 @@ def phase_kernels(report):
     for dtype in ("bfloat16", "float32"):
         # the training path's attention: one microbatch of B/M sequences
         main[("flash_bwd", dtype)] = flash_bwd_case(
-            TRAIN_B // TRAIN_M, TRAIN_S, 12, 64, dtype, True, None, "packed",
+            *TRAIN_SHAPE, dtype, True, None, "packed",
             bwd_tol[dtype])
         # the K3 route: a window, a ragged length, head_dim 128, transposed
         flash_bwd_case(2, 1000, 8, 128, dtype, True, 256, "transposed",
@@ -368,10 +432,19 @@ def phase_kernels(report):
         print(f"  {r['kernel']} {r['shape']} {r['dtype']}"
               + (f" causal={r['causal']} window={r['window']} {r['layout']}"
                  if r["kernel"].startswith("flash") else "")
-              + f": max_abs_err {r['max_abs_err']:.3g}  kernel "
-              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+              + f": max_abs_err {r['max_abs_err']:.3g}"
+              + (f" ({r['row_ulp_err']:.2f} ulp of its row's max)"
+                 if "row_ulp_err" in r else "")
+              + "  kernel "
+              f"{r['ms']:.4f} ms"
+              + (f" ({r['tflops']:.1f} TFLOP/s)" if "tflops" in r else "")
+              + f"  plain {r['plain_ms']:.4f} ms  bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library "
               f"{r['library_ms']:.4f} ms")
+    for r in rows:
+        if "library_kernels" in r:
+            print(f"  library yardstick of {r['kernel']} {r['dtype']} ran: "
+                  f"{r['library_kernels']}")
     report["kernel_checks"] = rows
     return main
 
@@ -478,10 +551,12 @@ def phase_main_path(report, device="cuda"):
         return out, time.perf_counter() - t
 
     run(fn1), run(fnn)  # warm-up
+    times1 = [run(fn1)[1] for _ in range(3)]
+    # the counted bf16 run: its launches are the kernel line's decode count
     for k in kernels:
         k.launches = 0
-    times1 = [run(fn1)[1] for _ in range(3)]
     (toks16, lps16), _ = run(fnn)
+    launches16 = {k.name: k.launches for k in kernels}
     timesn = [run(fnn)[1] for _ in range(3)]
     check(bool(((toks16 >= 0) & (toks16 < cfg.vocab_size)).all()
                and torch.isfinite(lps16).all()), "bf16 run: bad output")
@@ -489,10 +564,10 @@ def phase_main_path(report, device="cuda"):
     res["bf16"] = dict(prefill_ms=t1 * 1e3, total_ms=tn * 1e3,
                        decode_tokens_per_s=B * (N - 1) / (tn - t1),
                        runs_n1_s=times1, runs_n_s=timesn,
-                       launches={k.name: k.launches for k in kernels},
+                       launches=launches16,
                        agree_with_f32=float((toks16 == toks).float().mean()))
-    for k in kernels:
-        check(k.launches > 0, f"the bf16 run launched {k.name} no time")
+    for name, n in launches16.items():
+        check(n > 0, f"the bf16 run launched {name} no time")
     print(f"  bf16 pipelined decode: prefill (N=1 run) {t1 * 1e3:.1f} ms, "
           f"N={N} run {tn * 1e3:.1f} ms, decode "
           f"{res['bf16']['decode_tokens_per_s']:.1f} tokens/s, launches "
@@ -519,13 +594,13 @@ def phase_main_path(report, device="cuda"):
     for n, ms, c in per_kernel[:8]:
         print(f"    {ms:9.3f} ms  {c:6d}x  {n[:100]}")
     report["main_path"] = res
-    return launches
+    return launches16
 
 
-def grad_errors(grads, ref):
-    """Per-leaf ||g - g_ref|| against the bound 1e-4 ||g_ref|| + 1e-6 ||G_ref||
-    (G_ref the global reference gradient): the absolute term covers
-    leaves whose true gradient is 0 (the k bias: softmax is
+def grad_errors(grads, ref, rtol=1e-4, atol=1e-6):
+    """Per-leaf ||g - g_ref|| against the bound rtol ||g_ref|| + atol
+    ||G_ref|| (G_ref the global reference gradient): the absolute term
+    covers leaves whose true gradient is 0 (the k bias: softmax is
     shift-invariant), where both sides hold rounding noise. Returns the
     worst leaf's ratio to its bound and its name, and the largest relative
     error ||g - g_ref|| / ||g_ref|| over the leaves whose reference norm
@@ -536,7 +611,7 @@ def grad_errors(grads, ref):
     for name, r in ref.items():
         r = r.double()
         err = (grads[name].double() - r).norm()
-        ratio = (err / (1e-4 * r.norm() + 1e-6 * g_norm)).item()
+        ratio = (err / (rtol * r.norm() + atol * g_norm)).item()
         if ratio > worst:
             worst, leaf = ratio, name
         if r.norm() > 1e-3 * g_norm:
@@ -546,7 +621,8 @@ def grad_errors(grads, ref):
 
 def phase_train(report, device="cuda"):
     """The training main path (see the module doc); returns the kernel
-    launches of the counted f32 step."""
+    launches of the counted bf16 step (the kernels the timed runs take;
+    the f32 step's launches are checked, not returned)."""
     import torch
     import distributed_training_with_pipeline_parallelism_tpu_torch as port
     from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
@@ -627,10 +703,44 @@ def phase_train(report, device="cuda"):
             loss=l_ref, loss_rel_err=rel, worst_bound_ratio=ratio,
             worst_leaf=leaf, max_leaf_rel_err=worst_rel)
     del grads_k, grads_p, grads_s
+
+    # (d) the bf16 gate: the same step in bf16 compute over the f32 master
+    # weights (the tokens/s runs' setting), through the kernels, against
+    # the plain versions in bf16. bf16 operands round once per product and
+    # the two sides sum in other orders, hence the wider bound
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="float32")
+    plain16 = dataclasses.replace(plain, dtype="bfloat16",
+                                  param_dtype="float32")
+    fn16 = port.make_pipeline_grad_fn(cfg16, sched, D, device=device)
+    one_step(fn16)  # warm-up
+    for k in kernels:
+        k.launches = 0
+    loss_k16, grads_k16, wall_k16 = one_step(fn16)
+    launches16 = {k.name: k.launches for k in kernels}
+    check(launches16 == want,
+          f"bf16 step: kernel launches {launches16} != {want}")
+    loss_p16, grads_p16, _ = one_step(
+        port.make_pipeline_grad_fn(plain16, sched, D, device=device))
+    check(all(k.launches == launches16[k.name] for k in kernels),
+          "the plain bf16 run launched a kernel")
+    rel16 = abs(loss_k16 - loss_p16) / abs(loss_p16)
+    ratio16, leaf16, worst_rel16 = grad_errors(grads_k16, grads_p16,
+                                               rtol=5e-2, atol=1e-3)
+    print(f"  bf16 1F1B D={D} step (kernels) vs plain bf16: loss "
+          f"{loss_k16:.6f} vs {loss_p16:.6f} (rel err {rel16:.2e}), worst "
+          f"leaf {leaf16} at {ratio16:.3f} of its bound, max leaf rel err "
+          f"{worst_rel16:.2e}, launches {launches16}")
+    check(rel16 <= 1e-2, f"bf16 loss vs plain: rel err {rel16} > 1e-2")
+    check(ratio16 <= 1.0, f"bf16 grads vs plain: leaf {leaf16} over its "
+          f"bound ({ratio16})")
+    res["bf16_gate"] = dict(
+        loss=loss_k16, loss_plain=loss_p16, loss_rel_err=rel16,
+        worst_bound_ratio=ratio16, worst_leaf=leaf16,
+        max_leaf_rel_err=worst_rel16, launches=launches16, step_s=wall_k16)
+    del grads_k16, grads_p16
     model.zero_grad(set_to_none=True)
 
     # bf16 compute over f32 master weights: make_train_step + adamw
-    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="float32")
     init_state = {n: p.detach().clone() for n, p in model.state_dict().items()}
     runs = {}
     for name, n_dev in (("GPipe", D), ("1F1B", D), ("Interleaved1F1B", 2)):
@@ -695,7 +805,7 @@ def phase_train(report, device="cuda"):
     for n, ms, c in per_kernel[:10]:
         print(f"    {ms:9.3f} ms  {c:6d}x  {n[:100]}")
     report["train"] = res
-    return launches
+    return launches16
 
 
 def main() -> int:

@@ -7,11 +7,12 @@ plain C interface::
          -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``_build/`` beside this package (listed in ``.gitignore``). The file
-name carries a hash of the source, the flags and the nvcc version line, so
-a change to any of them rebuilds and a built library is reused only as it
-was built. Every C entry point returns ``cudaGetLastError()``
-after its launch; :meth:`Kernel.call` raises when that is not 0 and counts
-the launch when it is. Nothing here falls back to a plain version.
+name carries a hash of the source, the shared headers (``csrc/*.cuh``), the
+flags and the nvcc version line, so a change to any of them rebuilds and a
+built library is reused only as it was built. Every C entry point returns
+``cudaGetLastError()`` after its launch; :meth:`Kernel.call` raises when
+that is not 0 and counts the launch when it is. Nothing here falls back to
+a plain version.
 """
 
 from __future__ import annotations
@@ -70,6 +71,8 @@ class Kernel:
     @property
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update("\0".join([*NVCC_FLAGS, nvcc_version()]).encode())
         digest = h.hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"

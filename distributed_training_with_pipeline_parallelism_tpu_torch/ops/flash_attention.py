@@ -12,6 +12,16 @@ read ``[b, s, h, dh]`` through the strides of the tensors they are given,
 so each pair of routes is one kernel and neither pays a host-side
 transpose. See the sources' notes for bounds and design.
 
+bf16 runs on the tensor cores (``mma.sync`` on tiles staged by
+``cp.async``), f32 on the CUDA cores (the exact gate: TF32 would not hold
+its bounds). The bf16 kernels copy 16-byte rows, so every bf16 CUDA tensor
+they read or write must start on a 16-byte boundary and have (batch, seq,
+head) strides that are multiples of 8 elements; :func:`check_tc_alignment`
+raises otherwise, naming the tensor and the stride, and nothing is copied.
+The plain versions round where the bf16 kernels (and the TPU kernels)
+round: q times scale*log2(e), p before p.v and p^T.do, and ds before ds.k
+and ds^T.q.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -19,7 +29,8 @@ raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, Optional
 
 import torch
 
@@ -42,6 +53,29 @@ FLASH_BWD = Kernel("flash_bwd.cu", {
 # it cannot take backward)
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+LOG2E = 1.4426950408889634
+_DIM_NAMES = ("batch", "seq", "head")
+
+
+def check_tc_alignment(fn: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless every tensor ([b, s, h, dh], bf16)
+    meets the rule of the tensor-core kernels' 16-byte ``cp.async``
+    copies: its first element on a 16-byte boundary, and each of its
+    (batch, seq, head) strides a multiple of 8 elements (a dimension of
+    size 1 has no stride that matters). The message names the tensor and
+    the stride."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(
+                f"{fn}: {name} starts at byte address {x.data_ptr():#x}, "
+                f"which is not 16-byte aligned (the bf16 tensor-core "
+                f"kernels copy 16-byte rows)")
+        for dim, (size, st) in enumerate(zip(x.shape[:3], x.stride()[:3])):
+            if size > 1 and st % 8:
+                raise ValueError(
+                    f"{fn}: {name}'s {_DIM_NAMES[dim]} stride {st} is not a "
+                    f"multiple of 8 elements (the bf16 tensor-core kernels "
+                    f"copy 16-byte rows)")
 
 
 def _plain_dtype(x: torch.Tensor) -> torch.dtype:
@@ -55,7 +89,10 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The kernel's function in plain PyTorch: q, k, v [b, s, h, dh] ->
     (o [b, s, h, dh] in q's dtype, lse [b, h, s] f32, natural log), f32
     scores masked to NEG_INF (the JAX ``_dense_attention`` arithmetic);
-    f64 inputs compute in f64."""
+    f64 inputs compute in f64. bf16 inputs take the bf16 kernel's
+    arithmetic (:func:`_flash_fwd_plain_bf16`)."""
+    if q.dtype == torch.bfloat16:
+        return _flash_fwd_plain_bf16(q, k, v, causal, window)
     dh = q.shape[-1]
     ct = _plain_dtype(q)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) / dh ** 0.5
@@ -66,6 +103,40 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.to(ct)).to(q.dtype)
     return o, lse
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> bf16 (nearest even) -> f32: where a bf16 kernel rounds an
+    operand of its next product."""
+    return x.to(torch.bfloat16).float()
+
+
+def _scores_log2(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                 window: Optional[int]) -> torch.Tensor:
+    """The bf16 kernels' masked scores [b, h, s, s] in the exp2 domain:
+    q scaled by scale*log2(e) in f32 and rounded to bf16 (the JAX kernels'
+    ``qc``), times k, accumulated in f32."""
+    c = LOG2E / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", _bf16_round(q.float() * c), k.float())
+    if causal:
+        mask = band_mask(s.shape[-2], s.shape[-1], window, device=q.device)
+        s = s.masked_fill(~mask, NEG_INF)
+    return s
+
+
+def _flash_fwd_plain_bf16(q, k, v, causal, window):
+    """The bf16 kernel's arithmetic: exp2-domain scores from the rounded
+    scaled q, p = exp2(s - m) in f32 with its row sum l in f32, p rounded
+    to bf16 for p.v, o = (p.v) / l cast to bf16, lse = (m + log2 l) ln 2.
+    The kernel takes p against a running max over its key tiles, here
+    against the row's max, so a rounding of p may differ by one ulp."""
+    s = _scores_log2(q, k, causal, window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", _bf16_round(p), v.float())
+    o = (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+    return o, (m[..., 0] + torch.log2(l)) * math.log(2.0)
 
 
 def _check_cuda(q, k, v, fn="flash_fwd"):
@@ -82,6 +153,8 @@ def _check_cuda(q, k, v, fn="flash_fwd"):
                          f"{HEAD_DIMS}, got {q.shape[-1]}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError(f"{fn} needs a contiguous head_dim")
+    if q.dtype == torch.bfloat16:
+        check_tc_alignment(fn, {"q": q, "k": k, "v": v})
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,8 +190,22 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The backward kernel's function in plain PyTorch, in f32 from the
     saved ``lse`` [b, h, s]: p = exp(s - lse), dp = do.v^T,
     delta = rowsum(do * o), ds = p * (dp - delta); dq = scale * ds.k,
-    dk = scale * ds^T.q, dv = p^T.do, each cast to q's dtype."""
+    dk = scale * ds^T.q, dv = p^T.do, each cast to q's dtype. bf16 inputs
+    take the bf16 kernel's arithmetic: exp2-domain scores from the rounded
+    scaled q, p rounded to bf16 for p^T.do, ds rounded to bf16 for ds.k
+    and ds^T.q."""
     scale = 1.0 / q.shape[-1] ** 0.5
+    if q.dtype == torch.bfloat16:
+        qf, kf, vf, of, gf = (x.float() for x in (q, k, v, o, do))
+        p = torch.exp2(_scores_log2(q, k, causal, window)
+                       - lse.float()[..., None] * LOG2E)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+        delta = (gf * of).sum(-1).transpose(1, 2)  # [b, h, s]
+        ds = _bf16_round(p * (dp - delta[..., None]))
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+        dv = torch.einsum("bhqk,bqhd->bkhd", _bf16_round(p), gf)
+        return tuple(x.to(q.dtype) for x in (dq, dk, dv))
     ct = _plain_dtype(q)
     qf, kf, vf, of, gf = (x.to(ct) for x in (q, k, v, o, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
@@ -163,6 +250,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if o.stride(-1) != 1 or o.dtype != q.dtype:
         raise ValueError("flash_bwd needs o in q's dtype with a contiguous "
                          "head_dim")
+    if q.dtype == torch.bfloat16:
+        check_tc_alignment("flash_bwd", {"o": o, "do": do})
     lse = lse.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
                   for _ in range(3))
