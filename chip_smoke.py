@@ -42,12 +42,34 @@ JAX. Phases, each fatal on failure:
    (D = 4) and Interleaved1F1B (D = 2, V = 2): tokens/s, the analytic
    bubble and every step's loss, which must be finite and fall; one step
    runs under the profiler for its idle share.
+5. The llama path: Llama-3.2-1B at full width and depth (16 layers, 32
+   heads over 8 kv heads, tied, llama3 rope scaling), random weights from
+   a seed, D = 4 stages. (a) f32 decode, M = 4, B = 8 prompts of 256
+   tokens, 16 new tokens, greedy, log-probs through the fused-xent kernel,
+   prefill through the flash kernel (heads expanded from 8 to 32): tokens
+   as in phase 3 against the plain run and single-device ``generate``,
+   log-probs within 1e-4, both kernels launched. (b) f32 continuous-
+   batching serving (``make_serving_step_fn`` + ``ServingEngine``, M = 8
+   slots, chunk C = 32, max_len 640, EOS id 1) of a 12-request Poisson
+   trace (prompts 16-512, outputs 8-64, load 1.5): every completion equal
+   to ``generate`` of its request alone except at a near-tie, the static
+   policy gives the same completions in no fewer ticks, and the engine's
+   CUDA graphs give the completions of the same operations launched one
+   by one (4 requests). (c) The
+   same engine in bf16 over a 32-request trace, continuous and static, 3
+   runs each, the median by wall time: tokens/s, tick gain, s_per_tick,
+   TTFT and TPOT percentiles in ticks, blocking reads per block (also as
+   CUDA's sync debug mode counts them), and one block under the profiler.
 
-Then it prints the kernel record as one JSON line (times at the training
-shape in bf16; launches from the counted bf16 runs, which take the
-tensor-core attention kernels that are timed), the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
-Details go to ``chip_smoke_out/chip_smoke.json``.
+Phase 2's bf16 forward cases also hold every output row within 2 bf16
+ulps of its largest |o| of the plain version. Then it prints the kernel
+record as one JSON line (times at the training shape in bf16; launches
+from the counted bf16 runs, which take the tensor-core attention kernels
+that are timed, by path, the llama decode's and the serving runs' among
+them; the llama prefill shape's times beside the flash kernel's), the
+card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Details go to
+``chip_smoke_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -68,6 +90,14 @@ B, P, N, D, M = 16, 512, 32, 4, 4
 TRAIN_B, TRAIN_S, TRAIN_M = 24, 1024, 4
 TRAIN_SHAPE = [TRAIN_B // TRAIN_M, TRAIN_S, 12, 64]  # one microbatch's q/k/v
 SEED = 0
+# the llama path: Llama-3.2-1B through D = 4 stages; the decode gate's
+# batch, prompt and new tokens, and the serving engine's program and traces
+LLAMA_B, LLAMA_P, LLAMA_N = 8, 256, 16
+LLAMA_PREFILL_SHAPE = [LLAMA_B // M, LLAMA_P, 32, 64]  # heads expanded from 8
+SERVE = dict(n_slots=8, max_len=640, prompt_max=512, out_max=64,
+             prefill_chunk=32, eos_id=1)
+SERVE_PROMPTS, SERVE_OUTS, SERVE_LOAD = (16, 512), (8, 64), 1.5
+SERVE_GATE_N, SERVE_TIME_N, SERVE_REPS = 12, 32, 3
 
 
 class SmokeFailure(RuntimeError):
@@ -246,13 +276,18 @@ def phase_kernels(report):
                    causal=causal, window=window, layout=layout,
                    max_abs_err=err, tol=tol, bound_ms=bms, bound_by=by)
         if dtype == "bfloat16":
-            # a reading, not a check: the error in bf16 ulps of each output
-            # row's largest |o_plain| (the bf16 ulp of x is 2^(e - 7) for
-            # x in [2^e, 2^(e+1)))
+            # the error in bf16 ulps of each output row's largest |o_plain|
+            # (the bf16 ulp of x is 2^(e - 7) for x in [2^e, 2^(e+1))): the
+            # plain version rounds where the kernel rounds, so a row may
+            # part by at most 2 ulps, where the absolute bound above would
+            # pass a few corrupt V tiles on long rows of small |o|
             row_max = o_ref.float().abs().amax(-1).clamp_min(2.0 ** -126)
             ulp = torch.exp2(torch.floor(torch.log2(row_max)) - 7)
             rec["row_ulp_err"] = ((o.float() - o_ref.float()).abs().amax(-1)
                                   / ulp).max().item()
+            check(rec["row_ulp_err"] <= 2.0,
+                  f"flash {layout} {[b, s, h, dh]} bf16: a row's error is "
+                  f"{rec['row_ulp_err']} > 2 bf16 ulps of its max |o|")
         rec["ms"] = time_ms(lambda: flash_fwd(q, k, v, causal, window))
         rec["tflops"] = flops / rec["ms"] / 1e9
         rec["plain_ms"] = time_ms(lambda: flash_fwd_plain(q, k, v, causal,
@@ -394,6 +429,9 @@ def phase_kernels(report):
             tol[dtype])
         # the decode path's prefill: one stream of B/M prompts per stage call
         flash_case(B // M, P, 12, 64, dtype, True, None, "packed", tol[dtype])
+        # the llama decode prefill: B/M prompts, 32 heads expanded from 8
+        main[("flash_fwd_llama", dtype)] = flash_case(
+            *LLAMA_PREFILL_SHAPE, dtype, True, None, "packed", tol[dtype])
         flash_case(16, 512, 12, 64, dtype, True, None, "packed", tol[dtype])
         # the K2 route: a window, a ragged length, head_dim 128, transposed
         flash_case(2, 1000, 8, 128, dtype, True, 256, "transposed",
@@ -450,18 +488,19 @@ def phase_kernels(report):
 
 
 def compare_tokens(name, toks, ref, lps, ref_lps, gap, lp_tol=1e-4,
-                   gap_tol=1e-4):
+                   gap_tol=1e-4, p=P, n=N):
     """Rows must agree with ``ref`` token for token; a row may part only at
     a step where the reference's top-2 logit gap is below ``gap_tol`` and
     is not compared past it. Log-probs agree within ``lp_tol`` up to
-    there. Returns the rows that parted at a near-tie."""
-    new, ref_new = toks[:, P:], ref[:, P:]
+    there. ``p`` and ``n`` are the prompt and new-token counts. Returns
+    the rows that parted at a near-tie."""
+    new, ref_new = toks[:, p:], ref[:, p:]
     parted = []
     worst_lp = 0.0
     for r in range(new.shape[0]):
         diff = (new[r] != ref_new[r]).nonzero()
-        j = int(diff[0]) if len(diff) else N
-        if j < N:
+        j = int(diff[0]) if len(diff) else n
+        if j < n:
             check(gap[r, j].item() < gap_tol,
                   f"{name}: row {r} step {j}: token {int(new[r, j])} vs "
                   f"{int(ref_new[r, j])} with top-2 gap {gap[r, j].item()}")
@@ -808,6 +847,266 @@ def phase_train(report, device="cuda"):
     return launches16
 
 
+def llama_main_config():
+    """Llama-3.2-1B at full width and depth (tied, llama3 rope scaling),
+    with both kernels routed."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import llama_config
+    return llama_config("llama3.2-1b", use_flash_attention="auto",
+                        use_fused_xent=True)
+
+
+def top2_gap_of(cfg, model, toks, p):
+    """The plain f32 forward's top-2 logit gap at every emitted position of
+    toks [B, p + n] (the reference's near-tie test)."""
+    import torch
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        transformer_apply)
+    plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                use_fused_xent=False)
+    with torch.no_grad():
+        logits = transformer_apply(plain, model, toks[:, :-1])
+        top = logits[:, p - 1:].float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def serve_summary_line(name, res, card):
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.telemetry import (
+        serving_summary)
+    sm = serving_summary(res)
+    print(f"  {name}: {sm['tokens_out']} tokens in {sm['wall_s']:.3f} s = "
+          f"{sm['tokens_per_sec']:.1f} tokens/s, {sm['ticks']} ticks "
+          f"({sm['busy_ticks']} busy), s_per_tick {sm['s_per_tick']:.6f}, "
+          f"TTFT p50/p99 {sm['ttft_ticks']['p50']}/{sm['ttft_ticks']['p99']} "
+          f"ticks, TPOT p50/p99 {sm['tpot_ticks']['p50']}/"
+          f"{sm['tpot_ticks']['p99']} ticks, host syncs "
+          f"{res.host_syncs} in {res.n_blocks} blocks [{card}]")
+    for key in ("occupancy", "queue_depth"):
+        sm.pop(key)
+    return sm
+
+
+def phase_llama(report, device="cuda"):
+    """The llama path (see the module doc); returns the kernel launches of
+    the counted f32 decode run and of the serving runs."""
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
+        FLASH_FWD)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
+        XENT_FWD)
+    kernels = (FLASH_FWD, XENT_FWD)
+    card = report["card"]
+    cfg = llama_main_config()
+    plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                use_fused_xent=False)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = port.init_params(cfg, g, device)
+    prompt = torch.randint(0, cfg.vocab_size, (LLAMA_B, LLAMA_P),
+                           generator=g, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  Llama-3.2-1B ({n_params} params, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads) initialised "
+          f"in {time.perf_counter() - t0:.1f} s")
+    res = dict(n_params=n_params)
+
+    # (a) the decode gate, f32: the counted run through both kernels
+    for k in kernels:
+        k.launches = 0
+    toks, lps = port.make_pipeline_generate_fn(
+        cfg, D, LLAMA_N, n_streams=M, return_logprobs=True,
+        device=device)(model, prompt)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    print(f"  f32 pipelined decode (D={D}, M={M}, B={LLAMA_B}, P={LLAMA_P}, "
+          f"N={LLAMA_N}): kernel launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"the llama decode run launched {name} no time")
+    check(toks.shape == (LLAMA_B, LLAMA_P + LLAMA_N),
+          f"llama tokens shape {tuple(toks.shape)}")
+    check(bool(torch.isfinite(lps).all() and (lps <= 0).all()),
+          "llama log-probs not finite and <= 0")
+    toks_p, lps_p = port.make_pipeline_generate_fn(
+        plain, D, LLAMA_N, n_streams=M, return_logprobs=True,
+        device=device)(model, prompt)
+    check(all(k.launches == launches[k.name] for k in kernels),
+          "the plain llama run launched a kernel")
+    toks_s, lps_s = port.generate(cfg, model, prompt, LLAMA_N,
+                                  return_logprobs=True, device=device)
+    cmp = dict(p=LLAMA_P, n=LLAMA_N)
+    res["decode"] = dict(launches=launches)
+    res["decode"]["kernel_vs_plain"] = compare_tokens(
+        "f32 llama kernel run vs plain run", toks, toks_p, lps, lps_p,
+        top2_gap_of(cfg, model, toks_p, LLAMA_P), **cmp)
+    res["decode"]["pipelined_vs_single"] = compare_tokens(
+        "f32 llama pipelined vs single-device generate", toks, toks_s, lps,
+        lps_s, top2_gap_of(cfg, model, toks_s, LLAMA_P), **cmp)
+    del toks_p, lps_p, toks_s, lps_s
+
+    # (b) the serving gate, f32: every completion against the single-device
+    # generate of its request alone; static gives the same completions
+    program = port.make_serving_step_fn(cfg, D, device=device, **SERVE)
+    engine = port.ServingEngine(program, model)
+    trace = port.synth_trace(SERVE_GATE_N, prompt_lens=SERVE_PROMPTS,
+                             out_lens=SERVE_OUTS,
+                             prefill_chunk=SERVE["prefill_chunk"],
+                             load=SERVE_LOAD, vocab_size=cfg.vocab_size,
+                             seed=SEED)
+    for k in kernels:
+        k.launches = 0
+    cont = engine.run(trace)
+    serve_launches = {k.name: k.launches for k in kernels}
+    check(len(cont.completions) == SERVE_GATE_N and cont.n_failed == 0,
+          f"serving gate: {len(cont.completions)} completions, "
+          f"{cont.n_failed} failed")
+    parted, worst_gap = [], 0.0
+    for c in cont.completions:
+        p = len(c.prompt)
+        budget = next(r.max_new_tokens for r in trace if r.rid == c.rid)
+        ref, n_ref = port.generate(
+            cfg, model, torch.tensor([c.prompt], device=device), budget,
+            eos_id=SERVE["eos_id"], return_lengths=True,
+            max_len=program.mlen_alloc, device=device)
+        want = ref[0, p:p + int(n_ref[0])].tolist()
+        if c.tokens == want:
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(c.tokens, want))
+                  if a != b), min(len(c.tokens), len(want)))
+        gap = top2_gap_of(cfg, model, ref, p)[0, j].item()
+        check(j < min(len(c.tokens), len(want)) and gap < 1e-4,
+              f"serving rid {c.rid}: parts from generate at step {j} "
+              f"({c.tokens[j:j + 3]} vs {want[j:j + 3]}), top-2 gap {gap}")
+        parted.append(dict(rid=c.rid, step=j, gap=gap))
+    stat = engine.run(trace, policy="static")
+    by_rid = {c.rid: c.tokens for c in stat.completions}
+    check(all(by_rid.get(c.rid) == c.tokens for c in cont.completions),
+          "serving gate: the static policy's completions differ")
+    check(stat.ticks >= cont.ticks, f"static took {stat.ticks} ticks < "
+          f"continuous {cont.ticks}")
+    print(f"  f32 serving (D={D}, M={SERVE['n_slots']}, "
+          f"C={SERVE['prefill_chunk']}, {SERVE_GATE_N} requests): every "
+          f"completion equals generate of its request alone "
+          f"({len(parted)} part at near-ties: {parted}); static gives the "
+          f"same completions in {stat.ticks} ticks vs {cont.ticks}; kernel "
+          f"launches {serve_launches} (the chunked prefill is dense)")
+    # the engine's CUDA graphs against the same operations launched one
+    # by one, on the trace's first requests: the same stamps and tokens
+    eager_program = port.make_serving_step_fn(cfg, D, device=device, **SERVE)
+    eager_program.cuda_graphs = False
+    eager = port.ServingEngine(eager_program, model).run(trace[:4])
+    graphs = engine.run(trace[:4])
+
+    def stamps(r):
+        return [(c.rid, c.slot, c.first_token_tick, c.finish_tick, c.tokens)
+                for c in r.completions]
+
+    check(stamps(eager) == stamps(graphs),
+          "serving: the CUDA graphs' completions differ from eager launches")
+    print(f"  f32 serving through CUDA graphs equals eager launches on 4 "
+          f"requests: {eager.wall_s:.2f} s eager, {graphs.wall_s:.2f} s "
+          f"graphs [{card}]")
+    res["serve_gate"] = dict(
+        n_requests=SERVE_GATE_N, parted=parted, ticks=cont.ticks,
+        ticks_static=stat.ticks, launches=serve_launches,
+        tokens_out=cont.tokens_out, eager_s=eager.wall_s,
+        graphs_s=graphs.wall_s)
+    del engine, eager_program
+
+    # (c) serving timing, bf16 compute over the f32 weights: continuous and
+    # static on one program, SERVE_REPS runs each, the median by wall time
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="float32")
+    program16 = port.make_serving_step_fn(cfg16, D, device=device, **SERVE)
+    engine16 = port.ServingEngine(program16, model)
+    trace = port.synth_trace(SERVE_TIME_N, prompt_lens=SERVE_PROMPTS,
+                             out_lens=SERVE_OUTS,
+                             prefill_chunk=SERVE["prefill_chunk"],
+                             load=SERVE_LOAD, vocab_size=cfg.vocab_size,
+                             seed=SEED)
+    engine16.run(trace[:2])  # warm-up: first launches, allocator
+    runs = {}
+    for policy in ("continuous", "static"):
+        reps = [engine16.run(trace, policy=policy)
+                for _ in range(SERVE_REPS)]
+        runs[policy] = sorted(reps, key=lambda r: r.wall_s)[len(reps) // 2]
+        runs[policy + "_walls"] = [r.wall_s for r in reps]
+    cont, stat = runs["continuous"], runs["static"]
+    check(all(r.n_failed == 0 for r in (cont, stat)),
+          "bf16 serving: a request failed")
+    by_rid = {c.rid: c.tokens for c in stat.completions}
+    check(all(by_rid.get(c.rid) == c.tokens for c in cont.completions),
+          "bf16 serving: the static policy's completions differ")
+    timing = dict(continuous=serve_summary_line("bf16 continuous", cont, card),
+                  static=serve_summary_line("bf16 static", stat, card),
+                  walls={p: runs[p + "_walls"]
+                         for p in ("continuous", "static")})
+    timing["tick_gain"] = stat.ticks / cont.ticks
+    timing["throughput_gain"] = cont.tokens_per_sec / stat.tokens_per_sec
+    timing["syncs_per_block"] = cont.host_syncs / cont.n_blocks
+    print(f"  bf16 continuous vs static: tick gain {timing['tick_gain']:.3f}, "
+          f"tokens/s gain {timing['throughput_gain']:.3f}, host syncs per "
+          f"block {timing['syncs_per_block']:.3f} [{card}]")
+
+    # the blocking transfers of a run over the trace's first requests, as
+    # CUDA's sync debug mode reports them
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            short = engine16.run(trace[:4])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n_sync_warn = sum("synchroniz" in str(w.message) for w in caught)
+    timing["sync_debug"] = dict(warnings=n_sync_warn, blocks=short.n_blocks,
+                                engine_count=short.host_syncs)
+
+    # one block under the profiler: the tenth of a run over the trace's
+    # first requests
+    from torch.profiler import ProfilerActivity, profile
+    step, seen = program16.step, {}
+
+    def profiled_step(weights, state):
+        seen["n"] = seen.get("n", 0) + 1
+        if seen["n"] != 10:
+            return step(weights, state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            out = step(weights, state)
+            torch.cuda.synchronize()
+            seen["wall"] = time.perf_counter() - t
+        seen["prof"] = prof
+        return out
+
+    program16.step = profiled_step
+    try:
+        engine16.run(trace[:8])
+    finally:
+        program16.step = step
+    check("prof" in seen, "the profiled run ended before its tenth block")
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                         for e in seen["prof"].key_averages()
+                         if e.self_device_time_total > 0),
+                        key=lambda x: -x[1])
+    busy = sum(ms for _, ms, _ in per_kernel)
+    wall_ms = seen["wall"] * 1e3
+    timing["profile"] = dict(
+        block_ticks=program16.block_ticks, wall_ms=wall_ms,
+        device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+        top_kernels=[dict(name=n[:120], ms=ms, count=c)
+                     for n, ms, c in per_kernel[:12]])
+    print(f"  one bf16 block ({program16.block_ticks} ticks) under the "
+          f"profiler: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle "
+          f"share {timing['profile']['idle_share']:.3f}; sync debug mode: "
+          f"{n_sync_warn} synchronising calls in {short.n_blocks} blocks "
+          f"(engine count {short.host_syncs}) [{card}]")
+    for n, ms, c in per_kernel[:8]:
+        print(f"    {ms:9.3f} ms  {c:6d}x  {n[:100]}")
+    res["serve_bf16"] = timing
+    report["llama"] = res
+    return launches, serve_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -832,6 +1131,9 @@ def main() -> int:
     decode_launches = phase_main_path(report)
     print("[4] training path: tied GPT-2-small, pipelined steps")
     launches = phase_train(report)
+    print("[5] llama path: Llama-3.2-1B, 4 lockstep stages, decode and "
+          "continuous-batching serving")
+    llama_launches, serve_launches = phase_llama(report)
     report["seconds"] = time.perf_counter() - t0
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
@@ -864,8 +1166,17 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], dtype=r["dtype"],
-            launches_by_path={"train": launches[name],
-                              "decode": decode_launches.get(name, 0)}))
+            launches_by_path={
+                "train": launches[name],
+                "decode": decode_launches.get(name, 0),
+                "llama_decode": llama_launches.get(name, 0),
+                "llama_serving": serve_launches.get(name, 0)}))
+        if name == "flash_fwd":
+            r = main_shapes[("flash_fwd_llama", "bfloat16")]
+            kernels[-1]["llama_prefill"] = {
+                k: r[k] for k in ("shape", "dtype", "max_abs_err",
+                                  "row_ulp_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,12 @@ package's. Ported so far:
   1F1B, Interleaved-1F1B and BFS (``compile_schedule``), the tick executor
   with the rematerialising and stored backwards
   (``make_pipeline_grad_fn``), AdamW (``adamw``, ``make_train_step``) and
-  the timed loop (``run_train_iterations``).
+  the timed loop (``run_train_iterations``);
+- the llama block family (``llama_config``: Llama-2/3/3.1/3.2, Mistral,
+  Qwen2, Gemma) through all of the above;
+- continuous-batching serving (``serving``: ``make_serving_step_fn``,
+  ``ServingEngine``, the continuous-vs-static bench, load ramps, SLOs),
+  the dense path.
 
 Hand-written CUDA kernels (``csrc/``): flash-attention forward and
 backward (``flash_fwd.cu``, ``flash_bwd.cu``) and the fused cross-entropy
@@ -23,16 +28,21 @@ where every kernel wrapper takes its plain PyTorch version.
 
 from .models.generate import generate
 from .models.gpt2 import gpt2_config
+from .models.llama import llama_config
 from .models.transformer import init_params
 from .parallel.pipeline import make_pipeline_grad_fn
 from .parallel.pipelined_decode import make_pipeline_generate_fn
 from .parallel.schedules import compile_schedule
+from .serving import (Request, ServingEngine, make_serving_step_fn,
+                      run_serve_bench, synth_trace)
 from .utils.config import ModelConfig, RunConfig, ScheduleConfig
 from .utils.metrics import run_train_iterations
 from .utils.train import adamw, make_train_step
 from .utils.weights import from_jax_params
 
 __all__ = ["ModelConfig", "ScheduleConfig", "RunConfig", "gpt2_config",
-           "generate", "make_pipeline_generate_fn", "init_params",
-           "from_jax_params", "compile_schedule", "make_pipeline_grad_fn",
-           "make_train_step", "adamw", "run_train_iterations"]
+           "llama_config", "generate", "make_pipeline_generate_fn",
+           "init_params", "from_jax_params", "compile_schedule",
+           "make_pipeline_grad_fn", "make_train_step", "adamw",
+           "run_train_iterations", "Request", "ServingEngine",
+           "make_serving_step_fn", "run_serve_bench", "synth_trace"]

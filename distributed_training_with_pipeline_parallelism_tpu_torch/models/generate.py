@@ -1,16 +1,21 @@
 """Autoregressive decoding with a static-shape KV cache (counterpart of
-the JAX package's ``models/generate.py``).
+the JAX package's ``models/generate.py``), for the GPT-2 and llama
+families.
 
-The cache is ``[n_layers, B, max_len, H, hd]`` per k and v, allocated
-once and written in place at each step's offset (the JAX package's
-``dynamic_update_slice`` returns a new buffer; in place saves a cache copy
-per step). Prefill and decode share :func:`_forward_with_cache`; only the
-whole-prompt prefill (offset 0, fresh cache: ``prefill=True``) may route
-attention through the flash kernel, exactly as at the JAX
-``generate.py:128-135``. Decode steps attend the cache through the plain
-:func:`_attend_cached`, which is XLA code in the JAX package, not a
-kernel. ``cfg.use_fused_xent`` routes the emitted tokens'
-log-probabilities through the fused-xent kernel.
+The cache is ``[n_layers, B, max_len, Hkv, hd]`` per k and v (llama keeps
+its ``n_kv_heads`` there; GQA heads are expanded only at attention time),
+allocated once and written in place at each step's offset (the JAX
+package's ``dynamic_update_slice`` returns a new buffer; in place saves a
+cache copy per step). Llama's keys enter the cache rotated by RoPE at
+their global positions (the table's rows ``offset .. offset+S-1``, the
+JAX ``rope_slice_at``). Prefill and decode share
+:func:`_forward_with_cache`; only the whole-prompt prefill (offset 0,
+fresh cache: ``prefill=True``) may route attention through the flash
+kernel, with the kv heads expanded and ``cfg.sliding_window`` as its band,
+exactly as at the JAX ``generate.py:128-135``. Decode steps attend the
+cache through the plain :func:`_attend_cached`, which is XLA code in the
+JAX package, not a kernel. ``cfg.use_fused_xent`` routes the emitted
+tokens' log-probabilities through the fused-xent kernel.
 """
 
 from __future__ import annotations
@@ -19,13 +24,14 @@ from typing import Dict, Optional
 
 import torch
 
-from ..ops.attention import band_mask, gqa_expand, scaled_dot_attention
+from ..ops.attention import (Rope, band_mask, gqa_expand,
+                             scaled_dot_attention)
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_xent import fused_softmax_xent
-from ..ops.layers import layer_norm, linear, token_nll
+from ..ops.layers import token_nll
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
-from .transformer import (Block, Transformer, _check_arch, compute_cast,
-                          embed_apply, head_apply)
+from .transformer import (Transformer, _check_arch, compute_cast,
+                          embed_apply, head_apply, rope_table)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -33,9 +39,8 @@ Cache = Dict[str, torch.Tensor]
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device="cuda") -> Cache:
     """All-zeros KV cache in the compute dtype: {"k", "v"} of
-    [n_layers, B, max_len, H, hd] (GPT-2 has as many kv heads as query
-    heads)."""
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_heads, cfg.head_dim)
+    [n_layers, B, max_len, Hkv, hd]."""
+    shape = (cfg.n_layers, batch_size, max_len, cfg.kv_heads, cfg.head_dim)
     dtype = torch_dtype(cfg.dtype)
     device = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -44,15 +49,19 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
 
 def _attend_cached(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, offset: int, n_heads: int,
-                   window: Optional[int] = None) -> torch.Tensor:
+                   window: Optional[int] = None,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of S new queries q [B, S, H, hd] at global positions
-    offset..offset+S-1 against the whole cache [B, T, Hkv, hd]: key j is
-    visible to the query at position i iff j <= i (and i - j < window),
-    which is causality inside the new block and masks the unwritten
-    tail. -> [B, S, H*hd]."""
+    offset..offset+S-1 against the whole cache [B, T, Hkv, hd] (kv heads
+    expanded here): key j is visible to the query at position i iff
+    j <= i (and i - j < window), which is causality inside the new block
+    and masks the unwritten (or stale) tail. ``mask`` [S, T] is that band
+    when the caller already built it (one per stage call, not one per
+    layer). -> [B, S, H*hd]."""
     k_cache, v_cache = gqa_expand(k_cache, v_cache, n_heads)
     s, t = q.shape[1], k_cache.shape[1]
-    mask = band_mask(s, t, window, q_offset=offset, device=q.device)
+    if mask is None:
+        mask = band_mask(s, t, window, q_offset=offset, device=q.device)
     out = scaled_dot_attention(q, k_cache, v_cache, mask[None, None])
     return out.reshape(q.shape[0], s, -1)
 
@@ -68,47 +77,57 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, offset: int,
     region.copy_(new)
 
 
-def _layer_step(cfg: ModelConfig, block: Block, h: torch.Tensor,
+def _layer_step(cfg: ModelConfig, block, h: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor, offset: int,
+                rope: Optional[Rope], mask: Optional[torch.Tensor],
                 prefill: bool = False,
                 live_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block over S new positions h [B, S, dim]: writes their k/v into
-    the layer's cache [B, T, H, hd] at ``offset`` and returns h_out.
+    """One block over S new positions h [B, S, dim]: writes their k/v
+    (keys rotated by ``rope``, the rows of these positions) into the
+    layer's cache [B, T, Hkv, hd] at ``offset`` and returns h_out.
 
     ``prefill=True`` is the caller's promise that ``offset`` is 0 and the
     cache held nothing before: the new block is then the whole visible
-    sequence, so q attends the new k/v (not the cache) through the flash
-    kernel where ``cfg.flash_for`` picks it. ``live_rows`` [B] bool masks
-    the cache write of frozen rows (their outputs are discarded)."""
+    sequence, so q attends the new k/v (heads expanded, not the cache)
+    through the flash kernel where ``cfg.flash_for`` picks it; otherwise
+    it attends the cache under ``mask``. ``live_rows`` [B] bool masks the
+    cache write of frozen rows (their outputs are discarded)."""
     b, s, _ = h.shape
-    a = layer_norm(h, block.ln1.weight, block.ln1.bias)
-    q, k, v = block.qkv(cfg, a)
+    q, k, v = block.qkv(cfg, block.attn_norm(h), rope)
     _write_cache(k_cache, k, offset, live_rows)
     _write_cache(v_cache, v, offset, live_rows)
     if prefill and cfg.flash_for(True, h.device):
-        att = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
+        kf, vf = gqa_expand(k, v, cfg.n_heads)
+        att = flash_attention(q, kf, vf, causal=True,
+                              window=cfg.sliding_window).reshape(b, s, -1)
     else:
-        att = _attend_cached(q, k_cache, v_cache, offset, cfg.n_heads)
-    o = block.attn["o"]
-    return block.mlp(h + linear(att, o.weight, o.bias))
+        att = _attend_cached(q, k_cache, v_cache, offset, cfg.n_heads,
+                             cfg.sliding_window, mask)
+    return block.mlp(h + block.proj(att))
 
 
 def layers_with_cache(cfg: ModelConfig, layers, h: torch.Tensor,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
-                      offset: int, prefill: bool = False,
+                      offset: int, rope: Optional[Rope],
+                      prefill: bool = False,
                       live_rows: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Run a stack of blocks over S new positions with per-layer caches
-    [L, B, T, H, hd] (updated in place). Shared by the single-device
+    [L, B, T, Hkv, hd] (updated in place); ``rope`` is the whole table
+    (at least T rows; None for GPT-2). Shared by the single-device
     decode and the pipelined decoder's stages."""
+    s, t = h.shape[1], k_cache.shape[2]
+    rows = None if rope is None else rope.rows(offset, s)
+    mask = None if prefill and cfg.flash_for(True, h.device) else \
+        band_mask(s, t, cfg.sliding_window, q_offset=offset, device=h.device)
     for i, block in enumerate(layers):
         h = _layer_step(cfg, block, h, k_cache[i], v_cache[i], offset,
-                        prefill=prefill, live_rows=live_rows)
+                        rows, mask, prefill=prefill, live_rows=live_rows)
     return h
 
 
 def _forward_with_cache(cfg: ModelConfig, model: Transformer, cache: Cache,
-                        tokens: torch.Tensor, offset: int,
+                        tokens: torch.Tensor, offset: int, rope,
                         prefill: bool = False,
                         live_rows: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
@@ -117,7 +136,7 @@ def _forward_with_cache(cfg: ModelConfig, model: Transformer, cache: Cache,
     position's logits [B, V]; ``cache`` is updated in place."""
     h = embed_apply(cfg, model, tokens, offset)
     h = layers_with_cache(cfg, model.layers, h, cache["k"], cache["v"],
-                          offset, prefill=prefill, live_rows=live_rows)
+                          offset, rope, prefill=prefill, live_rows=live_rows)
     return head_apply(cfg, model, h[:, -1])
 
 
@@ -179,7 +198,7 @@ def check_decode_args(cfg: ModelConfig, prompt_len: int, max_new_tokens: int,
     if total > max_len:
         raise ValueError(f"prompt ({prompt_len}) + max_new_tokens "
                          f"({max_new_tokens}) exceeds max_len ({max_len})")
-    if total > cfg.max_seq_len:
+    if cfg.arch == "gpt2" and total > cfg.max_seq_len:
         raise ValueError(f"prompt ({prompt_len}) + max_new_tokens "
                          f"({max_new_tokens}) exceeds the gpt2 position "
                          f"table (max_seq_len={cfg.max_seq_len})")
@@ -231,11 +250,12 @@ def generate(cfg: ModelConfig, model: Transformer, prompt,
                              temperature, generator)
     model = compute_cast(cfg, model)
     cache = init_cache(cfg, b, mlen, device=device)
+    rope = rope_table(cfg, mlen, device)
 
     def sample(logits):
         return sample_logits(logits, temperature, top_k, top_p, generator)
 
-    logits = _forward_with_cache(cfg, model, cache, prompt.long(), 0,
+    logits = _forward_with_cache(cfg, model, cache, prompt.long(), 0, rope,
                                  prefill=True)
     tok = sample(logits)
     toks = [tok]
@@ -246,7 +266,7 @@ def generate(cfg: ModelConfig, model: Transformer, prompt,
         # token's k/v never enter the cache
         live = None if done is None else ~done
         logits = _forward_with_cache(cfg, model, cache, tok[:, None],
-                                     p + step - 1, live_rows=live)
+                                     p + step - 1, rope, live_rows=live)
         nxt = sample(logits)
         if return_logprobs:
             lp = token_logprob(cfg, logits, nxt)

@@ -26,6 +26,15 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return F.layer_norm(x, (x.shape[-1],), scale, bias, eps)
 
 
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last dim, ``x * rsqrt(mean(x^2) + eps) * scale``,
+    computed in x's dtype as the JAX ``rms_norm_apply`` computes it (no
+    f32 upcast of its own)."""
+    ms = x.square().mean(dim=-1, keepdim=True)
+    return x * torch.rsqrt(ms + eps) * scale
+
+
 def embedding(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, table)
 
@@ -33,6 +42,10 @@ def embedding(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU with the tanh approximation, ``jax.nn.gelu``'s default."""
     return F.gelu(x, approximate="tanh")
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

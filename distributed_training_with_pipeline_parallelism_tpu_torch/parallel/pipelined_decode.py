@@ -4,7 +4,8 @@ stages in lockstep in one process on one card.
 
 The model is split depth-wise into D contiguous stages
 (:func:`.pipeline.stack_stage_layers`); each stage object owns its layer
-slice and its ``[lps, B, max_len, H, hd]`` KV cache. ``M >= D``
+slice and its ``[lps, B, max_len, Hkv, hd]`` KV cache (llama keeps its
+``n_kv_heads`` there and expands them at attention time). ``M >= D``
 independent batch streams of ``B/M`` rows round-robin through the stages,
 the decode-time analogue of training microbatches: at tick u, stage d
 works on stream ``(u - d) mod M``. The JAX package's +1 ring (one
@@ -32,42 +33,45 @@ from ..models.generate import (check_decode_args, layers_with_cache,
                                lengths_of, model_on, sample_logits,
                                token_logprob)
 from ..models.transformer import (Transformer, _check_arch, compute_cast,
-                                  embed_apply, head_apply)
+                                  embed_apply, head_apply, rope_table)
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
 from .pipeline import stack_stage_layers
 
 
 def _slot_cache_apply(cfg: ModelConfig, layers, h: torch.Tensor,
                       kc: torch.Tensor, vc: torch.Tensor, g: int,
-                      n_rows: int, offset: int, *,
+                      n_rows: int, offset: int, rope, *,
                       live_rows: Optional[torch.Tensor] = None,
                       prefill: bool = False) -> torch.Tensor:
-    """One stage's layer slice on h [n_rows, s, dim] for stream ``g``: its
-    cache rows ``g*n_rows .. (g+1)*n_rows`` are updated in place (frozen
-    rows, where ``live_rows`` is False, keep theirs). ``prefill`` marks
-    the offset-0 whole-prompt pass, the one site that may take the flash
-    kernel."""
+    """One stage's layer slice on h [n_rows, s, dim] for stream ``g``:
+    its cache rows ``g*n_rows .. (g+1)*n_rows`` are updated in place
+    (frozen rows, where ``live_rows`` is False, keep theirs). ``rope`` is the RoPE table (None for GPT-2). ``prefill``
+    marks the offset-0 whole-prompt pass, the one site that may take the
+    flash kernel."""
     rows = slice(g * n_rows, (g + 1) * n_rows)
     return layers_with_cache(cfg, layers, h, kc[:, rows], vc[:, rows],
-                             offset, prefill=prefill, live_rows=live_rows)
+                             offset, rope, prefill=prefill,
+                             live_rows=live_rows)
 
 
 class _Stage:
-    """One pipeline stage: its layer slice and its KV cache."""
+    """One pipeline stage: its layer slice and its KV cache
+    [lps, B, max_len, Hkv, hd]."""
 
     def __init__(self, cfg: ModelConfig, layers, batch: int, max_len: int,
                  device: torch.device):
-        shape = (len(layers), batch, max_len, cfg.n_heads, cfg.head_dim)
+        shape = (len(layers), batch, max_len, cfg.kv_heads, cfg.head_dim)
         dtype = torch_dtype(cfg.dtype)
         self.layers = layers
         self.kc = torch.zeros(shape, dtype=dtype, device=device)
         self.vc = torch.zeros(shape, dtype=dtype, device=device)
+        self.rope = rope_table(cfg, max_len, device)
 
     def apply(self, cfg, h, g, n_rows, offset, live_rows=None,
               prefill=False):
         return _slot_cache_apply(cfg, self.layers, h, self.kc, self.vc, g,
-                                 n_rows, offset, live_rows=live_rows,
-                                 prefill=prefill)
+                                 n_rows, offset, self.rope,
+                                 live_rows=live_rows, prefill=prefill)
 
 
 def _head_token(cfg: ModelConfig, model: Transformer, y_last: torch.Tensor,

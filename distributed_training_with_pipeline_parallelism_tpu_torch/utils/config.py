@@ -2,10 +2,9 @@
 
 The port's own copy of the fields of
 ``distributed_training_with_pipeline_parallelism_tpu/utils/config.py:ModelConfig``
-that the GPT-2 decode and training slices read, under the same names, with
-the same defaults and the same validation (the llama-only fields, such as
-``n_kv_heads`` and ``sliding_window``, come with the llama arch), plus
-``ScheduleConfig``, ``virtual_stages_for`` and ``RunConfig``. The one
+that the GPT-2 and llama slices read, under the same names, with the same
+defaults and the same validation, plus ``ScheduleConfig``,
+``virtual_stages_for`` and ``RunConfig``. The one
 behavioural difference is :meth:`ModelConfig.flash_for`: the JAX package's ``"auto"`` cut-over
 (causal, seq >= 1024, TPU only) is a TPU measurement and does not carry
 over; here ``"auto"`` picks the hand-written kernel for every causal call
@@ -15,7 +14,7 @@ on a CUDA tensor and the plain version on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -28,7 +27,8 @@ class ModelConfig:
 
     ``arch`` accepts the JAX package's three block families so configs
     stay interchangeable; the port's model implements ``"gpt2"`` and
-    raises ``NotImplementedError`` for the others.
+    ``"llama"`` (pre-RMSNorm, RoPE, grouped-query attention, gated MLP)
+    and raises ``NotImplementedError`` for ``"ref_decoder"``.
     """
 
     dim: int = 768
@@ -54,12 +54,57 @@ class ModelConfig:
     # ignore-index loss masking: targets equal to this id contribute
     # nothing, and the mean divides by the global valid-token count
     pad_token_id: Optional[int] = None
+    # llama-only knobs: grouped-query kv heads (None = n_heads), the RoPE
+    # base, Llama-3.1 rope scaling (factor, low_freq_factor,
+    # high_freq_factor, original_max_position_embeddings) or None, the
+    # RMSNorm epsilon, Mistral's sliding window (None = full causal) and
+    # Qwen2's q/k/v biases
+    n_kv_heads: Optional[int] = None
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[Tuple[float, float, float, int]] = None
+    rms_eps: float = 1e-5
+    sliding_window: Optional[int] = None
+    attention_qkv_bias: bool = False
+    # Gemma knobs (llama arch): a head width decoupled from dim/n_heads,
+    # the gated MLP's gate ("silu" SwiGLU or "gelu" GeGLU, tanh
+    # approximation), and embedding outputs scaled by sqrt(dim) (also
+    # allowed on gpt2, where the scale precedes the positions)
+    head_dim_override: Optional[int] = None
+    mlp_act: str = "silu"
+    embed_scale: bool = False
 
     def __post_init__(self):
         if self.dim % self.n_heads != 0:
             raise ValueError(f"dim={self.dim} must be divisible by n_heads={self.n_heads}")
+        if self.n_kv_heads is not None and self.n_heads % self.n_kv_heads != 0:
+            raise ValueError(f"n_heads={self.n_heads} must be divisible by n_kv_heads={self.n_kv_heads}")
         if self.arch not in ("ref_decoder", "gpt2", "llama"):
             raise ValueError(f"unknown arch {self.arch!r}")
+        if self.attention_qkv_bias and self.arch != "llama":
+            raise ValueError("attention_qkv_bias requires arch='llama' "
+                             "(Qwen2-family blocks; gpt2/ref biases are "
+                             "always on)")
+        if self.mlp_act not in ("silu", "gelu"):
+            raise ValueError(f"mlp_act={self.mlp_act!r} must be 'silu' or "
+                             f"'gelu'")
+        if ((self.head_dim_override is not None or self.mlp_act != "silu")
+                and self.arch != "llama"):
+            raise ValueError("head_dim_override / mlp_act are Gemma-family "
+                             "knobs on arch='llama' blocks")
+        if self.embed_scale and self.arch == "ref_decoder":
+            raise ValueError("embed_scale applies to gpt2/llama blocks "
+                             "(Gemma-style scaled embeddings; gpt2 is "
+                             "allowed so the MoE LM — gpt2-style blocks — "
+                             "can use it)")
+        if self.head_dim_override is not None and self.head_dim_override < 1:
+            raise ValueError(f"head_dim_override={self.head_dim_override}")
+        if self.sliding_window is not None:
+            if self.arch != "llama":
+                raise ValueError("sliding_window requires arch='llama' "
+                                 "(Mistral-family blocks)")
+            if self.sliding_window < 1:
+                raise ValueError(f"sliding_window={self.sliding_window} must "
+                                 f"be >= 1")
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout={self.dropout} must be in [0, 1)")
         if self.use_flash_attention not in (True, False, "auto"):
@@ -94,7 +139,14 @@ class ModelConfig:
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
         return self.dim // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads a cache holds: ``n_kv_heads``, else ``n_heads``."""
+        return self.n_kv_heads or self.n_heads
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -1,4 +1,5 @@
-"""Load a JAX-package parameter pytree into the port's model.
+"""Load a JAX-package parameter pytree (GPT-2 or llama) into the port's
+model.
 
 The caller turns the JAX pytree's leaves into numpy arrays
 (``jax.tree.map(np.asarray, params)``); the port never imports jax.
@@ -29,27 +30,41 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
+def _linears(cfg: ModelConfig, layers: Dict) -> Dict:
+    """The block's linear leaves by port name."""
+    lins = {f"attn.{n}": layers["attn"][n] for n in ("q", "k", "v", "o")}
+    names = ("lin1", "lin2") if cfg.arch == "gpt2" else ("w1", "w2", "w3")
+    lins.update({n: layers[n] for n in names})
+    return lins
+
+
 def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda") -> Transformer:
-    """The port's GPT-2 model holding the weights of the JAX pytree
-    ``{"embed": {"tok", "pos"}, "layers": {...stacked [L, ...]},
-    "head": {"norm", "out"}}`` (no ``out`` when tied) with numpy leaves,
-    in ``cfg.storage_dtype`` on ``device``."""
+    """The port's model holding the weights of the JAX pytree with numpy
+    leaves, in ``cfg.storage_dtype`` on ``device``. GPT-2:
+    ``{"embed": {"tok", "pos"}, "layers": {"ln1", "attn", "ln2", "lin1",
+    "lin2"}, "head": {"norm", "out"}}``; llama: ``{"embed": {"tok"},
+    "layers": {"rms1", "attn", "rms2", "w1", "w2", "w3"}, "head": {"norm",
+    "out"}}`` with q/k/v biases under ``cfg.attention_qkv_bias``; layer
+    leaves stacked [L, ...]; no ``out`` when tied."""
     device = resolve_device(device)
-    state = {"tok": tree["embed"]["tok"], "pos": tree["embed"]["pos"],
-             "norm.weight": tree["head"]["norm"]["scale"],
-             "norm.bias": tree["head"]["norm"]["bias"]}
+    norms = ("ln1", "ln2") if cfg.arch == "gpt2" else ("rms1", "rms2")
+    state = {"tok": tree["embed"]["tok"],
+             "norm.weight": tree["head"]["norm"]["scale"]}
+    if cfg.arch == "gpt2":
+        state["pos"] = tree["embed"]["pos"]
+        state["norm.bias"] = tree["head"]["norm"]["bias"]
     if not cfg.tie_embeddings:
         state["out.weight"] = np.asarray(tree["head"]["out"]["w"]).T
     layers = tree["layers"]
     for i in range(cfg.n_layers):
-        for ln in ("ln1", "ln2"):
-            state[f"layers.{i}.{ln}.weight"] = layers[ln]["scale"][i]
-            state[f"layers.{i}.{ln}.bias"] = layers[ln]["bias"][i]
-        lins = {f"attn.{n}": layers["attn"][n] for n in ("q", "k", "v", "o")}
-        lins.update(lin1=layers["lin1"], lin2=layers["lin2"])
-        for name, leaf in lins.items():
+        for norm in norms:
+            state[f"layers.{i}.{norm}.weight"] = layers[norm]["scale"][i]
+            if "bias" in layers[norm]:
+                state[f"layers.{i}.{norm}.bias"] = layers[norm]["bias"][i]
+        for name, leaf in _linears(cfg, layers).items():
             state[f"layers.{i}.{name}.weight"] = np.asarray(leaf["w"][i]).T
-            state[f"layers.{i}.{name}.bias"] = leaf["b"][i]
+            if "b" in leaf:
+                state[f"layers.{i}.{name}.bias"] = leaf["b"][i]
     dtype = torch_dtype(cfg.storage_dtype)
     model = Transformer(cfg, device=device, dtype=dtype)
     model.load_state_dict({k: _tensor(v).to(device=device, dtype=dtype)

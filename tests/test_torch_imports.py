@@ -34,11 +34,13 @@ def test_port_and_chip_smoke_import_no_jax():
 
 _CFG = port.gpt2_config("small", dim=32, n_layers=2, n_heads=2,
                         vocab_size=31, ffn_dim=64, max_seq_len=16)
+_SERVING = dict(n_slots=2, max_len=8, prompt_max=4, out_max=4)
 
 
 @pytest.mark.parametrize("entry", ["init_params", "generate", "pipeline",
                                    "from_jax_params", "pipeline_grad",
-                                   "train_step"])
+                                   "train_step", "serving_step_fn",
+                                   "serving_engine", "serve_bench"])
 def test_entry_points_default_to_cuda(entry):
     """Without ``device=`` an entry point asks for CUDA: on a host without
     it the call raises instead of running on the CPU."""
@@ -57,6 +59,11 @@ def test_entry_points_default_to_cuda(entry):
             _CFG, port.ScheduleConfig("1F1B", 2), 2),
         "train_step": lambda: port.make_train_step(
             _CFG, port.ScheduleConfig("GPipe", 2), 2, port.adamw()),
+        "serving_step_fn": lambda: port.make_serving_step_fn(
+            _CFG, 2, **_SERVING),
+        "serving_engine": lambda: port.ServingEngine(
+            port.make_serving_step_fn(_CFG, 2, **_SERVING), model),
+        "serve_bench": lambda: port.run_serve_bench(n_requests=2),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
