@@ -60,13 +60,31 @@ JAX. Phases, each fatal on failure:
    runs each, the median by wall time: tokens/s, tick gain, s_per_tick,
    TTFT and TPOT percentiles in ticks, blocking reads per block (also as
    CUDA's sync debug mode counts them), and one block under the profiler.
+6. Paged KV and speculative serving of the same Llama-3.2-1B on the
+   phase-5 program (D = 4, M = 8, C = 32, EOS id 1), pages of 16 rows
+   (P_max 42, 337 pages), gamma 3. (a) f32 paged gate: the 12 Poisson
+   requests and 16 shared-prefix requests (the loadgen's ``prefix`` mix
+   with two seeded 256-token prefixes before prompts of 16-256 tokens)
+   equal to the contiguous engine's except at a near-tie, a prefix hit
+   rate above 0, and a drained pool that holds only cached pages. (b) f32
+   speculative gate against the plain engine on the 12 requests: the
+   target as its own draft (fewer ticks), a random 2-layer draft (verify
+   visits) and the self-draft paged; the CUDA graphs against eager
+   launches on 4 requests in each mode. (c) bf16 timing, 3 runs each, the
+   median by wall time: contiguous against paged on 32 shared-prefix
+   requests, plain against both drafts on the 32 Poisson requests, each
+   with tokens/s, ticks, TTFT/TPOT, the page or acceptance gauges, the
+   synchronising calls inside the tick blocks under CUDA's sync debug
+   mode (none allowed) and one profiled block.
 
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
 from the counted bf16 runs, which take the tensor-core attention kernels
 that are timed, by path, the llama decode's and the serving runs' among
-them; the llama prefill shape's times beside the flash kernel's), the
+them, the paged and speculative runs' 0 as their dense cache attention
+takes neither kernel; the llama prefill shape's times beside the flash
+kernel's), the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -1107,6 +1125,317 @@ def phase_llama(report, device="cuda"):
     return launches, serve_launches
 
 
+# phase 6: paged KV and speculative serving on the phase-5 program
+PAGE_SIZE, SPEC_GAMMA = 16, 3
+# the loadgen's "prefix" mix with 256-token prefixes over the serving
+# band of prompts 16-256 and outputs 8-64
+PREFIX_MIXES = {"prefix": {"base": "serve", "n_prefixes": 2,
+                           "prefix_len": 256},
+                "serve": {"prompt_lens": (16, 256), "out_lens": (8, 64)}}
+PREFIX_GATE_N, GRAPH_CHECK_N = 16, 4
+
+
+def prefix_trace(n, vocab):
+    from distributed_training_with_pipeline_parallelism_tpu_torch.serving import (
+        make_workload)
+    return make_workload(n, "prefix", prefill_chunk=SERVE["prefill_chunk"],
+                         load=SERVE_LOAD, vocab_size=vocab, seed=SEED,
+                         mixes=PREFIX_MIXES)
+
+
+def same_completions(name, got, ref, cfg, model, device):
+    """Every completion of ``got`` equal to the one of ``ref`` with its
+    rid, except that a stream may part from the reference where the
+    reference's top-2 logit gap (the plain f32 forward) is below 1e-4;
+    returns the parts."""
+    import torch
+    check(got.n_failed == ref.n_failed == 0 and
+          len(got.completions) == len(ref.completions),
+          f"{name}: {len(got.completions)} completions ({got.n_failed} "
+          f"failed) against {len(ref.completions)} ({ref.n_failed})")
+    want = {c.rid: c for c in ref.completions}
+    parted = []
+    for c in got.completions:
+        r = want[c.rid]
+        if c.tokens == r.tokens:
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(c.tokens, r.tokens))
+                  if a != b), min(len(c.tokens), len(r.tokens)))
+        p = len(c.prompt)
+        toks = torch.tensor([c.prompt + r.tokens], device=device)
+        gap = (top2_gap_of(cfg, model, toks, p)[0, j].item()
+               if j < len(r.tokens) else float("inf"))
+        check(j < min(len(c.tokens), len(r.tokens)) and gap < 1e-4,
+              f"{name}: rid {c.rid} parts at step {j} ({c.tokens[j:j + 3]} "
+              f"vs {r.tokens[j:j + 3]}), top-2 gap {gap}")
+        parted.append(dict(rid=c.rid, step=j, gap=gap))
+    return parted
+
+
+def run_block_probes(engine, trace):
+    """Two probe runs of ``engine``: one over ``trace[:4]`` under CUDA's
+    sync debug mode, counting the synchronising calls inside the tick
+    blocks (``program.step``) and in all; one over ``trace[:8]`` with its
+    tenth block under the profiler (idle share, device time by kernel)."""
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    program = engine.program
+    step, seen = program.step, {"in_step": 0}
+
+    def counted_step(weights, state):
+        n = len(caught)
+        out = step(weights, state)
+        seen["in_step"] += len(caught) - n
+        return out
+
+    program.step = counted_step
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            short = engine.run(trace[:4])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            program.step = step
+    n_warn = sum("synchroniz" in str(w.message) for w in caught)
+    out = dict(sync_debug=dict(warnings=n_warn, in_step=seen["in_step"],
+                               blocks=short.n_blocks,
+                               engine_count=short.host_syncs))
+    check(seen["in_step"] == 0 and short.host_syncs == short.n_blocks,
+          f"a tick block synchronised: {seen['in_step']} synchronising "
+          f"calls inside {short.n_blocks} blocks")
+
+    def profiled_step(weights, state):
+        seen["n"] = seen.get("n", 0) + 1
+        if seen["n"] != 10:
+            return step(weights, state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            res = step(weights, state)
+            torch.cuda.synchronize()
+            seen["wall"] = time.perf_counter() - t
+        seen["prof"] = prof
+        return res
+
+    program.step = profiled_step
+    try:
+        engine.run(trace[:8])
+    finally:
+        program.step = step
+    check("prof" in seen, "the profiled run ended before its tenth block")
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                         for e in seen["prof"].key_averages()
+                         if e.self_device_time_total > 0),
+                        key=lambda x: -x[1])
+    busy = sum(ms for _, ms, _ in per_kernel)
+    wall_ms = seen["wall"] * 1e3
+    out["profile"] = dict(
+        block_ticks=program.block_ticks, wall_ms=wall_ms,
+        device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+        top_kernels=[dict(name=n[:120], ms=ms, count=c)
+                     for n, ms, c in per_kernel[:12]])
+    return out
+
+
+def timed_serving(name, engine, trace, card):
+    """SERVE_REPS runs of ``trace`` after a warm-up, the median by wall
+    time summarised and printed, then the probes."""
+    engine.run(trace[:2])  # warm-up: first launches, allocator
+    reps = [engine.run(trace) for _ in range(SERVE_REPS)]
+    res = sorted(reps, key=lambda r: r.wall_s)[len(reps) // 2]
+    check(res.n_failed == 0, f"{name}: a request failed")
+    sm = serve_summary_line(name, res, card)
+    for key in ("pages_used", "page_fragmentation", "acceptance_series"):
+        sm.pop(key, None)
+    sm["walls"] = [r.wall_s for r in reps]
+    sm.update(run_block_probes(engine, trace))
+    extra = ""
+    if res.paged:
+        extra += (f"prefix hit rate {res.prefix_hit_rate}, peak pages_used "
+                  f"{max(n for _, n in res.pages_used)} of "
+                  f"{res.pages_capacity}, n_cow {res.n_cow}; ")
+    if res.speculative:
+        extra += (f"acceptance_rate {res.acceptance_rate:.4f}, "
+                  f"accepted_len_mean {res.accepted_len_mean:.4f}; ")
+    prof, dbg = sm["profile"], sm["sync_debug"]
+    print(f"    {extra}runs {[round(w, 3) for w in sm['walls']]} s; one "
+          f"block ({prof['block_ticks']} ticks) under the profiler: wall "
+          f"{prof['wall_ms']:.1f} ms, device {prof['device_busy_ms']:.1f} "
+          f"ms, idle share {prof['idle_share']:.3f}; sync debug mode: "
+          f"{dbg['warnings']} synchronising calls in {dbg['blocks']} blocks, "
+          f"{dbg['in_step']} inside them")
+    for k in prof["top_kernels"][:5]:
+        print(f"      {k['ms']:9.3f} ms  {k['count']:6d}x  {k['name'][:96]}")
+    return res, sm
+
+
+def phase_paged_spec(report, device="cuda"):
+    """Paged KV and speculative serving of Llama-3.2-1B (see the module
+    doc); returns the kernel launches of the f32 paged and speculative
+    runs (the engine attends its caches densely, as the JAX engine does,
+    so none is expected)."""
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    card = report["card"]
+    kernels = all_kernels()
+    cfg = llama_main_config()
+    g = torch.Generator(device=device).manual_seed(SEED)
+    model = port.init_params(cfg, g, device)
+    dcfg = port.llama_config("llama3.2-1b", n_layers=2)
+    draft = port.init_params(dcfg, torch.Generator(device=device)
+                             .manual_seed(SEED + 1), device)
+    paged = dict(paged=True, page_size=PAGE_SIZE)
+
+    def spec(dc):
+        return dict(speculative=True, gamma=SPEC_GAMMA, draft_cfg=dc)
+
+    def engine(c, graphs=True, draft_model=None, **mode):
+        program = port.make_serving_step_fn(c, D, device=device, **SERVE,
+                                            **mode)
+        if not graphs:
+            program.cuda_graphs = False
+        return port.ServingEngine(program, model, draft_params=draft_model)
+
+    poisson = port.synth_trace(SERVE_GATE_N, prompt_lens=SERVE_PROMPTS,
+                               out_lens=SERVE_OUTS,
+                               prefill_chunk=SERVE["prefill_chunk"],
+                               load=SERVE_LOAD, vocab_size=cfg.vocab_size,
+                               seed=SEED)
+    shared = prefix_trace(PREFIX_GATE_N, cfg.vocab_size)
+    res = dict(page_size=PAGE_SIZE, gamma=SPEC_GAMMA)
+    for k in kernels:
+        k.launches = 0
+
+    # (a) the f32 paged gate
+    dense = engine(cfg)
+    ref, ref_shared = dense.run(poisson), dense.run(shared)
+    del dense
+    eng = engine(cfg, **paged)
+    pmax, n_pages = eng.program.max_pages_per_slot, eng.program.n_pages
+    got = eng.run(poisson)
+    parted = same_completions("f32 paged vs contiguous", got, ref, cfg,
+                              model, device)
+    eng.paging.check_invariants()
+    got_shared = eng.run(shared)
+    parted_shared = same_completions("f32 paged vs contiguous, shared "
+                                     "prefixes", got_shared, ref_shared, cfg,
+                                     model, device)
+    check(got_shared.prefix_hit_rate > 0, "the shared-prefix trace hit no "
+          "cached prefix")
+    eng.paging.check_invariants()  # every page back in the pool or cache
+    res["paged_gate"] = dict(
+        pmax=pmax, n_pages=n_pages, parted=parted,
+        parted_shared=parted_shared, ticks=got.ticks, ticks_ref=ref.ticks,
+        shared_ticks=got_shared.ticks, shared_ticks_ref=ref_shared.ticks,
+        prefix_hit_rate=got_shared.prefix_hit_rate,
+        prefill_skipped_tokens=got_shared.prefill_skipped_tokens,
+        n_cow=got_shared.n_cow,
+        pages_used_max=max(n for _, n in got_shared.pages_used))
+    print(f"  f32 paged (page_size {PAGE_SIZE}, P_max {pmax}, {n_pages} "
+          f"pages): {SERVE_GATE_N} Poisson requests equal to contiguous "
+          f"({len(parted)} part at near-ties) in {got.ticks} ticks "
+          f"({ref.ticks}); {PREFIX_GATE_N} shared-prefix requests equal "
+          f"({len(parted_shared)} part) in {got_shared.ticks} ticks against "
+          f"{ref_shared.ticks}, prefix hit rate {got_shared.prefix_hit_rate}"
+          f", {got_shared.prefill_skipped_tokens} prefill tokens skipped, "
+          f"n_cow {got_shared.n_cow}, peak pages_used "
+          f"{res['paged_gate']['pages_used_max']}; the drained pool holds "
+          f"only cached pages [{card}]")
+
+    # (b) the f32 speculative gate, against the plain engine
+    gates = {}
+    for name, mode, dm, base in (
+            ("self-draft", spec(cfg), model, ref),
+            ("random 2-layer draft", spec(dcfg), draft, ref),
+            ("paged + self-draft", dict(paged, **spec(cfg)), model, ref)):
+        e = engine(cfg, draft_model=dm, **mode)
+        r = e.run(poisson)
+        gates[name] = dict(
+            parted=same_completions(f"f32 speculative, {name}", r, base,
+                                    cfg, model, device),
+            ticks=r.ticks, ticks_plain=base.ticks,
+            spec_verify_visits=r.spec_verify_visits,
+            acceptance_rate=r.acceptance_rate,
+            accepted_len_mean=r.accepted_len_mean)
+        check(r.spec_verify_visits > 0, f"{name}: no verify visit")
+        if dm is model:
+            check(r.ticks < base.ticks, f"{name} took {r.ticks} ticks, the "
+                  f"plain engine {base.ticks}")
+        print(f"  f32 speculative, {name} (gamma {SPEC_GAMMA}): equal to "
+              f"plain ({len(gates[name]['parted'])} part at near-ties), "
+              f"{r.ticks} ticks against {base.ticks}, "
+              f"{r.spec_verify_visits} verify visits, acceptance_rate "
+              f"{r.acceptance_rate:.4f}, accepted_len_mean "
+              f"{r.accepted_len_mean:.4f} [{card}]")
+        del e
+    res["spec_gate"] = gates
+
+    # the CUDA graphs against the same operations launched one by one
+    def stamps(r):
+        return [(c.rid, c.slot, c.first_token_tick, c.finish_tick, c.tokens)
+                for c in r.completions]
+
+    graph_check = {}
+    for name, mode, dm in (("paged", paged, None),
+                           ("speculative", spec(cfg), model),
+                           ("paged + speculative", dict(paged, **spec(cfg)),
+                            model)):
+        walls = {}
+        runs = {}
+        for graphs in (False, True):
+            r = engine(cfg, graphs, dm, **mode).run(poisson[:GRAPH_CHECK_N])
+            runs[graphs], walls[graphs] = r, r.wall_s
+        check(stamps(runs[False]) == stamps(runs[True]) and
+              runs[False].spec_accepted_tokens ==
+              runs[True].spec_accepted_tokens,
+              f"{name}: the CUDA graphs' completions differ from eager "
+              f"launches")
+        graph_check[name] = dict(eager_s=walls[False], graphs_s=walls[True])
+    res["graphs_vs_eager"] = graph_check
+    print(f"  f32 CUDA graphs equal eager launches on {GRAPH_CHECK_N} "
+          f"requests: " + "; ".join(
+              f"{n} {v['eager_s']:.2f} s eager, {v['graphs_s']:.2f} s graphs"
+              for n, v in graph_check.items()) + f" [{card}]")
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    res["launches"] = launches
+    print(f"  kernel launches in the f32 paged and speculative runs: "
+          f"{launches} (the engine attends its caches densely)")
+
+    # (c) bf16 timing: contiguous against paged on shared prefixes, plain
+    # against speculative on the Poisson trace
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="float32")
+    dcfg16 = dataclasses.replace(dcfg, dtype="bfloat16",
+                                 param_dtype="float32")
+    shared32 = prefix_trace(SERVE_TIME_N, cfg.vocab_size)
+    poisson32 = port.synth_trace(SERVE_TIME_N, prompt_lens=SERVE_PROMPTS,
+                                 out_lens=SERVE_OUTS,
+                                 prefill_chunk=SERVE["prefill_chunk"],
+                                 load=SERVE_LOAD, vocab_size=cfg.vocab_size,
+                                 seed=SEED)
+    timing = {}
+    for name, trace, mode, dm in (
+            ("contiguous, shared prefixes", shared32, {}, None),
+            ("paged, shared prefixes", shared32, paged, None),
+            ("plain", poisson32, {}, None),
+            ("speculative, self-draft", poisson32, spec(cfg16), model),
+            ("speculative, random draft", poisson32, spec(dcfg16), draft)):
+        e = engine(cfg16, draft_model=dm, **mode)
+        r, timing[name] = timed_serving(f"bf16 {name}", e, trace, card)
+        if r.paged:
+            timing[name].update(prefix_hit_rate=r.prefix_hit_rate,
+                                pages_used_max=max(
+                                    n for _, n in r.pages_used),
+                                n_cow=r.n_cow)
+        del e
+        torch.cuda.empty_cache()
+    res["timing"] = timing
+    report["paged_spec"] = res
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1134,6 +1463,9 @@ def main() -> int:
     print("[5] llama path: Llama-3.2-1B, 4 lockstep stages, decode and "
           "continuous-batching serving")
     llama_launches, serve_launches = phase_llama(report)
+    print("[6] paged KV and speculative serving: Llama-3.2-1B, 4 lockstep "
+          "stages")
+    paged_spec_launches = phase_paged_spec(report)
     report["seconds"] = time.perf_counter() - t0
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
@@ -1170,7 +1502,8 @@ def main() -> int:
                 "train": launches[name],
                 "decode": decode_launches.get(name, 0),
                 "llama_decode": llama_launches.get(name, 0),
-                "llama_serving": serve_launches.get(name, 0)}))
+                "llama_serving": serve_launches.get(name, 0),
+                "llama_paged_spec_serving": paged_spec_launches.get(name, 0)}))
         if name == "flash_fwd":
             r = main_shapes[("flash_fwd_llama", "bfloat16")]
             kernels[-1]["llama_prefill"] = {

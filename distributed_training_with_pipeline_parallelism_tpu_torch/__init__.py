@@ -15,8 +15,9 @@ package's. Ported so far:
 - the llama block family (``llama_config``: Llama-2/3/3.1/3.2, Mistral,
   Qwen2, Gemma) through all of the above;
 - continuous-batching serving (``serving``: ``make_serving_step_fn``,
-  ``ServingEngine``, the continuous-vs-static bench, load ramps, SLOs),
-  the dense path.
+  ``ServingEngine``, the continuous-vs-static bench, load ramps, SLOs):
+  the dense path, paged KV with a radix prefix cache (``paged=True``)
+  and speculative draft-verify decoding (``speculative=True``).
 
 Hand-written CUDA kernels (``csrc/``): flash-attention forward and
 backward (``flash_fwd.cu``, ``flash_bwd.cu``) and the fused cross-entropy

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..models.generate import (check_decode_args, layers_with_cache,
@@ -82,6 +83,28 @@ def _head_token(cfg: ModelConfig, model: Transformer, y_last: torch.Tensor,
     tok = sample(logits)
     lp = token_logprob(cfg, logits, tok) if return_logprobs else None
     return tok, lp
+
+
+def spec_accept_len(drafts, targets):
+    """Longest-matching-prefix acceptance of greedy speculative decoding
+    (the JAX ``spec_accept_len``; Leviathan et al., arXiv:2211.17192).
+
+    ``drafts`` [gamma]: the draft model's proposals; ``targets`` [>= gamma]:
+    the target's per-row argmaxes over the verify chunk, row ``i``
+    conditioned on the context through draft ``i``. Draft ``i`` is
+    accepted while ``drafts[i] == targets[i-1]`` (row 0's argmax is the
+    free token), so the result is ``1 +`` the length of the matching
+    prefix, in ``[1, gamma+1]``; ``targets[n - 1]`` is the token greedy
+    decoding emits at the first mismatch. Takes torch tensors (a 0-d
+    tensor back, on their device) or numpy arrays (a numpy integer)."""
+    if isinstance(drafts, torch.Tensor) or isinstance(targets, torch.Tensor):
+        drafts = torch.as_tensor(drafts)
+        targets = torch.as_tensor(targets, device=drafts.device)
+        hit = drafts == targets[:drafts.shape[0]]
+        return 1 + torch.cumprod(hit.long(), 0).sum()
+    drafts = np.asarray(drafts)
+    hit = drafts == np.asarray(targets)[:drafts.shape[0]]
+    return 1 + np.cumprod(hit.astype(np.int64)).sum()
 
 
 def make_pipeline_generate_fn(cfg: ModelConfig, n_stages: int,

@@ -3,21 +3,26 @@ port's counterpart of the JAX package's ``serving``).
 
 :mod:`.engine`: the slot-level program (a fixed-shape tick block over D
 stages) and the host scheduler that admits, retires and refills slots
-between blocks. :mod:`.bench`: the continuous-vs-static comparison on a
-Poisson trace. :mod:`.loadgen`: seeded workload mixes and offered-load
-ramps. :mod:`.slo`: SLO targets, attainment, and the saturation knee.
-Paged KV and speculative serving (the JAX ``paging`` module and modes)
-are not ported yet.
+between blocks, with its paged-KV and speculative modes. :mod:`.paging`:
+the host-side page allocator with its radix prefix cache. :mod:`.bench`:
+the continuous-vs-static comparison on a Poisson trace. :mod:`.loadgen`:
+seeded workload mixes and offered-load ramps. :mod:`.slo`: SLO targets,
+attainment, and the saturation knee. The JAX ``bench`` module's
+paged-vs-contiguous and speculative benchmarks wait for the cost and
+memory models (``ROADMAP.md`` Queue 1, item 12).
 """
 
 from .bench import run_serve_bench, synth_trace
 from .engine import (Completion, Request, ServeResult, ServingEngine,
                      ServingProgram, make_serving_step_fn)
 from .loadgen import WORKLOAD_MIXES, make_workload, sweep_offered_load
+from .paging import (AdmissionPlan, PagedKVAllocator, PagePool,
+                     RadixPrefixCache, pages_for)
 from .slo import SLOSpec, find_knee, serving_load_section, slo_attainment
 
 __all__ = ["Completion", "Request", "ServeResult", "ServingEngine",
            "ServingProgram", "make_serving_step_fn", "run_serve_bench",
            "synth_trace", "WORKLOAD_MIXES", "make_workload",
            "sweep_offered_load", "SLOSpec", "find_knee",
-           "serving_load_section", "slo_attainment"]
+           "serving_load_section", "slo_attainment", "AdmissionPlan",
+           "PagePool", "PagedKVAllocator", "RadixPrefixCache", "pages_for"]

@@ -1,5 +1,7 @@
 """Slot-level continuous batching over the lockstep pipelined decoder
-(counterpart of the JAX package's ``serving/engine.py``, its dense path).
+(counterpart of the JAX package's ``serving/engine.py``: the dense path,
+paged KV with a radix prefix cache, and speculative draft-verify
+decoding).
 
 The static decoder (:mod:`..parallel.pipelined_decode`) round-robins
 ``M >= D`` streams that start and drain together. Here each stream is a
@@ -9,7 +11,7 @@ The static decoder (:mod:`..parallel.pipelined_decode`) round-robins
   ``step`` advances the ring by ``block_ticks`` ticks (default M). Every
   shape is fixed: per-stage caches ``[lps, M, max_len + C - 1, Hkv, hd]``
   (llama keeps its ``n_kv_heads`` there; GQA heads are expanded only at
-  attention time), a C-row chunk per visit, a ``[M, 6 + out_max]`` int64
+  attention time), a C-row chunk per visit, a ``[M, 12 + out_max]`` int64
   slot table on the device. ``C - 1`` extra cache rows absorb the junk
   tail of a C-wide write at the last legal offset, so a write never
   clamps.
@@ -54,15 +56,52 @@ schedule split by what it depends on:
   in rows that a later occupant overwrites before it can see them (the
   same discipline as the junk rows), and they bank nothing.
 
+**Paged KV** (``paged=True``): each stage's caches become one page pool
+``[lps, n_pages, page_size, Hkv, hd]`` and the slot's rows are found
+through its row of a ``[M, P_max]`` page table on the device, filled by
+the host's :class:`.paging.PagedKVAllocator` (radix prefix reuse,
+copy-on-write of the one page a request diverges inside, backpressure
+when the pool is short). A visit writes its C rows into the pages that
+hold them and attends the slot's pages gathered into a positionally
+contiguous view of ``P_max * page_size`` rows. The JAX block scatters
+the whole gathered view back; the rows outside the visit's are the
+pages' own bytes, so writing only the visit's rows gives the same pool
+and never writes a shared page. A visit carries the page row it was
+served with, zeroed (all null page) when its slot had already finished,
+so a visit in flight past its slot's retirement writes only the null
+page. Queued copy-on-write copies run at block entry, before any tick.
+
+**Speculative decoding** (``speculative=True``): a draft model, whole
+and replicated, runs on stage 0 with its own contiguous caches. A visit
+is one of three kinds: a prefill chunk (the draft catches up over the
+same prompt), a catch-up decode (the draft's frontier trails the
+target's, after a paged prefix skip: the draft reads up to C tokens, the
+target decodes one), or a verify (the draft proposes ``gamma`` greedy
+tokens, which ride in the target's C-wide chunk; the last stage takes
+the per-row argmaxes and :func:`..parallel.pipelined_decode.
+spec_accept_len` banks ``n_accepted`` tokens at once). Rejected rows lie
+past the frontier and are rolled back by overwrite. Here the frontiers
+``pos``/``dpos``, the acceptance counters and the budget test are device
+columns of the slot table (they depend on ``n_accepted``); the host keeps
+the prefill chunks and ``live``, and foresees the visit kind: before a
+slot's first verify its frontiers move by amounts the host knows, and
+from it on both advance by ``n_accepted`` together, so every later
+decode visit is a verify. The device checks that foresight on every
+visit (the JAX test ``dpos >= pos``) and flags a miss in the table,
+which the host raises on. A served slot that already finished runs a
+masked visit at an offset clamped into its own rows; it banks nothing.
+
+On a CUDA device each stage's visit, the head, the verify head and the
+draft's two turns (the catch-up chunk; the gamma single-token steps with
+their heads) are CUDA graphs captured in ``prepare``; they read their
+slot, positions and page row from static device buffers.
+
 One slot table on one card replaces the JAX stage-0 tables and their
 replication at the block end. ``ServeResult.host_syncs`` counts the
-blocking reads (one per block).
-
-Paged KV (``paged=True``), speculative decoding, tensor parallelism, a
-``RunReport`` and a ``FaultPlan`` raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` items. Admission refuses a prompt token outside the
-vocabulary (a failed completion): the JAX gather clamps it, a CUDA
-embedding would fault.
+blocking reads (one per block). Tensor parallelism, a ``RunReport`` and a
+``FaultPlan`` raise ``NotImplementedError`` naming their ``ROADMAP.md``
+items. Admission refuses a prompt token outside the vocabulary (a failed
+completion): the JAX gather clamps it, a CUDA embedding would fault.
 """
 
 from __future__ import annotations
@@ -81,16 +120,18 @@ from ..models.transformer import (Transformer, compute_cast, embed_apply,
                                   head_apply, rope_table)
 from ..ops.attention import Rope
 from ..parallel.pipeline import stack_stage_layers
+from ..parallel.pipelined_decode import spec_accept_len
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
+from .paging import PagedKVAllocator
 
-# columns of the device slot table; out_buf follows them
-_TOK, _EMITTED, _FINISHED, _T_FIRST, _T_FINISH, _BUDGET = range(6)
-_NCOL = 6
+# columns of the device slot table; out_buf follows them. POS, DPOS and
+# PLEN and the acceptance counters serve the paged and speculative modes;
+# ERR counts visits whose kind the host foresaw wrongly
+(_TOK, _EMITTED, _FINISHED, _T_FIRST, _T_FINISH, _BUDGET, _POS, _DPOS,
+ _PLEN, _SPEC_VISITS, _SPEC_ACC, _ERR) = range(12)
+_NCOL = 12
 
 _NOT_PORTED = {
-    "paged": "ROADMAP.md Queue 1, item 0 (paged KV and speculative serving)",
-    "speculative": "ROADMAP.md Queue 1, item 0 (paged KV and speculative "
-                   "serving)",
     "tp": "ROADMAP.md Queue 1, item 11 (tensor parallelism)",
     "report": "ROADMAP.md Queue 1, item 12 (observability: RunReport)",
     "fault_plan": "ROADMAP.md Queue 1, item 6 (resilience: FaultPlan)",
@@ -161,7 +202,15 @@ class ServeResult:
     block boundary as ``(tick, n)`` (plus a ``(tick, 0)`` sample at every
     idle fast-forward), the ticks the ring advanced, the ticks it was
     busy, and the host wall-clock of the run. ``n_blocks`` and
-    ``host_syncs`` (blocking device-to-host reads) are the port's own."""
+    ``host_syncs`` (blocking device-to-host reads) are the port's own.
+
+    Paged runs add the page gauges: ``pages_used`` and
+    ``page_fragmentation`` as ``(tick, value)`` series at the same
+    boundaries, the token-weighted ``prefix_hit_rate``, the prefill
+    tokens the cache skipped, the COW copies and the admissions deferred
+    by a short pool. Speculative runs add the verify visits and accepted
+    proposals summed over the completions and the running acceptance
+    rate at each boundary."""
     completions: List[Completion]
     occupancy: List[Any]
     ticks: int
@@ -170,8 +219,37 @@ class ServeResult:
     policy: str
     queue_depth: List[Any] = dataclasses.field(default_factory=list)
     busy_ticks: int = 0
+    paged: bool = False
+    pages_capacity: int = 0
+    pages_used: List[Any] = dataclasses.field(default_factory=list)
+    page_fragmentation: List[Any] = dataclasses.field(default_factory=list)
+    prefix_hit_rate: Optional[float] = None
+    prefill_skipped_tokens: int = 0
+    n_cow: int = 0
+    n_backpressure: int = 0
+    speculative: bool = False
+    gamma: int = 0
+    spec_verify_visits: int = 0
+    spec_accepted_tokens: int = 0
+    acceptance_series: List[Any] = dataclasses.field(default_factory=list)
     n_blocks: int = 0
     host_syncs: int = 0
+
+    @property
+    def acceptance_rate(self) -> Optional[float]:
+        """Accepted proposals over offered ones, ``sum(n_acc - 1) /
+        (gamma * verify_visits)``; None before a verify visit."""
+        if not (self.speculative and self.gamma and self.spec_verify_visits):
+            return None
+        return self.spec_accepted_tokens / (self.gamma
+                                            * self.spec_verify_visits)
+
+    @property
+    def accepted_len_mean(self) -> Optional[float]:
+        """Mean tokens banked per verify visit, in ``[1, gamma+1]``."""
+        if not (self.speculative and self.spec_verify_visits):
+            return None
+        return 1.0 + self.spec_accepted_tokens / self.spec_verify_visits
 
     @property
     def tokens_out(self) -> int:
@@ -199,19 +277,25 @@ class ServeResult:
 
 class _Visit(NamedTuple):
     """One slot visit riding the ring: slot, the slot's admission count
-    when it was served, first position, valid rows, whether its last valid
-    row is a sampling position, the device flag that the slot was live
-    when stage 0 served it (None without an EOS: the host then knows it),
-    the input or hidden state (None at stage 0 under CUDA graphs: the
-    graph reads its token buffer), and the sampled token."""
+    when it was served, first position (an int, or a [1] device tensor in
+    speculative mode), valid rows, whether its last valid row is a
+    sampling position, the device flag that the slot was live when stage 0
+    served it (None when the host knows it), the input or hidden state
+    (None at stage 0 under CUDA graphs: the graph reads its token buffer),
+    the sampled token(s), the kind (``"pre"``, ``"dec"`` or ``"ver"``),
+    the page-table row it was served with (paged), and the draft's
+    proposals (a verify)."""
     g: int
     epoch: int
-    offset: int
+    offset: Any
     s_valid: int
     sample: bool
     act: Optional[torch.Tensor]
     h: Optional[torch.Tensor]
     tok: Optional[torch.Tensor] = None
+    kind: str = "dec"
+    pt: Optional[torch.Tensor] = None
+    drafts: Optional[torch.Tensor] = None
 
 
 class _Graph:
@@ -239,27 +323,77 @@ class _Weights(NamedTuple):
     model: Transformer  # in the compute dtype
     stages: List        # D layer slices
     rope: Any           # the RoPE table of mlen_alloc rows (None: GPT-2)
-    graphs: Optional[List[_Graph]] = None  # D stage visits, then the head
+    graphs: Optional[Dict[str, Any]] = None  # "stages", "head", ... graphs
+    draft: Optional[Transformer] = None  # speculative: in its compute dtype
+    drope: Any = None   # the draft's RoPE table
+
+
+def _apply_layers(cfg: ModelConfig, layers, h: torch.Tensor,
+                  kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
+                  rope: Optional[Rope], slot: torch.Tensor,
+                  pt: Optional[torch.Tensor],
+                  ar_t: torch.Tensor) -> torch.Tensor:
+    """A layer slice on one visit: h [1, S, dim] at positions ``pos``
+    [S]. Writes the rows' k/v into the cache and attends the slot's
+    cache under the band at those positions (the JAX
+    ``_slot_cache_apply``, or ``_paged_cache_apply`` when ``pt`` is the
+    slot's page-table row [P_max]: the rows go to (page, row in page)
+    and the attention reads the slot's pages gathered in table order, a
+    view of ``P_max * page_size`` rows). Caches: [L, M, T, Hkv, hd]
+    contiguous, [L, n_pages, page_size, Hkv, hd] paged; ``ar_t`` is
+    ``arange`` of the rows the attention sees."""
+    rope_at = None if rope is None else Rope(
+        rope.cos.index_select(0, pos), rope.sin.index_select(0, pos))
+    mask = pos[:, None] >= ar_t[None, :]
+    if cfg.sliding_window is not None:
+        mask &= pos[:, None] - ar_t[None, :] < cfg.sliding_window
+    if pt is None:
+        rows = (slot.expand(pos.shape[0]), pos)
+    else:
+        ps = kc.shape[2]
+        rows = (pt.index_select(0, pos // ps), pos % ps)
+    for i, block in enumerate(layers):
+        kl, vl = kc[i], vc[i]
+        q, k, v = block.qkv(cfg, block.attn_norm(h), rope_at)
+        kl.index_put_(rows, k[0].to(kl.dtype))
+        vl.index_put_(rows, v[0].to(vl.dtype))
+        if pt is None:
+            ks, vs = kl.index_select(0, slot), vl.index_select(0, slot)
+        else:
+            ks = kl.index_select(0, pt).view(1, -1, *kl.shape[2:])
+            vs = vl.index_select(0, pt).view(1, -1, *vl.shape[2:])
+        att = _attend_cached(q, ks, vs, 0, cfg.n_heads, mask=mask)
+        h = block.mlp(h + block.proj(att))
+    return h
+
+
+def _greedy(cfg: ModelConfig, model: Transformer,
+            y: torch.Tensor) -> torch.Tensor:
+    """Greedy tokens [N] of hidden rows y [N, dim]."""
+    return torch.argmax(head_apply(cfg, model, y), dim=-1)
 
 
 class ServingProgram:
     """The tick block and its fixed configuration. Built by
     :func:`make_serving_step_fn`; drive it through :class:`ServingEngine`
-    (or ``prepare(model)``, ``init_state()`` and ``step(weights,
+    (or ``prepare(model[, draft])``, ``init_state()`` and ``step(weights,
     state)``). The program owns the device buffers (caches, slot table,
-    the visits' inputs), so one engine at a time runs on it.
+    page table, the visits' inputs), so one engine at a time runs on it.
 
-    A stage visit reads its slot and positions from device tensors, so on
-    a CUDA device each stage's visit, and the head, is one CUDA graph,
-    captured by ``prepare`` and replayed for every visit; on the CPU they
-    run eagerly. ``cuda_graphs = False`` before ``prepare`` launches the
-    same operations one by one on the card too (``chip_smoke.py`` holds
-    the graphs to that)."""
+    A stage visit reads its slot, positions and page row from device
+    tensors, so on a CUDA device each stage's visit, the heads and the
+    draft's turns are CUDA graphs, captured by ``prepare`` and replayed
+    for every visit; on the CPU they run eagerly. ``cuda_graphs = False``
+    before ``prepare`` launches the same operations one by one on the
+    card too (``chip_smoke.py`` holds the graphs to that)."""
 
     def __init__(self, cfg: ModelConfig, *, n_stages: int, n_slots: int,
                  max_len: int, prompt_max: int, out_max: int,
                  prefill_chunk: int, block_ticks: int,
-                 eos_id: Optional[int], device: torch.device) -> None:
+                 eos_id: Optional[int], device: torch.device,
+                 paged: bool = False, page_size: int = 0, n_pages: int = 0,
+                 speculative: bool = False, gamma: int = 0,
+                 draft_cfg: Optional[ModelConfig] = None) -> None:
         self.cfg = cfg
         self.n_stages = n_stages
         self.n_slots = n_slots
@@ -270,6 +404,12 @@ class ServingProgram:
         self.block_ticks = block_ticks
         self.eos_id = eos_id
         self.device = device
+        self.paged = paged
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.speculative = speculative
+        self.gamma = gamma
+        self.draft_cfg = draft_cfg
         self.cuda_graphs = device.type == "cuda"
         self._buf: Optional[Dict[str, Any]] = None
 
@@ -279,11 +419,21 @@ class ServingProgram:
         write at the last legal offset."""
         return self.max_len + self.prefill_chunk - 1
 
+    @property
+    def max_pages_per_slot(self) -> int:
+        """Static page-table width: pages to cover ``mlen_alloc`` rows."""
+        if not self.paged:
+            return 0
+        return -(-self.mlen_alloc // self.page_size)
+
     def _buffers(self) -> Dict[str, Any]:
         """The device buffers, allocated at first use: per-stage caches
-        [lps, M, mlen_alloc, Hkv, hd], the slot table, the prompt buffer,
-        and the visits' inputs (a token row, each stage's positions and
-        slot, the head's row)."""
+        ([lps, M, mlen_alloc, Hkv, hd], or the page pools [lps, n_pages,
+        page_size, Hkv, hd] and the page table), the slot table, the
+        prompt buffer, the visits' inputs (a token row, each stage's
+        positions, slot and page row, the head's row), and in speculative
+        mode the draft's caches [L_draft, M, mlen_alloc, Hkv, hd], its
+        slot and prefill flag, and the verify head's proposals."""
         if self._buf is None:
             cfg, D, M, C = self.cfg, self.n_stages, self.n_slots, \
                 self.prefill_chunk
@@ -292,94 +442,179 @@ class ServingProgram:
             def longs(*shape):
                 return torch.zeros(shape, dtype=torch.long, device=dev)
 
-            shape = (cfg.n_layers // D, M, self.mlen_alloc, cfg.kv_heads,
-                     cfg.head_dim)
-            dt = torch_dtype(cfg.dtype)
+            def caches(c, shape):
+                return [torch.zeros(shape, dtype=torch_dtype(c.dtype),
+                                    device=dev) for _ in range(D)]
+
+            lps = cfg.n_layers // D
+            kv = (cfg.kv_heads, cfg.head_dim)
+            if self.paged:
+                pmax = self.max_pages_per_slot
+                shape = (lps, self.n_pages, self.page_size) + kv
+                n_rows = pmax * self.page_size
+            else:
+                shape = (lps, M, self.mlen_alloc) + kv
+                n_rows = self.mlen_alloc
             self._buf = {
-                "kc": [torch.zeros(shape, dtype=dt, device=dev)
-                       for _ in range(D)],
-                "vc": [torch.zeros(shape, dtype=dt, device=dev)
-                       for _ in range(D)],
+                "kc": caches(cfg, shape), "vc": caches(cfg, shape),
                 "slots": longs(M, _NCOL + self.out_max),
                 "prompt_buf": longs(M, self.prompt_max + C - 1),
                 "pad": longs(C - 1),
                 "ar_c": torch.arange(C, device=dev),
-                "ar_t": torch.arange(self.mlen_alloc, device=dev),
+                "ar_t": torch.arange(n_rows, device=dev),
                 "tok_in": longs(1, C),
                 "pos": [longs(C) for _ in range(D)],
                 "slot": [longs(1) for _ in range(D)],
                 "row": longs(1),
             }
+            if self.paged:
+                self._buf["page_tbl"] = longs(M, pmax)
+                self._buf["pt"] = [longs(pmax) for _ in range(D)]
+            if self.speculative:
+                dc = self.draft_cfg
+                dshape = (dc.n_layers, M, self.mlen_alloc, dc.kv_heads,
+                          dc.head_dim)
+                self._buf.update(
+                    dkc=caches(dc, dshape)[0], dvc=caches(dc, dshape)[0],
+                    ar_m=torch.arange(self.mlen_alloc, device=dev),
+                    ar_g=torch.arange(self.gamma + 1, device=dev),
+                    ar_out=torch.arange(self.out_max, device=dev),
+                    dslot=longs(1), dpre=longs(1),
+                    vdrafts=longs(self.gamma))
         return self._buf
 
+    # -- the visits (each one CUDA graph on a card) ----------------------
+
     def _stage(self, w: _Weights, d: int, x: torch.Tensor,
-               pos: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+               pos: torch.Tensor, slot: torch.Tensor,
+               pt: Optional[torch.Tensor]) -> torch.Tensor:
         """Stage d's layers on one visit: x is the [1, C] token row at
         stage 0 (embedded here) and the [1, C, dim] hidden state after it;
-        ``pos`` [C] the rows' positions, ``slot`` [1] the slot. Writes the
-        rows' k/v into the slot's cache and attends the whole slot cache
-        under the band at those positions (the JAX ``_slot_cache_apply``)."""
+        ``pos`` [C] the rows' positions, ``slot`` [1] the slot, ``pt`` its
+        page-table row (paged)."""
         cfg, b = self.cfg, self._buffers()
         h = embed_apply(cfg, w.model, x, pos) if d == 0 else x
-        rope = None if w.rope is None else Rope(
-            w.rope.cos.index_select(0, pos), w.rope.sin.index_select(0, pos))
-        mask = pos[:, None] >= b["ar_t"][None, :]
-        if cfg.sliding_window is not None:
-            mask &= pos[:, None] - b["ar_t"][None, :] < cfg.sliding_window
-        rows = (slot.expand(pos.shape[0]), pos)
-        for i, block in enumerate(w.stages[d]):
-            kc, vc = b["kc"][d][i], b["vc"][d][i]
-            q, k, v = block.qkv(cfg, block.attn_norm(h), rope)
-            kc.index_put_(rows, k[0].to(kc.dtype))
-            vc.index_put_(rows, v[0].to(vc.dtype))
-            att = _attend_cached(q, kc.index_select(0, slot),
-                                 vc.index_select(0, slot), 0, cfg.n_heads,
-                                 mask=mask)
-            h = block.mlp(h + block.proj(att))
-        return h
+        return _apply_layers(cfg, w.stages[d], h, b["kc"][d], b["vc"][d],
+                             pos, w.rope, slot, pt, b["ar_t"])
 
     def _head(self, w: _Weights, y: torch.Tensor,
               row: torch.Tensor) -> torch.Tensor:
         """The greedy token [1] of row ``row`` [1] of the last stage's
         hidden state y [1, C, dim]."""
-        logits = head_apply(self.cfg, w.model, y.index_select(1, row)[:, 0])
-        return torch.argmax(logits, dim=-1)
+        return _greedy(self.cfg, w.model, y.index_select(1, row)[:, 0])
+
+    def _verify_head(self, w: _Weights, y: torch.Tensor,
+                     drafts: torch.Tensor) -> torch.Tensor:
+        """A verify visit's head: the argmaxes of rows 0..gamma of y and
+        the accepted length, as [gamma + 2]."""
+        ys = _greedy(self.cfg, w.model, y[0, :self.gamma + 1])
+        return torch.cat([ys, spec_accept_len(drafts, ys).view(1)])
+
+    def _draft_row(self):
+        """The served slot [1], its slot-table row, and the draft's
+        frontier clamped into the slot's rows (a finished slot's frontier
+        can lie past them; an active slot's never does; the graphs'
+        warm-up runs on an empty row)."""
+        b = self._buffers()
+        g = b["dslot"]
+        row = b["slots"].index_select(0, g)[0]
+        dp = torch.minimum(row[_DPOS], row[_PLEN] + row[_BUDGET] - 1)
+        return g, row, dp.clamp(min=0)
+
+    def _draft_catchup(self, w: _Weights) -> torch.Tensor:
+        """The draft's turn on a prefill or catch-up visit: up to C tokens
+        from its frontier, read from the prompt and then the banked
+        output, through the draft's layers; the frontier advances to the
+        prompt's end (prefill) or past the slot's last banked token, by
+        at most C, if the slot is live."""
+        b, C, dc = self._buffers(), self.prefill_chunk, self.draft_cfg
+        g, row, dp = self._draft_row()
+        dp0, plen = row[_DPOS], row[_PLEN]
+        hi = torch.where(b["dpre"][0] == 1, plen, row[_POS] + 1)
+        dn = (hi - dp0).clamp(min=0, max=C)
+        pp = dp + b["ar_c"]
+        prompt = b["prompt_buf"].index_select(0, g)[0]
+        from_prompt = prompt.index_select(0, pp.clamp(max=prompt.numel() - 1))
+        from_out = row[_NCOL:].index_select(
+            0, (pp - plen).clamp(min=0, max=self.out_max - 1))
+        toks = torch.where(pp < plen, from_prompt, from_out)[None]
+        h = embed_apply(dc, w.draft, toks, pp)
+        _apply_layers(dc, w.draft.layers, h, b["dkc"], b["dvc"], pp, w.drope,
+                      g, None, b["ar_m"])
+        new = torch.where(row[_FINISHED] == 0, dp0 + dn, dp0)
+        b["slots"].index_put_((g, g.new_full((1,), _DPOS)), new.view(1))
+        return dn
+
+    def _draft_propose(self, w: _Weights) -> torch.Tensor:
+        """The draft's turn on a verify visit: ``gamma`` greedy
+        single-token steps from the slot's last banked token at its
+        frontier; the proposals [gamma]."""
+        b, dc = self._buffers(), self.draft_cfg
+        g, row, dp = self._draft_row()
+        t, toks = row[_TOK:_TOK + 1], []
+        for i in range(self.gamma):
+            pos = (dp + i).view(1)
+            h = embed_apply(dc, w.draft, t[None], pos)
+            h = _apply_layers(dc, w.draft.layers, h, b["dkc"], b["dvc"], pos,
+                              w.drope, g, None, b["ar_m"])
+            t = _greedy(dc, w.draft, h[:, 0])
+            toks.append(t)
+        return torch.cat(toks)
 
     @torch.no_grad()
-    def prepare(self, model: Transformer) -> _Weights:
+    def prepare(self, model: Transformer,
+                draft: Optional[Transformer] = None) -> _Weights:
         """The model in the compute dtype, split over the stages, its RoPE
-        table, and on a CUDA device the visits' graphs (once per weights,
-        not per block)."""
+        table, the draft (speculative) in its compute dtype, and on a CUDA
+        device the visits' graphs (once per weights, not per block)."""
         model_on(model, self.device)
         model_c = compute_cast(self.cfg, model)
         stages = [chunks[0] for chunks in
                   stack_stage_layers(model_c.layers, self.n_stages)]
         w = _Weights(model_c, stages,
                      rope_table(self.cfg, self.mlen_alloc, self.device))
+        if self.speculative:
+            if draft is None:
+                raise ValueError("speculative programs need draft_params "
+                                 "(the draft model)")
+            model_on(draft, self.device)
+            w = w._replace(draft=compute_cast(self.draft_cfg, draft),
+                           drope=rope_table(self.draft_cfg, self.mlen_alloc,
+                                            self.device))
         if not self.cuda_graphs:
             return w
-        b = self._buffers()
-        graphs, x = [], b["tok_in"]
+        b, dev = self._buffers(), self.device
+        graphs: Dict[str, Any] = {"stages": []}
+        x = b["tok_in"]
         for d in range(self.n_stages):  # stage d reads stage d-1's output
-            graphs.append(_Graph(functools.partial(
-                self._stage, w, d, x, b["pos"][d], b["slot"][d]),
-                self.device))
-            x = graphs[-1].out
-        graphs.append(_Graph(functools.partial(self._head, w, x, b["row"]),
-                             self.device))
+            graphs["stages"].append(_Graph(functools.partial(
+                self._stage, w, d, x, b["pos"][d], b["slot"][d],
+                b["pt"][d] if self.paged else None), dev))
+            x = graphs["stages"][-1].out
+        graphs["head"] = _Graph(functools.partial(self._head, w, x, b["row"]),
+                                dev)
+        if self.speculative:
+            graphs["verify"] = _Graph(functools.partial(
+                self._verify_head, w, x, b["vdrafts"]), dev)
+            graphs["catchup"] = _Graph(
+                functools.partial(self._draft_catchup, w), dev)
+            graphs["propose"] = _Graph(
+                functools.partial(self._draft_propose, w), dev)
         return w._replace(graphs=graphs)
 
     def init_state(self) -> Dict[str, Any]:
-        """Zeroed caches, a fresh slot table and prompt buffer on the
-        device; the host's schedule arrays; an empty ring."""
+        """Zeroed caches, a fresh slot table, prompt buffer and page table
+        on the device; the host's schedule arrays; an empty ring."""
         b = self._buffers()
-        for t in b["kc"] + b["vc"] + [b["slots"], b["prompt_buf"]]:
+        for t in b["kc"] + b["vc"] + [b[k] for k in (
+                "dkc", "dvc", "slots", "prompt_buf", "page_tbl") if k in b]:
             t.zero_()
         b["slots"][:, _T_FIRST] = -1
         b["slots"][:, _T_FINISH] = -1
         M = self.n_slots
         return {
             "u": 0, "slots": b["slots"], "prompt_buf": b["prompt_buf"],
+            "page_tbl": b.get("page_tbl"),
             "pos": np.zeros(M, np.int64),
             "prefill_left": np.zeros(M, np.int64),
             "plen": np.zeros(M, np.int64),
@@ -387,6 +622,10 @@ class ServingProgram:
             "emitted_pred": np.zeros(M, np.int64),
             "epoch": np.zeros(M, np.int64),
             "live": np.zeros(M, bool),
+            # speculative: the frontiers while the host still foresees
+            # them (before the slot's first verify), and whether it began
+            "dpos": np.zeros(M, np.int64),
+            "verifying": np.zeros(M, bool),
             "chan": [None] * self.n_stages,
         }
 
@@ -398,12 +637,14 @@ class ServingProgram:
             self._tick(weights, state)
         return state
 
+    # -- banking (stage 0, before it serves) -----------------------------
+
     def _bank(self, st: Dict[str, Any], v: _Visit, u: int) -> None:
         """Stage 0 banks visit ``v``'s token into its slot's row: out_buf,
         the stamps, ``emitted``, ``finished`` (budget or EOS) and the
         slot's next input token, all on the device; masked by ``v.act``."""
         row = st["slots"][v.g]
-        head = row[:_NCOL]
+        head = row[:_BUDGET + 1]
         tk = v.tok[0]
         em = head[_EMITTED]
         fin = em + 1 >= head[_BUDGET]
@@ -421,15 +662,56 @@ class ServingProgram:
             row.scatter_(0, at, torch.where(v.act, v.tok, row.gather(0, at)))
             head.copy_(torch.where(v.act, new, head))
 
+    def _bank_verify(self, st: Dict[str, Any], v: _Visit, u: int) -> None:
+        """Stage 0 banks a verify visit: up to ``n_accepted`` of the rows'
+        argmaxes, in order, stopping after the one that spends the budget
+        or is EOS (the JAX loop over ``gamma + 1``, vectorised); both
+        frontiers advance by ``n_accepted`` and the acceptance counters
+        count the visit. Masked by ``v.act``."""
+        b, G = self._buffers(), self.gamma
+        row = st["slots"][v.g]
+        ys, n_acc = v.tok[:G + 1], v.tok[G + 1].clamp(1, G + 1)
+        em0, k = row[_EMITTED], b["ar_g"]
+        valid = k < n_acc
+        fin_tok = em0 + k + 1 >= row[_BUDGET]
+        if self.eos_id is not None:
+            fin_tok = fin_tok | (ys == self.eos_id)
+        stop = (valid & fin_tok).long()
+        do = valid & (torch.cumsum(stop, 0) - stop == 0)
+        n = do.sum()
+        fin = (do & fin_tok).any()
+        at = b["ar_out"] - em0
+        out = torch.where((at >= 0) & (at < n),
+                          ys.index_select(0, at.clamp(0, G)), row[_NCOL:])
+        last = ys.index_select(0, (n - 1).clamp(min=0).view(1))[0]
+        new = torch.stack([
+            last, em0 + n,
+            torch.maximum(row[_FINISHED], fin.long()),
+            torch.where(em0 == 0, u, row[_T_FIRST]),
+            torch.where(fin, u, row[_T_FINISH]), row[_BUDGET],
+            row[_POS] + n_acc, row[_DPOS] + n_acc, row[_PLEN],
+            row[_SPEC_VISITS] + 1, row[_SPEC_ACC] + n_acc - 1, row[_ERR]])
+        row.copy_(torch.where(v.act, torch.cat([new, out]), row))
+
+    # -- serving (stage 0) -----------------------------------------------
+
     def _serve(self, w: _Weights, st: Dict[str, Any], u: int
                ) -> Optional[_Visit]:
         """Stage 0's visit of slot ``u mod M``, or None when the host knows
-        the slot idle (not live, or its budget spent)."""
+        the slot idle (not live, or, unless speculative, its budget
+        spent)."""
         g = u % self.n_slots
-        if not st["live"][g] or st["emitted_pred"][g] >= st["budget"][g]:
+        if not st["live"][g] or (not self.speculative and
+                                 st["emitted_pred"][g] >= st["budget"][g]):
             return None
-        C = self.prefill_chunk
-        off, pleft = int(st["pos"][g]), int(st["prefill_left"][g])
+        b, C = self._buffers(), self.prefill_chunk
+        row = st["slots"][g]
+        act = (None if self.eos_id is None and not self.speculative
+               else row[_FINISHED] == 0)
+        pleft = int(st["prefill_left"][g])
+        if self.speculative:
+            return self._serve_spec(w, st, g, row, act, pleft)
+        off = int(st["pos"][g])
         if pleft > 0:  # the next prompt chunk
             s_valid, sample = min(pleft, C), pleft <= C
             start = int(st["plen"][g]) - pleft
@@ -437,33 +719,116 @@ class ServingProgram:
             st["prefill_left"][g] = pleft - s_valid
         else:  # the last banked token, then C-1 junk rows
             s_valid, sample = 1, True
-            toks = torch.cat([st["slots"][g, _TOK:_TOK + 1],
-                              self._buffers()["pad"]])
+            toks = torch.cat([row[_TOK:_TOK + 1], b["pad"]])
         st["pos"][g] = off + s_valid
-        act = (None if self.eos_id is None
-               else st["slots"][g, _FINISHED] == 0)
+        pt = None
+        if self.paged:  # the device frontier, for the allocator's ledger
+            self._advance_pos(row, act, s_valid)
+            pt = self._page_row(st, g, act)
+        return self._visit(w, st, g, off, s_valid, sample, act, toks,
+                           "pre" if pleft > 0 else "dec", pt)
+
+    def _serve_spec(self, w: _Weights, st: Dict[str, Any], g: int,
+                    row: torch.Tensor, act: torch.Tensor,
+                    pleft: int) -> _Visit:
+        """A speculative visit: the host foresees its kind (see the module
+        doc) and the device checks it; the draft takes its turn, then the
+        target's chunk is built at the device frontier."""
+        b, C, G = self._buffers(), self.prefill_chunk, self.gamma
+        plen, pos, dpos = int(st["plen"][g]), st["pos"], st["dpos"]
+        if pleft > 0:
+            kind, s_valid, sample = "pre", min(pleft, C), pleft <= C
+            st["prefill_left"][g] = pleft - s_valid
+            dpos[g] = min(dpos[g] + C, plen)
+            pos[g] += s_valid
+        elif not st["verifying"][g] and dpos[g] < pos[g]:
+            kind, s_valid, sample = "dec", 1, True
+            dpos[g] = min(dpos[g] + C, pos[g] + 1)
+            pos[g] += 1
+        else:
+            kind, s_valid, sample = "ver", G + 1, True
+            st["verifying"][g] = True
+        if pleft == 0:  # the JAX kind test, dpos >= pos; a miss is flagged
+            isver = row[_DPOS] >= row[_POS]
+            miss = act & (~isver if kind == "ver" else isver)
+            row[_ERR:_ERR + 1].add_(miss.long())
+        # a finished slot's frontier may lie past its rows: clamp it there
+        off = torch.minimum(row[_POS], row[_PLEN] + row[_BUDGET] - 1).view(1)
+        graphs = w.graphs
+        b["dslot"].fill_(g)
+        drafts = None
+        if kind == "ver":
+            drafts = (graphs["propose"].replay() if graphs
+                      else self._draft_propose(w)).clone()
+        else:
+            b["dpre"].fill_(int(kind == "pre"))
+            if graphs:
+                graphs["catchup"].replay()
+            else:
+                self._draft_catchup(w)
+            self._advance_pos(row, act, s_valid)
+        if kind == "pre":
+            start = plen - pleft
+            toks = st["prompt_buf"][g, start:start + C]
+        elif kind == "dec":
+            toks = torch.cat([row[_TOK:_TOK + 1], b["pad"]])
+        else:
+            toks = torch.cat([row[_TOK:_TOK + 1], drafts, b["pad"][G:]])
+        pt = self._page_row(st, g, act) if self.paged else None
+        return self._visit(w, st, g, off, s_valid, sample, act, toks, kind,
+                           pt, drafts)
+
+    @staticmethod
+    def _advance_pos(row: torch.Tensor, act: Optional[torch.Tensor],
+                     n: int) -> None:
+        """The device frontier ``row[POS] += n``, if the slot is live."""
+        at = row[_POS:_POS + 1]
+        if act is None:
+            at.add_(n)
+        else:
+            at.add_(act.long(), alpha=n)
+
+    @staticmethod
+    def _page_row(st: Dict[str, Any], g: int,
+                  act: Optional[torch.Tensor]) -> torch.Tensor:
+        """A copy of slot g's page-table row for the visit to carry; all
+        null pages when the slot has already finished."""
+        row = st["page_tbl"][g]
+        return row.clone() if act is None else row * act
+
+    def _visit(self, w: _Weights, st: Dict[str, Any], g: int, off,
+               s_valid: int, sample: bool, act, toks: torch.Tensor,
+               kind: str, pt, drafts=None) -> _Visit:
         if w.graphs:
             self._buffers()["tok_in"][0].copy_(toks)
             toks = None
         else:
             toks = toks[None]
         return _Visit(g, int(st["epoch"][g]), off, s_valid, sample, act,
-                      toks)
+                      toks, None, kind, pt, drafts)
 
     def _run_stage(self, w: _Weights, d: int, v: _Visit) -> _Visit:
         b, D = self._buffers(), self.n_stages
         if w.graphs:
             torch.add(b["ar_c"], v.offset, out=b["pos"][d])
             b["slot"][d].fill_(v.g)
-            y = w.graphs[d].replay()
+            if v.pt is not None:
+                b["pt"][d].copy_(v.pt)
+            y = w.graphs["stages"][d].replay()
         else:
             y = self._stage(w, d, v.h, b["ar_c"] + v.offset,
-                            torch.full((1,), v.g, device=self.device))
+                            torch.full((1,), v.g, device=self.device), v.pt)
         tok = None
         if d == D - 1 and v.sample:
-            if w.graphs:
+            if v.kind == "ver":
+                if w.graphs:
+                    b["vdrafts"].copy_(v.drafts)
+                    tok = w.graphs["verify"].replay()
+                else:
+                    tok = self._verify_head(w, y, v.drafts)
+            elif w.graphs:
                 b["row"].fill_(v.s_valid - 1)
-                tok = w.graphs[D].replay()
+                tok = w.graphs["head"].replay()
             else:
                 tok = self._head(w, y, torch.full((1,), v.s_valid - 1,
                                                   device=self.device))
@@ -479,7 +844,10 @@ class ServingProgram:
         arrived = chan[0]
         if (arrived is not None and arrived.sample
                 and arrived.epoch == st["epoch"][arrived.g]):
-            self._bank(st, arrived, u)
+            if arrived.kind == "ver":
+                self._bank_verify(st, arrived, u)
+            else:
+                self._bank(st, arrived, u)
             st["emitted_pred"][arrived.g] += 1
         ins = [self._serve(w, st, u)] + chan[1:]
         outs: List[Optional[_Visit]] = [None] * D
@@ -497,7 +865,10 @@ def make_serving_step_fn(cfg: ModelConfig, n_stages: int, *, n_slots: int,
                          prefill_chunk: int = 1,
                          block_ticks: Optional[int] = None,
                          eos_id: Optional[int] = None,
-                         paged: bool = False, speculative: bool = False,
+                         paged: bool = False, page_size: int = 8,
+                         n_pages: Optional[int] = None,
+                         speculative: bool = False, gamma: int = 2,
+                         draft_cfg: Optional[ModelConfig] = None,
                          tp_size: int = 1, device="cuda") -> ServingProgram:
     """Build the serving tick-block program over ``n_stages`` (D) lockstep
     stages on one device.
@@ -508,17 +879,22 @@ def make_serving_step_fn(cfg: ModelConfig, n_stages: int, *, n_slots: int,
     is how many prompt tokens a slot takes in per visit; ``block_ticks``
     is how many ticks one ``step`` advances (default M: every slot visited
     once per block). ``eos_id`` retires a slot the moment it emits that
-    token; budget retirement applies always. The validation and its
-    messages are the JAX ``make_serving_step_fn``'s.
+    token; budget retirement applies always.
+
+    ``paged=True`` swaps the per-slot caches for a page pool of
+    ``n_pages`` pages of ``page_size`` rows per stage (page 0 the null
+    page; default ``1 + M * P_max``, every slot fully backed, with
+    ``P_max = ceil((max_len + C - 1) / page_size)``). ``speculative=True``
+    adds greedy draft-verify decoding with a draft of config
+    ``draft_cfg`` (same vocabulary) proposing ``gamma`` tokens a verify
+    visit; ``prefill_chunk`` must be at least ``gamma + 1``. The two
+    compose. The validation and its messages are the JAX
+    ``make_serving_step_fn``'s.
     """
     if cfg.arch not in ("gpt2", "llama"):
         raise ValueError(
             f"generation is undefined for arch {cfg.arch!r} (see "
             "models.generate)")
-    if paged:
-        raise _not_ported("paged KV serving", "paged")
-    if speculative:
-        raise _not_ported("speculative serving", "speculative")
     if tp_size != 1:
         raise _not_ported("a 'model' axis (tensor parallelism)", "tp")
     D = n_stages
@@ -532,6 +908,34 @@ def make_serving_step_fn(cfg: ModelConfig, n_stages: int, *, n_slots: int,
     C = prefill_chunk
     if C < 1:
         raise ValueError(f"prefill_chunk must be >= 1, got {C}")
+    if not speculative:
+        gamma = 0
+        draft_cfg = None
+    else:
+        if draft_cfg is None:
+            raise ValueError("speculative=True needs draft_cfg (the "
+                             "draft model's ModelConfig)")
+        if gamma < 1:
+            raise ValueError(f"gamma must be >= 1, got {gamma}")
+        if gamma + 1 > C:
+            raise ValueError(
+                f"speculative verify scores gamma+1={gamma + 1} positions "
+                f"through the C-wide chunk channel; set prefill_chunk >= "
+                f"gamma+1 (got prefill_chunk={C})")
+        if draft_cfg.arch not in ("gpt2", "llama"):
+            raise ValueError(f"draft arch {draft_cfg.arch!r} is not "
+                             "generable (see models.generate)")
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab_size ({draft_cfg.vocab_size}) must match the "
+                f"target's ({cfg.vocab_size}) — acceptance compares token "
+                "ids")
+        if draft_cfg.arch == "gpt2" \
+                and max_len + C - 1 > draft_cfg.max_seq_len:
+            raise ValueError(
+                f"max_len + prefill_chunk - 1 ({max_len + C - 1}) exceeds "
+                f"the gpt2 draft position table "
+                f"(max_seq_len={draft_cfg.max_seq_len})")
     if prompt_max < 1 or out_max < 1:
         raise ValueError("prompt_max and out_max must be >= 1")
     if prompt_max + 1 > max_len:
@@ -544,10 +948,23 @@ def make_serving_step_fn(cfg: ModelConfig, n_stages: int, *, n_slots: int,
     block = block_ticks or M
     if block < 1:
         raise ValueError(f"block_ticks must be >= 1, got {block}")
+    if paged:
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        pmax = -(-(max_len + C - 1) // page_size)
+        if n_pages is None:
+            n_pages = 1 + M * pmax  # null page + full parity capacity
+        if n_pages < 2:
+            raise ValueError(f"n_pages must be >= 2 (page 0 is the "
+                             f"reserved null page), got {n_pages}")
     return ServingProgram(cfg, n_stages=D, n_slots=M, max_len=max_len,
                           prompt_max=prompt_max, out_max=out_max,
                           prefill_chunk=C, block_ticks=block, eos_id=eos_id,
-                          device=resolve_device(device))
+                          device=resolve_device(device), paged=paged,
+                          page_size=page_size if paged else 0,
+                          n_pages=n_pages if paged else 0,
+                          speculative=speculative, gamma=gamma,
+                          draft_cfg=draft_cfg)
 
 
 class ServingEngine:
@@ -557,49 +974,69 @@ class ServingEngine:
     retiring finished slots and admitting queued requests between blocks.
     ``submit`` raises on an invalid request; ``run`` retires an invalid
     one, or one whose admission fails, with a ``status="failed"``
-    :class:`Completion` and keeps serving.
+    :class:`Completion` and keeps serving. A speculative program takes the
+    draft as ``draft_params`` (a port :class:`Transformer`); a paged one
+    keeps a radix prefix cache unless ``prefix_cache=False``.
     """
 
     def __init__(self, program: ServingProgram, model: Transformer, *,
-                 draft_params=None, report=None, fault_plan=None) -> None:
-        if draft_params is not None:
-            raise _not_ported("a draft model (speculative serving)",
-                              "speculative")
+                 draft_params: Optional[Transformer] = None, report=None,
+                 fault_plan=None, prefix_cache: bool = True) -> None:
         if report is not None:
             raise _not_ported("a RunReport", "report")
         if fault_plan is not None:
             raise _not_ported("a FaultPlan", "fault_plan")
         self.program = program
-        self.weights = program.prepare(model)
+        self.prefix_cache = prefix_cache
+        self.weights = program.prepare(model, draft_params)
         self.reset()
 
     def reset(self) -> None:
         p = self.program
         self.state = p.init_state()
-        # host mirrors of the device slot table and prompt buffer (pinned
-        # on a card, so the upload after admission does not wait); the
-        # numpy views are what the scheduler reads and writes
+        # host mirrors of the device slot table, prompt buffer and page
+        # table (pinned on a card, so the upload after admission does not
+        # wait); the numpy views are what the scheduler reads and writes
         pin = p.device.type == "cuda"
-        self._slots_t = torch.zeros(self.state["slots"].shape,
-                                    dtype=torch.long, pin_memory=pin)
+
+        def mirror(t):
+            return torch.zeros(t.shape, dtype=torch.long, pin_memory=pin)
+
+        self._slots_t = mirror(self.state["slots"])
         self._slots_t[:, _T_FIRST] = -1
         self._slots_t[:, _T_FINISH] = -1
-        self._prompt_t = torch.zeros(self.state["prompt_buf"].shape,
-                                     dtype=torch.long, pin_memory=pin)
+        self._prompt_t = mirror(self.state["prompt_buf"])
         self.slots = self._slots_t.numpy()
         self.prompt_buf = self._prompt_t.numpy()
+        self._pt_t = self.page_tbl = None
+        self.paging: Optional[PagedKVAllocator] = None
+        if p.paged:
+            self._pt_t = mirror(self.state["page_tbl"])
+            self.page_tbl = self._pt_t.numpy()
+            self.paging = PagedKVAllocator(
+                n_pages=p.n_pages, page_size=p.page_size,
+                max_pages_per_slot=p.max_pages_per_slot,
+                prefill_chunk=p.prefill_chunk,
+                prefix_cache=self.prefix_cache)
+        self._cow: List[Any] = []  # (src, dst) copies for the next block
         self._dirty = False
         self.pending: deque = deque()
         self.waiting: deque = deque()
         self.completions: List[Completion] = []
         self.occupancy: List[Any] = []
         self.queue_depth: List[Any] = []
+        self.pages_used: List[Any] = []
+        self.page_fragmentation: List[Any] = []
+        self.acceptance_series: List[Any] = []
         self._slot_req: Dict[int, Request] = {}
         self._slot_admit: Dict[int, int] = {}
         self._tick = 0
         self._busy_ticks = 0
         self._n_blocks = 0
         self._host_syncs = 0
+        self._n_backpressure = 0
+        self._spec_visits = 0
+        self._spec_accepted = 0
 
     # -- request intake --------------------------------------------------
 
@@ -623,25 +1060,39 @@ class ServingEngine:
 
     # -- scheduling ------------------------------------------------------
 
-    def _admit(self, slot: int, req: Request) -> None:
+    def _admit(self, slot: int, req: Request, plan=None) -> None:
         """Bind ``req`` to ``slot``: the host mirrors and schedule arrays,
-        uploaded before the next block. Raises, before writing anything,
-        on a prompt that is not a row of token ids of the vocabulary."""
+        uploaded before the next block; a paged plan maps its pages,
+        queues its copy-on-write and starts the frontier past the cached
+        prefix. Raises, before writing anything, on a prompt that is not
+        a row of token ids of the vocabulary."""
         prompt = np.asarray(req.prompt, np.int64)
         vocab = self.program.cfg.vocab_size
         if prompt.ndim != 1 or ((prompt < 0) | (prompt >= vocab)).any():
             raise ValueError(f"prompt tokens must be ids in [0, {vocab})")
         st = self.state
         plen = len(prompt)
+        start = 0
+        if plan is not None:
+            start = plan.matched_len
+            self.page_tbl[slot] = 0
+            self.page_tbl[slot, :plan.n_pages] = plan.pages
+            if plan.cow_dst >= 0:
+                self._cow.append((plan.cow_src, plan.cow_dst))
+            self.paging.bind(slot, plan)
         self.prompt_buf[slot] = 0
         self.prompt_buf[slot, :plen] = prompt
         row = self.slots[slot]
         row[:] = 0
         row[_T_FIRST] = row[_T_FINISH] = -1
         row[_BUDGET] = req.max_new_tokens
+        row[_POS] = start
+        row[_PLEN] = plen
         st["plen"][slot] = plen
-        st["prefill_left"][slot] = plen
-        st["pos"][slot] = 0
+        st["prefill_left"][slot] = plen - start
+        st["pos"][slot] = start
+        st["dpos"][slot] = 0  # the draft starts cold, even past a prefix
+        st["verifying"][slot] = False
         st["budget"][slot] = req.max_new_tokens
         st["emitted_pred"][slot] = 0
         st["epoch"][slot] += 1
@@ -670,18 +1121,33 @@ class ServingEngine:
                 first_token_tick=int(row[_T_FIRST]),
                 finish_tick=int(row[_T_FINISH]), arrival=req.arrival))
             self.state["live"][slot] = False
+            if self.paging is not None:
+                # decref the slot's pages and cache its prompt-covered ones
+                self.paging.retire(slot, req.prompt)
+                self.page_tbl[slot] = 0
+                self._dirty = True
+            self._spec_visits += int(row[_SPEC_VISITS])
+            self._spec_accepted += int(row[_SPEC_ACC])
             del self._slot_req[slot]
             del self._slot_admit[slot]
 
     def _run_block(self) -> None:
-        """Upload what admission wrote, run one block, read the slot table
-        back (the block's one blocking transfer)."""
+        """Upload what admission wrote, run the queued copy-on-write
+        copies and one block, read the slot table back (the block's one
+        blocking transfer)."""
         st, p = self.state, self.program
         pin = p.device.type == "cuda"
         if self._dirty:
             st["slots"].copy_(self._slots_t, non_blocking=pin)
             st["prompt_buf"].copy_(self._prompt_t, non_blocking=pin)
+            if p.paged:
+                st["page_tbl"].copy_(self._pt_t, non_blocking=pin)
             self._dirty = False
+        b = p._buffers()
+        for src, dst in self._cow:  # before any tick of the block
+            for pool in b["kc"] + b["vc"]:
+                pool[:, dst].copy_(pool[:, src])
+        self._cow.clear()
         st["u"] = self._tick
         p.step(self.weights, st)
         self._slots_t.copy_(st["slots"], non_blocking=pin)
@@ -690,6 +1156,54 @@ class ServingEngine:
         self._host_syncs += 1
         self._n_blocks += 1
         self._tick = st["u"]
+        if self.slots[:, _ERR].any():
+            raise RuntimeError(
+                "a speculative visit's kind differed from the host's "
+                f"foresight (slots {np.nonzero(self.slots[:, _ERR])[0]})")
+
+    def _try_plan(self, req: Request):
+        """Paged admission of the queue's head: its plan, ``None`` to
+        wait (the pool is short; slots will retire), or ``False`` when
+        the request has failed (it can never fit, or nothing is left to
+        retire)."""
+        paging = self.paging
+        if not paging.admissible(len(req.prompt), req.max_new_tokens):
+            self.waiting.popleft()
+            self._fail_request(
+                req, f"request needs "
+                f"{paging.pages_needed(len(req.prompt), req.max_new_tokens)}"
+                f" pages but the pool holds {paging.pool.capacity}")
+            return False
+        plan = paging.try_admit(req.prompt, req.max_new_tokens)
+        if plan is None:  # backpressure: the request stays at the head
+            self._n_backpressure += 1
+            if not self._slot_req:
+                self.waiting.popleft()
+                self._fail_request(req, "page pool exhausted with no "
+                                   "active slots to retire")
+                return False
+        return plan
+
+    def _block_gauges(self) -> None:
+        """The paged ledger and gauges and the running acceptance rate at
+        a block boundary, from the slot table just read back."""
+        p, live = self.program, list(self._slot_req)
+        if self.paging is not None:
+            # the committed-frontier ledger follows the device's pos,
+            # which advances only by accepted rows
+            frontier = {s: int(self.slots[s, _POS]) for s in live}
+            for s, f in frontier.items():
+                self.paging.advance(s, f)
+            self.pages_used.append((self._tick, self.paging.pages_used))
+            self.page_fragmentation.append(
+                (self._tick, round(self.paging.fragmentation(frontier), 6)))
+        if p.speculative:
+            tv = self._spec_visits + sum(int(self.slots[s, _SPEC_VISITS])
+                                         for s in live)
+            ta = self._spec_accepted + sum(int(self.slots[s, _SPEC_ACC])
+                                           for s in live)
+            self.acceptance_series.append(
+                (self._tick, round(ta / (p.gamma * tv), 6) if tv else None))
 
     def run(self, requests: Sequence[Request], *,
             policy: str = "continuous",
@@ -716,10 +1230,20 @@ class ServingEngine:
                 self.waiting.append(self.pending.popleft())
             if policy == "continuous" or len(free) == p.n_slots:
                 while free and self.waiting:
-                    req = self.waiting.popleft()
+                    req = self.waiting[0]
+                    plan = None
+                    if self.paging is not None:
+                        plan = self._try_plan(req)
+                        if plan is False:
+                            continue
+                        if plan is None:
+                            break
+                    self.waiting.popleft()
                     try:  # refused before any write: the slot stays free
-                        self._admit(free[0], req)
+                        self._admit(free[0], req, plan)
                     except (ValueError, TypeError) as e:
+                        if plan is not None:
+                            self.paging.release_plan(plan)
                         self._fail_request(req, f"admission failed: {e}")
                         continue
                     free.pop(0)
@@ -735,9 +1259,15 @@ class ServingEngine:
                     self._tick = max(self._tick, nxt)
                     self.occupancy.append((self._tick, 0))
                     self.queue_depth.append((self._tick, 0))
+                    if self.paging is not None:
+                        self.pages_used.append(
+                            (self._tick, self.paging.pages_used))
+                        self.page_fragmentation.append((self._tick, 0.0))
                     continue
             tick_before = self._tick
             self._run_block()
+            if self.paging is not None:
+                self.paging.cow_flush()  # the block ran the copies
             # every executed block had >= 1 live slot at entry, so its
             # ticks are busy
             self._busy_ticks += self._tick - tick_before
@@ -752,16 +1282,33 @@ class ServingEngine:
                     break
                 n_wait += 1
             self.queue_depth.append((self._tick, n_wait))
+            self._block_gauges()
             self._harvest()
             free = [g for g in range(p.n_slots) if g not in self._slot_req]
         else:
             raise RuntimeError(f"serving did not drain within {max_blocks} "
                                "blocks — check arrivals/budgets")
+        wall = time.perf_counter() - wall0
+        extra: Dict[str, Any] = {}
+        if self.paging is not None:
+            self.paging.cow_flush()  # a refused final admission's hold
+            extra.update(
+                paged=True, pages_capacity=self.paging.pool.capacity,
+                pages_used=self.pages_used,
+                page_fragmentation=self.page_fragmentation,
+                prefix_hit_rate=round(self.paging.prefix_hit_rate(), 6),
+                prefill_skipped_tokens=self.paging.matched_tokens,
+                n_cow=self.paging.n_cow,
+                n_backpressure=self._n_backpressure)
+        if p.speculative:
+            extra.update(speculative=True, gamma=p.gamma,
+                         spec_verify_visits=self._spec_visits,
+                         spec_accepted_tokens=self._spec_accepted,
+                         acceptance_series=self.acceptance_series)
         return ServeResult(completions=self.completions,
                            occupancy=self.occupancy, ticks=self._tick,
-                           wall_s=time.perf_counter() - wall0,
-                           n_slots=p.n_slots, policy=policy,
+                           wall_s=wall, n_slots=p.n_slots, policy=policy,
                            queue_depth=self.queue_depth,
                            busy_ticks=self._busy_ticks,
                            n_blocks=self._n_blocks,
-                           host_syncs=self._host_syncs)
+                           host_syncs=self._host_syncs, **extra)

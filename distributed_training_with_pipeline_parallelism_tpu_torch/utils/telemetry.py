@@ -1,5 +1,6 @@
 """Serving latency summaries (the counterpart of the JAX package's
-``utils/telemetry.py:serving_summary`` and its ``_pct``; the rest of that
+``utils/telemetry.py:serving_summary``, its ``_pct`` and its paged and
+speculative fields; the rest of that
 module, the pipeline telemetry and ``RunReport``, is not ported yet:
 ``ROADMAP.md`` Queue 1, item 12)."""
 
@@ -30,8 +31,8 @@ def serving_summary(result) -> Dict[str, Any]:
     ``occupancy``). Latencies are in *ticks* (stamped at token banking),
     with the measured ``s_per_tick`` beside them, so wall-clock latencies
     are one multiply away. Failed completions count apart and stay out of
-    the percentile samples. The dense engine's fields only: the paged and
-    speculative gauges come with those modes.
+    the percentile samples. Paged and speculative runs add their gauges
+    (:func:`_paged_summary_fields`, :func:`_spec_summary_fields`).
     """
     ok = [c for c in result.completions
           if getattr(c, "status", "ok") == "ok"]
@@ -69,4 +70,51 @@ def serving_summary(result) -> Dict[str, Any]:
         "queue_depth_mean": float(np.mean(qd)) if qd else 0.0,
         "queue_depth_max": int(max(qd)) if qd else 0,
         "queue_depth": [[int(t), int(n)] for t, n in qd_series],
+        **_paged_summary_fields(result),
+        **_spec_summary_fields(result),
+    }
+
+
+def _paged_summary_fields(result) -> Dict[str, Any]:
+    """Paged-KV gauges for :func:`serving_summary`: none for a contiguous
+    run, whose summary keeps its keys."""
+    if not getattr(result, "paged", False):
+        return {}
+    pages = [int(n) for _, n in (result.pages_used or [])]
+    frag = [float(f) for _, f in (result.page_fragmentation or [])]
+    return {
+        "paged": True,
+        "pages_capacity": int(result.pages_capacity),
+        "pages_used_mean": float(np.mean(pages)) if pages else 0.0,
+        "pages_used_max": int(max(pages)) if pages else 0,
+        "pages_used": [[int(t), int(n)] for t, n in result.pages_used],
+        "page_fragmentation_mean": (float(np.mean(frag)) if frag else 0.0),
+        "page_fragmentation": [[int(t), float(f)]
+                               for t, f in result.page_fragmentation],
+        "prefix_hit_rate": (float(result.prefix_hit_rate)
+                            if result.prefix_hit_rate is not None else 0.0),
+        "prefill_skipped_tokens": int(result.prefill_skipped_tokens),
+        "n_cow": int(result.n_cow),
+        "n_backpressure": int(result.n_backpressure),
+    }
+
+
+def _spec_summary_fields(result) -> Dict[str, Any]:
+    """Speculative-decoding gauges for :func:`serving_summary`: none for a
+    plain run; the acceptance rate and mean accepted length are None
+    until a verify visit ran."""
+    if not getattr(result, "speculative", False):
+        return {}
+    series = list(getattr(result, "acceptance_series", []) or [])
+    rate = result.acceptance_rate
+    alm = result.accepted_len_mean
+    return {
+        "speculative": True,
+        "gamma": int(result.gamma),
+        "spec_verify_visits": int(result.spec_verify_visits),
+        "spec_accepted_tokens": int(result.spec_accepted_tokens),
+        "acceptance_rate": float(rate) if rate is not None else None,
+        "accepted_len_mean": float(alm) if alm is not None else None,
+        "acceptance_series": [[int(t), (float(a) if a is not None else None)]
+                              for t, a in series],
     }

@@ -9,7 +9,9 @@ Layouts: a JAX ``linear.w`` is ``[in, out]`` and becomes torch's
 ``cfg.tie_embeddings`` the pytree's head has no ``out`` leaf (the head is
 the token table). The loader takes any pytree of that layout, so a JAX
 gradient pytree loads the same way, into a model whose parameters are
-the gradients (what the parity tests compare leaf by leaf).
+the gradients (what the parity tests compare leaf by leaf), and a
+speculative draft's pytree loads with the draft's config as the target's
+does with its own.
 """
 
 from __future__ import annotations

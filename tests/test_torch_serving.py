@@ -315,16 +315,16 @@ def test_submit_errors_match_jax(engines, prompt, budget):
 
 
 def test_modes_not_ported_raise(models):
-    """Paged KV, speculative decoding, a tensor-parallel axis, a
-    RunReport, a FaultPlan and a draft model raise ``NotImplementedError``
-    naming their ROADMAP item."""
+    """A tensor-parallel axis, a RunReport and a FaultPlan raise
+    ``NotImplementedError`` naming their ROADMAP item (paged KV and
+    speculative decoding are ported: ``test_torch_paging.py``,
+    ``test_torch_spec.py``)."""
     _, _, tcfg, model = models["gpt2"]
-    for kw in (dict(paged=True), dict(speculative=True), dict(tp_size=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port.make_serving_step_fn(tcfg, D, device="cpu", **PROGRAM, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port.make_serving_step_fn(tcfg, D, device="cpu", tp_size=2,
+                                  **PROGRAM)
     program = port.make_serving_step_fn(tcfg, D, device="cpu", **PROGRAM)
-    for kw in (dict(report=object()), dict(fault_plan=object()),
-               dict(draft_params={})):
+    for kw in (dict(report=object()), dict(fault_plan=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             port.ServingEngine(program, model, **kw)
 
