@@ -76,6 +76,28 @@ JAX. Phases, each fatal on failure:
    with tokens/s, ticks, TTFT/TPOT, the page or acceptance gauges, the
    synchronising calls inside the tick blocks under CUDA's sync debug
    mode (none allowed) and one profiled block.
+7. The reference's own job: ``ref_decoder`` (the ``ModelConfig()``
+   default: dim 768, 8 layers, vocab 10000, ffn 2048, non-causal
+   self- and cross-attention), random weights from a seed, B = 32
+   sequences of 128 tokens, M = 4. Phase 2 has already held both flash
+   kernels at its attention shapes ([8, 128, 8, 96] and [8, 128, 4, 192],
+   non-causal, f32 and bf16) to their plain versions. (a) f32 gate: one
+   1F1B step at D = 4 through all four kernels (flash forced on, fused
+   xent) at 8 heads (head_dim 96) and at 4 (head_dim 192), against the
+   same step on the plain versions and single-device autograd, with the
+   phase-4 tolerances and the launch counts the tick table predicts. The
+   plain run replays the kernel run's relu masks (``ReluMasks``: the
+   relu's kink turns an f32 rounding difference into a gradient jump),
+   and fewer than 1e-6 of the relu inputs may change sign between the
+   two.
+   (b) Dropout 0.1 (the dense path; flash takes no dropout) on one step
+   seed: GPipe at D = 2 and 1F1B at D = 4 give the same loss and
+   gradients, and a loss other than eval mode's. (c) The sweep code
+   itself: ``sweep_rows`` over layers 8, heads 4/8/12, D 2/4 and the three
+   schedules, f32, 5 timed steps after 2 warm-ups: 18 rows of tokens/s,
+   speedup, efficiency, bubble columns, the card's MFU and peak memory;
+   then one f32 step of the headline row (L8/H8, GPipe, D = 2) under the
+   profiler for its idle share.
 
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
@@ -84,7 +106,8 @@ from the counted bf16 runs, which take the tensor-core attention kernels
 that are timed, by path, the llama decode's and the serving runs' among
 them, the paged and speculative runs' 0 as their dense cache attention
 takes neither kernel; the llama prefill shape's times beside the flash
-kernel's), the
+kernel's; the reference shapes' bf16 times and the ref_decoder gate's
+launches beside each flash kernel's), the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -92,6 +115,7 @@ card's name and power limit, and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -116,6 +140,12 @@ SERVE = dict(n_slots=8, max_len=640, prompt_max=512, out_max=64,
              prefill_chunk=32, eos_id=1)
 SERVE_PROMPTS, SERVE_OUTS, SERVE_LOAD = (16, 512), (8, 64), 1.5
 SERVE_GATE_N, SERVE_TIME_N, SERVE_REPS = 12, 32, 3
+# the reference's own job (ref_decoder, dim 768, vocab 10000, ffn 2048):
+# batch 32 of 128 tokens, 4 microbatches; one microbatch's attention at
+# 8 heads (head_dim 96) and at 4 (head_dim 192), non-causal
+REF_B, REF_S, REF_M = 32, 128, 4
+REF_SHAPES = {96: [REF_B // REF_M, REF_S, 8, 96],
+              192: [REF_B // REF_M, REF_S, 4, 192]}
 
 
 class SmokeFailure(RuntimeError):
@@ -457,6 +487,10 @@ def phase_kernels(report):
         flash_case(2, 256, 4, 64, dtype, False, None, "packed", tol[dtype])
         flash_case(1, 130, 2, 256, dtype, True, None, "transposed",
                    tol[dtype])
+        # the reference's attention: non-causal at head_dim 96 and 192
+        for dh, shape in REF_SHAPES.items():
+            main[(f"flash_fwd_ref{dh}", dtype)] = flash_case(
+                *shape, dtype, False, None, "packed", tol[dtype])
     for dtype, rtol in (("bfloat16", 1e-3), ("float32", 1e-5)):
         # the training path's loss: one microbatch's rows of the vocab
         main[("xent_fwd", dtype)] = xent_case(TRAIN_B // TRAIN_M * TRAIN_S,
@@ -480,6 +514,9 @@ def phase_kernels(report):
                        bwd_tol[dtype])
         flash_bwd_case(1, 130, 2, 256, dtype, True, None, "transposed",
                        bwd_tol[dtype])
+        for dh, shape in REF_SHAPES.items():
+            main[(f"flash_bwd_ref{dh}", dtype)] = flash_bwd_case(
+                *shape, dtype, False, None, "packed", bwd_tol[dtype])
         # the training path's head: one microbatch's rows of the vocab
         main[("xent_bwd", dtype)] = xent_bwd_case(
             TRAIN_B // TRAIN_M * TRAIN_S, 50257, dtype, bwd_tol[dtype])
@@ -652,6 +689,35 @@ def phase_main_path(report, device="cuda"):
         print(f"    {ms:9.3f} ms  {c:6d}x  {n[:100]}")
     report["main_path"] = res
     return launches16
+
+
+def profile_step(what, step):
+    """Where one call of ``step`` spends its time: run it once, then once
+    under ``torch.profiler``; wall and device-busy ms, the idle share
+    (1 - busy / wall) and the kernels by device time (top 15 kept, top 10
+    printed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                         for e in prof.key_averages()
+                         if e.self_device_time_total > 0),
+                        key=lambda x: -x[1])
+    busy = sum(ms for _, ms, _ in per_kernel)
+    idle = 1 - busy / (wall * 1e3)
+    print(f"  {what} under the profiler: wall {wall * 1e3:.1f} ms, device "
+          f"busy {busy:.1f} ms, idle share {idle:.3f}")
+    for n, ms, c in per_kernel[:10]:
+        print(f"    {ms:9.3f} ms  {c:6d}x  {n[:100]}")
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy, idle_share=idle,
+                top_kernels=[dict(name=n[:120], ms=ms, count=c)
+                             for n, ms, c in per_kernel[:15]])
 
 
 def grad_errors(grads, ref, rtol=1e-4, atol=1e-6):
@@ -834,33 +900,12 @@ def phase_train(report, device="cuda"):
     res["bf16"] = runs
 
     # where the time goes: one bf16 1F1B step under the profiler
-    from torch.profiler import ProfilerActivity, profile
     model.load_state_dict(init_state)
     opt = port.adamw(warmup_steps=2, total_steps=100)
     opt_state = opt.init(model)
     step = port.make_train_step(cfg16, sched, D, opt, device=device)
-    step(model, opt_state, tokens, targets)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step(model, opt_state, tokens, targets)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    per_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                         for e in prof.key_averages()
-                         if e.self_device_time_total > 0),
-                        key=lambda x: -x[1])
-    busy = sum(ms for _, ms, _ in per_kernel)
-    res["profile"] = dict(
-        schedule="1F1B", D=D, wall_ms=wall * 1e3, device_busy_ms=busy,
-        idle_share=1 - busy / (wall * 1e3),
-        top_kernels=[dict(name=n[:120], ms=ms, count=c)
-                     for n, ms, c in per_kernel[:15]])
-    print(f"  bf16 1F1B step under the profiler: wall {wall * 1e3:.1f} ms, "
-          f"device busy {busy:.1f} ms, idle share "
-          f"{res['profile']['idle_share']:.3f}")
-    for n, ms, c in per_kernel[:10]:
-        print(f"    {ms:9.3f} ms  {c:6d}x  {n[:100]}")
+    res["profile"] = dict(schedule="1F1B", D=D, **profile_step(
+        "bf16 1F1B step", lambda: step(model, opt_state, tokens, targets)))
     report["train"] = res
     return launches16
 
@@ -1436,6 +1481,218 @@ def phase_paged_spec(report, device="cuda"):
     return launches
 
 
+def ref_config(n_heads, **kw):
+    """The reference's model (``ModelConfig()``'s ref_decoder: dim 768,
+    8 layers, vocab 10000, ffn 2048) at ``n_heads``."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import ModelConfig
+    return ModelConfig(n_heads=n_heads, **kw)
+
+
+class ReluMasks:
+    """Record which relu inputs are positive in one run, then replay those
+    masks in a second run of the same tick table (``relu(x) = x * mask``,
+    whose gradient is the mask): the reference block's relu has a kink at
+    0, where an f32 rounding difference upstream flips a unit and moves a
+    lin1 leaf by about one token's term in 4096 (~5e-4 of its norm; on an
+    H100 a dozen flips in 134M units part the f32 ref_decoder step from
+    the plain one at 8x the gate's leaf bound). Replayed masks make the
+    two runs one piecewise-linear function, so the gate holds the
+    kernels, not the kink, to its bound; ``flips`` counts the units whose
+    sign the runs disagree on, which must stay below 1e-6 of them."""
+
+    def __init__(self):
+        self.masks, self.flips, self.units = [], 0, 0
+        self.replaying = False
+
+    @contextlib.contextmanager
+    def patched(self, replay: bool):
+        from distributed_training_with_pipeline_parallelism_tpu_torch.models import (
+            transformer as tfm)
+        real, self.replaying = tfm.relu, replay
+        masks = iter(self.masks) if replay else None
+
+        def relu(x):
+            if masks is None:
+                self.masks.append(x > 0)
+                return real(x)
+            mask = next(masks)
+            self.flips += int(((x > 0) != mask).sum())
+            self.units += mask.numel()
+            return x * mask
+
+        tfm.relu = relu
+        try:
+            yield self
+        finally:
+            tfm.relu = real
+
+
+def phase_ref(report, device="cuda"):
+    """The reference's own job (see the module doc); returns the kernel
+    launches of the counted f32 gate step at head_dim 96."""
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        transformer_loss)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.sweep import (
+        compute_speedup_and_efficiency, sweep_rows)
+    kernels = all_kernels()
+    res = {}
+    sched = port.ScheduleConfig("1F1B", REF_M)
+    launches96 = None
+
+    def one_step(model, fn, tokens, targets, *seed):
+        model.zero_grad(set_to_none=True)
+        t = time.perf_counter()
+        loss = fn(model, tokens, targets, *seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}, wall
+
+    # (b) the f32 gate at head_dim 96 (8 heads) and 192 (4 heads)
+    for heads in (8, 4):
+        cfg = ref_config(heads, use_flash_attention=True, use_fused_xent=True)
+        plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                    use_fused_xent=False)
+        g = torch.Generator().manual_seed(SEED)
+        model = port.init_params(cfg, g, device)
+        tokens, targets = (torch.randint(0, cfg.vocab_size, (REF_B, REF_S),
+                                         generator=g).to(device)
+                           for _ in range(2))
+        fn = port.make_pipeline_grad_fn(cfg, sched, D, device=device)
+        one_step(model, fn, tokens, targets)  # warm-up
+        for k in kernels:
+            k.launches = 0
+        relu = ReluMasks()
+        with relu.patched(replay=False):
+            loss_k, grads_k, wall_k = one_step(model, fn, tokens, targets)
+        launches = {k.name: k.launches for k in kernels}
+        # per layer two attentions (self and cross), each run by the
+        # forward unit and again by the remat backward unit; the loss only
+        # in the last stage's backward units
+        want = {"flash_fwd": 2 * 2 * REF_M * cfg.n_layers,
+                "flash_bwd": 2 * REF_M * cfg.n_layers,
+                "xent_fwd": REF_M, "xent_bwd": REF_M}
+        dh = cfg.head_dim
+        print(f"  f32 ref_decoder L{cfg.n_layers} H{heads} (head_dim {dh}) "
+              f"1F1B D={D} step (kernels): loss {loss_k:.6f}, {wall_k:.2f} "
+              f"s, launches {launches} (table predicts {want})")
+        check(launches == want, f"ref_decoder dh {dh}: kernel launches "
+              f"{launches} != {want}")
+        with relu.patched(replay=True):
+            loss_p, grads_p, _ = one_step(model, port.make_pipeline_grad_fn(
+                plain, sched, D, device=device), tokens, targets)
+        del relu.masks
+        print(f"  plain run with the kernel run's relu masks: {relu.flips} "
+              f"of {relu.units} relu inputs change sign between the runs")
+        check(relu.flips <= 1e-6 * relu.units, f"ref dh {dh}: {relu.flips} "
+              f"relu inputs change sign between kernel and plain runs")
+
+        def single_device(m, t, y):
+            loss = transformer_loss(cfg, m, t, y)
+            loss.backward()
+            return loss.detach()
+
+        loss_s, grads_s, _ = one_step(model, single_device, tokens, targets)
+        rec = dict(head_dim=dh, loss=loss_k, launches=launches,
+                   launches_predicted=want, step_s=wall_k,
+                   relu_flips=relu.flips, relu_units=relu.units)
+        for name, l_ref, g_ref in (("plain run", loss_p, grads_p),
+                                   ("single device", loss_s, grads_s)):
+            rel = abs(loss_k - l_ref) / abs(l_ref)
+            ratio, leaf, worst_rel = grad_errors(grads_k, g_ref)
+            print(f"  vs {name}: loss {l_ref:.6f} (rel err {rel:.2e}), "
+                  f"worst leaf {leaf} at {ratio:.3f} of its bound, max leaf "
+                  f"rel err {worst_rel:.2e}")
+            check(rel <= 1e-5, f"ref dh {dh} loss vs {name}: rel err {rel}")
+            check(ratio <= 1.0, f"ref dh {dh} grads vs {name}: leaf {leaf} "
+                  f"over its bound ({ratio})")
+            rec[f"vs_{name.replace(' ', '_')}"] = dict(
+                loss=l_ref, loss_rel_err=rel, worst_bound_ratio=ratio,
+                worst_leaf=leaf, max_leaf_rel_err=worst_rel)
+        res[f"f32_gate_dh{dh}"] = rec
+        if dh == 96:
+            launches96 = launches
+        del model, grads_k, grads_p, grads_s
+        torch.cuda.empty_cache()
+
+    # (c) train-mode dropout 0.1 (the dense path: flash forbids it), one
+    # step seed, two stage splits: the same loss and gradients
+    cfg = ref_config(8, dropout=0.1, use_fused_xent=True)
+    g = torch.Generator().manual_seed(SEED)
+    model = port.init_params(cfg, g, device)
+    tokens, targets = (torch.randint(0, cfg.vocab_size, (REF_B, REF_S),
+                                     generator=g).to(device)
+                       for _ in range(2))
+    out = {}
+    for name, n_dev in (("GPipe", 2), ("1F1B", D)):
+        fn = port.make_pipeline_grad_fn(
+            cfg, port.ScheduleConfig(name, REF_M), n_dev, device=device)
+        out[name] = one_step(model, fn, tokens, targets, 1234)
+    eval_loss = one_step(model, port.make_pipeline_grad_fn(
+        dataclasses.replace(cfg, dropout=0.0), sched, D, device=device),
+        tokens, targets)[0]
+    (l_a, g_a, _), (l_b, g_b, _) = out["GPipe"], out["1F1B"]
+    rel = abs(l_b - l_a) / abs(l_a)
+    ratio, leaf, worst_rel = grad_errors(g_b, g_a)
+    print(f"  f32 dropout 0.1, step seed 1234: GPipe D=2 loss {l_a:.6f}, "
+          f"1F1B D={D} loss {l_b:.6f} (rel err {rel:.2e}), worst leaf {leaf} "
+          f"at {ratio:.3f} of its bound; eval-mode loss {eval_loss:.6f}")
+    check(rel <= 1e-5, f"dropout: loss differs across splits by {rel}")
+    check(ratio <= 1.0, f"dropout: leaf {leaf} over its bound ({ratio})")
+    check(abs(l_a - eval_loss) > 1e-4, "dropout changed nothing")
+    res["dropout"] = dict(loss_gpipe_d2=l_a, loss_1f1b_d4=l_b, loss_rel_err=rel,
+                          worst_bound_ratio=ratio, worst_leaf=leaf,
+                          max_leaf_rel_err=worst_rel, eval_loss=eval_loss)
+    del model, g_a, g_b, out
+    torch.cuda.empty_cache()
+
+    # (d) the sweep code itself: 18 rows of the reference's sweep
+    t0 = time.perf_counter()
+    rows = sweep_rows(layers=(8,), heads=(4, 8, 12), devices=(2, 4),
+                      verbose=False, device=device)
+    check(len(rows) == 18 and all("throughput" in r for r in rows),
+          f"sweep: {len(rows)} rows, not 18 timed ones")
+    speedup = {(r["n_heads"], r["num_processes"], r["schedule"]): r
+               for r in compute_speedup_and_efficiency(rows)}
+    print(f"  sweep (f32, B={REF_B}, S={REF_S}, M={REF_M}, 5 timed steps "
+          f"after 2): 18 rows in {time.perf_counter() - t0:.1f} s")
+    for r in rows:
+        sp = speedup.get((r["n_heads"], r["num_processes"], r["schedule"]))
+        print(f"    L{r['n_layers']} H{r['n_heads']} D{r['num_processes']} "
+              f"{r['schedule']:<16} {r['throughput']:10.1f} tokens/s"
+              + (f"  speedup {sp['speedup']:.4f} efficiency "
+                 f"{sp['efficiency']:.2f}%" if sp else "")
+              + f"  bubble analytic {r['bubble_analytic']:.4f} simulated "
+              f"{r['bubble_simulated']:.4f} table {r['bubble_table_exact']:.4f}"
+              f"  mfu_card {r['mfu_card']:.4f}  peak "
+              f"{r['max_memory_allocated_bytes'] / 2**20:.0f} MiB")
+        check(math.isfinite(r["throughput"]) and r["throughput"] > 0,
+              f"sweep row {r['schedule']}: throughput {r['throughput']}")
+    res["sweep"] = dict(rows=rows, speedup=list(speedup.values()))
+
+    # where the time goes: one f32 step of the headline config (L8/H8,
+    # GPipe, D = 2), as the sweep runs it
+    cfg = ref_config(8)
+    g = torch.Generator().manual_seed(SEED)
+    model = port.init_params(cfg, g, device)
+    tokens, targets = (torch.randint(0, cfg.vocab_size, (REF_B, REF_S),
+                                     generator=g).to(device)
+                       for _ in range(2))
+    fn = port.make_pipeline_grad_fn(
+        cfg, port.ScheduleConfig("GPipe", REF_M), 2, device=device)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        return fn(model, tokens, targets)
+
+    res["profile"] = dict(schedule="GPipe", D=2, **profile_step(
+        "f32 ref_decoder L8 H8 GPipe D=2 step", step))
+    report["ref"] = res
+    return launches96
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1466,6 +1723,9 @@ def main() -> int:
     print("[6] paged KV and speculative serving: Llama-3.2-1B, 4 lockstep "
           "stages")
     paged_spec_launches = phase_paged_spec(report)
+    print("[7] the reference's job: ref_decoder, pipelined steps, dropout, "
+          "the sweep")
+    ref_launches = phase_ref(report)
     report["seconds"] = time.perf_counter() - t0
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
@@ -1503,7 +1763,15 @@ def main() -> int:
                 "decode": decode_launches.get(name, 0),
                 "llama_decode": llama_launches.get(name, 0),
                 "llama_serving": serve_launches.get(name, 0),
-                "llama_paged_spec_serving": paged_spec_launches.get(name, 0)}))
+                "llama_paged_spec_serving": paged_spec_launches.get(name, 0),
+                "ref_train": ref_launches[name]}))
+        if name.startswith("flash"):
+            kernels[-1]["ref_shapes"] = [
+                {k: main_shapes[(f"{name}_ref{dh}", "bfloat16")][k]
+                 for k in ("shape", "dtype", "causal", "max_abs_err", "ms",
+                           "tflops", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")}
+                for dh in REF_SHAPES]
         if name == "flash_fwd":
             r = main_shapes[("flash_fwd_llama", "bfloat16")]
             kernels[-1]["llama_prefill"] = {

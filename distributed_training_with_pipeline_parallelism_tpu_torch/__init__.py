@@ -17,7 +17,13 @@ package's. Ported so far:
 - continuous-batching serving (``serving``: ``make_serving_step_fn``,
   ``ServingEngine``, the continuous-vs-static bench, load ramps, SLOs):
   the dense path, paged KV with a radix prefix cache (``paged=True``)
-  and speculative draft-verify decoding (``speculative=True``).
+  and speculative draft-verify decoding (``speculative=True``);
+- the reference's own model (``arch="ref_decoder"``, the ``ModelConfig``
+  default) with train-mode dropout through every schedule, and its
+  54-config experiment (``utils.sweep``: ``sweep_rows``,
+  ``run_all_experiments``; ``python -m
+  distributed_training_with_pipeline_parallelism_tpu_torch.run_sweep``)
+  with the bubble, cost-model and memory-model columns (``analysis``).
 
 Hand-written CUDA kernels (``csrc/``): flash-attention forward and
 backward (``flash_fwd.cu``, ``flash_bwd.cu``) and the fused cross-entropy
@@ -38,6 +44,7 @@ from .serving import (Request, ServingEngine, make_serving_step_fn,
                       run_serve_bench, synth_trace)
 from .utils.config import ModelConfig, RunConfig, ScheduleConfig
 from .utils.metrics import run_train_iterations
+from .utils.sweep import run_one_experiment, sweep_rows
 from .utils.train import adamw, make_train_step
 from .utils.weights import from_jax_params
 
@@ -45,5 +52,6 @@ __all__ = ["ModelConfig", "ScheduleConfig", "RunConfig", "gpt2_config",
            "llama_config", "generate", "make_pipeline_generate_fn",
            "init_params", "from_jax_params", "compile_schedule",
            "make_pipeline_grad_fn", "make_train_step", "adamw",
-           "run_train_iterations", "Request", "ServingEngine",
+           "run_train_iterations", "run_one_experiment", "sweep_rows",
+           "Request", "ServingEngine",
            "make_serving_step_fn", "run_serve_bench", "synth_trace"]

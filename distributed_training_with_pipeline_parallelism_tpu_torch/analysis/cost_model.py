@@ -1,0 +1,277 @@
+"""Analytical cost model: roofline prices of a compiled tick table.
+
+The port's own copy of the numpy parts of the JAX package's
+``analysis/cost_model.py``: ``HardwareSpec`` (``:74``), ``dtype_bytes``,
+``fwd_flops_per_token`` (``:156``), ``train_flops_per_token``,
+``resolve_backward_policy`` (``:187``), ``backward_weights`` (``:204``),
+``predicted_step_time`` (``:230``) and ``cost_model_section`` (``:376``).
+Each F unit is priced at one microbatch's forward FLOPs through one stage,
+B (and its recompute under remat) in forward-unit equivalents, each ring
+hop at one stage-boundary slab over the link bandwidth; the lockstep tick
+lasts as long as its slowest device.
+
+Differences from the JAX module:
+
+- The parameter count comes from the port's model built on the ``meta``
+  device (no memory), not from ``jax.eval_shape``.
+- Hardware: :data:`H100` (989e12 FLOP/s dense bf16, 3.35e12 B/s of HBM,
+  the capacity ``torch.cuda.get_device_properties(0).total_memory``
+  reports). Under the port's lockstep transport every stage runs on the
+  one card and a ring hop is a copy inside its HBM, so the link bandwidth
+  is the HBM figure. An unknown CUDA card raises instead of falling back
+  to a TPU preset; ``cpu`` maps to the labelled :data:`CPU_PROXY`, as in
+  JAX. No TPU figure is kept.
+- No calibration correction (``ROADMAP.md`` Queue 1, item 12), no
+  telemetry attribution and no ``table_report`` argument (item 12: the
+  hop count comes from the table itself, as the static verifier counts
+  it), and only ``comm_overlap="none"``: the double-buffered ring
+  executor the JAX section also prices is item 8's, so its
+  ``step_s_comm_overlap`` keys are absent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from ..parallel.schedules import (COL_STORE_B_SLOT, COL_STORE_F_SLOT,
+                                  CompiledSchedule, analytic_bubble_fraction,
+                                  table_unit_activity)
+
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
+_ITEM_12 = "ROADMAP.md Queue 1, item 12 (observability and calibration)"
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """Roofline parameters of one chip: ``peak_flops`` (dense bf16),
+    ``ici_bytes_per_s`` (the link one ring hop crosses),
+    ``hbm_bytes_per_s`` and ``hbm_bytes`` (capacity; 0 = unknown, the OOM
+    preflight then passes). ``cpu_proxy``: order-of-magnitude placeholders
+    for a CPU host, not a device's figures."""
+
+    name: str
+    peak_flops: float
+    ici_bytes_per_s: float
+    hbm_bytes_per_s: float
+    hbm_bytes: float = 0.0
+    cpu_proxy: bool = False
+
+    def summary(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+# NVIDIA's data sheet, H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3.
+# A ring hop of the lockstep transport is an HBM-to-HBM copy on the card.
+H100 = HardwareSpec("h100", 989e12, 3.35e12, 3.35e12)
+
+# the JAX package's CPU stand-in: honest only about orders of magnitude
+CPU_PROXY = HardwareSpec("cpu_proxy", 5e10, 1e9, 5e10, 16e9, cpu_proxy=True)
+
+
+def hardware_spec_for(device_kind: str, hbm_bytes: float = 0.0
+                      ) -> HardwareSpec:
+    """The preset of a ``device_kind``: an H100 (``"NVIDIA H100 80GB
+    HBM3"``) -> :data:`H100` with capacity ``hbm_bytes``; anything CPU-ish
+    or empty -> :data:`CPU_PROXY`; any other card raises."""
+    kind = (device_kind or "").lower()
+    if "h100" in kind:
+        return dataclasses.replace(H100, hbm_bytes=float(hbm_bytes))
+    if "cpu" in kind or kind == "":
+        return CPU_PROXY
+    raise ValueError(f"no roofline preset for {device_kind!r}: the port "
+                     f"has one for the H100")
+
+
+def detect_hardware(device="cuda") -> HardwareSpec:
+    """The spec of ``device``: the CUDA card's preset with its capacity,
+    :data:`CPU_PROXY` for the CPU."""
+    import torch
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_PROXY
+    props = torch.cuda.get_device_properties(device)
+    return hardware_spec_for(props.name, props.total_memory)
+
+
+def dtype_bytes(dtype: str) -> int:
+    return _DTYPE_BYTES.get(dtype, 4)
+
+
+def model_shapes(cfg):
+    """The port's model for ``cfg`` on the ``meta`` device: parameter
+    shapes and dtypes with no memory behind them."""
+    from ..models.transformer import Transformer
+    from ..utils.config import torch_dtype
+    return Transformer(cfg, device="meta",
+                       dtype=torch_dtype(cfg.storage_dtype))
+
+
+def fwd_flops_per_token(cfg, seq: int) -> float:
+    """Forward FLOPs per token: ``2N`` over the parameters that take part
+    in a matmul (the token table only when tied; no positions), plus
+    attention's ``4 L dim seq``, halved when causal and doubled for the
+    reference block's two unmasked attentions."""
+    model = model_shapes(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        n_params -= model.tok.numel()  # lookup only, no matmul
+    if cfg.arch == "gpt2":
+        n_params -= model.pos.numel()  # additive lookup
+    attn_fwd_per_tok = 2 * 2 * cfg.n_layers * cfg.dim * seq
+    attn_fwd_per_tok *= 2 if cfg.arch == "ref_decoder" else 0.5
+    return 2.0 * n_params + attn_fwd_per_tok
+
+
+def train_flops_per_token(cfg, seq: int) -> float:
+    """Model FLOPs per trained token: forward and twice it backward."""
+    return 3.0 * fwd_flops_per_token(cfg, seq)
+
+
+def resolve_backward_policy(cs: CompiledSchedule, remat_backward=None,
+                            n_devices: Optional[int] = None) -> str:
+    """The backward ``make_pipeline_grad_fn`` runs: 'stored' at D == 1 by
+    default or with ``remat_backward=False``, else 'remat' (the port has
+    no split-backward schedule)."""
+    D = cs.n_devices if n_devices is None else n_devices
+    stored = remat_backward is False or (remat_backward is None and D == 1)
+    return "stored" if stored else "remat"
+
+
+def backward_weights(policy: str) -> Tuple[float, float]:
+    """(B, W) unit cost in forward units: stored B = dgrad + wgrad ~ 2F;
+    remat adds the 1F recompute. No W unit runs (weight 1, as in JAX)."""
+    return {"stored": (2.0, 1.0), "remat": (3.0, 1.0)}[policy]
+
+
+def _hops_per_tick(table: np.ndarray) -> np.ndarray:
+    """Ring hops launched at the end of each tick: hops[t-1] counts the
+    ring channels with a store at tick t (one hop serves every device).
+    Summed, the static verifier's ``predicted_ppermutes``."""
+    T = table.shape[0]
+    hops = np.zeros(T, dtype=np.int64)
+    for t in range(1, T):
+        hops[t - 1] = sum(int((table[t, :, col] >= 0).any())
+                          for col in (COL_STORE_F_SLOT, COL_STORE_B_SLOT))
+    return hops
+
+
+def predicted_step_time(table: np.ndarray, unit_s: Tuple[float, float, float],
+                        hop_s: float, hops_total: int) -> Dict[str, float]:
+    """The lockstep time model: each tick lasts its slowest device's units
+    (``unit_s`` = F, B, W seconds), ring hops serialized after compute
+    (``step_s``) or overlapped with their launching tick
+    (``step_s_overlapped``)."""
+    activity = table_unit_activity(table)          # [T, D, (F,B,W,idle)]
+    vec = np.array([unit_s[0], unit_s[1], unit_s[2], 0.0], dtype=np.float64)
+    compute_tick_s = (activity.astype(np.float64) @ vec).max(axis=1)
+    t_compute_s = float(compute_tick_s.sum())
+    t_comm_s = float(hops_total) * hop_s
+    idle_cells = int(activity[:, :, 3].sum())
+    T, D = int(table.shape[0]), int(table.shape[1])
+    return {
+        "compute_s": t_compute_s,
+        "comm_s": t_comm_s,
+        "step_s": t_compute_s + t_comm_s,
+        "step_s_overlapped": float(np.maximum(
+            compute_tick_s, _hops_per_tick(table) * hop_s).sum()),
+        "bubble_table_exact": idle_cells / float(T * D),
+    }
+
+
+def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
+                       seq_length: int,
+                       hardware: Optional[HardwareSpec] = None,
+                       remat_backward=None,
+                       measured_step_s: Optional[float] = None,
+                       telemetry=None, table_report=None,
+                       comm_overlap: str = "none") -> Dict[str, Any]:
+    """Price one compiled schedule on ``hardware`` (default: the CUDA
+    card) and, given ``measured_step_s``, reconcile it: the JAX section's
+    keys but for the comm-overlap ones (see the module doc). ``mfu``
+    divides by D chips as in JAX; under the lockstep transport the D
+    stages share one card, whose own utilization is ``D * mfu``."""
+    if telemetry is not None or table_report is not None:
+        raise NotImplementedError(
+            f"telemetry attribution and a precomputed table report are not "
+            f"ported yet: {_ITEM_12}")
+    if comm_overlap != "none":
+        raise NotImplementedError(
+            f"comm_overlap={comm_overlap!r} is not ported yet: ROADMAP.md "
+            f"Queue 1, item 8 (torch.distributed transport)")
+    table = cs.table
+    T, D = int(table.shape[0]), int(table.shape[1])
+    hw = hardware if hardware is not None else detect_hardware()
+    policy = resolve_backward_policy(cs, remat_backward)
+    w_b, w_w = backward_weights(policy)
+
+    fwd_tok = fwd_flops_per_token(cfg, seq_length)
+    tokens_per_step = float(batch_size) * float(seq_length)
+    tokens_per_mb = tokens_per_step / cs.n_microbatches
+    unit_f = fwd_tok * tokens_per_mb / cs.n_stages
+    unit_b, unit_w = w_b * unit_f, w_w * unit_f
+    model_per_step = 3.0 * fwd_tok * tokens_per_step
+    counts = table_unit_activity(table).sum(axis=(0, 1))
+    hardware_per_step = (float(counts[0]) * unit_f
+                         + float(counts[1]) * unit_b
+                         + float(counts[2]) * unit_w)
+
+    bytes_per_hop = tokens_per_mb * cfg.dim * dtype_bytes(cfg.dtype)
+    hops_total = int(_hops_per_tick(table).sum())
+    hop_s = bytes_per_hop / hw.ici_bytes_per_s
+    unit_sec = (unit_f / hw.peak_flops, unit_b / hw.peak_flops,
+                unit_w / hw.peak_flops)
+    tm = predicted_step_time(table, unit_sec, hop_s, hops_total)
+    t_compute_s = tm["compute_s"]
+    ideal_compute_s = hardware_per_step / (D * hw.peak_flops)
+
+    section: Dict[str, Any] = {
+        "schedule": cs.name,
+        "n_devices": D,
+        "n_virtual": int(cs.n_virtual),
+        "n_microbatches": int(cs.n_microbatches),
+        "n_ticks": T,
+        "batch_size": int(batch_size),
+        "seq_length": int(seq_length),
+        "backward_policy": policy,
+        "comm_overlap": comm_overlap,
+        "hardware": hw.summary(),
+        "flops": {
+            "fwd_per_token": fwd_tok,
+            "train_per_token": 3.0 * fwd_tok,
+            "unit": {"F": unit_f, "B": unit_b, "W": unit_w},
+            "model_per_step": model_per_step,
+            "hardware_per_step": hardware_per_step,
+        },
+        "comm": {
+            "bytes_per_hop": float(bytes_per_hop),
+            "hops": hops_total,
+            "bytes_total": float(bytes_per_hop) * hops_total,
+        },
+        "predicted": {
+            "compute_s": t_compute_s,
+            "comm_s": tm["comm_s"],
+            "step_s": tm["step_s"],
+            "step_s_overlapped": tm["step_s_overlapped"],
+            "ideal_compute_s": ideal_compute_s,
+            "bubble_table_exact": tm["bubble_table_exact"],
+            "bubble_weighted": (1.0 - ideal_compute_s / t_compute_s
+                                if t_compute_s > 0 else 0.0),
+            "bubble_closed_form": float(analytic_bubble_fraction(
+                cs.name, D, cs.n_virtual, cs.n_microbatches)),
+        },
+    }
+    if measured_step_s is not None and measured_step_s > 0:
+        chip_s = measured_step_s * D * hw.peak_flops
+        section["measured"] = {
+            "step_s": float(measured_step_s),
+            "tokens_per_sec": tokens_per_step / measured_step_s,
+            "mfu": model_per_step / chip_s,
+            "hfu": hardware_per_step / chip_s,
+            "predicted_over_measured": tm["step_s"] / measured_step_s,
+            # signed: negative = the roofline is optimistic
+            "rel_err": (tm["step_s"] - measured_step_s) / measured_step_s,
+        }
+    return section

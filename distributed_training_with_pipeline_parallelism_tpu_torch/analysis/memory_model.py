@@ -1,0 +1,243 @@
+"""Analytical device-memory model: the bytes-domain twin of
+:mod:`.cost_model`.
+
+The port's own copy of the analytic parts of the JAX package's
+``analysis/memory_model.py``: ``activation_slot_bytes``, ``params_bytes``,
+``stored_residual_bytes``, ``memory_model_section`` (``:202``) and
+``oom_preflight`` (``:464``). Per device: the peak number of live
+activation and cotangent slots of the tick table times one slot (a
+microbatch's ``[mb, seq, dim]`` stage-boundary slab in the compute dtype),
+the parameters (layers split over the stages, embedding and head
+replicated), the gradients, optimizer moments, and under the stored
+backward a first-order estimate of the residuals autograd keeps per
+in-flight microbatch. The live slot peaks come from the table itself
+(:func:`slot_live_peaks`, the static verifier's count); shapes come from
+the port's model on the ``meta`` device.
+
+Differences from the JAX module:
+
+- The JAX ``compiled=`` accounting is XLA's ahead-of-time memory
+  analysis; the port runs eagerly and has no compiled program, so the
+  section records it as ``"n/a"`` with that reason. The port's measured
+  figure is the card's ``torch.cuda.max_memory_allocated`` over a run,
+  the sweep's ``max_memory_allocated_bytes`` column, never XLA's key.
+- Under the lockstep transport all D stages share one card. The JAX
+  per-device ``peak_bytes`` prices a chip per stage; ``card_bytes`` prices
+  the one card: every device's activation and residual bytes, and the
+  parameters and gradients of the whole model once.
+  :func:`oom_preflight` prices either (``per="device"``, JAX's, or
+  ``per="card"``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+from ..parallel.schedules import (COL_BWD_M, COL_BWD_V, COL_FWD_M,
+                                  COL_FWD_V, COL_STORE_B_SLOT,
+                                  COL_STORE_F_SLOT, CompiledSchedule,
+                                  stage_of)
+from .cost_model import (HardwareSpec, detect_hardware, dtype_bytes,
+                         model_shapes, resolve_backward_policy)
+
+_NO_COMPILED = ("n/a: the JAX figure is XLA's ahead-of-time memory analysis "
+                "of a compiled step; the port runs eagerly, and its measured "
+                "figure is torch.cuda.max_memory_allocated")
+
+
+def activation_slot_bytes(cfg, batch_size: int, seq_length: int,
+                          n_microbatches: int) -> int:
+    """Bytes of one activation or cotangent slot: one microbatch's
+    ``[mb, seq, dim]`` stage-boundary slab in the compute dtype (what one
+    ring hop moves)."""
+    mb = batch_size // n_microbatches
+    return mb * seq_length * cfg.dim * dtype_bytes(cfg.dtype)
+
+
+def params_bytes(cfg, n_devices: int) -> Dict[str, float]:
+    """Per-device parameter bytes: the layer stack split over the stages,
+    the embedding and the head replicated on every device."""
+    model = model_shapes(cfg)
+    nbytes = dtype_bytes(cfg.storage_dtype)
+    layer_b = sum(p.numel() for p in model.layers.parameters()) * nbytes
+    n_params = sum(p.numel() for p in model.parameters())
+    embed_b = n_params * nbytes - layer_b
+    return {
+        "total_bytes": float(layer_b + embed_b),
+        "per_device_bytes": float(layer_b) / n_devices + embed_b,
+        "layer_bytes": float(layer_b),
+        "replicated_bytes": float(embed_b),
+        "n_params": int(n_params),
+    }
+
+
+def stored_residual_bytes(cfg, n_stages: int, tokens_per_mb: float) -> float:
+    """First-order residual bytes the stored backward keeps live per
+    in-flight microbatch and stage: per layer ``2 dim + ffn_dim`` values a
+    token in the compute dtype (an estimate, not an identity)."""
+    layers_per_stage = cfg.n_layers / float(n_stages)
+    per_layer = tokens_per_mb * (2 * cfg.dim + cfg.ffn_dim)
+    return layers_per_stage * per_layer * dtype_bytes(cfg.dtype)
+
+
+def slot_live_peaks(cs: CompiledSchedule) -> Tuple[List[int], List[int]]:
+    """Per device, the peak number of activation and of cotangent values
+    live at once under the executor's contract: a value is live from its
+    store (a ring arrival, or stage 0's embedding at its forward) until
+    its last read (its backward unit); within a tick, arrivals land
+    first, then the forward unit, then the backward unit, and a peak is
+    taken at each store (the JAX static verifier's ``act_live_peak`` and
+    ``grad_live_peak``)."""
+    table = cs.table
+    T, D = table.shape[0], cs.n_devices
+    S = cs.n_stages
+    last_read = {}  # (device, kind, stage, mb) -> tick of the last read
+    for t in range(T):
+        for d in range(D):
+            row = table[t, d]
+            if row[COL_BWD_M] >= 0:
+                s = stage_of(d, int(row[COL_BWD_V]), D)
+                m = int(row[COL_BWD_M])
+                last_read[(d, "act", s, m)] = t
+                last_read[(d, "grad", s, m)] = t
+    peaks = {"act": [0] * D, "grad": [0] * D}
+    live = {"act": [set() for _ in range(D)],
+            "grad": [set() for _ in range(D)]}
+    regs = {"act": [None] * D, "grad": [None] * D}  # last tick's ring hops
+
+    def store(d, kind, key):
+        live[kind][d].add(key)
+        peaks[kind][d] = max(peaks[kind][d], len(live[kind][d]))
+
+    for t in range(T):
+        sends = {"act": [None] * D, "grad": [None] * D}
+        for d in range(D):
+            row = table[t, d]
+            if row[COL_STORE_F_SLOT] >= 0:
+                store(d, "act", regs["act"][d])
+            if row[COL_STORE_B_SLOT] >= 0:
+                store(d, "grad", regs["grad"][d])
+            if row[COL_FWD_M] >= 0:
+                s = stage_of(d, int(row[COL_FWD_V]), D)
+                m = int(row[COL_FWD_M])
+                if s == 0:
+                    store(d, "act", (s, m))
+                if s < S - 1:
+                    sends["act"][d] = (s + 1, m)
+            if row[COL_BWD_M] >= 0:
+                s = stage_of(d, int(row[COL_BWD_V]), D)
+                m = int(row[COL_BWD_M])
+                live["act"][d].discard((s, m))
+                live["grad"][d].discard((s, m))
+                if s > 0:
+                    sends["grad"][d] = (s - 1, m)
+        regs = {"act": [sends["act"][(d - 1) % D] for d in range(D)],
+                "grad": [sends["grad"][(d + 1) % D] for d in range(D)]}
+    return peaks["act"], peaks["grad"]
+
+
+def memory_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
+                         seq_length: int,
+                         hardware: Optional[HardwareSpec] = None,
+                         remat_backward=None, optimizer_slots: int = 0,
+                         table_report=None) -> Dict[str, Any]:
+    """Price one compiled schedule's per-device memory (the JAX section's
+    ``analytic`` part, plus ``card_bytes``; see the module doc).
+    ``optimizer_slots``: f32 moments per parameter (2 for AdamW, 0 for
+    the loss-and-gradients step the sweep times)."""
+    if table_report is not None:
+        raise NotImplementedError(
+            "a precomputed table report is not ported yet: ROADMAP.md "
+            "Queue 1, item 12 (analysis/table_check.py)")
+    D = int(cs.table.shape[1])
+    hw = hardware if hardware is not None else detect_hardware()
+    policy = resolve_backward_policy(cs, remat_backward)
+    slot_b = activation_slot_bytes(cfg, batch_size, seq_length,
+                                   cs.n_microbatches)
+    tokens_per_mb = (batch_size // cs.n_microbatches) * seq_length
+    stored_mb_b = (stored_residual_bytes(cfg, cs.n_stages, tokens_per_mb)
+                   if policy == "stored" else 0.0)
+    pb = params_bytes(cfg, D)
+    grads_dev_b = pb["per_device_bytes"]
+    opt_dev_b = (optimizer_slots * pb["n_params"] * 4.0 / D
+                 if optimizer_slots else 0.0)
+    input_b = 2.0 * batch_size * seq_length * 4.0  # tokens and targets
+
+    act_peaks, grad_peaks = slot_live_peaks(cs)
+    per_device = []
+    for d in range(D):
+        act_b = act_peaks[d] * slot_b
+        grad_b = grad_peaks[d] * slot_b
+        stored_b = act_peaks[d] * stored_mb_b
+        total = (act_b + grad_b + stored_b + pb["per_device_bytes"]
+                 + grads_dev_b + opt_dev_b)
+        per_device.append({
+            "device": d,
+            "act_live_peak": act_peaks[d],
+            "grad_live_peak": grad_peaks[d],
+            "act_bytes": int(act_b),
+            "grad_bytes": int(grad_b),
+            "stored_residual_bytes": float(stored_b),
+            "params_bytes": pb["per_device_bytes"],
+            "grads_bytes": grads_dev_b,
+            "opt_state_bytes": opt_dev_b,
+            "total_bytes": float(total),
+        })
+    peak = max(p["total_bytes"] for p in per_device)
+    card = (sum(p["act_bytes"] + p["grad_bytes"] + p["stored_residual_bytes"]
+                for p in per_device)
+            + 2.0 * pb["total_bytes"] + opt_dev_b * D + input_b)
+    analytic: Dict[str, Any] = {
+        "act_slot_bytes": int(slot_b),
+        "grad_slot_bytes": int(slot_b),
+        "stored_residual_bytes_per_mb": float(stored_mb_b),
+        "params_total_bytes": pb["total_bytes"],
+        "params_per_device_bytes": pb["per_device_bytes"],
+        "n_params": pb["n_params"],
+        "optimizer_slots": int(optimizer_slots),
+        "input_bytes": input_b,
+        "activation_peak_bytes": float(
+            max(p["act_bytes"] + p["grad_bytes"] for p in per_device)),
+        "per_device": per_device,
+        "peak_bytes": float(peak),
+        "card_bytes": float(card),
+    }
+    if hw.hbm_bytes:
+        analytic["hbm_frac"] = peak / hw.hbm_bytes
+    section: Dict[str, Any] = {
+        "schedule": cs.name,
+        "n_devices": D,
+        "n_virtual": int(cs.n_virtual),
+        "n_microbatches": int(cs.n_microbatches),
+        "batch_size": int(batch_size),
+        "seq_length": int(seq_length),
+        "dtype": str(cfg.dtype),
+        "param_dtype": str(cfg.storage_dtype),
+        "backward_policy": policy,
+        "hardware": hw.summary(),
+        "analytic": analytic,
+        "compiled": _NO_COMPILED,
+    }
+    return section
+
+
+def oom_preflight(section: Dict[str, Any],
+                  hardware: Optional[HardwareSpec] = None,
+                  headroom: float = 1.0, per: str = "device"
+                  ) -> Dict[str, Any]:
+    """Price a memory section against the capacity: ``ok=False`` when the
+    analytic bytes exceed ``headroom x hbm_bytes`` (unknown capacity, 0,
+    always passes). ``per="device"`` prices the per-device peak (the JAX
+    preflight: a chip per stage); ``per="card"`` the one card the lockstep
+    transport runs every stage on."""
+    key = {"device": "peak_bytes", "card": "card_bytes"}[per]
+    hw = hardware if hardware is not None else detect_hardware()
+    peak = float(section["analytic"][key])
+    cap = float(hw.hbm_bytes) * headroom
+    return {
+        "ok": bool(cap <= 0 or peak <= cap),
+        "predicted_peak_bytes": peak,
+        "hbm_bytes": float(hw.hbm_bytes),
+        "headroom": float(headroom),
+        "hbm_frac": peak / cap if cap > 0 else None,
+    }

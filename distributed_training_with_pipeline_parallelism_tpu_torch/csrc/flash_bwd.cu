@@ -67,10 +67,11 @@
 //     dK += dS^T.q from registers. Each q tile lands in shared memory as
 //     stored and is copied once, scaled, for the scores; its lse and delta
 //     are staged beside it.
-//   - head_dim 128 and 256 take a 32-row inner tile; at 256 a CTA owns a
-//     quarter of the output columns (four CTAs per row tile, each
-//     recomputing the scores), so the f32 accumulators fit in registers
-//     without spilling.
+//   - head_dim 128, 192 and 256 take a 32-row inner tile; above 128 a CTA
+//     owns 64 of the output columns (three CTAs per row tile at 192, four
+//     at 256, each recomputing the scores), so the f32 accumulators fit in
+//     registers without spilling. Head_dim 96 keeps the 64-row tile and
+//     all 96 columns in one CTA.
 //   - Under causal, both kernels launch their heaviest row tiles first.
 // f32 design (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel, the first version
 // of this file, kept as it was): the same two kernels on the CUDA cores in
@@ -80,12 +81,14 @@
 // dispatches on the dtype; neither path falls back to the other.
 //
 // Resources of the bf16 kernels (ptxas, sm_90a, nvcc 12.9; chip_smoke.py
-// prints them at every build and fails on a spill), at head_dim 64 / 128 /
-// 256: dq 125 / 124 / 152 registers and 55,296 / 69,632 / 135,168 bytes
-// of shared memory a CTA; dk/dv 167 / 241 / 168 registers and 65,024 /
-// 78,592 / 152,320 bytes; no spills (dynamic shared memory, above 48 KB
+// prints them at every build and fails on a spill), at head_dim 64 / 96 /
+// 128 / 192 / 256: dq 125 / 125 / 124 / 124 / 152 registers and 55,296 /
+// 79,872 / 69,632 / 102,400 / 135,168 bytes of shared memory a CTA; dk/dv
+// 167 / 222 / 241 / 127 / 168 registers and 65,024 / 93,696 / 78,592 /
+// 115,456 / 152,320 bytes; no spills (dynamic shared memory, above 48 KB
 // by cudaFuncSetAttribute). At head_dim 64 that is three or four CTAs on
-// an SM.
+// an SM. The f32 kernels take 214,784 bytes at head_dim 192 by the same
+// attribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -793,8 +796,12 @@ cudaError_t dispatch_dh(int dh, const Args& a, int b, cudaStream_t stream) {
   switch (dh) {
     case 64:
       return TC ? launch_tc<64>(a, b, stream) : launch<float, 64>(a, b, stream);
+    case 96:
+      return TC ? launch_tc<96>(a, b, stream) : launch<float, 96>(a, b, stream);
     case 128:
       return TC ? launch_tc<128>(a, b, stream) : launch<float, 128>(a, b, stream);
+    case 192:
+      return TC ? launch_tc<192>(a, b, stream) : launch<float, 192>(a, b, stream);
     case 256:
       return TC ? launch_tc<256>(a, b, stream) : launch<float, 256>(a, b, stream);
     default:

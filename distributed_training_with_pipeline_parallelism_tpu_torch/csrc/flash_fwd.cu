@@ -19,8 +19,10 @@
 // training shape ([6, 1024, 12, 64] causal bf16) the bytes (~37.9 MB,
 // ~11.3 us at 3.35 TB/s) bound it above the FLOPs (~9.7 GFLOP, ~9.8 us);
 // at the GPT-2 prefill ([4, 512, 12, 64]) ~3.8 us of bytes against ~1.6 us
-// of FLOPs. Either way a kernel that keeps the tensor cores fed and reads
-// each k/v tile once per 64 q rows sits near both.
+// of FLOPs; at the reference model's non-causal [8, 128, 8, 96] and
+// [8, 128, 4, 192] ~1.9 us of bytes against ~0.4 us of FLOPs. Either way a
+// kernel that keeps the tensor cores fed and reads each k/v tile once per
+// 64 q rows sits near both.
 //
 // bf16 design (flash_fwd_tc): one CTA of 4 warps per (64-row q tile, head,
 // batch); each warp owns 16 q rows. The q tile and a two-stage ring of
@@ -31,7 +33,7 @@
 // row at or past s is zero-filled by the copy itself. q is scaled by
 // scale*log2(e) in f32 and rounded to bf16 once (pallas_attention.py:132),
 // and held as mma A fragments in registers (read again from shared memory
-// at head_dim 256, to leave registers to the accumulator). Per tile,
+// above head_dim 128, to leave registers to the accumulator). Per tile,
 // S = q.k^T runs on mma.sync m16n8k16 (bf16 in, f32 out); the online
 // softmax runs on the accumulator fragments in the exp2 domain, row max
 // and row sum over the quad of lanes that share a row; p is rounded to bf16
@@ -55,11 +57,12 @@
 // dispatches on the dtype; neither path falls back to the other.
 //
 // Resources of the bf16 kernel (ptxas, sm_90a, nvcc 12.9; chip_smoke.py
-// prints them at every build and fails on a spill): 128 / 240 / 253
-// registers at head_dim 64 / 128 / 256, no spills; shared memory 46,080 /
-// 87,040 / 101,376 bytes a CTA (dynamic, above 48 KB by
-// cudaFuncSetAttribute). At head_dim 64 that is four CTAs (16 warps) on
-// an SM.
+// prints them at every build and fails on a spill): 128 / 168 / 240 / 255 /
+// 253 registers at head_dim 64 / 96 / 128 / 192 / 256, no spills; shared
+// memory 46,080 / 66,560 / 87,040 / 128,000 / 101,376 bytes a CTA
+// (dynamic, above 48 KB by cudaFuncSetAttribute). At head_dim 64 that is
+// four CTAs (16 warps) on an SM, at 192 one. The f32 kernel takes 164,864
+// bytes at head_dim 192 and 214,016 at 256, also by the attribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -481,8 +484,12 @@ cudaError_t dispatch_dh(int dh, const void* q, const void* k, const void* v,
   switch (dh) {
     case 64:
       return FLASH_FWD_LAUNCH(64);
+    case 96:
+      return FLASH_FWD_LAUNCH(96);
     case 128:
       return FLASH_FWD_LAUNCH(128);
+    case 192:
+      return FLASH_FWD_LAUNCH(192);
     case 256:
       return FLASH_FWD_LAUNCH(256);
     default:

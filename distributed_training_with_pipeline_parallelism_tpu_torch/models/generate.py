@@ -1,6 +1,6 @@
 """Autoregressive decoding with a static-shape KV cache (counterpart of
 the JAX package's ``models/generate.py``), for the GPT-2 and llama
-families.
+families; the reference arch is rejected, as in JAX.
 
 The cache is ``[n_layers, B, max_len, Hkv, hd]`` per k and v (llama keeps
 its ``n_kv_heads`` there; GQA heads are expanded only at attention time),
@@ -30,10 +30,21 @@ from ..ops.flash_attention import flash_attention
 from ..ops.fused_xent import fused_softmax_xent
 from ..ops.layers import token_nll
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
-from .transformer import (Transformer, _check_arch, compute_cast,
-                          embed_apply, head_apply, rope_table)
+from .transformer import (Transformer, compute_cast, embed_apply,
+                          head_apply, rope_table)
 
 Cache = Dict[str, torch.Tensor]
+
+
+def check_decodable(cfg: ModelConfig) -> None:
+    """Decoding takes the causal archs only (the JAX ``_forward_with_cache``
+    check, ``models/generate.py:209-212``): the reference block is
+    non-causal with no positions, so it has no next-token distribution to
+    decode from."""
+    if cfg.arch not in ("gpt2", "llama"):
+        raise ValueError(
+            f"generation is undefined for arch {cfg.arch!r}: the reference "
+            "block is non-causal with no positional encoding (SURVEY.md C2)")
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -187,7 +198,7 @@ def check_decode_args(cfg: ModelConfig, prompt_len: int, max_new_tokens: int,
                       return_lengths: bool, temperature: float,
                       generator: Optional[torch.Generator]) -> int:
     """The JAX decoders' precondition checks; returns the cache length."""
-    _check_arch(cfg)
+    check_decodable(cfg)
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     if return_lengths and eos_id is None:

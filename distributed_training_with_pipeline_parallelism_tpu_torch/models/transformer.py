@@ -1,8 +1,13 @@
-"""The GPT-2 and llama decoders as ``nn.Module``s (counterpart of the JAX
-package's ``models/transformer.py`` for ``arch="gpt2"`` and
-``arch="llama"``).
+"""The reference, GPT-2 and llama decoders as ``nn.Module``s (counterpart
+of the JAX package's ``models/transformer.py`` for its three archs).
 
-GPT-2 block: pre-LN, causal self-attention, residual; LN, MLP with the
+Reference block (``arch="ref_decoder"``, the JAX ``layer_init`` and block
+apply, ``models/transformer.py:46-54,98-118``): the reference's
+``nn.TransformerDecoderLayer`` called as ``layer(h, h)``: post-LN
+self-attention, cross-attention whose memory is the block's own input,
+and a relu FFN, with no mask and no positions; q, k, v and o carry
+biases. Its embedding is drawn N(0, 1) as ``nn.Embedding``'s, and its
+head is a LayerNorm and an untied ``out`` with a bias. GPT-2 block: pre-LN, causal self-attention, residual; LN, MLP with the
 tanh GELU, residual. Learned positions. Llama block: pre-RMSNorm,
 causal self-attention with RoPE on q and k and grouped-query kv heads
 (``n_kv_heads``; optional q/k/v biases, an optional sliding window),
@@ -13,8 +18,20 @@ without bias, or, under ``cfg.tie_embeddings``, the token table itself
 (``logits = norm(h) @ tok.T``). Parameter names follow the JAX pytree's
 leaves (GPT-2: ``ln1``, ``attn.{q,k,v,o}``, ``ln2``, ``lin1``, ``lin2``;
 llama: ``rms1``, ``attn.{q,k,v,o}``, ``rms2``, ``w1``, ``w2``, ``w3``;
-``tok`` and GPT-2's ``pos``; ``norm``, ``out``) so :mod:`..utils.weights`
-maps one onto the other. Linear weights are torch's ``[out, in]``.
+reference: ``self_attn.{q,k,v,o}``, ``cross_attn.{q,k,v,o}``, ``ln1``-``ln3``,
+``lin1``, ``lin2``; ``tok`` and GPT-2's ``pos``; ``norm``, ``out``) so
+:mod:`..utils.weights` maps one onto the other. Linear weights are
+torch's ``[out, in]``.
+
+Train-mode dropout (``cfg.dropout > 0`` and an ``rng`` seed passed down):
+the JAX sites and streams (``layer_apply``, ``:73-118``). Layer ``i`` of a
+stack whose first global layer is ``layer_offset`` folds
+``layer_offset + i`` into the seed, and site ``j`` of the layer folds
+``j`` into that: the attention probabilities, each residual branch and
+(reference) the FFN's inner activation; GPT-2's embedding folds
+``n_layers``. Each site draws its mask from a ``torch.Generator`` seeded
+with its folded seed (``ops.layers.fold_seed``), so a mask depends only on
+(seed, global layer, site).
 
 Mixed precision (``cfg.param_dtype`` set): every use casts its parameter
 to the activation dtype with ``.to``, a differentiable cast, so gradients
@@ -35,17 +52,20 @@ import torch.nn as nn
 from ..ops.attention import (Rope, apply_rope, band_mask, gqa_expand,
                              rope_frequencies, scaled_dot_attention)
 from ..ops.flash_attention import flash_attention
-from ..ops.layers import (embedding, gelu, global_pad_scale, layer_norm,
-                          linear, rms_norm, select_masked_xent_sum,
+from ..ops.layers import (dropout_apply, embedding, fold_seed, gelu,
+                          global_pad_scale, layer_norm, linear, relu,
+                          rms_norm, seeded_generator, select_masked_xent_sum,
                           select_xent, silu)
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
 
 
-def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch not in ("gpt2", "llama"):
-        raise NotImplementedError(
-            f"the port implements arch='gpt2' and 'llama'; {cfg.arch!r} is "
-            f"not ported yet")
+def _site(cfg: ModelConfig, rng: Optional[int], word: int,
+          device) -> Optional[torch.Generator]:
+    """The generator of dropout site ``word`` under seed ``rng`` (the JAX
+    ``fold_in(rng, word)``), or None in eval mode or at rate 0."""
+    if rng is None or cfg.dropout == 0.0:
+        return None
+    return seeded_generator(fold_seed(rng, word), device)
 
 
 def _c(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -75,6 +95,45 @@ def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return linear(x, _c(lin.weight, x), bias)
 
 
+def _ln(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(x, _c(ln.weight, x), _c(ln.bias, x))
+
+
+def attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, causal: bool,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Core attention of q [b, s, h, d] over k, v [b, t, h, d] (kv heads
+    already expanded): the flash kernel where ``cfg.flash_for`` picks it,
+    else dense attention with a causal band (``cfg.sliding_window``) when
+    ``causal`` and dropout on its probabilities drawn from ``generator``
+    (which ``cfg`` never pairs with the kernel)."""
+    if cfg.flash_for(causal, q.device):
+        return flash_attention(q, k, v, causal=causal,
+                               window=cfg.sliding_window)
+    mask = None
+    if causal:
+        mask = band_mask(q.shape[1], k.shape[1], cfg.sliding_window,
+                         device=q.device)[None, None]
+    return scaled_dot_attention(q, k, v, mask, cfg.dropout, generator)
+
+
+def mha_apply(cfg: ModelConfig, attn: nn.ModuleDict, q_in: torch.Tensor,
+              kv_in: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The reference's multi-head attention (the JAX ``mha_apply``): queries
+    from ``q_in`` [b, s, dim], keys and values from ``kv_in`` [b, t, dim],
+    no mask and no positions, then the output projection."""
+    b, s, _ = q_in.shape
+
+    def heads(name, x):
+        return _linear(attn[name], x).view(b, x.shape[1], cfg.n_heads,
+                                           cfg.head_dim)
+
+    att = attend(cfg, heads("q", q_in), heads("k", kv_in), heads("v", kv_in),
+                 False, generator)
+    return _linear(attn["o"], att.reshape(b, s, -1))
+
+
 class _Block(nn.Module):
     """What a GPT-2 and a llama block share: the attention half, built
     from the family's ``attn_norm``, ``qkv`` and ``mlp``."""
@@ -84,22 +143,21 @@ class _Block(nn.Module):
         return _linear(self.attn["o"], att)
 
     def forward(self, cfg: ModelConfig, h: torch.Tensor,
-                rope: Optional[Rope] = None) -> torch.Tensor:
+                rope: Optional[Rope] = None,
+                rng: Optional[int] = None) -> torch.Tensor:
         """Full-sequence causal forward on h [b, s, dim] (``rope``: the
         table's rows 0 .. s-1 for llama); differentiable (the flash route
         through the kernels' autograd function). GQA kv heads are
         expanded before attention; the band carries
-        ``cfg.sliding_window``."""
+        ``cfg.sliding_window``. ``rng``: the layer's dropout seed (sites
+        0-2: the probabilities, the attention branch, the MLP branch)."""
         b, s, _ = h.shape
         q, k, v = self.qkv(cfg, self.attn_norm(h), rope)
         k, v = gqa_expand(k, v, cfg.n_heads)
-        if cfg.flash_for(True, h.device):
-            att = flash_attention(q, k, v, causal=True,
-                                  window=cfg.sliding_window)
-        else:
-            mask = band_mask(s, s, cfg.sliding_window, device=h.device)
-            att = scaled_dot_attention(q, k, v, mask[None, None])
-        return self.mlp(h + self.proj(att.reshape(b, s, -1)))
+        att = attend(cfg, q, k, v, True, _site(cfg, rng, 0, h.device))
+        att = self.proj(att.reshape(b, s, -1))
+        h = h + dropout_apply(att, cfg.dropout, _site(cfg, rng, 1, h.device))
+        return self.mlp(h, _site(cfg, rng, 2, h.device))
 
 
 class Block(_Block):
@@ -115,12 +173,10 @@ class Block(_Block):
         self.ln2 = nn.LayerNorm(d, eps=1e-5, **kw)
         self.lin1 = nn.Linear(d, cfg.ffn_dim, **kw)
         self.lin2 = nn.Linear(cfg.ffn_dim, d, **kw)
-
-    def _ln(self, ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, _c(ln.weight, x), _c(ln.bias, x))
+        self.dropout = cfg.dropout
 
     def attn_norm(self, h: torch.Tensor) -> torch.Tensor:
-        return self._ln(self.ln1, h)
+        return _ln(self.ln1, h)
 
     def qkv(self, cfg: ModelConfig, a: torch.Tensor,
             rope: Optional[Rope] = None):
@@ -131,10 +187,13 @@ class Block(_Block):
                      .view(b, s, cfg.n_heads, cfg.head_dim)
                      for n in ("q", "k", "v"))
 
-    def mlp(self, h: torch.Tensor) -> torch.Tensor:
-        """The post-attention half: h + lin2(gelu(lin1(ln2(h))))."""
-        z = gelu(_linear(self.lin1, self._ln(self.ln2, h)))
-        return h + _linear(self.lin2, z)
+    def mlp(self, h: torch.Tensor,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The post-attention half: h + lin2(gelu(lin1(ln2(h)))), the
+        branch under dropout drawn from ``generator``."""
+        z = gelu(_linear(self.lin1, _ln(self.ln2, h)))
+        return h + dropout_apply(_linear(self.lin2, z), self.dropout,
+                                 generator)
 
 
 class LlamaBlock(_Block):
@@ -157,6 +216,7 @@ class LlamaBlock(_Block):
         self.w1 = nn.Linear(d, cfg.ffn_dim, bias=False, **kw)
         self.w2 = nn.Linear(cfg.ffn_dim, d, bias=False, **kw)
         self.w3 = nn.Linear(d, cfg.ffn_dim, bias=False, **kw)
+        self.dropout = cfg.dropout
 
     def _rms(self, norm: nn.RMSNorm, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, _c(norm.weight, x), self.rms_eps)
@@ -176,48 +236,97 @@ class LlamaBlock(_Block):
         v = _linear(self.attn["v"], a).view(b, s, cfg.kv_heads, hd)
         return apply_rope(q, rope), apply_rope(k, rope), v
 
-    def mlp(self, h: torch.Tensor) -> torch.Tensor:
-        """The post-attention half: h + w2(act(w1 m) * w3 m), m = rms2(h)."""
+    def mlp(self, h: torch.Tensor,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The post-attention half: h + w2(act(w1 m) * w3 m), m = rms2(h),
+        the branch under dropout drawn from ``generator``."""
         m = self._rms(self.rms2, h)
         z = self.act(_linear(self.w1, m)) * _linear(self.w3, m)
-        return h + _linear(self.w2, z)
+        return h + dropout_apply(_linear(self.w2, z), self.dropout,
+                                 generator)
+
+
+class RefDecoderBlock(nn.Module):
+    """One reference decoder block: ``nn.TransformerDecoderLayer(dim,
+    n_heads, dim_feedforward=ffn_dim)`` called as ``layer(h, h)`` (the JAX
+    ``ref_decoder`` block): post-LN self-attention, cross-attention whose
+    memory is the block's input, relu FFN; no mask, no positions."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.dim
+        self.self_attn = nn.ModuleDict({
+            n: nn.Linear(d, d, **kw) for n in ("q", "k", "v", "o")})
+        self.cross_attn = nn.ModuleDict({
+            n: nn.Linear(d, d, **kw) for n in ("q", "k", "v", "o")})
+        self.ln1 = nn.LayerNorm(d, eps=1e-5, **kw)
+        self.ln2 = nn.LayerNorm(d, eps=1e-5, **kw)
+        self.ln3 = nn.LayerNorm(d, eps=1e-5, **kw)
+        self.lin1 = nn.Linear(d, cfg.ffn_dim, **kw)
+        self.lin2 = nn.Linear(cfg.ffn_dim, d, **kw)
+
+    def forward(self, cfg: ModelConfig, h: torch.Tensor,
+                rope: Optional[Rope] = None,
+                rng: Optional[int] = None) -> torch.Tensor:
+        """h [b, s, dim] -> [b, s, dim]; ``rng``: the layer's dropout seed
+        (sites 0-5: self-attention probabilities and branch,
+        cross-attention probabilities and branch, the FFN's inner
+        activation, the FFN branch; ``nn.TransformerDecoderLayer``'s
+        dropout sites)."""
+        p = cfg.dropout
+
+        def site(j):
+            return _site(cfg, rng, j, h.device)
+
+        sa = mha_apply(cfg, self.self_attn, h, h, site(0))
+        x = _ln(self.ln1, h + dropout_apply(sa, p, site(1)))
+        ca = mha_apply(cfg, self.cross_attn, x, h, site(2))
+        x = _ln(self.ln2, x + dropout_apply(ca, p, site(3)))
+        z = dropout_apply(relu(_linear(self.lin1, x)), p, site(4))
+        ff = _linear(self.lin2, z)
+        return _ln(self.ln3, x + dropout_apply(ff, p, site(5)))
 
 
 class Transformer(nn.Module):
     """The LM: token embeddings (plus learned positions for GPT-2), the
     family's blocks, a final norm (LayerNorm or RMSNorm), and a head
-    without bias (the token table under ``cfg.tie_embeddings``)."""
+    (the token table under ``cfg.tie_embeddings``; with a bias for the
+    reference arch)."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
-        _check_arch(cfg)
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.tok = nn.Parameter(torch.empty(cfg.vocab_size, cfg.dim, **kw))
         if cfg.arch == "gpt2":
             self.pos = nn.Parameter(
                 torch.empty(cfg.max_seq_len, cfg.dim, **kw))
-            block, self.norm = Block, nn.LayerNorm(cfg.dim, eps=1e-5, **kw)
-        else:
-            block = LlamaBlock
+        if cfg.arch == "llama":
             self.norm = nn.RMSNorm(cfg.dim, eps=cfg.rms_eps, **kw)
+        else:
+            self.norm = nn.LayerNorm(cfg.dim, eps=1e-5, **kw)
+        block = {"ref_decoder": RefDecoderBlock, "gpt2": Block,
+                 "llama": LlamaBlock}[cfg.arch]
         self.layers = nn.ModuleList(
             block(cfg, **kw) for _ in range(cfg.n_layers))
         if not cfg.tie_embeddings:
-            self.out = nn.Linear(cfg.dim, cfg.vocab_size, bias=False, **kw)
+            self.out = nn.Linear(cfg.dim, cfg.vocab_size,
+                                 bias=cfg.arch == "ref_decoder", **kw)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return transformer_apply(self.cfg, self, tokens)
 
 
-_NORMS = ("ln1", "ln2", "rms1", "rms2", "norm")
+_NORMS = ("ln1", "ln2", "ln3", "rms1", "rms2", "norm")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Transformer:
     """A randomly initialised model in ``cfg.storage_dtype`` on
     ``device``, drawn from ``generator`` (the JAX ``transformer_init``
-    conventions: embeddings N(0, 0.02), linear weights and biases
+    conventions: embeddings N(0, 0.02), the reference arch's token table
+    N(0, 1) as ``nn.Embedding``'s, linear weights and biases
     uniform(+-1/sqrt(fan_in)) as torch's ``nn.Linear``, norm scales 1 and
     biases 0). The numbers differ from the JAX package's for the same
     seed."""
@@ -228,8 +337,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name in ("tok", "pos"):
-                x = 0.02 * torch.randn(p.shape, generator=generator,
-                                       device=gdev)
+                std = 1.0 if cfg.arch == "ref_decoder" and name == "tok" \
+                    else 0.02
+                x = std * torch.randn(p.shape, generator=generator,
+                                      device=gdev)
             elif name.split(".")[-2] in _NORMS:
                 x = torch.ones(p.shape) if name.endswith("weight") else \
                     torch.zeros(p.shape)
@@ -251,12 +362,14 @@ def compute_cast(cfg: ModelConfig, model: Transformer) -> Transformer:
 
 
 def embed_apply(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
-                offset=0) -> torch.Tensor:
+                offset=0, rng: Optional[int] = None) -> torch.Tensor:
     """Embeddings of tokens [b, s] at global positions offset ..
     offset+s-1 (``offset`` an int, or the positions themselves as an [s]
     index tensor), in the compute dtype: the token rows, times sqrt(dim)
     under ``cfg.embed_scale``, plus GPT-2's learned positions (the JAX
-    ``embed_apply`` and ``_embed_at``)."""
+    ``embed_apply`` and ``_embed_at``), then GPT-2's embedding dropout
+    (train mode: ``rng`` is the forward's seed, and the embedding's stream
+    folds ``n_layers``, past every layer's)."""
     dt = torch_dtype(cfg.dtype)
     h = embedding(model.tok, tokens).to(dt)
     if cfg.embed_scale:
@@ -265,15 +378,22 @@ def embed_apply(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
         pos = (model.pos[offset:offset + tokens.shape[1]]
                if isinstance(offset, int) else model.pos.index_select(0, offset))
         h = h + pos.to(dt)
+        h = dropout_apply(h, cfg.dropout,
+                          _site(cfg, rng, cfg.n_layers, h.device))
     return h
 
 
-def body_apply(cfg: ModelConfig, layers, h: torch.Tensor) -> torch.Tensor:
+def body_apply(cfg: ModelConfig, layers, h: torch.Tensor,
+               rng: Optional[int] = None,
+               layer_offset: int = 0) -> torch.Tensor:
     """Run a slice of blocks (any count) over h [b, s, dim] at positions
-    0 .. s-1."""
+    0 .. s-1. ``rng`` (train mode) is the dropout seed: block ``i`` folds
+    ``layer_offset + i``, its global layer index when the slice is a
+    pipeline stage, so every stage split draws the same masks."""
     rope = rope_table(cfg, h.shape[1], h.device)
-    for block in layers:
-        h = block(cfg, h, rope)
+    for i, block in enumerate(layers):
+        rng_l = None if rng is None else fold_seed(rng, layer_offset + i)
+        h = block(cfg, h, rope, rng_l)
     return h
 
 
@@ -293,18 +413,23 @@ def head_apply(cfg: ModelConfig, model: Transformer,
     contiguous [N, V] the fused-xent kernels read."""
     hn = head_norm_apply(cfg, model, h)
     lead = hn.shape[:-1]
-    w = model.tok if cfg.tie_embeddings else model.out.weight
-    logits = linear(hn.reshape(-1, hn.shape[-1]), _c(w, hn))
+    hn2 = hn.reshape(-1, hn.shape[-1])
+    if cfg.tie_embeddings:
+        logits = linear(hn2, _c(model.tok, hn))
+    else:
+        logits = _linear(model.out, hn2)
     return logits.reshape(*lead, logits.shape[-1])
 
 
 def transformer_apply(cfg: ModelConfig, model: Transformer,
-                      tokens: torch.Tensor) -> torch.Tensor:
+                      tokens: torch.Tensor,
+                      rng: Optional[int] = None) -> torch.Tensor:
     """Full-model forward: tokens [B, S] -> logits [B, S, V], computed in
-    ``cfg.dtype`` over parameters in ``cfg.storage_dtype``."""
-    _check_arch(cfg)
-    h = embed_apply(cfg, model, tokens)
-    h = body_apply(cfg, model.layers, h)
+    ``cfg.dtype`` over parameters in ``cfg.storage_dtype``. ``rng``
+    (train mode): layer ``i`` folds ``i``, the embedding ``n_layers``, as
+    the pipeline does for each microbatch."""
+    h = embed_apply(cfg, model, tokens, rng=rng)
+    h = body_apply(cfg, model.layers, h, rng)
     return head_apply(cfg, model, h)
 
 
@@ -324,13 +449,15 @@ def head_loss(cfg: ModelConfig, model: Transformer, h: torch.Tensor,
 
 
 def transformer_loss(cfg: ModelConfig, model: Transformer,
-                     tokens: torch.Tensor,
-                     targets: torch.Tensor) -> torch.Tensor:
+                     tokens: torch.Tensor, targets: torch.Tensor,
+                     rng: Optional[int] = None) -> torch.Tensor:
     """Single-device loss, the objective the pipeline executors are held
     against: token-mean cross entropy, or with ``cfg.pad_token_id`` the
-    NLL sum over valid targets divided by their count."""
-    _check_arch(cfg)
-    h = body_apply(cfg, model.layers, embed_apply(cfg, model, tokens))
+    NLL sum over valid targets divided by their count. ``rng``: the
+    dropout seed, as in :func:`transformer_apply` (a pipeline step's
+    microbatch ``m`` runs under ``fold_seed(step_seed, m)``)."""
+    h = body_apply(cfg, model.layers,
+                   embed_apply(cfg, model, tokens, rng=rng), rng)
     pad_scale = (global_pad_scale(targets, cfg.pad_token_id, 1)
                  if cfg.pad_token_id is not None else None)
     return head_loss(cfg, model, h, targets, pad_scale)

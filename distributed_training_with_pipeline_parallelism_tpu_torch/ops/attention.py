@@ -1,7 +1,7 @@
 """Dense attention pieces (counterparts of the JAX package's
 ``ops/attention.py``): RoPE (with the Llama-3.1 frequency scaling), the
 causal/window band mask, the GQA head repeat and scaled dot-product
-attention on ``[b, s, h, dh]``."""
+attention on ``[b, s, h, dh]``, with dropout on its probabilities."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+
+from .layers import dropout_apply
 
 # the score of a masked element in the flash kernel and its plain
 # version: a large finite negative, so exp underflows to exactly 0 and a
@@ -115,14 +117,19 @@ def attention_scale(head_dim: int, dtype: torch.dtype) -> float:
 
 
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         mask: Optional[torch.Tensor] = None,
+                         dropout_rate: float = 0.0,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
     """q [b,s,h,d] x k/v [b,t,h,d] -> [b,s,h,d]. ``mask`` broadcasts
     against the [b,h,s,t] scores; False positions get the dtype's most
     negative finite value. Softmax runs in f32 whatever the activation
-    dtype, as in the JAX package."""
+    dtype, as in the JAX package. ``generator`` (train mode) applies
+    dropout to the probabilities, as torch's ``MultiheadAttention`` does."""
     scale = attention_scale(q.shape[-1], q.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    probs = dropout_apply(probs, dropout_rate, generator)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -51,7 +51,7 @@ FLASH_BWD = Kernel("flash_bwd.cu", {
 # the head dims both kernels are built for (the backward covers every head
 # dim the forward takes, so a differentiable call never builds a forward
 # it cannot take backward)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 192, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LOG2E = 1.4426950408889634
 _DIM_NAMES = ("batch", "seq", "head")

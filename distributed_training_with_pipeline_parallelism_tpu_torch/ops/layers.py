@@ -48,6 +48,61 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return F.relu(x)
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, word: int) -> int:
+    """A new 64-bit seed from ``seed`` and one more word (the port's
+    ``jax.random.fold_in``): splitmix64's finaliser over ``seed +
+    (word + 1) * golden``, a bijection of the sum, so distinct words give
+    distinct seeds. A dropout stream is a chain of folds (step seed,
+    microbatch, global layer, site), so its masks depend only on those
+    words, never on which stage or device draws them."""
+    z = (seed + (word + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``: the same
+    seed draws the same numbers on that device every time, which is how
+    the rematerialising backward redraws its forward's masks."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout_apply(x: torch.Tensor, rate: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (the JAX ``dropout_apply``): zero each element with
+    probability ``rate`` and scale the kept ones by 1/(1 - rate), the mask
+    drawn from ``generator`` (on x's device). ``generator=None`` (eval
+    mode) or ``rate=0`` is the identity. The masks differ from the JAX
+    package's (another generator); their law is the same."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def sharded_dropout_apply(x: torch.Tensor, rate: float,
+                          generator: Optional[torch.Generator],
+                          n_shards: int = 1) -> torch.Tensor:
+    """Dropout on one shard of a tensor split ``n_shards`` ways (the JAX
+    ``sharded_dropout_apply``). At one shard it is :func:`dropout_apply`;
+    the port has no tensor or sequence parallelism yet, so more shards
+    raise."""
+    if n_shards > 1:
+        raise NotImplementedError(
+            "dropout on a sharded tensor is not ported yet: ROADMAP.md "
+            "Queue 1, item 11 (tensor and sequence parallelism)")
+    return dropout_apply(x, rate, generator)
+
+
 def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Per-position NLL through an f32 log-softmax: [..., V] x [...] ->
     [...] f32 (the JAX ``_token_nll`` formulation)."""

@@ -20,9 +20,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models.transformer import (Transformer, _check_arch, body_apply,
-                                  embed_apply, head_loss)
-from ..ops.layers import global_pad_scale
+from ..models.transformer import (Transformer, body_apply, embed_apply,
+                                  head_loss)
+from ..ops.layers import fold_seed, global_pad_scale
 from ..utils.config import ModelConfig, ScheduleConfig, resolve_device
 from .schedules import (COL_BWD_ASLOT, COL_BWD_GSLOT, COL_BWD_M, COL_BWD_V,
                         COL_FWD_M, COL_FWD_SLOT, COL_FWD_V, COL_STORE_B_SLOT,
@@ -62,13 +62,24 @@ def stack_stage_layers(layers: nn.ModuleList, n_devices: int,
 def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           n_stages: int, remat_backward=None,
                           device="cuda", axes: Optional[Dict[str, int]] = None
-                          ) -> Callable[[Transformer, torch.Tensor,
-                                         torch.Tensor], torch.Tensor]:
+                          ) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: one pipelined forward and
     backward over ``n_stages`` (D) lockstep devices under ``sched``, with
     the gradients accumulated into the parameters' ``.grad`` (zero them
     first). ``tokens``/``targets`` are [B, S] with B divisible by
     ``sched.n_microbatches`` (M); microbatches split dim 0.
+
+    With ``cfg.dropout > 0`` the function takes a fourth argument, the
+    step's seed (an int; the JAX step's PRNG key), and runs train-mode
+    dropout. Microbatch ``m`` runs under ``fold_seed(step_seed, m)`` and
+    each layer folds its global index into that (the JAX contract,
+    ``parallel/pipeline.py:604-607``), so the masks depend only on (step
+    seed, microbatch, global layer, site), never on (D, V): every
+    schedule and stage split computes the loss and gradients of
+    :func:`..models.transformer.transformer_loss` averaged over the
+    microbatches with ``rng = fold_seed(step_seed, m)``. The
+    rematerialising backward re-seeds the same streams, so it redraws the
+    masks its forward drew.
 
     The loss matches the JAX executor: the last stage takes the token-mean
     cross entropy of its microbatch, the loss is the mean over
@@ -88,12 +99,11 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     - ``False``: stored; the forward unit keeps its autograd graph until
       its backward unit.
 
-    Raises ``NotImplementedError`` for ``cfg.dropout > 0`` and for any
-    ``axes`` entry (``"data"``, ``"model"``, ``"seq"``, ``"expert"``) of
-    size > 1, naming the ``ROADMAP.md`` item that ports it.
+    Raises ``NotImplementedError`` for any ``axes`` entry (``"data"``,
+    ``"model"``, ``"seq"``, ``"expert"``) of size > 1, naming the
+    ``ROADMAP.md`` item that ports it.
     """
     device = resolve_device(device)
-    _check_arch(cfg)
     for name, size in (axes or {}).items():
         if name not in _AXIS_ITEMS:
             raise ValueError(f"unknown mesh axis {name!r}; expected one of "
@@ -102,10 +112,6 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             raise NotImplementedError(
                 f"a {name!r} axis of size {size} is not ported yet: "
                 f"{_AXIS_ITEMS[name]}")
-    if cfg.dropout > 0.0:
-        raise NotImplementedError(
-            "dropout > 0 in the pipeline is not ported yet: ROADMAP.md "
-            "Queue 1, item 3 (dropout masks)")
     D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
     cs = compile_schedule(sched.name, D, V, M)  # raises on a bad (D, V, M)
     S = D * V
@@ -116,8 +122,15 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     remat = remat_backward is None or bool(remat_backward)
     table = cs.table
     inv = 1.0 / M
+    lps = cfg.n_layers // S
+    use_dropout = cfg.dropout > 0.0
 
-    def grad_fn(model: Transformer, tokens, targets) -> torch.Tensor:
+    def grad_fn(model: Transformer, tokens, targets,
+                step_seed: Optional[int] = None) -> torch.Tensor:
+        if use_dropout and step_seed is None:
+            raise ValueError(f"dropout={cfg.dropout} > 0: pass the step's "
+                             f"seed as the fourth argument")
+        seed = step_seed if use_dropout else None
         tokens = torch.as_tensor(tokens, device=device).long()
         targets = torch.as_tensor(targets, device=device).long()
         b, seq = tokens.shape
@@ -126,20 +139,34 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                              f"n_microbatches={M}")
         toks = tokens.view(M, b // M, seq)
         tgts = targets.view(M, b // M, seq)
+
+        def mb_rng(m):
+            """Microbatch ``m``'s dropout seed (None in eval mode)."""
+            return None if seed is None else fold_seed(seed, m)
+
+        def embed(m):
+            return embed_apply(cfg, model, toks[m], rng=mb_rng(m))
+
         pad_scale = (global_pad_scale(targets, cfg.pad_token_id, M)
                      if cfg.pad_token_id is not None else None)
         loss = torch.zeros((), dtype=torch.float32, device=device)
         if plain:
             with torch.enable_grad():
                 for m in range(M):
-                    y = body_apply(cfg, model.layers,
-                                   embed_apply(cfg, model, toks[m]))
+                    y = body_apply(cfg, model.layers, embed(m), mb_rng(m))
                     ce = head_loss(cfg, model, y, tgts[m], pad_scale)
                     (ce * inv).backward()
                     loss += ce.detach()
             return loss * inv
 
         stages = stack_stage_layers(model.layers, D, V)
+
+        def stage_body(d, v, x, m):
+            """Device d's chunk v on microbatch m; its first layer's global
+            index keys the dropout streams."""
+            return body_apply(cfg, stages[d][v], x, mb_rng(m),
+                              stage_of(d, v, D) * lps)
+
         act: List[List] = [[None] * cs.n_act_slots for _ in range(D)]
         grad: List[List] = [[None] * cs.n_grad_slots for _ in range(D)]
         graphs: List[Dict] = [dict() for _ in range(D)]  # stored: slot -> (x, y)
@@ -152,16 +179,15 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             s = stage_of(d, v, D)
             if remat:
                 with torch.no_grad():
-                    x = embed_apply(cfg, model, toks[m]) if s == 0 \
-                        else act[d][slot]
+                    x = embed(m) if s == 0 else act[d][slot]
                     act[d][slot] = x  # the saved stage input
-                    y = body_apply(cfg, stages[d][v], x)
+                    y = stage_body(d, v, x, m)
             else:
                 with torch.enable_grad():
-                    x = embed_apply(cfg, model, toks[m]) if s == 0 \
+                    x = embed(m) if s == 0 \
                         else act[d][slot].detach().requires_grad_()
                     act[d][slot] = x
-                    y = body_apply(cfg, stages[d][v], x)
+                    y = stage_body(d, v, x, m)
                 graphs[d][slot] = (x, y)
                 y = y.detach()
             return y if s < S - 1 else None
@@ -175,9 +201,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                 if remat:
                     # stage 0 recomputes its embedding under autograd, so
                     # the input's gradient flows on into the tables
-                    x = embed_apply(cfg, model, toks[m]) if s == 0 \
+                    x = embed(m) if s == 0 \
                         else act[d][aslot].detach().requires_grad_()
-                    y = body_apply(cfg, stages[d][v], x)
+                    y = stage_body(d, v, x, m)
                 else:
                     x, y = graphs[d].pop(aslot)
                 if s == S - 1:

@@ -30,11 +30,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..models.generate import (check_decode_args, layers_with_cache,
-                               lengths_of, model_on, sample_logits,
-                               token_logprob)
-from ..models.transformer import (Transformer, _check_arch, compute_cast,
-                                  embed_apply, head_apply, rope_table)
+from ..models.generate import (check_decodable, check_decode_args,
+                               layers_with_cache, lengths_of, model_on,
+                               sample_logits, token_logprob)
+from ..models.transformer import (Transformer, compute_cast, embed_apply,
+                                  head_apply, rope_table)
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
 from .pipeline import stack_stage_layers
 
@@ -129,7 +129,7 @@ def make_pipeline_generate_fn(cfg: ModelConfig, n_stages: int,
     run's device) in tick order, so its numbers differ from the
     single-device ``generate``'s for the same generator state.
     """
-    _check_arch(cfg)
+    check_decodable(cfg)
     if tp_size != 1:
         raise NotImplementedError("tensor parallelism inside the pipelined "
                                   "decoder is not ported")

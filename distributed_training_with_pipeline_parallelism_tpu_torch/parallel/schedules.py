@@ -6,8 +6,9 @@ The port's own copy of what GPipe, 1F1B, Interleaved-1F1B and BFS need from
 (orders ``:118``-``:240``, ``schedule_ticks`` ``:457``, ``validate_order``
 ``:526``, the column layout ``:588``, ``CompiledSchedule`` ``:625``,
 ``_allocate_slots`` ``:656``, ``compile_schedule``/``compile_order``
-``:683``/``:705``, ``verify_table`` ``:829``, ``analytic_bubble_fraction``
-``:1636``). Those schedules use the wrap placement (global stage
+``:683``/``:705``, ``verify_table`` ``:829``, ``table_unit_activity``
+``:1483``, ``analytic_bubble_fraction`` ``:1636``,
+``paper_bubble_fraction`` ``:1682``, ``simulated_bubble`` ``:1704``). Those schedules use the wrap placement (global stage
 ``v * D + d`` on device ``d``) and the full backward, so only the wrap
 routes (+1 ring forward, -1 ring backward) are kept; the tables keep all 17
 columns, with the split-backward W columns (9-12) and the V-placement route
@@ -490,3 +491,47 @@ def analytic_bubble_fraction(name: str, n_devices: int, n_virtual: int,
     D, M = n_devices, n_microbatches
     V = n_virtual if name in ("Interleaved1F1B", "BFS") else 1
     return (D - 1) / (M * V + D - 1)
+
+
+def paper_bubble_fraction(name: str, n_devices: int, n_virtual: int,
+                          n_microbatches: int) -> float:
+    """The bubble under the zero-bubble paper's uniform-work accounting.
+    It differs from :func:`analytic_bubble_fraction` only for ZBH1/ZBV,
+    which the port does not run, so for every schedule here the two are
+    equal."""
+    return analytic_bubble_fraction(name, n_devices, n_virtual,
+                                    n_microbatches)
+
+
+def simulated_bubble(cs: CompiledSchedule, w_f: float = 1.0,
+                     w_b: float = 2.0) -> Dict[str, float]:
+    """Bubble of the compiled tick schedule when a forward tick costs
+    ``w_f`` and a backward tick ``w_b`` (2: the stored backward; 3: the
+    rematerialising one, the executor's default at D > 1). Lockstep: each
+    tick lasts as long as its most expensive active device; the bubble is
+    each device's idle share of the summed ticks, averaged (and its max)."""
+    T = cs.makespan
+    tick_cost = np.zeros(T + 1)
+    busy = np.zeros(cs.n_devices)
+    weight = {F: w_f, B: w_b}
+    for a, t in cs.ticks.items():
+        w = weight[a.op]
+        tick_cost[t] = max(tick_cost[t], w)
+        busy[device_of(a.stage, cs.n_devices)] += w
+    makespan = float(tick_cost.sum())
+    per_device = 1.0 - busy / makespan
+    return {
+        "makespan": makespan,
+        "bubble_fraction": float(per_device.mean()),
+        "bubble_fraction_max": float(per_device.max()),
+    }
+
+
+def table_unit_activity(table: np.ndarray) -> np.ndarray:
+    """Each (tick, device) cell of a training table as ``[T, D, 4]`` 0/1 in
+    (F, B, W, idle) order; W is always 0 here (no split backward)."""
+    table = np.asarray(table)
+    f = table[:, :, COL_FWD_M] >= 0
+    b = table[:, :, COL_BWD_M] >= 0
+    w = np.zeros_like(f)
+    return np.stack([f, b, w, ~(f | b)], axis=-1).astype(np.int64)

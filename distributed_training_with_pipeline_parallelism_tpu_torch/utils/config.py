@@ -2,7 +2,7 @@
 
 The port's own copy of the fields of
 ``distributed_training_with_pipeline_parallelism_tpu/utils/config.py:ModelConfig``
-that the GPT-2 and llama slices read, under the same names, with the same
+that the port reads, under the same names, with the same
 defaults and the same validation, plus ``ScheduleConfig``,
 ``virtual_stages_for`` and ``RunConfig``. The one
 behavioural difference is :meth:`ModelConfig.flash_for`: the JAX package's ``"auto"`` cut-over
@@ -25,10 +25,16 @@ from ..parallel.schedules import check_schedule_name
 class ModelConfig:
     """Decoder-only transformer LM hyperparameters (see the module doc).
 
-    ``arch`` accepts the JAX package's three block families so configs
-    stay interchangeable; the port's model implements ``"gpt2"`` and
-    ``"llama"`` (pre-RMSNorm, RoPE, grouped-query attention, gated MLP)
-    and raises ``NotImplementedError`` for ``"ref_decoder"``.
+    ``arch`` selects one of the JAX package's three block families:
+    ``"ref_decoder"`` (the reference's ``nn.TransformerDecoderLayer``
+    called as ``layer(h, h)``: post-LN self- and cross-attention over the
+    block's own input, relu FFN, no mask and no positions), ``"gpt2"``
+    (pre-LN, causal, learned positions) and ``"llama"`` (pre-RMSNorm,
+    RoPE, grouped-query attention, gated MLP).
+
+    ``dropout`` is the train-mode rate at the JAX sites; it acts only
+    where a step seed is passed (``make_pipeline_grad_fn``'s
+    ``step_seed``, ``transformer_loss``'s ``rng``).
     """
 
     dim: int = 768

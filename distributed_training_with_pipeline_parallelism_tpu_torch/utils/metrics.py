@@ -12,7 +12,7 @@ last loss (the JAX ``force_completion``).
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -28,17 +28,27 @@ def force_completion(loss) -> None:
 
 def run_train_iterations(step: Callable, model, tokens, targets,
                          num_iterations: int = 10,
-                         warmup_iterations: int = 2) -> Dict[str, float]:
+                         warmup_iterations: int = 2,
+                         seed: Optional[int] = None) -> Dict[str, float]:
     """Time ``num_iterations`` calls of ``step(model, tokens, targets)``
-    (returning the loss) after ``warmup_iterations`` untimed ones."""
+    (returning the loss) after ``warmup_iterations`` untimed ones. With a
+    ``seed`` (a step that runs train-mode dropout) the i-th call, warm-ups
+    included, also takes ``seed + i`` as its step seed, so each step
+    draws new masks."""
     total_toks = tokens.shape[0] * tokens.shape[1] * num_iterations
+
+    def call(i):
+        if seed is None:
+            return step(model, tokens, targets)
+        return step(model, tokens, targets, seed + i)
+
     out = None
-    for _ in range(warmup_iterations):
-        out = step(model, tokens, targets)
+    for i in range(warmup_iterations):
+        out = call(i)
     force_completion(out)
     start = time.perf_counter()
-    for _ in range(num_iterations):
-        out = step(model, tokens, targets)
+    for i in range(warmup_iterations, warmup_iterations + num_iterations):
+        out = call(i)
     force_completion(out)
     elapsed = time.perf_counter() - start
     return {"elapsed_time": elapsed, "throughput": total_toks / elapsed,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -105,15 +105,17 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     """``step(model, opt_state, tokens, targets) -> loss``: the pipeline's
     gradients (:func:`..parallel.pipeline.make_pipeline_grad_fn`), then
     the optimizer's update of ``model`` in place. ``opt_state`` is
-    ``optimizer.init(model)``. The loss stays on the device."""
+    ``optimizer.init(model)``. The loss stays on the device. With
+    ``cfg.dropout > 0`` the step takes the step's seed as a fifth
+    argument, as the gradient function does."""
     grad_fn = make_pipeline_grad_fn(cfg, sched, n_stages,
                                     remat_backward=remat_backward,
                                     device=device)
 
-    def step(model: nn.Module, opt_state: AdamWState, tokens,
-             targets) -> torch.Tensor:
+    def step(model: nn.Module, opt_state: AdamWState, tokens, targets,
+             step_seed: Optional[int] = None) -> torch.Tensor:
         opt_state.zero_grad()
-        loss = grad_fn(model, tokens, targets)
+        loss = grad_fn(model, tokens, targets, step_seed)
         optimizer.update(opt_state)
         return loss
 

@@ -1,5 +1,5 @@
-"""Load a JAX-package parameter pytree (GPT-2 or llama) into the port's
-model.
+"""Load a JAX-package parameter pytree (reference, GPT-2 or llama) into
+the port's model.
 
 The caller turns the JAX pytree's leaves into numpy arrays
 (``jax.tree.map(np.asarray, params)``); the port never imports jax.
@@ -34,32 +34,45 @@ def _tensor(x) -> torch.Tensor:
 
 def _linears(cfg: ModelConfig, layers: Dict) -> Dict:
     """The block's linear leaves by port name."""
-    lins = {f"attn.{n}": layers["attn"][n] for n in ("q", "k", "v", "o")}
-    names = ("lin1", "lin2") if cfg.arch == "gpt2" else ("w1", "w2", "w3")
+    attns = ("self_attn", "cross_attn") if cfg.arch == "ref_decoder" \
+        else ("attn",)
+    lins = {f"{a}.{n}": layers[a][n] for a in attns
+            for n in ("q", "k", "v", "o")}
+    names = ("w1", "w2", "w3") if cfg.arch == "llama" else ("lin1", "lin2")
     lins.update({n: layers[n] for n in names})
     return lins
 
 
+_BLOCK_NORMS = {"ref_decoder": ("ln1", "ln2", "ln3"), "gpt2": ("ln1", "ln2"),
+                "llama": ("rms1", "rms2")}
+
+
 def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda") -> Transformer:
     """The port's model holding the weights of the JAX pytree with numpy
-    leaves, in ``cfg.storage_dtype`` on ``device``. GPT-2:
+    leaves, in ``cfg.storage_dtype`` on ``device``. Reference:
+    ``{"embed": {"tok"}, "layers": {"self_attn", "cross_attn", "ln1",
+    "ln2", "ln3", "lin1", "lin2"}, "head": {"norm", "out"}}`` with q, k, v,
+    o and the head's ``out`` biased; GPT-2:
     ``{"embed": {"tok", "pos"}, "layers": {"ln1", "attn", "ln2", "lin1",
     "lin2"}, "head": {"norm", "out"}}``; llama: ``{"embed": {"tok"},
     "layers": {"rms1", "attn", "rms2", "w1", "w2", "w3"}, "head": {"norm",
     "out"}}`` with q/k/v biases under ``cfg.attention_qkv_bias``; layer
     leaves stacked [L, ...]; no ``out`` when tied."""
     device = resolve_device(device)
-    norms = ("ln1", "ln2") if cfg.arch == "gpt2" else ("rms1", "rms2")
     state = {"tok": tree["embed"]["tok"],
              "norm.weight": tree["head"]["norm"]["scale"]}
     if cfg.arch == "gpt2":
         state["pos"] = tree["embed"]["pos"]
+    if cfg.arch != "llama":
         state["norm.bias"] = tree["head"]["norm"]["bias"]
     if not cfg.tie_embeddings:
-        state["out.weight"] = np.asarray(tree["head"]["out"]["w"]).T
+        out = tree["head"]["out"]
+        state["out.weight"] = np.asarray(out["w"]).T
+        if "b" in out:
+            state["out.bias"] = out["b"]
     layers = tree["layers"]
     for i in range(cfg.n_layers):
-        for norm in norms:
+        for norm in _BLOCK_NORMS[cfg.arch]:
             state[f"layers.{i}.{norm}.weight"] = layers[norm]["scale"][i]
             if "bias" in layers[norm]:
                 state[f"layers.{i}.{norm}.bias"] = layers[norm]["bias"][i]

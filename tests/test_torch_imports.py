@@ -27,6 +27,10 @@ def _imported_roots(path: Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(PORT_DIR)) for f in files
+             if PORT_DIR in f.parents}
+    assert {"analysis/cost_model.py", "analysis/memory_model.py",
+            "run_sweep.py", "utils/sweep.py", "utils/plotting.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}, bad
@@ -40,7 +44,8 @@ _SERVING = dict(n_slots=2, max_len=8, prompt_max=4, out_max=4)
 @pytest.mark.parametrize("entry", ["init_params", "generate", "pipeline",
                                    "from_jax_params", "pipeline_grad",
                                    "train_step", "serving_step_fn",
-                                   "serving_engine", "serve_bench"])
+                                   "serving_engine", "serve_bench",
+                                   "sweep_experiment"])
 def test_entry_points_default_to_cuda(entry):
     """Without ``device=`` an entry point asks for CUDA: on a host without
     it the call raises instead of running on the CPU."""
@@ -64,6 +69,7 @@ def test_entry_points_default_to_cuda(entry):
         "serving_engine": lambda: port.ServingEngine(
             port.make_serving_step_fn(_CFG, 2, **_SERVING), model),
         "serve_bench": lambda: port.run_serve_bench(n_requests=2),
+        "sweep_experiment": lambda: port.run_one_experiment(4, 4, 2, "GPipe"),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

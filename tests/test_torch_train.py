@@ -229,7 +229,6 @@ def test_transformer_loss_matches_jax(reference):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(cfg=dict(dropout=0.1, use_flash_attention=False)), "dropout"),
     (dict(axes={"data": 2}), "item 8"),
     (dict(axes={"model": 2}), "item 11"),
 ])
