@@ -99,6 +99,37 @@ JAX. Phases, each fatal on failure:
    then one f32 step of the headline row (L8/H8, GPipe, D = 2) under the
    profiler for its idle share.
 
+8. ``fit``, the training entry point: tied GPT-2-small at full width,
+   random weights from a seed, 1F1B at D = 4, M = 4, S = 1024, both
+   kernels routed on. (a) A seeded file of 4 M uint16 tokens (a 1/rank
+   unigram) written by ``write_token_file``; ``TokenFileDataset``, the
+   native C++ loader (built from the port's source) and
+   ``prefetch_to_device`` (depth 2) give shifted crops, the prefetch the
+   loader's batch unchanged. (b) f32, B = 8: 6 ``fit`` steps with a
+   checkpoint every 2; the same run killed in step 3's save (an
+   uncommitted shell) and preempted at step 3, each resumed: the final
+   parameters, both Adam moments and every step's loss bitwise equal to
+   the unbroken run. (c) f32 guard: NaN gradients in stage 1 at step 2
+   leave the state bitwise as after step 1 with the optimizer's count at
+   2 and the counters total 1, last step 2, stage 1; three poisoned steps
+   under a budget of 3 raise after committing the last good state; no
+   synchronising call (CUDA's sync debug mode) inside the steps or the
+   prefetch between two log points. (d) f32 ``grad_accum=2`` on 2 x 4
+   against one step on the 8: mean loss within 1e-5 relative, the
+   gradients the update consumed within phase 4's leaf bound, parameters
+   within Adam's step (2 lr) of each other; the forward-only pipelined
+   eval within 1e-5 of single-device ``transformer_loss``, launching
+   the forward kernels as its table predicts and no backward kernel, its
+   peak memory beside a training step's. (e) bf16 over f32 master
+   weights, B = 24, through ``train.main`` with the native loader,
+   prefetch 2, eval and an async checkpoint every 5 steps: 2 warm-up and
+   10 timed steps, tokens/s from fit's metrics lines beside phase 4's,
+   each eval's time, how long each save blocks the loop, the launches of
+   one step and one eval, finite and falling losses; then two profiled
+   runs (steps 2-4, prefetch 2 and 0) whose Chrome traces must hold all
+   four kernels, with their idle shares. The temporary files go at the
+   end.
+
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
@@ -107,7 +138,8 @@ that are timed, by path, the llama decode's and the serving runs' among
 them, the paged and speculative runs' 0 as their dense cache attention
 takes neither kernel; the llama prefill shape's times beside the flash
 kernel's; the reference shapes' bf16 times and the ref_decoder gate's
-launches beside each flash kernel's), the
+launches beside each flash kernel's; phase 8's fit step, one eval and
+the entry point's whole run), the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -1693,6 +1725,506 @@ def phase_ref(report, device="cuda"):
     return launches96
 
 
+# the fit path (phase 8): tied GPT-2-small at full width through
+# utils.train.fit and the training entry point; the f32 gates at B = 8
+# (f32 GEMMs on the CUDA cores are slow), the bf16 timing at phase 4's
+# B = 24; S = 1024, M = 4, 1F1B at D = 4
+FIT_S, FIT_M, FIT_B32, FIT_B16 = 1024, 4, 8, 24
+FIT_TOKENS = 4 << 20  # the seeded token file: 4 M uint16 tokens
+FIT_TIMED, FIT_WARM = 10, 2
+FIT_MODEL_ARGS = ["--model", "gpt2-small", "--tie-embeddings"]  # fit_config's
+
+
+def fit_config():
+    """Tied GPT-2-small with both kernels routed on, f32."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import gpt2_config
+    return gpt2_config("small", tie_embeddings=True, use_flash_attention=True,
+                       use_fused_xent=True)
+
+
+
+
+def zipf_tokens(n, vocab, seed):
+    """``n`` token ids drawn with probability 1/rank over the vocabulary
+    (a learnable unigram, so a short run's loss falls; uniform tokens sit
+    at ln V from the first step)."""
+    import numpy as np
+    p = 1.0 / np.arange(1, vocab + 1)
+    return np.random.default_rng(seed).choice(vocab, size=n, p=p / p.sum())
+
+
+@contextlib.contextmanager
+def patched(obj, name, wrap):
+    """``obj.name`` replaced by ``wrap(original)`` inside the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def same_state(a, b, what):
+    """Two restored checkpoints hold bitwise equal model tensors, Adam
+    moments and step counts; the number of tensors compared."""
+    import torch
+    n = 0
+    for name, t in a["model"].items():
+        check(torch.equal(b["model"][name], t), f"{what}: {name} differs")
+        n += 1
+    for k, st in a["optimizer"]["state"].items():
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            check(torch.equal(b["optimizer"]["state"][k][key], st[key]),
+                  f"{what}: optimizer state {k}.{key} differs")
+            n += 1
+    return n
+
+
+def trace_summary(path):
+    """Device busy time, the window's span and the idle share from a
+    ``torch.profiler`` Chrome trace, and which of the port's kernels it
+    holds."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if "ts" in e and "dur" in e]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    span = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+            - min(float(e["ts"]) for e in events)) / 1e3
+    busy = sum(float(e["dur"]) for e in kern) / 1e3
+    names = {n for n in ("flash_fwd", "flash_bwd", "xent_fwd", "xent_bwd")
+             if any(n in e.get("name", "") for e in kern)}
+    return dict(span_ms=span, device_busy_ms=busy,
+                idle_share=1 - busy / span if span else None,
+                n_kernels=len(kern), port_kernels=sorted(names),
+                trace_bytes=Path(path).stat().st_size)
+
+
+def phase_fit(report, device="cuda"):
+    """``fit`` and the training entry point (see the module doc); returns
+    the kernel launches of one fit step, of one eval and of the entry
+    point's whole run."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch import (
+        train as entry)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        Transformer, transformer_loss)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.pipeline import (
+        _fwd_tick_table)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+        resilience, train as ttrain)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.checkpoint import (
+        is_committed, restore_checkpoint)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
+        TokenFileDataset, prefetch_to_device, write_token_file)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data_native import (
+        NativeTokenLoader, load_library)
+    kernels = all_kernels()
+    cfg = fit_config()
+    sched = port.ScheduleConfig("1F1B", FIT_M)
+    lps = cfg.n_layers // D
+    res = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    t_phase = time.perf_counter()
+    try:
+        # (a) data: a seeded token file, both loaders, the prefetch
+        t0 = time.perf_counter()
+        path = str(tmp / "tokens.bin")
+        write_token_file(path, zipf_tokens(FIT_TOKENS, cfg.vocab_size, SEED))
+        check(os.path.getsize(path) == 2 * FIT_TOKENS, "token file size")
+        t = time.perf_counter()
+        load_library()
+        build_s = time.perf_counter() - t
+        fx, fy = TokenFileDataset(path, FIT_S, seed=SEED).sample(FIT_B32)
+        with NativeTokenLoader(path, FIT_S, FIT_B32, seed=SEED,
+                               n_threads=1) as a, \
+                NativeTokenLoader(path, FIT_S, FIT_B32, seed=SEED,
+                                  n_threads=1) as b:
+            nx, ny = a.next()
+            px, py = next(prefetch_to_device(b.batches(), depth=2,
+                                             device=device))
+        for name, (x, y) in (("TokenFileDataset", (fx, fy)),
+                             ("NativeTokenLoader", (nx, ny))):
+            check(x.shape == y.shape == (FIT_B32, FIT_S)
+                  and (x[:, 1:] == y[:, :-1]).all()
+                  and 0 <= x.min() and x.max() < cfg.vocab_size,
+                  f"{name}: a batch is not a shifted crop of the file")
+        check(px.device.type == torch.device(device).type
+              and torch.equal(px.cpu(), torch.from_numpy(nx))
+              and torch.equal(py.cpu(), torch.from_numpy(ny)),
+              "prefetch_to_device changed the native loader's batch")
+        res["data"] = dict(tokens=FIT_TOKENS, native_build_s=build_s,
+                           seconds=time.perf_counter() - t0)
+        print(f"  (a) data: {FIT_TOKENS} tokens, native loader built in "
+              f"{build_s:.1f} s, both loaders and the prefetch agree")
+
+        g = torch.Generator().manual_seed(SEED)
+        init_state = {k: v.detach().clone() for k, v in
+                      port.init_params(cfg, g, device).state_dict().items()}
+
+        def fresh():
+            model = Transformer(cfg, device=device)
+            model.load_state_dict(init_state)
+            return model
+
+        def run_fit(n_steps, ckpt=None, metrics=None, batch=FIT_B32,
+                    data=None, **kw):
+            if data is None:
+                data = prefetch_to_device(TokenFileDataset(
+                    path, FIT_S, seed=SEED).batches(batch), 2, device)
+            model = fresh()
+            ttrain.fit(cfg, sched, D, model, data, n_steps,
+                       optimizer=port.adamw(warmup_steps=2, total_steps=20),
+                       log_every=kw.pop("log_every", 1), verbose=False,
+                       checkpoint_dir=None if ckpt is None else str(ckpt),
+                       checkpoint_every=2 if ckpt is not None else 0,
+                       metrics_path=None if metrics is None else str(metrics),
+                       keep_last=2, device=device, **kw)
+            return model
+
+        def losses(metrics):
+            return [(x["step"], x["loss"]) for x in
+                    map(json.loads, Path(metrics).read_text().splitlines())
+                    if "loss" in x]
+
+        # (b) the f32 resume gate: unbroken, killed in a save, preempted
+        t0 = time.perf_counter()
+        run_fit(6, tmp / "ck_unbroken", tmp / "m_unbroken.jsonl")
+        want = restore_checkpoint(str(tmp / "ck_unbroken" / "step_5"))
+        want_losses = dict(losses(tmp / "m_unbroken.jsonl"))
+        shutil.rmtree(tmp / "ck_unbroken")
+        check(sorted(want_losses) == list(range(6)) and all(
+            math.isfinite(x) for x in want_losses.values()),
+            f"unbroken run: losses {want_losses}")
+        resume = {}
+        for fault in ("kill_in_save_step", "preempt_at_step"):
+            ck, m = tmp / f"ck_{fault}", tmp / f"m_{fault}.jsonl"
+            plan = resilience.FaultPlan(**{fault: 3})
+            try:
+                run_fit(6, ck, m, fault_plan=plan)
+                killed = False
+            except resilience.SimulatedKill:
+                killed = True
+            check(killed == (fault == "kill_in_save_step"),
+                  f"{fault}: SimulatedKill raised: {killed}")
+            shell = str(ck / "step_3")
+            check(os.path.exists(os.path.join(shell, "state.pt"))
+                  and is_committed(shell) == (not killed),
+                  f"{fault}: step_3 committed {is_committed(shell)}")
+            first = len(losses(m))
+            run_fit(6, ck, m, resume=True)
+            got_losses = losses(m)
+            resumed_at = got_losses[first][0]
+            check(resumed_at == (2 if killed else 4),
+                  f"{fault}: resumed at step {resumed_at}")
+            n = same_state(want, restore_checkpoint(str(ck / "step_5")),
+                           fault)
+            check(all(x == want_losses[s] for s, x in got_losses),
+                  f"{fault}: losses {got_losses} != {want_losses}")
+            shutil.rmtree(ck)
+            resume[fault] = dict(resumed_at=resumed_at, tensors_equal=n,
+                                 losses=got_losses)
+            print(f"  (b) f32 {fault}=3: resumed at step {resumed_at}, "
+                  f"{n} tensors and {len(got_losses)} losses bitwise equal "
+                  f"to the unbroken run")
+        res["resume"] = dict(resume, unbroken_losses=want_losses,
+                             seconds=time.perf_counter() - t0)
+        del want
+
+        # (c) the guard gate: a poisoned stage, the budget, no sync
+        t0 = time.perf_counter()
+        guard_plan = resilience.FaultPlan(nan_grad_steps=(2,),
+                                          nan_grad_stage=1)
+        run_fit(3, tmp / "ck_guard", guard=resilience.AnomalyGuard(),
+                fault_plan=guard_plan)
+        s1 = restore_checkpoint(str(tmp / "ck_guard" / "step_1"))
+        s2 = restore_checkpoint(str(tmp / "ck_guard" / "step_2"))
+        n = same_state(s1, s2, "guard: after the skipped step 2")
+        counters = {k: int(v) for k, v in s2["guard"].items()}
+        check(counters == {"step": 3, "consec": 1, "total": 1,
+                           "last_anomaly_step": 2, "last_bad_stage": 1},
+              f"guard counters {counters}")
+        count = float(next(iter(s2["optimizer"]["state"].values()))["step"])
+        check(count == 2.0, f"the optimizer's count moved to {count}")
+        ck = tmp / "ck_budget"
+        try:
+            run_fit(6, ck, guard=resilience.AnomalyGuard(max_consecutive=3),
+                    fault_plan=resilience.FaultPlan(nan_grad_steps=(2, 3, 4)))
+            raised = False
+        except resilience.AnomalyBudgetExceeded:
+            raised = True
+        check(raised and is_committed(str(ck / "step_4")),
+              f"budget: raised {raised}, step_4 committed")
+        same_state(s1, restore_checkpoint(str(ck / "step_4")),
+                   "budget: the committed last good state")
+        shutil.rmtree(ck)
+        shutil.rmtree(tmp / "ck_guard")
+        del s1, s2
+
+        # no synchronising call inside the steps or the data between the
+        # log points (steps 0 and 5 log): guard and prefetch on
+        in_step, in_data = [], []
+        probe = {"caught": []}
+
+        def syncs_since(k):
+            return sum("synchroniz" in str(w.message)
+                       for w in probe["caught"][k:])
+
+        def counted_make(make):
+            def make_counted(*a, **kw):
+                step = make(*a, **kw)
+
+                def counted(*sa, **skw):
+                    k = len(probe["caught"])
+                    out = step(*sa, **skw)
+                    in_step.append(syncs_since(k))
+                    return out
+                return counted
+            return make_counted
+
+        def counted_data(it):
+            while True:
+                k = len(probe["caught"])
+                try:
+                    batch = next(it)
+                finally:
+                    in_data.append(syncs_since(k))
+                yield batch
+
+        data = counted_data(prefetch_to_device(TokenFileDataset(
+            path, FIT_S, seed=SEED).batches(FIT_B32), 2, device))
+        with patched(ttrain, "make_train_step", counted_make), \
+                warnings.catch_warnings(record=True) as caught:
+            probe["caught"] = caught
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run_fit(6, data=data, log_every=5,
+                        guard=resilience.AnomalyGuard(), fault_plan=guard_plan)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        n_sync = syncs_since(0)
+        res["guard"] = dict(counters=counters, tensors_equal=n,
+                            sync_debug=dict(in_step=in_step, in_data=in_data,
+                                            warnings=n_sync),
+                            seconds=time.perf_counter() - t0)
+        print(f"  (c) f32 guard: step 2 skipped in stage 1 ({n} tensors "
+              f"bitwise as after step 1, count 2), counters {counters}; "
+              f"budget of 3 raised after committing step 4; sync debug: "
+              f"{in_step} in the steps, {in_data} in the data, {n_sync} in "
+              f"all (the log points' reads)")
+        check(sum(in_step[1:5]) == 0 and sum(in_data[1:5]) == 0,
+              f"a synchronising call between log points: steps {in_step}, "
+              f"data {in_data}")
+
+        # (d) grad_accum against the concatenated batch; the eval loss
+        t0 = time.perf_counter()
+        x, y = (torch.from_numpy(v).to(device) for v in TokenFileDataset(
+            path, FIT_S, seed=SEED + 1).sample(FIT_B32))
+        opt = port.adamw(warmup_steps=0, total_steps=10)
+        big = fresh()
+        big_state = opt.init(big)
+        step_big = ttrain.make_train_step(cfg, sched, D, opt, device=device)
+        loss_big = step_big(big, big_state, x, y).item()
+        grads_big = {n: p.grad.clone() for n, p in big.named_parameters()}
+        acc = fresh()
+        multi = ttrain.MultiSteps(opt, 2)
+        acc_state = multi.init(acc)
+        step_acc = ttrain.make_train_step(cfg, sched, D, multi,
+                                          device=device)
+        half = FIT_B32 // 2
+        l0 = step_acc(acc, acc_state, x[:half], y[:half]).item()
+        l1 = step_acc(acc, acc_state, x[half:], y[half:]).item()
+        grads_acc = {n: p.grad for n, p in acc.named_parameters()}
+        rel = abs((l0 + l1) / 2 - loss_big) / abs(loss_big)
+        ratio, leaf, worst_rel = grad_errors(grads_acc, grads_big)
+        # Adam's first update is about lr * sign(g), so an element whose
+        # gradient sits at the rounding noise may move either way: the
+        # parameters are held to Adam's per-element step bound
+        step_gap = max((p.detach() - big.get_parameter(n).detach()).abs()
+                       .max().item() for n, p in acc.named_parameters())
+        count_acc = acc_state.inner.count.item()
+        print(f"  (d) f32 grad_accum=2 on 2 x {half} vs one step on "
+              f"{FIT_B32}: mean loss rel err {rel:.2e}, the consumed "
+              f"gradients' worst leaf {leaf} at {ratio:.3f} of its bound, "
+              f"largest parameter gap {step_gap:.2e} (lr "
+              f"{opt.learning_rate}), updates {count_acc}")
+        check(rel <= 1e-5, f"grad_accum loss: rel err {rel}")
+        check(ratio <= 1.0, f"grad_accum grads: leaf {leaf} at {ratio}")
+        check(step_gap <= 2 * opt.learning_rate and count_acc == 1.0,
+              f"grad_accum parameters: gap {step_gap}, count {count_acc}")
+        del acc, acc_state, grads_acc, grads_big
+        eval_fn = ttrain.make_eval_fn(cfg, sched, D, device=device)
+        eval_fn(big, x, y)  # warm-up
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        loss_eval = eval_fn(big, x, y).item()
+        eval_s = time.perf_counter() - t
+        eval_peak = torch.cuda.max_memory_allocated() - base
+        eval_launches = {k.name: k.launches for k in kernels}
+        table, _ = _fwd_tick_table(D, 1, FIT_M)
+        units = int((table[..., 2] >= 0).sum())
+        eval_want = {"flash_fwd": units * lps, "flash_bwd": 0,
+                     "xent_fwd": FIT_M, "xent_bwd": 0}
+        with torch.no_grad():
+            single = transformer_loss(cfg, big, x, y).item()
+        rel_eval = abs(loss_eval - single) / abs(single)
+        big.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step_big(big, big_state, x, y)
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated() - base
+        print(f"  (d) f32 eval (forward-only, {units} stage units): loss "
+              f"{loss_eval:.6f} vs single device {single:.6f} (rel err "
+              f"{rel_eval:.2e}), {eval_s * 1e3:.1f} ms, launches "
+              f"{eval_launches} (table predicts {eval_want}), peak above "
+              f"the resting state {eval_peak / 2**20:.0f} MiB vs a "
+              f"training step's {train_peak / 2**20:.0f} MiB")
+        check(rel_eval <= 1e-5, f"eval loss: rel err {rel_eval}")
+        check(eval_launches == eval_want,
+              f"eval launches {eval_launches} != {eval_want}")
+        res["grad_accum_eval"] = dict(
+            loss_rel_err=rel, grads_worst_bound_ratio=ratio, worst_leaf=leaf,
+            max_leaf_rel_err=worst_rel, param_gap=step_gap,
+            eval_loss=loss_eval, single_device_loss=single,
+            eval_rel_err=rel_eval, eval_ms=eval_s * 1e3,
+            eval_launches=eval_launches, eval_peak_bytes=eval_peak,
+            train_step_peak_bytes=train_peak,
+            seconds=time.perf_counter() - t0)
+        del big, big_state, init_state
+        torch.cuda.empty_cache()
+
+        # (e) bf16 through the entry point: timing, eval, saves, profile
+        t0 = time.perf_counter()
+        n_steps = FIT_WARM + FIT_TIMED
+        base_argv = FIT_MODEL_ARGS + [
+            "--pipe", str(D), "--schedule", "1F1B", "--microbatches",
+            str(FIT_M), "--batch", str(FIT_B16), "--seq", str(FIT_S),
+            "--flash", "on", "--fused-xent", "--dtype", "bfloat16",
+            "--param-dtype", "float32", "--lr", "6e-4", "--warmup-steps",
+            "2", "--native-loader", "--data-file", path, "--seed", str(SEED),
+            "--device", device]
+        metrics = tmp / "m_bf16.jsonl"
+        step_rows, evals, saves = [], [], []
+
+        def timed_make(make):
+            def make_timed(*a, **kw):
+                step = make(*a, **kw)
+
+                def timed(*sa, **skw):
+                    n0 = {k.name: k.launches for k in kernels}
+                    out = step(*sa, **skw)
+                    step_rows.append({k.name: k.launches - n0[k.name]
+                                      for k in kernels})
+                    return out
+                return timed
+            return make_timed
+
+        def timed_evaluate(evaluate):
+            def timed(*a, **kw):
+                torch.cuda.synchronize()
+                n0 = {k.name: k.launches for k in kernels}
+                t = time.perf_counter()
+                out = evaluate(*a, **kw)
+                torch.cuda.synchronize()
+                evals.append(dict(ms=(time.perf_counter() - t) * 1e3,
+                                  launches={k.name: k.launches - n0[k.name]
+                                            for k in kernels}, **out))
+                return out
+            return timed
+
+        def timed_save(save):
+            def timed(self, step, state, wait=True):
+                t = time.perf_counter()
+                out = save(self, step, state, wait=wait)
+                saves.append(dict(step=step, wait=wait,
+                                  ms=(time.perf_counter() - t) * 1e3))
+                return out
+            return timed
+
+        for k in kernels:
+            k.launches = 0
+        with patched(ttrain, "make_train_step", timed_make), \
+                patched(ttrain, "evaluate", timed_evaluate), \
+                patched(resilience.CheckpointManager, "save", timed_save):
+            entry.main(base_argv + [
+                "--steps", str(n_steps), "--metrics", str(metrics),
+                "--eval-every", "5", "--ckpt", str(tmp / "ck_bf16"),
+                "--ckpt-every", "5", "--prefetch", "2"])
+        main_launches = {k.name: k.launches for k in kernels}
+        check(all(main_launches.values()),
+              f"the entry point's run launched {main_launches}")
+        lines = [json.loads(x) for x in metrics.read_text().splitlines()]
+        train_lines = [x for x in lines if "loss" in x]
+        fit_losses = [x["loss"] for x in train_lines]
+        timed = [x for x in train_lines if x["step"] >= FIT_WARM]
+        toks = FIT_B16 * FIT_S
+        fit_tps = toks * len(timed) / sum(x["elapsed_s"] for x in timed)
+        phase4 = report.get("train", {}).get("bf16", {}).get("1F1B", {})
+        step_launches = step_rows[FIT_WARM]
+        step_want = {"flash_fwd": 2 * FIT_M * cfg.n_layers,
+                     "flash_bwd": FIT_M * cfg.n_layers,
+                     "xent_fwd": FIT_M, "xent_bwd": FIT_M}
+        eval_batches = evals[0]["num_batches"]
+        one_eval = {k: v * eval_batches for k, v in eval_want.items()}
+        async_saves = [s["ms"] for s in saves if not s["wait"]]
+        print(f"  (e) bf16 B={FIT_B16} through train.main: {len(timed)} "
+              f"timed steps at {fit_tps:.1f} tokens/s (per step "
+              f"{[round(x['tokens_per_sec'], 1) for x in timed]}); phase 4's "
+              f"make_train_step 1F1B in this call: "
+              f"{phase4.get('tokens_per_s', float('nan')):.1f} tokens/s; "
+              f"losses {[round(x, 4) for x in fit_losses]}")
+        print(f"      one eval ({eval_batches} batches): "
+              f"{[round(e['ms'], 1) for e in evals]} ms; async saves block "
+              f"the loop {[round(x, 1) for x in async_saves]} ms, the final "
+              f"synchronous save {[round(s['ms'], 1) for s in saves if s['wait']]} "
+              f"ms; a step launches {step_launches}, an eval "
+              f"{evals[0]['launches']}")
+        check(all(math.isfinite(x) for x in fit_losses)
+              and fit_losses[-1] < fit_losses[0],
+              f"fit losses {fit_losses}")
+        check(step_launches == step_want,
+              f"fit step launches {step_launches} != {step_want}")
+        check(evals[0]["launches"] == one_eval,
+              f"eval launches {evals[0]['launches']} != {one_eval}")
+        check(len(async_saves) == 2, f"saves {saves}")
+        profiles = {}
+        for depth in (2, 0):
+            prof = tmp / f"prof_{depth}"
+            entry.main(base_argv + ["--steps", "6", "--prefetch", str(depth),
+                                    "--profile", str(prof)])
+            profiles[depth] = trace_summary(prof / "trace.json")
+            p = profiles[depth]
+            print(f"      profiled steps 2-4, prefetch {depth}: span "
+                  f"{p['span_ms']:.1f} ms, device busy "
+                  f"{p['device_busy_ms']:.1f} ms, idle share "
+                  f"{p['idle_share']:.3f}, kernels {p['port_kernels']}")
+            check(p["port_kernels"] == ["flash_bwd", "flash_fwd", "xent_bwd",
+                                        "xent_fwd"],
+                  f"the trace holds {p['port_kernels']}")
+        res["bf16"] = dict(
+            tokens_per_s=fit_tps, per_step=timed, losses=fit_losses,
+            phase4_tokens_per_s=phase4.get("tokens_per_s"),
+            evals=evals, saves=saves, step_launches=step_launches,
+            main_launches=main_launches, profiles=profiles,
+            seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 8: {res['seconds']:.1f} s")
+    report["fit"] = res
+    return step_launches, evals[0]["launches"], main_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1726,6 +2258,9 @@ def main() -> int:
     print("[7] the reference's job: ref_decoder, pipelined steps, dropout, "
           "the sweep")
     ref_launches = phase_ref(report)
+    print("[8] fit: tied GPT-2-small through utils.train.fit and the "
+          "training entry point")
+    fit_launches, eval_launches, fit_main_launches = phase_fit(report)
     report["seconds"] = time.perf_counter() - t0
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
@@ -1764,7 +2299,10 @@ def main() -> int:
                 "llama_decode": llama_launches.get(name, 0),
                 "llama_serving": serve_launches.get(name, 0),
                 "llama_paged_spec_serving": paged_spec_launches.get(name, 0),
-                "ref_train": ref_launches[name]}))
+                "ref_train": ref_launches[name],
+                "fit_step": fit_launches[name],
+                "eval": eval_launches[name],
+                "fit_main": fit_main_launches[name]}))
         if name.startswith("flash"):
             kernels[-1]["ref_shapes"] = [
                 {k: main_shapes[(f"{name}_ref{dh}", "bfloat16")][k]

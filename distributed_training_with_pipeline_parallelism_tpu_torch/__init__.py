@@ -24,6 +24,13 @@ package's. Ported so far:
   ``run_all_experiments``; ``python -m
   distributed_training_with_pipeline_parallelism_tpu_torch.run_sweep``)
   with the bubble, cost-model and memory-model columns (``analysis``).
+- training jobs: ``fit`` (``python -m
+  distributed_training_with_pipeline_parallelism_tpu_torch.train``) with
+  the forward-only pipelined eval (``make_pipeline_loss_fn``), committed
+  checkpoints with async saves and bit-exact resume, the anomaly guard,
+  preemption and the fault plan (``utils.resilience``), gradient
+  accumulation, and the token-file, native C++ and prefetching loaders
+  (``utils.data``, ``utils.data_native``).
 
 Hand-written CUDA kernels (``csrc/``): flash-attention forward and
 backward (``flash_fwd.cu``, ``flash_bwd.cu``) and the fused cross-entropy
@@ -37,7 +44,7 @@ from .models.generate import generate
 from .models.gpt2 import gpt2_config
 from .models.llama import llama_config
 from .models.transformer import init_params
-from .parallel.pipeline import make_pipeline_grad_fn
+from .parallel.pipeline import make_pipeline_grad_fn, make_pipeline_loss_fn
 from .parallel.pipelined_decode import make_pipeline_generate_fn
 from .parallel.schedules import compile_schedule
 from .serving import (Request, ServingEngine, make_serving_step_fn,
@@ -45,13 +52,14 @@ from .serving import (Request, ServingEngine, make_serving_step_fn,
 from .utils.config import ModelConfig, RunConfig, ScheduleConfig
 from .utils.metrics import run_train_iterations
 from .utils.sweep import run_one_experiment, sweep_rows
-from .utils.train import adamw, make_train_step
+from .utils.train import adamw, fit, make_train_step
 from .utils.weights import from_jax_params
 
 __all__ = ["ModelConfig", "ScheduleConfig", "RunConfig", "gpt2_config",
            "llama_config", "generate", "make_pipeline_generate_fn",
            "init_params", "from_jax_params", "compile_schedule",
-           "make_pipeline_grad_fn", "make_train_step", "adamw",
+           "make_pipeline_grad_fn", "make_pipeline_loss_fn",
+           "make_train_step", "adamw", "fit",
            "run_train_iterations", "run_one_experiment", "sweep_rows",
            "Request", "ServingEngine",
            "make_serving_step_fn", "run_serve_bench", "synth_trace"]

@@ -1,8 +1,9 @@
-"""The pipeline executor: the stage split and the training tick executor
-(counterparts of the JAX package's ``parallel/pipeline.py``:
-``stack_stage_layers`` ``:199``, ``_stage_index_map`` ``:190`` and
-``make_pipeline_grad_fn`` ``:589``; its last-stage loss ``_stage_ce``
-``:251`` is ``models.transformer.head_loss``).
+"""The pipeline executor: the stage split, the training tick executor and
+the forward-only eval executor (counterparts of the JAX package's
+``parallel/pipeline.py``: ``stack_stage_layers`` ``:199``,
+``_stage_index_map`` ``:190``, ``make_pipeline_grad_fn`` ``:589``,
+``_fwd_tick_table`` ``:1962`` and ``make_pipeline_loss_fn`` ``:2328``; its
+last-stage loss ``_stage_ce`` ``:251`` is ``models.transformer.head_loss``).
 
 All D stages run in one process on one device, in lockstep over the
 compiled ``[T, D, 17]`` tick table: each tick, each device banks last
@@ -26,7 +27,8 @@ from ..ops.layers import fold_seed, global_pad_scale
 from ..utils.config import ModelConfig, ScheduleConfig, resolve_device
 from .schedules import (COL_BWD_ASLOT, COL_BWD_GSLOT, COL_BWD_M, COL_BWD_V,
                         COL_FWD_M, COL_FWD_SLOT, COL_FWD_V, COL_STORE_B_SLOT,
-                        COL_STORE_F_SLOT, compile_schedule, stage_of)
+                        COL_STORE_F_SLOT, F, Action, _allocate_slots,
+                        bfs_order, compile_schedule, schedule_ticks, stage_of)
 
 # mesh axes of the JAX executor that the single-device port does not run
 _AXIS_ITEMS = {
@@ -57,6 +59,19 @@ def stack_stage_layers(layers: nn.ModuleList, n_devices: int,
     idx = _stage_index_map(n_devices, n_virtual)
     return [[nn.ModuleList(layers[s * lps:(s + 1) * lps]) for s in row]
             for row in idx.tolist()]
+
+
+def _check_axes(axes: Optional[Dict[str, int]]) -> None:
+    """Raise for any mesh axis other than the pipe of size > 1, naming the
+    ``ROADMAP.md`` item that ports it."""
+    for name, size in (axes or {}).items():
+        if name not in _AXIS_ITEMS:
+            raise ValueError(f"unknown mesh axis {name!r}; expected one of "
+                             f"{sorted(_AXIS_ITEMS)}")
+        if size > 1:
+            raise NotImplementedError(
+                f"a {name!r} axis of size {size} is not ported yet: "
+                f"{_AXIS_ITEMS[name]}")
 
 
 def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
@@ -104,14 +119,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     ``ROADMAP.md`` item that ports it.
     """
     device = resolve_device(device)
-    for name, size in (axes or {}).items():
-        if name not in _AXIS_ITEMS:
-            raise ValueError(f"unknown mesh axis {name!r}; expected one of "
-                             f"{sorted(_AXIS_ITEMS)}")
-        if size > 1:
-            raise NotImplementedError(
-                f"a {name!r} axis of size {size} is not ported yet: "
-                f"{_AXIS_ITEMS[name]}")
+    _check_axes(axes)
     D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
     cs = compile_schedule(sched.name, D, V, M)  # raises on a bad (D, V, M)
     S = D * V
@@ -235,3 +243,109 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
         return loss * inv
 
     return grad_fn
+
+
+def _fwd_tick_table(D: int, V: int, M: int):
+    """Forward-only tick table of the eval executor (the JAX
+    ``_fwd_tick_table``, bit-identical): the F actions of the
+    breadth-first order over V wrap-placed chunks, tick-scheduled and
+    slot-allocated with the training tables' machinery. Returns (table
+    [T, D, 4] int32 with columns (store_slot, fv, fm, src_slot),
+    n_slots); store_slot banks the previous tick's +1-ring arrival,
+    src_slot is where this tick's F reads its input (-1: the first stage,
+    which embeds)."""
+    forders = [[a for a in order if a.op == F]
+               for order in bfs_order(D, V, M)]
+    ticks, T = schedule_ticks(forders, D, V)
+    S = D * V
+    # F(s, m)'s output arrives at device (s+1) % D at tick + 1 and is read
+    # by F(s+1, m)'s tick, never later than the last compute tick
+    events = {d: [] for d in range(D)}
+    for a, t in ticks.items():
+        if a.stage + 1 < S:
+            nxt = Action(a.stage + 1, F, a.microbatch)
+            events[(a.stage + 1) % D].append((t + 1, ticks[nxt], nxt))
+    slot_of, n_slots = {}, 0
+    for d in range(D):
+        assign, n = _allocate_slots(events[d])
+        slot_of.update(assign)
+        n_slots = max(n_slots, n)
+    table = np.full((T, D, 4), -1, dtype=np.int32)
+    for a, t in ticks.items():
+        d = a.stage % D
+        table[t, d, 1] = a.stage // D
+        table[t, d, 2] = a.microbatch
+        if a.stage > 0:
+            table[t, d, 3] = slot_of[a]
+    for d in range(D):
+        for arrive, _, key in events[d]:
+            table[arrive, d, 0] = slot_of[key]
+    return table, max(n_slots, 1)
+
+
+def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
+                          n_stages: int, device="cuda",
+                          axes: Optional[Dict[str, int]] = None
+                          ) -> Callable[..., torch.Tensor]:
+    """``(model, tokens, targets) -> loss``: the forward-only pipelined
+    loss over ``n_stages`` (D) lockstep devices, the evaluation twin of
+    :func:`make_pipeline_grad_fn` (the JAX ``make_pipeline_loss_fn``).
+
+    It runs the rows of :func:`_fwd_tick_table` (every schedule's forward
+    order is fill-drain over ``sched.n_virtual`` wrap-placed chunks) under
+    ``torch.no_grad()``, in eval mode (no dropout), through the training
+    executor's ``embed_apply`` / ``body_apply`` / ``head_loss``: no
+    backward, no recompute, and no autograd graph (the kernels' saved
+    tensors go with their forward). The last stage takes each
+    microbatch's token-mean cross entropy; the loss is the mean over the
+    M microbatches, the single-device ``transformer_loss`` of the whole
+    batch. Other mesh axes raise as :func:`make_pipeline_grad_fn`'s do.
+    """
+    device = resolve_device(device)
+    _check_axes(axes)
+    D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
+    S = D * V
+    if cfg.n_layers % S != 0:
+        raise ValueError(f"n_layers={cfg.n_layers} must divide evenly into "
+                         f"{S} stages")
+    table, n_slots = _fwd_tick_table(D, V, M)
+    lps = cfg.n_layers // S
+
+    @torch.no_grad()
+    def loss_fn(model: Transformer, tokens, targets) -> torch.Tensor:
+        tokens = torch.as_tensor(tokens, device=device).long()
+        targets = torch.as_tensor(targets, device=device).long()
+        b, seq = tokens.shape
+        if b % M:
+            raise ValueError(f"batch {b} not divisible by "
+                             f"n_microbatches={M}")
+        toks = tokens.view(M, b // M, seq)
+        tgts = targets.view(M, b // M, seq)
+        pad_scale = (global_pad_scale(targets, cfg.pad_token_id, M)
+                     if cfg.pad_token_id is not None else None)
+        stages = stack_stage_layers(model.layers, D, V)
+        act: List[List] = [[None] * n_slots for _ in range(D)]
+        fwd_in: List = [None] * D
+        loss = torch.zeros((), dtype=torch.float32, device=device)
+        for t in range(table.shape[0]):
+            send: List = [None] * D
+            for d in range(D):
+                store, v, m, src = (int(c) for c in table[t, d])
+                if store >= 0:
+                    act[d][store] = fwd_in[d]
+                if m < 0:
+                    continue
+                s = stage_of(d, v, D)
+                if s == 0:
+                    x = embed_apply(cfg, model, toks[m])
+                else:
+                    x, act[d][src] = act[d][src], None  # read once
+                y = body_apply(cfg, stages[d][v], x, None, s * lps)
+                if s == S - 1:
+                    loss += head_loss(cfg, model, y, tgts[m], pad_scale)
+                else:
+                    send[d] = y
+            fwd_in = [send[(d - 1) % D] for d in range(D)]
+        return loss / M
+
+    return loss_fn

@@ -98,9 +98,11 @@ slot, positions and page row from static device buffers.
 
 One slot table on one card replaces the JAX stage-0 tables and their
 replication at the block end. ``ServeResult.host_syncs`` counts the
-blocking reads (one per block). Tensor parallelism, a ``RunReport`` and a
-``FaultPlan`` raise ``NotImplementedError`` naming their ``ROADMAP.md``
-items. Admission refuses a prompt token outside the vocabulary (a failed
+blocking reads (one per block). Tensor parallelism and a ``RunReport``
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` items. A
+``utils.resilience.FaultPlan`` injects admission faults
+(``serve_poison_rids``) and straggler delays (``serve_delay``) as the JAX
+engine does. Admission refuses a prompt token outside the vocabulary (a failed
 completion): the JAX gather clamps it, a CUDA embedding would fault.
 """
 
@@ -122,6 +124,7 @@ from ..ops.attention import Rope
 from ..parallel.pipeline import stack_stage_layers
 from ..parallel.pipelined_decode import spec_accept_len
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
+from ..utils.resilience import SimulatedFault
 from .paging import PagedKVAllocator
 
 # columns of the device slot table; out_buf follows them. POS, DPOS and
@@ -134,7 +137,6 @@ _NCOL = 12
 _NOT_PORTED = {
     "tp": "ROADMAP.md Queue 1, item 11 (tensor parallelism)",
     "report": "ROADMAP.md Queue 1, item 12 (observability: RunReport)",
-    "fault_plan": "ROADMAP.md Queue 1, item 6 (resilience: FaultPlan)",
 }
 
 
@@ -984,9 +986,8 @@ class ServingEngine:
                  fault_plan=None, prefix_cache: bool = True) -> None:
         if report is not None:
             raise _not_ported("a RunReport", "report")
-        if fault_plan is not None:
-            raise _not_ported("a FaultPlan", "fault_plan")
         self.program = program
+        self.fault_plan = fault_plan
         self.prefix_cache = prefix_cache
         self.weights = program.prepare(model, draft_params)
         self.reset()
@@ -1215,7 +1216,14 @@ class ServingEngine:
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown policy {policy!r} (continuous|static)")
         self.reset()
-        for r in sorted(requests, key=lambda r: r.arrival):
+        plan = self.fault_plan
+        delay = dict(getattr(plan, "serve_delay", None) or {})
+        poison = set(getattr(plan, "serve_poison_rids", ()) or ())
+        # injected stragglers shift arrival BEFORE the sort: the pending
+        # queue's pop loop relies on arrival order
+        retimed = [dataclasses.replace(r, arrival=r.arrival + delay[r.rid])
+                   if r.rid in delay else r for r in requests]
+        for r in sorted(retimed, key=lambda r: r.arrival):
             try:
                 self.submit(r)
             except ValueError as e:
@@ -1240,8 +1248,11 @@ class ServingEngine:
                             break
                     self.waiting.popleft()
                     try:  # refused before any write: the slot stays free
+                        if req.rid in poison:
+                            raise SimulatedFault(f"injected admission fault "
+                                                 f"for rid {req.rid}")
                         self._admit(free[0], req, plan)
-                    except (ValueError, TypeError) as e:
+                    except (ValueError, TypeError, SimulatedFault) as e:
                         if plan is not None:
                             self.paging.release_plan(plan)
                         self._fail_request(req, f"admission failed: {e}")

@@ -1,0 +1,330 @@
+"""Train a model-ladder config under a pipeline schedule on one card (the
+counterpart of ``scripts/train.py``: the same flags and defaults, through
+``utils.train.fit``).
+
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --pipe 4 --schedule 1F1B --microbatches 4 \\
+        --batch 24 --seq 1024 --steps 20 --ckpt /tmp/ck --eval-every 10 \\
+        --flash on --fused-xent --dtype bfloat16 --param-dtype float32
+
+    # a tiny run on the CPU (the kernels' plain versions)
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model ref --layers 2 --dim 32 --heads 2 --vocab 64 --seq 16 \\
+        --batch 4 --steps 2 --pipe 2 --device cpu
+
+All D = ``--pipe`` stages run in one process on the one device, in
+lockstep over the schedule's tick table. Flags for parts of the JAX
+package not ported yet (``--data`` or ``--tp``/``--sp``/``--ep`` above 1,
+``--zero1``, ``--fsdp``, ``--moe-experts``, ``--vocab-parallel``,
+``--sp-attn ulysses``, ``--report-dir``, ``--dynamics``) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from .parallel.schedules import NOT_PORTED, SCHEDULE_NAMES
+
+_ITEM = {8: "ROADMAP.md Queue 1, item 8 (torch.distributed transport)",
+         11: "ROADMAP.md Queue 1, item 11 (other parallelism)",
+         12: "ROADMAP.md Queue 1, item 12 (observability)"}
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="gpt2-small",
+                    help="gpt2-{small,medium,large,xl}, a llama_config name "
+                         "(llama2-7b, llama3.2-1b, mistral-7b-v0.1, "
+                         "qwen2-0.5b, gemma-2b, llama-debug, ...), or ref "
+                         "(the reference's ref_decoder)")
+    ap.add_argument("--schedule", default="1F1B",
+                    choices=list(SCHEDULE_NAMES + NOT_PORTED))
+    ap.add_argument("--pipe", type=int, default=2)
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--sp", type=int, default=1)
+    ap.add_argument("--sp-attn", default="ring", choices=["ring", "ulysses"])
+    ap.add_argument("--zero1", action="store_true")
+    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--vocab-parallel", action="store_true")
+    ap.add_argument("--backward", default="auto",
+                    choices=["auto", "remat", "stored"],
+                    help="pipeline backward: auto (plain autograd at --pipe "
+                         "1, the rematerialising backward above), remat, "
+                         "stored")
+    ap.add_argument("--virtual", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=4)
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="accumulate gradients over k batches per optimizer "
+                         "update (on top of per-step microbatching)")
+    ap.add_argument("--param-dtype", default="",
+                    help="master-weight dtype; 'float32' with --dtype "
+                         "bfloat16 is the mixed-precision recipe")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--weight-decay", type=float, default=0.01)
+    ap.add_argument("--warmup-steps", type=int, default=100)
+    ap.add_argument("--max-grad-norm", type=float, default=1.0)
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="train-mode dropout rate; masks are seeded from "
+                         "--seed and independent of the stage split")
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--flash", default=None, nargs="?", const="on",
+                    choices=["on", "off", "auto"],
+                    help="the hand-written flash-attention kernels (bare "
+                         "--flash means on; default auto: the kernel for "
+                         "causal attention on the card)")
+    ap.add_argument("--fused-xent", action="store_true",
+                    help="the hand-written fused cross-entropy kernels")
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint dir: step-numbered saves + final")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save every N steps (default: final only)")
+    ap.add_argument("--auto-resume", action="store_true",
+                    help="resume from the newest committed checkpoint in "
+                         "--ckpt")
+    ap.add_argument("--keep-last", type=int, default=0,
+                    help="retention: keep only the newest K committed "
+                         "checkpoints in --ckpt (0 keeps everything)")
+    ap.add_argument("--anomaly-guard", action="store_true",
+                    help="check loss and gradients for non-finite values on "
+                         "the card each step and skip a bad step")
+    ap.add_argument("--anomaly-budget", type=int, default=3,
+                    help="abort (after a final checkpoint) once this many "
+                         "CONSECUTIVE steps are non-finite")
+    ap.add_argument("--preemption-safe", action="store_true",
+                    help="catch SIGTERM/SIGINT, finish the in-flight step, "
+                         "write a sync checkpoint to --ckpt, exit resumable")
+    ap.add_argument("--stall-timeout", type=float, default=0.0,
+                    help="log a stall when no step completes for this many "
+                         "seconds (0 disables)")
+    ap.add_argument("--dynamics", action="store_true")
+    ap.add_argument("--report-dir", default="")
+    ap.add_argument("--metrics", default="",
+                    help="append per-log-point JSON lines here")
+    ap.add_argument("--profile", default="",
+                    help="write a torch.profiler Chrome trace of 3 "
+                         "steady-state steps into this dir")
+    ap.add_argument("--resume", default="",
+                    help="load the model's weights from a checkpoint of "
+                         "this package (a --ckpt dir, its newest committed "
+                         "step, or one step_N dir); the JAX package's Orbax "
+                         "checkpoints need JAX and are not read")
+    ap.add_argument("--dim", type=int, default=0,
+                    help="override model width; ffn_dim rescales "
+                         "proportionally unless --ffn is also given")
+    ap.add_argument("--ffn", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--heads", type=int, default=0)
+    ap.add_argument("--vocab", type=int, default=0)
+    ap.add_argument("--tie-embeddings", action="store_true")
+    ap.add_argument("--pad-id", type=int, default=-1,
+                    help="ignore-index target id (-1 disables)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data-file", default="",
+                    help="flat binary token file (uint16 ids); default is "
+                         "the reference's synthetic random-token regime")
+    ap.add_argument("--eval-file", default="",
+                    help="held-out token file for --eval-every")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="evaluate every N steps (and at the end)")
+    ap.add_argument("--eval-batches", type=int, default=8)
+    ap.add_argument("--native-loader", action="store_true",
+                    help="read --data-file through the C++ loader "
+                         "(csrc/data_loader.cpp, built at first use)")
+    ap.add_argument("--loader-threads", type=int, default=1,
+                    help="native-loader threads; 1 keeps the batch stream "
+                         "deterministic in --seed, which --auto-resume's "
+                         "data replay depends on")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="device-prefetch depth (0 disables)")
+    ap.add_argument("--moe-experts", type=int, default=0)
+    ap.add_argument("--moe-topk", type=int, default=2)
+    ap.add_argument("--moe-capacity", type=float, default=1.25)
+    ap.add_argument("--moe-aux", type=float, default=0.01)
+    ap.add_argument("--ep", type=int, default=1)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the kernels' plain "
+                         "versions)")
+    return ap
+
+
+def check_ported(args) -> None:
+    """Raise ``NotImplementedError`` for a flag of an unported part."""
+    unported = [("--data > 1", args.data > 1, 8),
+                ("--zero1", args.zero1, 8),
+                ("--tp > 1", args.tp > 1, 11), ("--sp > 1", args.sp > 1, 11),
+                ("--ep > 1", args.ep > 1, 11),
+                ("--sp-attn ulysses", args.sp_attn != "ring", 11),
+                ("--fsdp", args.fsdp, 11),
+                ("--vocab-parallel", args.vocab_parallel, 11),
+                ("--moe-experts", args.moe_experts > 0, 11),
+                ("--report-dir", bool(args.report_dir), 12),
+                ("--dynamics", args.dynamics, 12)]
+    for flag, given, item in unported:
+        if given:
+            raise NotImplementedError(f"{flag} is not ported yet: "
+                                      f"{_ITEM[item]}")
+
+
+def build_config(args):
+    """The model config of ``--model`` with the width, depth and routing
+    overrides (the family's FFN ratio kept under ``--dim``)."""
+    from .models.gpt2 import gpt2_config
+    from .models.llama import llama_config
+    from .utils.config import ModelConfig
+
+    def build(**overrides):
+        if args.model.startswith("gpt2-"):
+            return gpt2_config(args.model.removeprefix("gpt2-"), **overrides)
+        if args.model.startswith(("llama", "mistral", "qwen2", "gemma")):
+            return llama_config(args.model, **overrides)
+        if args.model == "ref":
+            return ModelConfig(**overrides)
+        raise SystemExit(f"unknown model {args.model}")
+
+    overrides = {k: v for k, v in dict(
+        dim=args.dim, ffn_dim=args.ffn, n_layers=args.layers,
+        n_heads=args.heads, vocab_size=args.vocab).items() if v}
+    overrides["dtype"] = args.dtype
+    if args.pad_id >= 0:
+        overrides["pad_token_id"] = args.pad_id
+    if args.tie_embeddings:
+        overrides["tie_embeddings"] = True
+    if args.param_dtype:
+        overrides["param_dtype"] = args.param_dtype
+    if args.dropout:
+        overrides["dropout"] = args.dropout
+    if args.flash is not None:
+        overrides["use_flash_attention"] = {
+            "on": True, "off": False, "auto": "auto"}[args.flash]
+    if args.fused_xent:
+        overrides["use_fused_xent"] = True
+    if args.dim and not args.ffn:
+        base = build()
+        overrides["ffn_dim"] = max(1, round(base.ffn_dim * args.dim / base.dim))
+    return build(**overrides)
+
+
+def _load_weights(model, path: str) -> str:
+    """Copy the model weights of a checkpoint of this package into
+    ``model``; the step dir read."""
+    from .utils.checkpoint import restore_checkpoint
+    from .utils.train import _latest_step_dir
+    latest = _latest_step_dir(path)
+    if latest is not None:
+        path = latest[1]
+    if not os.path.basename(os.path.normpath(path)).startswith("step_"):
+        raise SystemExit(f"--resume {path}: not a checkpoint of this package "
+                         f"(a --ckpt dir or one of its step_N dirs)")
+    model.load_state_dict(restore_checkpoint(path)["model"])
+    return path
+
+
+def main(argv=None) -> int:
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.native_loader and not args.data_file:
+        ap.error("--native-loader requires --data-file")
+    for flag, given in (("--auto-resume", args.auto_resume),
+                        ("--keep-last", args.keep_last),
+                        ("--preemption-safe", args.preemption_safe)):
+        if given and not args.ckpt:
+            ap.error(f"{flag} requires --ckpt")
+    check_ported(args)
+
+    import torch
+
+    from .models.transformer import init_params
+    from .utils import train
+    from .utils.config import ScheduleConfig, resolve_device
+    from .utils.data import (TokenFileDataset, prefetch_to_device,
+                             token_file_dtype)
+    from .utils.resilience import AnomalyGuard
+
+    device = resolve_device(args.device)
+    cfg = build_config(args)
+    sched = ScheduleConfig(name=args.schedule,
+                           n_microbatches=args.microbatches,
+                           n_virtual=args.virtual)
+    print(f"model={args.model} {cfg.dim}d x {cfg.n_layers}L x "
+          f"{cfg.n_heads}H, pipe={args.pipe} on {device}, {args.schedule} "
+          f"M={args.microbatches} V={args.virtual}", flush=True)
+    optimizer = train.adamw(
+        learning_rate=args.lr, weight_decay=args.weight_decay,
+        warmup_steps=args.warmup_steps, max_grad_norm=args.max_grad_norm,
+        total_steps=max(1, args.steps // args.grad_accum))
+    model = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                        device=device)
+    if args.resume:
+        print(f"loaded weights from {_load_weights(model, args.resume)}",
+              flush=True)
+
+    if (args.data_file and args.native_loader
+            and token_file_dtype(args.data_file) != np.uint16):
+        raise SystemExit("--native-loader reads uint16 token files; this "
+                         "corpus's .meta.json sidecar says otherwise — "
+                         "drop --native-loader for it")
+    loader = None
+    if args.data_file and args.native_loader:
+        from .utils.data_native import NativeTokenLoader
+        loader = NativeTokenLoader(args.data_file, args.seq, args.batch,
+                                   seed=args.seed,
+                                   n_threads=args.loader_threads)
+        data = loader.batches()
+    elif args.data_file:
+        data = TokenFileDataset(args.data_file, args.seq,
+                                seed=args.seed).batches(args.batch)
+    else:
+        data = train.synthetic_data(cfg, args.batch, args.seq, seed=args.seed)
+    if args.prefetch > 0:
+        data = prefetch_to_device(data, depth=args.prefetch, device=device)
+
+    eval_data = None
+    if args.eval_every:
+        # --eval-file, else the training file (a fixed-batch probe, not
+        # held out); synthetic only when training is synthetic too
+        eval_src = args.eval_file or args.data_file
+        if eval_src:
+            eval_data = lambda: TokenFileDataset(  # noqa: E731
+                eval_src, args.seq, seed=123).batches(args.batch)
+        else:
+            eval_data = lambda: train.synthetic_data(  # noqa: E731
+                cfg, args.batch, args.seq, seed=123)
+
+    try:
+        _, history = train.fit(
+            cfg, sched, args.pipe, model, data, args.steps,
+            optimizer=optimizer, log_every=max(1, args.steps // 20),
+            checkpoint_dir=args.ckpt or None,
+            checkpoint_every=(args.ckpt_every or args.steps) if args.ckpt
+            else 0,
+            resume=args.auto_resume, metrics_path=args.metrics or None,
+            remat_backward={"auto": None, "remat": True,
+                            "stored": False}[args.backward],
+            dropout_seed=args.seed, eval_data=eval_data,
+            eval_every=args.eval_every, eval_batches=args.eval_batches,
+            profile_dir=args.profile or None, grad_accum=args.grad_accum,
+            keep_last=args.keep_last or None,
+            guard=(AnomalyGuard(max_consecutive=args.anomaly_budget)
+                   if args.anomaly_guard else None),
+            handle_preemption=args.preemption_safe,
+            stall_timeout_s=args.stall_timeout or None, device=device)
+    finally:
+        if loader is not None:
+            loader.close()
+    if args.ckpt:
+        print(f"checkpoints in {args.ckpt}", flush=True)
+    if history:
+        print(f"final loss: {history[-1][1]:.4f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,176 @@
+"""Data pipeline: token datasets, host-side batching, device prefetch (the
+counterpart of the JAX package's ``utils/data.py``).
+
+The samplers are the JAX package's numpy code, so one seed gives
+bit-identical batches on both sides:
+
+- :func:`synthetic_batches`: the reference's random-token regime;
+- :class:`TokenFileDataset`: random crops over a memory-mapped flat token
+  file (the GPT-2-style ``.bin`` format); its native twin, whose crop
+  assembly runs in C++ threads, is
+  :class:`.data_native.NativeTokenLoader`.
+
+:func:`prefetch_to_device` keeps ``depth`` batches in flight to the card:
+each batch is pinned on the host (a copy from pageable memory would
+synchronise the host with the device) and copied with ``non_blocking`` on
+a side stream; the compute stream waits on the copy's event when the
+batch is taken, and the tensors are marked as used by it
+(``record_stream``), so the allocator does not hand their memory back to
+the side stream early.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import resolve_device
+
+Batch = Tuple[torch.Tensor, torch.Tensor]  # (tokens, targets), both [B, S]
+
+
+def synthetic_batches(vocab_size: int, batch_size: int, seq_length: int,
+                      seed: int = 0, next_token_targets: bool = True,
+                      ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Endless random-token batches — the reference's data regime.
+
+    ``next_token_targets=True`` yields targets shifted by one (so training
+    can actually reduce loss); ``False`` reproduces the reference exactly
+    (independent random targets, loss pinned at the entropy floor)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        if next_token_targets:
+            toks = rng.integers(0, vocab_size,
+                                (batch_size, seq_length + 1), dtype=np.int32)
+            yield toks[:, :-1], toks[:, 1:]
+        else:
+            yield (rng.integers(0, vocab_size, (batch_size, seq_length),
+                                dtype=np.int32),
+                   rng.integers(0, vocab_size, (batch_size, seq_length),
+                                dtype=np.int32))
+
+
+def token_file_dtype(path: str, default: np.dtype = np.uint16) -> np.dtype:
+    """The element dtype of a packed token file: the ``<path>.meta.json``
+    sidecar's ``dtype`` entry when present (a >= 2^16 vocab's uint32
+    corpus), else ``default`` (uint16, the standard packed-corpus
+    format)."""
+    meta = os.fspath(path) + ".meta.json"
+    if os.path.exists(meta):
+        with open(meta) as f:
+            return np.dtype(json.load(f).get("dtype", default))
+    return np.dtype(default)
+
+
+class TokenFileDataset:
+    """Random-crop sampler over a flat binary token file.
+
+    ``path`` holds token ids as a flat array of ``dtype`` (uint16 fits any
+    vocab < 65536; ``dtype=None`` consults the ``.meta.json`` sidecar).
+    Batches are independent random crops of ``seq_length + 1`` tokens;
+    targets are the crop shifted by one.
+    """
+
+    def __init__(self, path: str, seq_length: int,
+                 dtype: Optional[np.dtype] = None, seed: int = 0):
+        if dtype is None:
+            dtype = token_file_dtype(path)
+        self.tokens = np.memmap(path, dtype=dtype, mode="r")
+        if len(self.tokens) < seq_length + 1:
+            raise ValueError(
+                f"{path} holds {len(self.tokens)} tokens, need at least "
+                f"{seq_length + 1}")
+        self.seq_length = seq_length
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.tokens)
+
+    def sample(self, batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        # valid crop starts: 0 .. len - (seq_length+1) inclusive
+        starts = self._rng.integers(
+            0, len(self.tokens) - self.seq_length, batch_size)
+        crops = np.stack([
+            np.asarray(self.tokens[s: s + self.seq_length + 1])
+            for s in starts]).astype(np.int32)
+        return crops[:, :-1], crops[:, 1:]
+
+    def batches(self, batch_size: int
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        while True:
+            yield self.sample(batch_size)
+
+
+def write_token_file(path: str, tokens: np.ndarray,
+                     dtype: np.dtype = np.uint16) -> None:
+    """Pack a 1-D token-id array into the flat binary format."""
+    np.asarray(tokens, dtype=dtype).tofile(path)
+
+
+def encode_text_file(text_path: str, out_path: str) -> int:
+    """Byte-level "tokenize" a UTF-8 text file into the packed format
+    (vocab 256, no external tokenizer). Returns the token (byte) count.
+    Pair with ``ModelConfig(vocab_size=256)``."""
+    data = np.fromfile(text_path, dtype=np.uint8)
+    write_token_file(out_path, data)
+    return int(data.size)
+
+
+def encode_text_file_hf(text_path: str, out_path: str, tokenizer="gpt2",
+                        chunk_chars: int = 1 << 20) -> int:
+    """The JAX package's Hugging Face tokenizer route; not ported yet."""
+    raise NotImplementedError(
+        "encode_text_file_hf is not ported yet: ROADMAP.md Queue 1, item 11 "
+        "(models/hf.py from local files only)")
+
+
+def batch_sharding(*args, **kwargs):
+    """The JAX package's data-axis batch placement; not ported yet."""
+    raise NotImplementedError(
+        "batch_sharding is not ported yet: ROADMAP.md Queue 1, item 8 "
+        "(torch.distributed transport, the data axis)")
+
+
+def prefetch_to_device(it: Iterator, depth: int = 2,
+                       device="cuda") -> Iterator[Batch]:
+    """Keep ``depth`` batches of ``it`` (tuples of numpy arrays or host
+    tensors) in flight to ``device`` and yield them there as tensors (see
+    the module doc). On the CPU the batches are only converted."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    device = resolve_device(device)
+    if device.type != "cuda":
+        for batch in it:
+            yield tuple(torch.as_tensor(x) for x in batch)
+        return
+    stream = torch.cuda.Stream(device)
+    queue: collections.deque = collections.deque()
+
+    def put(batch):
+        host = [torch.as_tensor(np.ascontiguousarray(x)).pin_memory()
+                for x in batch]
+        with torch.cuda.stream(stream):
+            dev = tuple(h.to(device, non_blocking=True) for h in host)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return dev, done
+
+    def take():
+        dev, done = queue.popleft()
+        compute = torch.cuda.current_stream(device)
+        compute.wait_event(done)
+        for x in dev:
+            x.record_stream(compute)
+        return dev
+
+    for batch in it:
+        queue.append(put(batch))
+        if len(queue) >= depth:
+            yield take()
+    while queue:
+        yield take()

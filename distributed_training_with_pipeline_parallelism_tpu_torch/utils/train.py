@@ -1,32 +1,54 @@
-"""Optimizer-coupled training step on top of the pipeline executor (the
-counterparts of the JAX package's ``utils/train.py:adamw`` ``:304`` and
-``make_train_step`` ``:36``).
+"""Optimizer-coupled training on top of the pipeline executor (the
+counterpart of the JAX package's ``utils/train.py``: ``adamw`` ``:304``,
+``make_train_step`` ``:36``, ``make_eval_fn`` ``:331``, ``evaluate``
+``:355``, ``fit`` ``:391`` and ``synthetic_data`` ``:983``).
 
 ``adamw`` is the JAX recipe, held to optax: global-norm clipping, then
 AdamW whose weight decay applies to the linear matrices only (the JAX
 ``"w"`` leaves: not biases, norms or embeddings), at a linear-warmup cosine
 learning rate that starts from 0, so the first update moves nothing (the
-moments still take the first gradient). It runs as ``torch.optim.AdamW``
-with two parameter groups and a ``LambdaLR`` whose step count is the
-optimizer's update count, as optax's schedule count is.
+moments still take the first gradient). It runs as the fused
+``torch.optim.AdamW`` (one kernel for every parameter) with two parameter
+groups. The learning rate is a device tensor computed from the
+optimizer's device step count before each update, as optax's schedule
+reads its count, so a step can be skipped on the device: the guarded
+step hands the optimizer a ``found_inf`` flag, the fused kernel then
+leaves the parameters, both moments and the step count (and so the
+learning rate) as they were, and the host never waits. ``MultiSteps``
+(``grad_accum``) is ``optax.MultiSteps``: the running mean of k batches'
+gradients, one update per k batches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import json
+import logging
 import math
-from typing import Callable, Optional
+import time
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from ..parallel.pipeline import make_pipeline_grad_fn
-from .config import ModelConfig, ScheduleConfig
+from ..ops.layers import fold_seed
+from ..parallel.pipeline import make_pipeline_grad_fn, make_pipeline_loss_fn
+from . import profiling
+from .config import ModelConfig, ScheduleConfig, resolve_device
+from .dynamics import nonfinite_per_stage
+from .resilience import (AnomalyBudgetExceeded, AnomalyGuard,
+                         CheckpointManager, PreemptionHandler, SimulatedKill,
+                         StepWatchdog, config_fingerprint, init_guard_state,
+                         latest_committed_step_dir)
 
 
 class AdamWState:
-    """The optimizer state of one model: ``torch.optim.AdamW`` over its
-    parameters and the learning-rate schedule."""
+    """The optimizer state of one model: the fused ``torch.optim.AdamW``
+    over its parameters, whose state is built here (step count, both
+    moments) rather than at the first update, and the learning-rate
+    tensor its groups share."""
 
     def __init__(self, recipe: "AdamW", model: nn.Module):
         matrices = {id(m.weight) for m in model.modules()
@@ -38,15 +60,33 @@ class AdamWState:
             {"params": [p for p in params if id(p) not in matrices],
              "weight_decay": 0.0}]
         self.params = params
+        self.lr = torch.zeros((), dtype=torch.float32,
+                              device=params[0].device)
         # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8
         self.optimizer = torch.optim.AdamW(
-            [g for g in groups if g["params"]], lr=recipe.learning_rate,
-            betas=(0.9, 0.999), eps=1e-8)
-        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-            self.optimizer, recipe.lr_factor)
+            [g for g in groups if g["params"]], lr=self.lr,
+            betas=(0.9, 0.999), eps=1e-8, fused=True)
+        for p in params:
+            self.optimizer.state[p].update(
+                step=torch.zeros((), dtype=torch.float32, device=p.device),
+                exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+
+    @property
+    def count(self) -> torch.Tensor:
+        """The number of updates taken (a device f32 tensor): the
+        schedule's count."""
+        return self.optimizer.state[self.params[0]]["step"]
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
+
+    def state_dict(self):
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state) -> None:
+        self.optimizer.load_state_dict(state)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr  # the loaded groups carry a host copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,26 +99,28 @@ class AdamW:
     total_steps: int = 10000
     max_grad_norm: float = 1.0
 
-    def lr_factor(self, count: int) -> float:
-        """The schedule at update ``count`` over the peak learning rate:
-        linear from 0 over ``warmup_steps``, then a cosine to 0 at
-        ``max(total_steps, warmup_steps + 1)`` (optax's
+    def lr_factor(self, count: torch.Tensor) -> torch.Tensor:
+        """The schedule at update ``count`` (a tensor) over the peak
+        learning rate: linear from 0 over ``warmup_steps``, then a cosine
+        to 0 at ``max(total_steps, warmup_steps + 1)`` (optax's
         ``warmup_cosine_decay_schedule(init_value=0.0, ...)``)."""
         w = self.warmup_steps
-        if count < w:
-            return count / w
         decay = max(self.total_steps, w + 1) - w
-        t = min(count - w, decay)
-        return 0.5 * (1.0 + math.cos(math.pi * t / decay))
+        t = torch.clamp(count - w, max=decay)
+        cosine = 0.5 * (1.0 + torch.cos(math.pi * t / decay))
+        return torch.where(count < w, count / max(w, 1), cosine)
 
     def init(self, model: nn.Module) -> AdamWState:
         return AdamWState(self, model)
 
-    def update(self, state: AdamWState) -> None:
+    def update(self, state: AdamWState,
+               ok: Optional[torch.Tensor] = None) -> None:
         """Clip the gradients to the global norm (optax's
         ``clip_by_global_norm``: unchanged below the limit, else scaled by
-        ``max_grad_norm / norm``), take one AdamW step, advance the
-        schedule. No host synchronisation."""
+        ``max_grad_norm / norm``), set the learning rate from the step
+        count, take one AdamW step. ``ok`` (a device bool) false skips the
+        update on the device: parameters, moments and count stay. No host
+        synchronisation."""
         grads = [p.grad for p in state.params if p.grad is not None]
         if grads:
             norm = torch.linalg.vector_norm(
@@ -86,8 +128,11 @@ class AdamW:
             scale = torch.where(norm < self.max_grad_norm, 1.0,
                                 self.max_grad_norm / norm)
             torch._foreach_mul_(grads, scale)
-        state.optimizer.step()
-        state.scheduler.step()
+        state.lr.copy_(self.learning_rate * self.lr_factor(state.count))
+        opt = state.optimizer
+        opt.grad_scale = None
+        opt.found_inf = None if ok is None else (~ok).to(torch.float32)
+        opt.step()
 
 
 def adamw(learning_rate: float = 3e-4, weight_decay: float = 0.01,
@@ -99,24 +144,500 @@ def adamw(learning_rate: float = 3e-4, weight_decay: float = 0.01,
                  max_grad_norm)
 
 
+class MultiStepsState:
+    """``MultiSteps``'s state: the inner optimizer's, the running mean of
+    this cycle's gradients and the mini-step (a device int32)."""
+
+    def __init__(self, inner: AdamWState):
+        self.inner = inner
+        self.params = inner.params
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = torch.zeros((), dtype=torch.int32,
+                                     device=self.params[0].device)
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    def state_dict(self):
+        return {"inner": self.inner.state_dict(), "acc": self.acc,
+                "mini_step": self.mini_step}
+
+    def load_state_dict(self, state) -> None:
+        self.inner.load_state_dict(state["inner"])
+        with torch.no_grad():
+            torch._foreach_copy_(self.acc, state["acc"])
+            self.mini_step.copy_(state["mini_step"])
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiSteps:
+    """``optax.MultiSteps(optimizer, every_k_schedule=every_k)``: each call
+    folds the batch's gradients into the running mean ``acc + (g - acc) /
+    (n + 1)``; the k-th call updates the parameters with the mean through
+    ``optimizer`` (whose schedule therefore advances once per k batches)
+    and restarts the mean. A call with ``ok`` false changes nothing, the
+    mini-step included (the guarded step keeps the whole incoming state)."""
+
+    optimizer: AdamW
+    every_k: int
+
+    def init(self, model: nn.Module) -> MultiStepsState:
+        return MultiStepsState(self.optimizer.init(model))
+
+    def update(self, state: MultiStepsState,
+               ok: Optional[torch.Tensor] = None) -> None:
+        pairs = [(p.grad, a) for p, a in zip(state.params, state.acc)
+                 if p.grad is not None]
+        grads, acc = [g for g, _ in pairs], [a for _, a in pairs]
+        n = state.mini_step
+        # grads <- the mean so far, this batch included
+        torch._foreach_sub_(grads, acc)
+        torch._foreach_div_(grads, (n + 1).to(torch.float32))
+        torch._foreach_add_(grads, acc)
+        emit = n == self.every_k - 1
+        keep = (~emit).to(torch.float32)
+        if ok is None:
+            torch._foreach_copy_(acc, grads)
+            torch._foreach_mul_(acc, keep)
+            state.mini_step.copy_(torch.where(emit, 0, n + 1))
+            self.optimizer.update(state.inner, emit)
+            return
+        for a, g in zip(acc, grads):
+            a.copy_(torch.where(ok, g * keep, a))
+        state.mini_step.copy_(torch.where(ok, torch.where(emit, 0, n + 1), n))
+        self.optimizer.update(state.inner, ok & emit)
+
+
 def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
-                    optimizer: AdamW, remat_backward=None, device="cuda"
-                    ) -> Callable:
-    """``step(model, opt_state, tokens, targets) -> loss``: the pipeline's
-    gradients (:func:`..parallel.pipeline.make_pipeline_grad_fn`), then
-    the optimizer's update of ``model`` in place. ``opt_state`` is
-    ``optimizer.init(model)``. The loss stays on the device. With
-    ``cfg.dropout > 0`` the step takes the step's seed as a fifth
-    argument, as the gradient function does."""
+                    optimizer, remat_backward=None, device="cuda",
+                    guard=None, fault_plan=None) -> Callable:
+    """``step(model, opt_state, tokens, targets[, step_seed]) -> loss``:
+    the pipeline's gradients (:func:`..parallel.pipeline.make_pipeline_grad_fn`),
+    then the optimizer's update of ``model`` in place. ``opt_state`` is
+    ``optimizer.init(model)`` (``optimizer`` an :class:`AdamW` or a
+    :class:`MultiSteps`). The loss stays on the device. With
+    ``cfg.dropout > 0`` the step takes the step's seed, as the gradient
+    function does.
+
+    ``guard`` (a ``resilience.AnomalyGuard``) gives the *guarded* step
+    ``step(model, opt_state, tokens, targets, guard_state[, step_seed])
+    -> (loss, guard_state)`` (the JAX guarded step). On the device it
+    checks the loss and a per-stage non-finite count over the gradients
+    (``dynamics.nonfinite_per_stage``); a bad step keeps the incoming
+    parameters and optimizer state (the skip of :meth:`AdamW.update`) and
+    bumps the counters (``resilience.init_guard_state``), including
+    ``last_bad_stage``, the first non-finite stage (-2 when only the loss
+    was non-finite). Nothing is read back: the counters are read where the
+    caller reads the loss. ``fault_plan.nan_grad_steps`` (requires the
+    guard) poisons the gradients and the loss with NaN at those global
+    steps by a compare with the device step counter; with
+    ``fault_plan.nan_grad_stage`` only that stage's layer gradients."""
     grad_fn = make_pipeline_grad_fn(cfg, sched, n_stages,
                                     remat_backward=remat_backward,
                                     device=device)
+    S = n_stages * sched.n_virtual
+    nan_steps = tuple(getattr(fault_plan, "nan_grad_steps", ()) or ())
+    nan_stage = getattr(fault_plan, "nan_grad_stage", None)
+    if nan_steps and guard is None:
+        raise ValueError(
+            "fault_plan.nan_grad_steps requires an AnomalyGuard — injected "
+            "NaN grads without the guard would corrupt the params forever")
+    if nan_stage is not None and not 0 <= nan_stage < S:
+        raise ValueError(f"fault_plan.nan_grad_stage={nan_stage} out of "
+                         f"range for {S} stages")
 
-    def step(model: nn.Module, opt_state: AdamWState, tokens, targets,
-             step_seed: Optional[int] = None) -> torch.Tensor:
+    if guard is None:
+        def step(model: nn.Module, opt_state, tokens, targets,
+                 step_seed: Optional[int] = None) -> torch.Tensor:
+            opt_state.zero_grad()
+            loss = grad_fn(model, tokens, targets, step_seed)
+            optimizer.update(opt_state)
+            return loss
+
+        return step
+
+    def guarded_step(model: nn.Module, opt_state, tokens, targets,
+                     guard_state, step_seed: Optional[int] = None):
         opt_state.zero_grad()
         loss = grad_fn(model, tokens, targets, step_seed)
-        optimizer.update(opt_state)
-        return loss
+        step = guard_state["step"]
+        if nan_steps:
+            bad = functools.reduce(torch.logical_or,
+                                   [step == k for k in nan_steps])
+            poison = torch.where(bad, math.nan, 1.0)
+            if nan_stage is None:
+                torch._foreach_mul_([p.grad for p in model.parameters()
+                                     if p.grad is not None], poison)
+                loss = loss * poison
+            else:
+                # only the stage's layer gradients, the loss stays finite:
+                # only the per-stage count catches and names it
+                lps = cfg.n_layers // S
+                stage = model.layers[nan_stage * lps:(nan_stage + 1) * lps]
+                torch._foreach_mul_([p.grad for p in stage.parameters()
+                                     if p.grad is not None], poison)
+        nf = nonfinite_per_stage(cfg.n_layers, S, model)
+        loss_ok = torch.isfinite(loss)
+        stage_ok = nf == 0
+        grads_ok = stage_ok.all()
+        ok = loss_ok & grads_ok
+        first_bad = torch.where(
+            grads_ok, torch.where(loss_ok, -1, -2),
+            (~stage_ok).to(torch.int32).argmax()).to(torch.int32)
+        optimizer.update(opt_state, ok)
+        guard_state = {
+            "step": step + 1,
+            "consec": torch.where(ok, 0, guard_state["consec"] + 1),
+            "total": guard_state["total"] + (~ok).to(torch.int32),
+            "last_anomaly_step": torch.where(
+                ok, guard_state["last_anomaly_step"], step),
+            "last_bad_stage": torch.where(
+                ok, guard_state["last_bad_stage"], first_bad),
+        }
+        return loss, guard_state
 
-    return step
+    return guarded_step
+
+
+def make_eval_fn(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
+                 device="cuda") -> Callable:
+    """The eval-mode loss ``(model, tokens, targets) -> loss``: the
+    forward-only pipelined loss
+    (:func:`..parallel.pipeline.make_pipeline_loss_fn`) with dropout
+    off."""
+    eval_cfg = (dataclasses.replace(cfg, dropout=0.0)
+                if cfg.dropout else cfg)
+    return make_pipeline_loss_fn(eval_cfg, sched, n_stages, device=device)
+
+
+def evaluate(eval_fn, model: nn.Module, data: Iterator, num_batches: int
+             ) -> dict:
+    """Mean eval loss and perplexity over ``num_batches`` from ``data``:
+    ``{"eval_loss", "perplexity", "num_batches"}``, perplexity =
+    exp(mean token CE)."""
+    total = 0.0
+    n = 0
+    for _ in range(num_batches):
+        try:
+            tokens, targets = next(data)
+        except StopIteration:
+            break
+        total += float(eval_fn(model, tokens, targets))
+        n += 1
+    if n == 0:
+        raise ValueError("evaluate: data iterator yielded no batches")
+    mean = total / n
+    return {"eval_loss": mean, "perplexity": math.exp(min(mean, 700.0)),
+            "num_batches": n}
+
+
+def _latest_step_dir(checkpoint_dir: str) -> Optional[Tuple[int, str]]:
+    """The newest *committed* ``step_{n}`` under ``checkpoint_dir``
+    (:func:`.resilience.latest_committed_step_dir`)."""
+    return latest_committed_step_dir(checkpoint_dir)
+
+
+# fit's arguments that select parts of the JAX package not ported yet
+_FIT_NOT_PORTED = {
+    "zero1": "ROADMAP.md Queue 1, item 8 (torch.distributed transport)",
+    "fsdp": "ROADMAP.md Queue 1, item 11 (FSDP)",
+    "moe": "ROADMAP.md Queue 1, item 11 (expert parallelism and MoE)",
+    "sp_attn_impl": "ROADMAP.md Queue 1, item 11 (sequence parallelism)",
+    "tp_vocab_parallel": "ROADMAP.md Queue 1, item 11 (tensor parallelism)",
+    "report_dir": "ROADMAP.md Queue 1, item 12 (observability: RunReport)",
+    "telemetry": "ROADMAP.md Queue 1, item 12 (observability: "
+                 "PipelineTelemetry)",
+    "dynamics": "ROADMAP.md Queue 1, item 12 (training dynamics)",
+}
+
+
+def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
+        model: nn.Module, data: Iterator, num_steps: int,
+        optimizer: Optional[AdamW] = None, log_every: int = 10,
+        verbose: bool = True, checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0, resume: bool = False,
+        skip_data_on_resume: bool = True,
+        metrics_path: Optional[str] = None, moe=None,
+        sp_attn_impl: str = "ring", tp_vocab_parallel: bool = False,
+        zero1: bool = False, fsdp: bool = False, remat_backward=None,
+        dropout_seed: int = 0,
+        eval_data: Optional[Callable[[], Iterator]] = None,
+        eval_every: int = 0, eval_batches: int = 8,
+        profile_dir: Optional[str] = None,
+        profile_steps: Tuple[int, int] = (2, 5), grad_accum: int = 1,
+        report_dir: Optional[str] = None, telemetry=None,
+        keep_last: Optional[int] = None, guard=None, fault_plan=None,
+        handle_preemption: bool = False,
+        stall_timeout_s: Optional[float] = None, dynamics=None,
+        device="cuda"):
+    """Training loop over a ``(tokens, targets)`` iterator over ``n_stages``
+    (D) lockstep pipeline stages (the JAX ``fit``, in its order of
+    events). Trains ``model`` in place and returns ``(model, history)``,
+    history a list of ``(step, loss)`` at the log points.
+
+    - ``checkpoint_dir`` + ``checkpoint_every``: save every n steps (and at
+      the end) to ``step_{n}/`` through ``resilience.CheckpointManager``
+      (commit markers, ``keep_last`` retention); the model's, the
+      optimizer's (whose device step count is the learning-rate schedule's
+      count) and, where on, the guard's and the accumulation's state, and
+      the step. Mid-run saves are async (``checkpoint.save_checkpoint``).
+      ``resume=True`` restores the newest committed checkpoint and, with
+      ``skip_data_on_resume``, drains the completed steps' batches from
+      ``data``, so an interrupted and resumed run repeats the unbroken
+      one's steps bit for bit.
+    - ``metrics_path``: one JSON line per log point, ``{"step", "loss",
+      "tokens_per_sec", "elapsed_s"}`` (tokens/s = batch * seq * steps
+      over the wall clock since the last log point; the log point's loss
+      read is the window's one sync), and one per eval, ``{"step",
+      "eval_loss", "perplexity", "num_batches"}``.
+    - ``eval_data`` + ``eval_every``: every n steps (and at the end) the
+      forward-only pipelined loss (:func:`make_eval_fn`) over
+      ``eval_batches`` batches of a fresh ``eval_data()`` iterator; eval
+      restarts the timing window.
+    - ``profile_dir``: a ``torch.profiler`` Chrome trace
+      (``utils.profiling.trace``) of steps ``profile_steps`` = [start,
+      end), counted from the first step this run executes.
+    - ``grad_accum``: :class:`MultiSteps` over k batches; ``num_steps``
+      counts batches.
+    - ``guard`` (True or a ``resilience.AnomalyGuard``): the guarded step;
+      the counters are read at log points only, and the consecutive
+      budget's excess checkpoints the last good state and raises
+      ``resilience.AnomalyBudgetExceeded``.
+    - ``handle_preemption``: SIGTERM/SIGINT finish the step, save
+      synchronously and return. ``stall_timeout_s``: a watchdog logs a
+      stall. Any other crash banks the last completed step before it
+      propagates. ``fault_plan`` injects the ``resilience.FaultPlan``
+      faults.
+
+    The dropout seed of step i is ``fold_seed(dropout_seed, i)``, so a
+    resumed run draws the unbroken run's masks. ``moe``, ``zero1``,
+    ``fsdp``, ``tp_vocab_parallel``, an ``sp_attn_impl`` other than
+    "ring", ``report_dir``, ``telemetry`` and ``dynamics`` raise
+    ``NotImplementedError`` naming their ``ROADMAP.md`` items.
+    """
+    given = {"zero1": zero1, "fsdp": fsdp, "moe": moe is not None,
+             "sp_attn_impl": sp_attn_impl != "ring",
+             "tp_vocab_parallel": tp_vocab_parallel,
+             "report_dir": report_dir is not None,
+             "telemetry": telemetry is not None,
+             "dynamics": bool(dynamics)}
+    for name, on in given.items():
+        if on:
+            raise NotImplementedError(f"fit's {name} is not ported yet: "
+                                      f"{_FIT_NOT_PORTED[name]}")
+    device = resolve_device(device)
+    if guard is True:
+        guard = AnomalyGuard()
+    if optimizer is None:
+        # the schedule advances once per optimizer update: size its
+        # horizon in updates, not batches
+        optimizer = adamw(total_steps=max(1, num_steps // grad_accum))
+    if grad_accum > 1:
+        optimizer = MultiSteps(optimizer, grad_accum)
+    step_fn = make_train_step(cfg, sched, n_stages, optimizer,
+                              remat_backward=remat_backward, device=device,
+                              guard=guard, fault_plan=fault_plan)
+    opt_state = optimizer.init(model)
+    guard_state = init_guard_state(0, device) if guard is not None else None
+
+    def _state(i):
+        return {"model": model.state_dict(),
+                "optimizer": opt_state.state_dict(), "step": i,
+                "guard": guard_state}
+
+    mgr = None
+    if checkpoint_dir:
+        mgr = CheckpointManager(
+            checkpoint_dir, keep_last=keep_last,
+            fingerprint=config_fingerprint(cfg, sched, {"pipe": n_stages}),
+            fault_plan=fault_plan)
+    if fault_plan is not None:
+        data = fault_plan.wrap_data(data)
+
+    start_step = 0
+    guard_seen = 0  # anomalies already surfaced (host high-water mark)
+    if resume and mgr is not None:
+        restored = mgr.restore_latest(_state(0))
+        if restored is not None:
+            n, path, state = restored
+            model.load_state_dict(state["model"])
+            opt_state.load_state_dict(state["optimizer"])
+            if guard_state is not None:
+                for k, v in state["guard"].items():
+                    guard_state[k].copy_(v)
+                guard_seen = int(state["guard"]["total"])
+            start_step = int(state["step"]) + 1
+            if skip_data_on_resume:
+                for _ in range(start_step):
+                    next(data)
+            if verbose:
+                print(f"resumed from {path} (step {n})", flush=True)
+
+    def _save(i, wait=True):
+        mgr.save(i, _state(i), wait=wait)
+
+    eval_fn = None
+    if eval_data is not None and eval_every:
+        eval_fn = make_eval_fn(cfg, sched, n_stages, device=device)
+
+    def _eval(i):
+        m = evaluate(eval_fn, model, eval_data(), eval_batches)
+        if verbose:
+            print(f"step {i}: eval_loss {m['eval_loss']:.4f} "
+                  f"ppl {m['perplexity']:.2f}", flush=True)
+        if metrics_path:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({"step": i, **m}) + "\n")
+        return m
+
+    preempt = PreemptionHandler(enabled=handle_preemption)
+    watchdog = None
+    if stall_timeout_s:
+        def _on_stall(info):
+            logging.getLogger(__name__).warning(
+                "fit: no step completed in %.1fs (last completed step %s) "
+                "— stalled card or dead input pipeline?",
+                info["stalled_s"], info["step"])
+        watchdog = StepWatchdog(stall_timeout_s, _on_stall)
+
+    history = []
+    window_start = time.perf_counter()
+    window_tokens = 0
+    profiler = contextlib.ExitStack()
+    profiling_on = False
+    preempted = False
+    last_done = start_step - 1  # newest step whose outputs the model holds
+    # profile_steps counts from the first step THIS run executes
+    prof_start = start_step + profile_steps[0]
+    prof_stop = start_step + max(profile_steps[1], profile_steps[0] + 1)
+    try:
+        with preempt:
+            for i in range(start_step, num_steps):
+                if fault_plan is not None and fault_plan.preempt_at_step == i:
+                    preempt.trigger()  # deterministic stand-in for SIGTERM
+                if profile_dir is not None:
+                    if i == prof_start and not profiling_on:
+                        profiler.enter_context(profiling.trace(profile_dir))
+                        profiling_on = True
+                    elif i == prof_stop and profiling_on:
+                        profiler.close()
+                        profiling_on = False
+                        if verbose:
+                            print(f"profile trace written to {profile_dir}",
+                                  flush=True)
+                tokens, targets = next(data)
+                seed = (fold_seed(dropout_seed, i) if cfg.dropout > 0.0
+                        else None)
+                if guard_state is not None:
+                    loss, guard_state = step_fn(model, opt_state, tokens,
+                                                targets, guard_state, seed)
+                else:
+                    loss = step_fn(model, opt_state, tokens, targets, seed)
+                last_done = i
+                if watchdog is not None:
+                    watchdog.beat(i)
+                window_tokens += tokens.shape[0] * tokens.shape[1]
+                if i % log_every == 0 or i == num_steps - 1:
+                    # one read-back closes the window: the loss and, from
+                    # the same step, the guard counters (exact in f64)
+                    read = [loss.detach().double().reshape(1)]
+                    if guard_state is not None:
+                        read.append(torch.stack(
+                            list(guard_state.values())).double())
+                    loss_f, *counters = torch.cat(read).tolist()
+                    elapsed = time.perf_counter() - window_start
+                    history.append((i, loss_f))
+                    if verbose:
+                        print(f"step {i}: loss {loss_f:.4f}", flush=True)
+                    if metrics_path:
+                        with open(metrics_path, "a") as f:
+                            f.write(json.dumps({
+                                "step": i, "loss": loss_f,
+                                "tokens_per_sec": round(
+                                    window_tokens / elapsed, 2),
+                                "elapsed_s": round(elapsed, 4)}) + "\n")
+                    if guard_state is not None:
+                        gs = {k: int(v) for k, v in zip(guard_state,
+                                                        counters)}
+                        if gs["total"] > guard_seen:
+                            delta = gs["total"] - guard_seen
+                            guard_seen = gs["total"]
+                            bad = gs["last_bad_stage"]
+                            where = (f" in stage {bad}" if bad >= 0
+                                     else " (loss only)" if bad == -2 else "")
+                            if verbose:
+                                print(f"step {i}: anomaly guard skipped "
+                                      f"{delta} step(s) (total {gs['total']}, "
+                                      f"last at step "
+                                      f"{gs['last_anomaly_step']}{where})",
+                                      flush=True)
+                        if gs["consec"] >= guard.max_consecutive:
+                            # the model and optimizer hold the last GOOD
+                            # state: every anomalous update was skipped
+                            if mgr is not None:
+                                _save(i, wait=True)
+                            raise AnomalyBudgetExceeded(
+                                f"{gs['consec']} consecutive anomalous steps "
+                                f"at step {i} (budget {guard.max_consecutive})"
+                                + (" — last good state checkpointed"
+                                   if mgr is not None else ""))
+                    window_start = time.perf_counter()
+                    window_tokens = 0
+                if (eval_fn is not None and (i + 1) % eval_every == 0
+                        and i != num_steps - 1):
+                    _eval(i)
+                    # eval time isn't train time: restart the whole window
+                    window_start = time.perf_counter()
+                    window_tokens = 0
+                if preempt.triggered:
+                    # the in-flight step already finished: bank it
+                    # synchronously and exit resumable
+                    preempted = True
+                    if verbose:
+                        print(f"step {i}: preemption ({preempt.signum}) — "
+                              "checkpointing and exiting resumable",
+                              flush=True)
+                    if mgr is not None:
+                        _save(i, wait=True)
+                    break
+                if (mgr is not None and checkpoint_every
+                        and (i + 1) % checkpoint_every == 0
+                        and i != num_steps - 1):
+                    _save(i, wait=False)  # written in the background
+    except (SimulatedKill, AnomalyBudgetExceeded):
+        raise  # injected death / already-handled abort: no crash save
+    except BaseException:
+        # crash-safe exit: the model holds step last_done's outputs — bank
+        # them committed so the run resumes instead of restarting
+        if mgr is not None and last_done >= start_step:
+            try:
+                _save(last_done, wait=True)
+                if verbose:
+                    print(f"crash at step {last_done + 1}: banked committed "
+                          f"checkpoint at step {last_done}", flush=True)
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "fit: crash checkpoint at step %d failed", last_done)
+        raise
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+        profiler.close()  # the window ran past the last executed step
+    if eval_fn is not None and num_steps > start_step and not preempted:
+        _eval(num_steps - 1)
+    if (mgr is not None and checkpoint_every and num_steps > start_step
+            and not preempted):
+        _save(num_steps - 1)
+    if mgr is not None:
+        mgr.commit_pending()
+    return model, history
+
+
+def synthetic_data(cfg: ModelConfig, batch_size: int, seq_length: int,
+                   seed: int = 0) -> Iterator:
+    """Random-token batches with next-token targets (the JAX
+    ``synthetic_data``; :func:`.data.synthetic_batches` with the model's
+    vocab)."""
+    from .data import synthetic_batches
+    return synthetic_batches(cfg.vocab_size, batch_size, seq_length,
+                             seed=seed)

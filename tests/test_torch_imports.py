@@ -9,6 +9,10 @@ import pytest
 import torch
 
 import distributed_training_with_pipeline_parallelism_tpu_torch as port
+from distributed_training_with_pipeline_parallelism_tpu_torch.train import (
+    main as train_main)
+from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
+    prefetch_to_device)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = ROOT / "distributed_training_with_pipeline_parallelism_tpu_torch"
@@ -30,7 +34,10 @@ def test_port_and_chip_smoke_import_no_jax():
     names = {str(f.relative_to(PORT_DIR)) for f in files
              if PORT_DIR in f.parents}
     assert {"analysis/cost_model.py", "analysis/memory_model.py",
-            "run_sweep.py", "utils/sweep.py", "utils/plotting.py"} <= names
+            "run_sweep.py", "utils/sweep.py", "utils/plotting.py",
+            "train.py", "utils/resilience.py", "utils/checkpoint.py",
+            "utils/data.py", "utils/data_native.py", "utils/dynamics.py",
+            "utils/profiling.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}, bad
@@ -45,7 +52,8 @@ _SERVING = dict(n_slots=2, max_len=8, prompt_max=4, out_max=4)
                                    "from_jax_params", "pipeline_grad",
                                    "train_step", "serving_step_fn",
                                    "serving_engine", "serve_bench",
-                                   "sweep_experiment"])
+                                   "sweep_experiment", "loss_fn", "fit",
+                                   "prefetch", "train_main"])
 def test_entry_points_default_to_cuda(entry):
     """Without ``device=`` an entry point asks for CUDA: on a host without
     it the call raises instead of running on the CPU."""
@@ -70,6 +78,13 @@ def test_entry_points_default_to_cuda(entry):
             port.make_serving_step_fn(_CFG, 2, **_SERVING), model),
         "serve_bench": lambda: port.run_serve_bench(n_requests=2),
         "sweep_experiment": lambda: port.run_one_experiment(4, 4, 2, "GPipe"),
+        "loss_fn": lambda: port.make_pipeline_loss_fn(
+            _CFG, port.ScheduleConfig("1F1B", 2), 2),
+        "fit": lambda: port.fit(_CFG, port.ScheduleConfig("1F1B", 2), 2,
+                                model, iter([]), 1),
+        "prefetch": lambda: next(prefetch_to_device(iter([(prompt,)]))),
+        "train_main": lambda: train_main(["--model", "gpt2-small",
+                                          "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -27,12 +27,16 @@ from distributed_training_with_pipeline_parallelism_tpu.serving import (
     engine as jeng, loadgen as jload, slo as jslo)
 from distributed_training_with_pipeline_parallelism_tpu.serving.bench import (
     synth_trace as jsynth_trace)
+from distributed_training_with_pipeline_parallelism_tpu.utils import (
+    resilience as jresilience)
 from distributed_training_with_pipeline_parallelism_tpu.utils.telemetry import (
     serving_summary as jserving_summary)
 import distributed_training_with_pipeline_parallelism_tpu_torch as port
 from distributed_training_with_pipeline_parallelism_tpu_torch import serving
 from distributed_training_with_pipeline_parallelism_tpu_torch.serving import (
     loadgen as tload, slo as tslo)
+from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+    resilience as tresilience)
 from distributed_training_with_pipeline_parallelism_tpu_torch.utils.telemetry import (
     serving_summary)
 
@@ -315,18 +319,48 @@ def test_submit_errors_match_jax(engines, prompt, budget):
 
 
 def test_modes_not_ported_raise(models):
-    """A tensor-parallel axis, a RunReport and a FaultPlan raise
+    """A tensor-parallel axis and a RunReport raise
     ``NotImplementedError`` naming their ROADMAP item (paged KV and
     speculative decoding are ported: ``test_torch_paging.py``,
-    ``test_torch_spec.py``)."""
+    ``test_torch_spec.py``; the FaultPlan:
+    ``test_fault_plan_matches_jax_engine``)."""
     _, _, tcfg, model = models["gpt2"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port.make_serving_step_fn(tcfg, D, device="cpu", tp_size=2,
                                   **PROGRAM)
     program = port.make_serving_step_fn(tcfg, D, device="cpu", **PROGRAM)
-    for kw in (dict(report=object()), dict(fault_plan=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port.ServingEngine(program, model, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port.ServingEngine(program, model, report=object())
+
+
+@pytest.mark.parametrize("policy", ["continuous", "static"])
+def test_fault_plan_matches_jax_engine(engines, policy):
+    """One ``FaultPlan`` on both engines: poisoned admissions retire as
+    ``failed`` with the JAX reason and free their slot, stragglers are
+    retimed before the sort, and every completion's stamps and tokens,
+    the ticks and the occupancy series equal the JAX engine's."""
+    jengine, tengine, trace, _ = engines
+    kw = dict(serve_poison_rids=(2, 5), serve_delay={1: 4.0, 3: 2.5})
+    jtrace = [jeng.Request(r.rid, r.prompt, r.max_new_tokens, r.arrival)
+              for r in trace]
+    jengine.fault_plan = jresilience.FaultPlan(**kw)
+    try:
+        want = jengine.run(jtrace, policy=policy)
+    finally:
+        jengine.fault_plan = None
+    tengine.fault_plan = tresilience.FaultPlan(**kw)
+    try:
+        got = tengine.run(trace, policy=policy)
+    finally:
+        tengine.fault_plan = None
+    assert _stamps(got) == _stamps(want)
+    assert [c.reason for c in got.completions] == \
+        [c.reason for c in want.completions]
+    assert (got.ticks, got.occupancy) == (want.ticks, want.occupancy)
+    failed = {c.rid for c in got.completions if c.status == "failed"}
+    assert failed >= {2, 5}
+    assert all(c.status == "ok" for c in got.completions
+               if c.rid not in failed)
 
 
 def _as_tuples(trace):
