@@ -130,6 +130,26 @@ JAX. Phases, each fatal on failure:
    four kernels, with their idle shares. The temporary files go at the
    end.
 
+9. Zero-bubble training: tied GPT-2-small at full width, random weights
+   from a seed, S = 1024, M = 4, both kernels routed on, under ZBH1 (D =
+   4) and ZBV (D = 2, two V-placed chunks a device): the split backward
+   (B: recompute and input gradient; W: recompute and weight gradient;
+   stage 0 has no B) and the V routes. (a) f32, B = 8: one step of each
+   against the same step on the plain versions and single-device
+   autograd, with phase 4's bounds, and each kernel's launches the count
+   the tables predict (``zb_launches``: lps·(3S−1)·M ``flash_fwd``,
+   lps·(2S−1)·M ``flash_bwd``, 2M of each xent kernel; 132 / 84 / 8 / 8
+   for both). (b) The same steps in bf16 compute over f32 master
+   weights against the plain versions in bf16, phase 4's bf16 bounds,
+   the same launch counts. (c) bf16, B = 24, ``make_train_step`` +
+   ``adamw``, 2 warm-up and 5 timed steps, in turns: 1F1B, ZBH1, ZBH1,
+   1F1B at D = 4, then Interleaved1F1B, ZBV, ZBV, Interleaved1F1B at D =
+   2: tokens/s, the ratio of each zero-bubble schedule to its peer, the
+   analytic and paper bubbles, and losses that are finite and fall. (d)
+   One bf16 ZBH1 step under the profiler: idle share and top kernels.
+   (e) ``run_one_experiment`` rows for ZBH1 and ZBV at the sweep's
+   headline L8/H8, D = 2 (f32, B = 32, S = 128; ZBV's M = 2D = 4).
+
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
@@ -139,8 +159,8 @@ them, the paged and speculative runs' 0 as their dense cache attention
 takes neither kernel; the llama prefill shape's times beside the flash
 kernel's; the reference shapes' bf16 times and the ref_decoder gate's
 launches beside each flash kernel's; phase 8's fit step, one eval and
-the entry point's whole run), the
-card's name and power limit, and as the last line
+the entry point's whole run; phase 9's counted bf16 ZBH1 and ZBV steps),
+the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
 """
@@ -2225,6 +2245,231 @@ def phase_fit(report, device="cuda"):
     return step_launches, evals[0]["launches"], main_launches
 
 
+# zero-bubble training (phase 9): the gates' batch (f32 GEMMs run on the
+# CUDA cores, so the gates take B = 8), the timing batch, and the two
+# split-backward schedules beside the full-backward schedules they are
+# timed against, each as (name, D, V)
+ZB_GATE_B, ZB_TIME_B, ZB_M = 8, 24, 4
+ZB_PAIRS = ((("1F1B", 4, 1), ("ZBH1", 4, 1)),
+            (("Interleaved1F1B", 2, 2), ("ZBV", 2, 2)))
+
+
+def zb_launches(n_layers, D, V, M):
+    """Kernel launches of one split-backward step: S·M F units, (S-1)·M B
+    units (stage 0 has none) and S·M W units; B and W each recompute the
+    stage forward and run one backward, and only the last stage's B and W
+    take the head's cross entropy."""
+    S = D * V
+    lps = n_layers // S
+    return {"flash_fwd": lps * (3 * S - 1) * M,
+            "flash_bwd": lps * (2 * S - 1) * M,
+            "xent_fwd": 2 * M, "xent_bwd": 2 * M}
+
+
+def phase_zero_bubble(report, device="cuda"):
+    """Zero-bubble training, ZBH1 and ZBV (see the module doc); returns
+    the kernel launches of the counted bf16 ZBH1 and ZBV steps."""
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        transformer_loss)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.schedules import (
+        analytic_bubble_fraction, paper_bubble_fraction)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.sweep import (
+        run_one_experiment)
+    kernels = all_kernels()
+    cfg = port.gpt2_config("small", tie_embeddings=True,
+                           use_flash_attention=True, use_fused_xent=True)
+    plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                use_fused_xent=False)
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="float32")
+    plain16 = dataclasses.replace(plain, dtype="bfloat16",
+                                  param_dtype="float32")
+    g = torch.Generator().manual_seed(SEED)
+    model = port.init_params(cfg, g, device)
+    init_state = {n: p.detach().clone() for n, p in model.state_dict().items()}
+    tokens = torch.randint(0, cfg.vocab_size, (ZB_TIME_B, TRAIN_S),
+                           generator=g).to(device)
+    targets = torch.randint(0, cfg.vocab_size, (ZB_TIME_B, TRAIN_S),
+                            generator=g).to(device)
+    gate_tok, gate_tgt = tokens[:ZB_GATE_B], targets[:ZB_GATE_B]
+    zb = [pair[1] for pair in ZB_PAIRS]
+    res = dict(gate_batch=ZB_GATE_B, time_batch=ZB_TIME_B, M=ZB_M)
+
+    def one_step(fn):
+        model.zero_grad(set_to_none=True)
+        t = time.perf_counter()
+        loss = fn(model, gate_tok, gate_tgt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}, wall
+
+    def counted(fn):
+        """One warm-up step, then a step with the counts set to 0 just
+        before it and read just after."""
+        one_step(fn)
+        for k in kernels:
+            k.launches = 0
+        loss, grads, wall = one_step(fn)
+        return loss, grads, wall, {k.name: k.launches for k in kernels}
+
+    def single_device(m, t, y):
+        loss = transformer_loss(cfg, m, t, y)
+        loss.backward()
+        return loss.detach()
+
+    # (a) the f32 gate: each split schedule through both kernels against
+    # the same step on the plain versions and single-device autograd
+    loss_s, grads_s, _ = one_step(single_device)
+    for name, n_dev, V in zb:
+        sched = port.ScheduleConfig(name, ZB_M, V)
+        want = zb_launches(cfg.n_layers, n_dev, V, ZB_M)
+        loss_k, grads_k, wall_k, launches = counted(
+            port.make_pipeline_grad_fn(cfg, sched, n_dev, device=device))
+        print(f"  f32 {name} D={n_dev} V={V} step (kernels), B={ZB_GATE_B}: "
+              f"loss {loss_k:.6f}, {wall_k:.2f} s, launches {launches} "
+              f"(tables predict {want})")
+        check(launches == want, f"{name}: kernel launches {launches} != "
+              f"{want}")
+        loss_p, grads_p, _ = one_step(
+            port.make_pipeline_grad_fn(plain, sched, n_dev, device=device))
+        check(all(k.launches == launches[k.name] for k in kernels),
+              f"{name}: the plain run launched a kernel")
+        rec = dict(D=n_dev, V=V, loss=loss_k, step_s=wall_k,
+                   launches=launches, launches_predicted=want)
+        for what, l_ref, g_ref in (("plain run", loss_p, grads_p),
+                                   ("single device", loss_s, grads_s)):
+            rel = abs(loss_k - l_ref) / abs(l_ref)
+            ratio, leaf, worst_rel = grad_errors(grads_k, g_ref)
+            print(f"  f32 {name} vs {what}: loss {l_ref:.6f} (rel err "
+                  f"{rel:.2e}), worst leaf {leaf} at {ratio:.3f} of its "
+                  f"bound, max leaf rel err {worst_rel:.2e}")
+            check(rel <= 1e-5, f"{name} loss vs {what}: rel err {rel} > 1e-5")
+            check(ratio <= 1.0, f"{name} grads vs {what}: leaf {leaf} over "
+                  f"its bound ({ratio})")
+            rec[f"vs_{what.replace(' ', '_')}"] = dict(
+                loss=l_ref, loss_rel_err=rel, worst_bound_ratio=ratio,
+                worst_leaf=leaf, max_leaf_rel_err=worst_rel)
+        res[f"f32_{name}"] = rec
+        del grads_k, grads_p
+    del grads_s
+
+    # (b) the bf16 gate against the plain versions in bf16 (phase 4's
+    # bounds); these counted steps give the kernel line's launches
+    step_launches = {}
+    for name, n_dev, V in zb:
+        sched = port.ScheduleConfig(name, ZB_M, V)
+        want = zb_launches(cfg.n_layers, n_dev, V, ZB_M)
+        loss_k, grads_k, wall_k, launches = counted(
+            port.make_pipeline_grad_fn(cfg16, sched, n_dev, device=device))
+        check(launches == want, f"bf16 {name}: kernel launches {launches} "
+              f"!= {want}")
+        loss_p, grads_p, _ = one_step(
+            port.make_pipeline_grad_fn(plain16, sched, n_dev, device=device))
+        check(all(k.launches == launches[k.name] for k in kernels),
+              f"bf16 {name}: the plain run launched a kernel")
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        ratio, leaf, worst_rel = grad_errors(grads_k, grads_p, rtol=5e-2,
+                                             atol=1e-3)
+        print(f"  bf16 {name} D={n_dev} step (kernels) vs plain bf16: loss "
+              f"{loss_k:.6f} vs {loss_p:.6f} (rel err {rel:.2e}), worst leaf "
+              f"{leaf} at {ratio:.3f} of its bound, launches {launches}")
+        check(rel <= 1e-2, f"bf16 {name} loss vs plain: rel err {rel} > 1e-2")
+        check(ratio <= 1.0, f"bf16 {name} grads vs plain: leaf {leaf} over "
+              f"its bound ({ratio})")
+        res[f"bf16_gate_{name}"] = dict(
+            loss=loss_k, loss_plain=loss_p, loss_rel_err=rel,
+            worst_bound_ratio=ratio, worst_leaf=leaf,
+            max_leaf_rel_err=worst_rel, launches=launches, step_s=wall_k)
+        step_launches[name] = launches
+        del grads_k, grads_p
+    model.zero_grad(set_to_none=True)
+
+    # (c) bf16 over f32 master weights, make_train_step + adamw, B = 24:
+    # each zero-bubble schedule beside its full-backward peer in turns
+    # (peer, zb, zb, peer), from the same initial weights
+    def timed(name, n_dev, V):
+        model.load_state_dict(init_state)
+        opt = port.adamw(warmup_steps=2, total_steps=100)
+        opt_state = opt.init(model)
+        step = port.make_train_step(cfg16, port.ScheduleConfig(
+            name, ZB_M, V), n_dev, opt, device=device)
+        losses = []
+
+        def run(m, t, y):
+            loss = step(m, opt_state, t, y)
+            losses.append(loss)
+            return loss
+
+        metrics = port.run_train_iterations(run, model, tokens, targets,
+                                            num_iterations=5,
+                                            warmup_iterations=2)
+        losses = [x.item() for x in losses]
+        check(all(math.isfinite(x) for x in losses), f"{name}: non-finite "
+              f"loss")
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall on "
+              f"the repeated batch ({losses})")
+        return metrics["throughput"], metrics["elapsed_time"] / 5, losses
+
+    runs = {}
+    for peer, zb_run in ZB_PAIRS:
+        for name, n_dev, V in (peer, zb_run, zb_run, peer):
+            tps, step_s, losses = timed(name, n_dev, V)
+            r = runs.setdefault(name, dict(
+                D=n_dev, V=V, tokens_per_s=[], step_s=[], losses=[],
+                bubble_analytic=analytic_bubble_fraction(name, n_dev, V,
+                                                         ZB_M),
+                bubble_paper=paper_bubble_fraction(name, n_dev, V, ZB_M)))
+            r["tokens_per_s"].append(tps)
+            r["step_s"].append(step_s)
+            r["losses"].append(losses)
+            print(f"  bf16 {name} D={n_dev} V={V}: {tps:.1f} tokens/s "
+                  f"({step_s * 1e3:.1f} ms/step), bubble analytic "
+                  f"{r['bubble_analytic']:.4f} / paper "
+                  f"{r['bubble_paper']:.4f}, losses "
+                  f"{[round(x, 4) for x in losses]}")
+        zname, pname = zb_run[0], peer[0]
+        ratio = (sum(runs[zname]["tokens_per_s"])
+                 / sum(runs[pname]["tokens_per_s"]))
+        runs[zname]["ratio_to"] = {pname: ratio}
+        print(f"  bf16 {zname} / {pname} tokens/s: {ratio:.4f}")
+    res["bf16"] = runs
+
+    # (d) where a ZBH1 step's time goes
+    model.load_state_dict(init_state)
+    opt = port.adamw(warmup_steps=2, total_steps=100)
+    opt_state = opt.init(model)
+    step = port.make_train_step(cfg16, port.ScheduleConfig("ZBH1", ZB_M), 4,
+                                opt, device=device)
+    res["profile"] = dict(schedule="ZBH1", D=4, **profile_step(
+        "bf16 ZBH1 step", lambda: step(model, opt_state, tokens, targets)))
+    del model, opt_state
+    torch.cuda.empty_cache()
+
+    # (e) the sweep's row for each at the headline L8/H8, D = 2
+    rows = {}
+    for name in ("ZBH1", "ZBV"):
+        row = run_one_experiment(8, 8, 2, name, device=device)
+        check("error" not in row and "skip_reason" not in row,
+              f"sweep row {name}: {row}")
+        check(math.isfinite(row["throughput"]) and row["throughput"] > 0,
+              f"sweep row {name}: throughput {row['throughput']}")
+        rows[name] = {k: row[k] for k in (
+            "throughput", "n_virtual", "n_microbatches", "bubble_analytic",
+            "bubble_simulated", "bubble_sim_w_b", "bubble_table_exact",
+            "predicted_step_s", "backward_policy", "mfu_card",
+            "max_memory_allocated_bytes")}
+        print(f"  sweep row L8/H8 D=2 {name}: {row['throughput']:.1f} "
+              f"tokens/s, M={row['n_microbatches']}, V={row['n_virtual']}, "
+              f"bubble analytic {row['bubble_analytic']:.4f} / simulated "
+              f"{row['bubble_simulated']:.4f} (w_b "
+              f"{row['bubble_sim_w_b']}), policy {row['backward_policy']}")
+    res["sweep_rows"] = rows
+    report["zero_bubble"] = res
+    return step_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2261,6 +2506,10 @@ def main() -> int:
     print("[8] fit: tied GPT-2-small through utils.train.fit and the "
           "training entry point")
     fit_launches, eval_launches, fit_main_launches = phase_fit(report)
+    print("[9] zero-bubble training: tied GPT-2-small under ZBH1 and ZBV")
+    t9 = time.perf_counter()
+    zb_step_launches = phase_zero_bubble(report)
+    report["zero_bubble"]["seconds"] = time.perf_counter() - t9
     report["seconds"] = time.perf_counter() - t0
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
@@ -2302,7 +2551,9 @@ def main() -> int:
                 "ref_train": ref_launches[name],
                 "fit_step": fit_launches[name],
                 "eval": eval_launches[name],
-                "fit_main": fit_main_launches[name]}))
+                "fit_main": fit_main_launches[name],
+                "zbh1_step": zb_step_launches["ZBH1"][name],
+                "zbv_step": zb_step_launches["ZBV"][name]}))
         if name.startswith("flash"):
             kernels[-1]["ref_shapes"] = [
                 {k: main_shapes[(f"{name}_ref{dh}", "bfloat16")][k]

@@ -23,14 +23,18 @@ package's. Ported so far:
   54-config experiment (``utils.sweep``: ``sweep_rows``,
   ``run_all_experiments``; ``python -m
   distributed_training_with_pipeline_parallelism_tpu_torch.run_sweep``)
-  with the bubble, cost-model and memory-model columns (``analysis``).
+  with the bubble, cost-model and memory-model columns (``analysis``);
 - training jobs: ``fit`` (``python -m
   distributed_training_with_pipeline_parallelism_tpu_torch.train``) with
   the forward-only pipelined eval (``make_pipeline_loss_fn``), committed
   checkpoints with async saves and bit-exact resume, the anomaly guard,
   preemption and the fault plan (``utils.resilience``), gradient
   accumulation, and the token-file, native C++ and prefetching loaders
-  (``utils.data``, ``utils.data_native``).
+  (``utils.data``, ``utils.data_native``);
+- zero-bubble training: ZBH1 and ZBV with the split backward (W units)
+  and the V placement through the executor, ``fit``, the sweep and the
+  cost and memory models, and the custom-schedule registry
+  (``parallel.schedules.register_schedule``).
 
 Hand-written CUDA kernels (``csrc/``): flash-attention forward and
 backward (``flash_fwd.cu``, ``flash_bwd.cu``) and the fused cross-entropy

@@ -6,7 +6,8 @@ The port's own copy of the numpy parts of the JAX package's
 ``resolve_backward_policy`` (``:187``), ``backward_weights`` (``:204``),
 ``predicted_step_time`` (``:230``) and ``cost_model_section`` (``:376``).
 Each F unit is priced at one microbatch's forward FLOPs through one stage,
-B (and its recompute under remat) in forward-unit equivalents, each ring
+B and W (and their recomputes under remat and the split backward) in
+forward-unit equivalents, each ring
 hop at one stage-boundary slab over the link bandwidth; the lockstep tick
 lasts as long as its slowest device.
 
@@ -36,8 +37,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from ..parallel.schedules import (COL_STORE_B_SLOT, COL_STORE_F_SLOT,
-                                  CompiledSchedule, analytic_bubble_fraction,
+from ..parallel.schedules import (CHANNELS, CompiledSchedule,
+                                  analytic_bubble_fraction,
                                   table_unit_activity)
 
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
@@ -132,29 +133,35 @@ def train_flops_per_token(cfg, seq: int) -> float:
 
 def resolve_backward_policy(cs: CompiledSchedule, remat_backward=None,
                             n_devices: Optional[int] = None) -> str:
-    """The backward ``make_pipeline_grad_fn`` runs: 'stored' at D == 1 by
-    default or with ``remat_backward=False``, else 'remat' (the port has
-    no split-backward schedule)."""
+    """The backward ``make_pipeline_grad_fn`` runs: 'split' for a
+    split-backward table (B: recompute + dgrad, W: recompute + wgrad),
+    else 'stored' at D == 1 by default or with ``remat_backward=False``,
+    else 'remat'."""
+    if cs.split_backward:
+        return "split"
     D = cs.n_devices if n_devices is None else n_devices
     stored = remat_backward is False or (remat_backward is None and D == 1)
     return "stored" if stored else "remat"
 
 
 def backward_weights(policy: str) -> Tuple[float, float]:
-    """(B, W) unit cost in forward units: stored B = dgrad + wgrad ~ 2F;
-    remat adds the 1F recompute. No W unit runs (weight 1, as in JAX)."""
-    return {"stored": (2.0, 1.0), "remat": (3.0, 1.0)}[policy]
+    """(B, W) unit cost in forward units: stored B = dgrad + wgrad ~ 2F
+    and no W unit (weight 1, as in JAX); remat adds the 1F recompute;
+    split B = recompute + dgrad ~ 2F, W = recompute + wgrad ~ 2F."""
+    return {"stored": (2.0, 1.0), "remat": (3.0, 1.0),
+            "split": (2.0, 2.0)}[policy]
 
 
 def _hops_per_tick(table: np.ndarray) -> np.ndarray:
     """Ring hops launched at the end of each tick: hops[t-1] counts the
-    ring channels with a store at tick t (one hop serves every device).
-    Summed, the static verifier's ``predicted_ppermutes``."""
+    ring channels (+1 and -1 in each direction) with a store at tick t
+    (one hop serves every device). Summed, the static verifier's
+    ``predicted_ppermutes``."""
     T = table.shape[0]
     hops = np.zeros(T, dtype=np.int64)
     for t in range(1, T):
         hops[t - 1] = sum(int((table[t, :, col] >= 0).any())
-                          for col in (COL_STORE_F_SLOT, COL_STORE_B_SLOT))
+                          for _, _, col in CHANNELS)
     return hops
 
 

@@ -33,10 +33,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
-from ..parallel.schedules import (COL_BWD_M, COL_BWD_V, COL_FWD_M,
-                                  COL_FWD_V, COL_STORE_B_SLOT,
-                                  COL_STORE_F_SLOT, CompiledSchedule,
-                                  stage_of)
+from ..parallel.schedules import (CHANNELS, COL_BWD_M, COL_BWD_V,
+                                  COL_FWD_M, COL_FWD_V, COL_W_M, COL_W_V,
+                                  CompiledSchedule, bwd_route, fwd_route,
+                                  placement_stage_of)
 from .cost_model import (HardwareSpec, detect_hardware, dtype_bytes,
                          model_shapes, resolve_backward_policy)
 
@@ -83,56 +83,71 @@ def stored_residual_bytes(cfg, n_stages: int, tokens_per_mb: float) -> float:
 def slot_live_peaks(cs: CompiledSchedule) -> Tuple[List[int], List[int]]:
     """Per device, the peak number of activation and of cotangent values
     live at once under the executor's contract: a value is live from its
-    store (a ring arrival, or stage 0's embedding at its forward) until
-    its last read (its backward unit); within a tick, arrivals land
-    first, then the forward unit, then the backward unit, and a peak is
-    taken at each store (the JAX static verifier's ``act_live_peak`` and
+    store (a ring arrival, a same-device hop, or stage 0's embedding at
+    its forward) until its last read (its backward unit, or its W unit
+    under a split schedule); within a tick, arrivals land first (on the
+    four channels), then the forward unit and its local hop, the backward
+    unit and its local hop, then the W unit, and a peak is taken at each
+    store (the JAX static verifier's ``act_live_peak`` and
     ``grad_live_peak``)."""
     table = cs.table
     T, D = table.shape[0], cs.n_devices
-    S = cs.n_stages
-    last_read = {}  # (device, kind, stage, mb) -> tick of the last read
+    S, pl = cs.n_stages, cs.placement
+    last_read = {}  # (device, stage, mb) -> tick of the last read
     for t in range(T):
         for d in range(D):
             row = table[t, d]
-            if row[COL_BWD_M] >= 0:
-                s = stage_of(d, int(row[COL_BWD_V]), D)
-                m = int(row[COL_BWD_M])
-                last_read[(d, "act", s, m)] = t
-                last_read[(d, "grad", s, m)] = t
+            for vcol, mcol in ((COL_BWD_V, COL_BWD_M), (COL_W_V, COL_W_M)):
+                if row[mcol] >= 0:
+                    s = placement_stage_of(pl, d, int(row[vcol]), D)
+                    last_read[(d, s, int(row[mcol]))] = t
     peaks = {"act": [0] * D, "grad": [0] * D}
     live = {"act": [set() for _ in range(D)],
             "grad": [set() for _ in range(D)]}
-    regs = {"act": [None] * D, "grad": [None] * D}  # last tick's ring hops
+    regs = {(buf, off): [None] * D for buf, off, _ in CHANNELS}  # last hops
 
     def store(d, kind, key):
         live[kind][d].add(key)
         peaks[kind][d] = max(peaks[kind][d], len(live[kind][d]))
 
+    def retire(d, t, s, m):
+        if last_read.get((d, s, m)) == t:
+            live["act"][d].discard((s, m))
+            live["grad"][d].discard((s, m))
+
     for t in range(T):
-        sends = {"act": [None] * D, "grad": [None] * D}
+        sends = {key: [None] * D for key in regs}
         for d in range(D):
             row = table[t, d]
-            if row[COL_STORE_F_SLOT] >= 0:
-                store(d, "act", regs["act"][d])
-            if row[COL_STORE_B_SLOT] >= 0:
-                store(d, "grad", regs["grad"][d])
+            for buf, off, col in CHANNELS:
+                if row[col] >= 0:
+                    store(d, buf, regs[(buf, off)][d])
             if row[COL_FWD_M] >= 0:
-                s = stage_of(d, int(row[COL_FWD_V]), D)
+                s = placement_stage_of(pl, d, int(row[COL_FWD_V]), D)
                 m = int(row[COL_FWD_M])
                 if s == 0:
                     store(d, "act", (s, m))
                 if s < S - 1:
-                    sends["act"][d] = (s + 1, m)
+                    route = fwd_route(pl, s, D)
+                    if route == "local":
+                        store(d, "act", (s + 1, m))
+                    else:
+                        sends[("act", int(route))][d] = (s + 1, m)
             if row[COL_BWD_M] >= 0:
-                s = stage_of(d, int(row[COL_BWD_V]), D)
+                s = placement_stage_of(pl, d, int(row[COL_BWD_V]), D)
                 m = int(row[COL_BWD_M])
-                live["act"][d].discard((s, m))
-                live["grad"][d].discard((s, m))
+                retire(d, t, s, m)
                 if s > 0:
-                    sends["grad"][d] = (s - 1, m)
-        regs = {"act": [sends["act"][(d - 1) % D] for d in range(D)],
-                "grad": [sends["grad"][(d + 1) % D] for d in range(D)]}
+                    route = bwd_route(pl, s, D)
+                    if route == "local":
+                        store(d, "grad", (s - 1, m))
+                    else:
+                        sends[("grad", int(route))][d] = (s - 1, m)
+            if row[COL_W_M] >= 0:
+                retire(d, t, placement_stage_of(pl, d, int(row[COL_W_V]), D),
+                       int(row[COL_W_M]))
+        regs = {(buf, off): [sends[(buf, off)][(d - off) % D]
+                             for d in range(D)] for buf, off in regs}
     return peaks["act"], peaks["grad"]
 
 

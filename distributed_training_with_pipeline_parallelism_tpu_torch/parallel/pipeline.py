@@ -4,13 +4,19 @@ the forward-only eval executor (counterparts of the JAX package's
 ``_stage_index_map`` ``:190``, ``make_pipeline_grad_fn`` ``:589``,
 ``_fwd_tick_table`` ``:1962`` and ``make_pipeline_loss_fn`` ``:2328``; its
 last-stage loss ``_stage_ce`` ``:251`` is ``models.transformer.head_loss``).
+The JAX ``unstack_stage_layers`` (``:220``) has no counterpart: the port's
+stages are views of the model's own blocks, not stacked copies, so the
+gradients land in the model's ``.grad`` directly.
 
 All D stages run in one process on one device, in lockstep over the
-compiled ``[T, D, 17]`` tick table: each tick, each device banks last
-tick's arrivals into the slots columns 0 and 4 name, runs its forward unit
-(columns 1-3), then its backward unit (columns 5-8); the ring hops are
-hand-overs between per-device Python mailboxes, delivered at the end of
-the tick (the single-process lockstep transport of ``ROADMAP.md``).
+compiled ``[T, D, 17]`` tick table (the JAX ``tick``, ``:1244-1460``, with
+``comm_overlap="none"``). Each tick, each device banks last tick's
+arrivals on the four channels (+1 forward, column 0; -1 backward, 4; -1
+forward, 14; +1 backward, 16), runs its forward unit (columns 1-3) and
+its local forward hop (13), its backward unit (5-8) and local backward
+hop (15), then its weight-gradient unit (9-12); each hand-over goes to
+its receiver's mailbox at the end of the tick by the route of the stage
+that sent it (the single-process lockstep transport of ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -25,10 +31,13 @@ from ..models.transformer import (Transformer, body_apply, embed_apply,
                                   head_loss)
 from ..ops.layers import fold_seed, global_pad_scale
 from ..utils.config import ModelConfig, ScheduleConfig, resolve_device
-from .schedules import (COL_BWD_ASLOT, COL_BWD_GSLOT, COL_BWD_M, COL_BWD_V,
-                        COL_FWD_M, COL_FWD_SLOT, COL_FWD_V, COL_STORE_B_SLOT,
-                        COL_STORE_F_SLOT, F, Action, _allocate_slots,
-                        bfs_order, compile_schedule, schedule_ticks, stage_of)
+from .schedules import (CHANNELS, COL_BWD_ASLOT, COL_BWD_GSLOT,
+                        COL_BWD_LOCAL_SLOT, COL_BWD_M, COL_BWD_V,
+                        COL_FWD_LOCAL_SLOT, COL_FWD_M, COL_FWD_SLOT,
+                        COL_FWD_V, COL_W_ASLOT, COL_W_GSLOT, COL_W_M,
+                        COL_W_V, F, Action, _allocate_slots, bfs_order,
+                        bwd_route, compile_schedule, fwd_route,
+                        placement_stage_of, schedule_ticks)
 
 # mesh axes of the JAX executor that the single-device port does not run
 _AXIS_ITEMS = {
@@ -39,24 +48,28 @@ _AXIS_ITEMS = {
 }
 
 
-def _stage_index_map(n_devices: int, n_virtual: int) -> np.ndarray:
-    """[D, V] array: the global stage held by (device, chunk) under the
-    wrap placement, ``v * D + d``."""
-    return np.array([[stage_of(d, v, n_devices) for v in range(n_virtual)]
-                     for d in range(n_devices)])
+def _stage_index_map(n_devices: int, n_virtual: int,
+                     placement: str = "wrap") -> np.ndarray:
+    """[D, V] array: the global stage held by (device, chunk); wrap:
+    ``v * D + d``; vshape (ZBV): ``d`` for chunk 0, ``2D - 1 - d`` for
+    chunk 1."""
+    return np.array([[placement_stage_of(placement, d, v, n_devices)
+                      for v in range(n_virtual)] for d in range(n_devices)])
 
 
 def stack_stage_layers(layers: nn.ModuleList, n_devices: int,
-                       n_virtual: int = 1) -> List[List[nn.ModuleList]]:
+                       n_virtual: int = 1, placement: str = "wrap"
+                       ) -> List[List[nn.ModuleList]]:
     """Split ``layers`` over S = D * V stages: ``[D][V]`` slices, where
-    device d's chunk v holds stage ``s = v * D + d``, i.e. layers
-    ``s * L/S .. (s+1) * L/S - 1`` (the blocks are shared, not copied)."""
+    device d's chunk v holds stage ``s = placement_stage_of(d, v)``, i.e.
+    layers ``s * L/S .. (s+1) * L/S - 1`` (the blocks are shared, not
+    copied)."""
     n = len(layers)
     S = n_devices * n_virtual
     if n % S != 0:
         raise ValueError(f"n_layers={n} must divide evenly into {S} stages")
     lps = n // S
-    idx = _stage_index_map(n_devices, n_virtual)
+    idx = _stage_index_map(n_devices, n_virtual, placement)
     return [[nn.ModuleList(layers[s * lps:(s + 1) * lps]) for s in row]
             for row in idx.tolist()]
 
@@ -89,12 +102,12 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     dropout. Microbatch ``m`` runs under ``fold_seed(step_seed, m)`` and
     each layer folds its global index into that (the JAX contract,
     ``parallel/pipeline.py:604-607``), so the masks depend only on (step
-    seed, microbatch, global layer, site), never on (D, V): every
-    schedule and stage split computes the loss and gradients of
-    :func:`..models.transformer.transformer_loss` averaged over the
-    microbatches with ``rng = fold_seed(step_seed, m)``. The
-    rematerialising backward re-seeds the same streams, so it redraws the
-    masks its forward drew.
+    seed, microbatch, global layer, site), never on (D, V) or the
+    placement: every schedule and stage split computes the loss and
+    gradients of :func:`..models.transformer.transformer_loss` averaged
+    over the microbatches with ``rng = fold_seed(step_seed, m)``. Every
+    recompute re-seeds the same streams, so it redraws the masks its
+    forward drew.
 
     The loss matches the JAX executor: the last stage takes the token-mean
     cross entropy of its microbatch, the loss is the mean over
@@ -105,14 +118,24 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     ``remat_backward`` (the JAX ``pipeline.py:865`` rule):
 
     - ``None``: rematerialise at D > 1; at D == 1, plain autograd over the
-      microbatches (no tick table to run).
+      microbatches (no tick table to run) unless the schedule splits its
+      backward.
     - ``True``: the forward unit runs under ``no_grad`` and keeps only the
       stage input in its activation slot; the backward unit re-runs the
       stage under autograd, back-propagates the incoming cotangent (or,
-      on the last stage, the loss) and sends the input's gradient down
-      the -1 ring.
+      on the last stage, the loss) and sends the input's gradient on.
     - ``False``: stored; the forward unit keeps its autograd graph until
-      its backward unit.
+      its backward unit. A split-backward schedule raises ``ValueError``.
+
+    Under a split-backward schedule (ZBH1, ZBV, a registered
+    ``split_backward`` order) the backward is two units, both
+    rematerialising: B recomputes the stage and takes only the input's
+    gradient (``torch.autograd.grad``; on the last stage it adds the
+    microbatch's loss to the total), W recomputes it again and
+    back-propagates the same cotangent into the stage's parameters (the
+    head's on the last stage; on stage 0, which has no B, the embedding's
+    through a recomputed embedding). W reads the saved input and the
+    cotangent last, so it frees their slots.
 
     Raises ``NotImplementedError`` for any ``axes`` entry (``"data"``,
     ``"model"``, ``"seq"``, ``"expert"``) of size > 1, naming the
@@ -126,12 +149,23 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     if cfg.n_layers % S != 0:
         raise ValueError(f"n_layers={cfg.n_layers} must divide evenly into "
                          f"{S} stages")
-    plain = D == 1 and remat_backward is None
+    split = cs.split_backward
+    placement = cs.placement
+    if split and remat_backward is False:
+        raise ValueError(
+            f"remat_backward=False is incompatible with split-backward "
+            f"schedule {sched.name!r}: its W units re-derive parameter "
+            f"grads from saved inputs by design (that recompute is what "
+            f"fills the bubble ticks)")
+    plain = D == 1 and remat_backward is None and not split
     remat = remat_backward is None or bool(remat_backward)
     table = cs.table
     inv = 1.0 / M
     lps = cfg.n_layers // S
     use_dropout = cfg.dropout > 0.0
+
+    def stage_of(d, v):
+        return placement_stage_of(placement, d, v, D)
 
     def grad_fn(model: Transformer, tokens, targets,
                 step_seed: Optional[int] = None) -> torch.Tensor:
@@ -167,24 +201,25 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     loss += ce.detach()
             return loss * inv
 
-        stages = stack_stage_layers(model.layers, D, V)
+        stages = stack_stage_layers(model.layers, D, V, placement)
 
         def stage_body(d, v, x, m):
             """Device d's chunk v on microbatch m; its first layer's global
             index keys the dropout streams."""
             return body_apply(cfg, stages[d][v], x, mb_rng(m),
-                              stage_of(d, v, D) * lps)
+                              stage_of(d, v) * lps)
 
         act: List[List] = [[None] * cs.n_act_slots for _ in range(D)]
         grad: List[List] = [[None] * cs.n_grad_slots for _ in range(D)]
         graphs: List[Dict] = [dict() for _ in range(D)]  # stored: slot -> (x, y)
-        fwd_in: List = [None] * D  # mailboxes: last tick's +1 ring hop
-        bwd_in: List = [None] * D  # ... -1 ring hop
+        bufs = {"act": act, "grad": grad}
+        # mailboxes: last tick's hand-overs per channel and receiving device
+        inbox = {(buf, off): [None] * D for buf, off, _ in CHANNELS}
 
         def forward_unit(d, row):
             v, m, slot = (int(row[c]) for c in (COL_FWD_V, COL_FWD_M,
                                                  COL_FWD_SLOT))
-            s = stage_of(d, v, D)
+            s = stage_of(d, v)
             if remat:
                 with torch.no_grad():
                     x = embed(m) if s == 0 else act[d][slot]
@@ -198,14 +233,41 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     y = stage_body(d, v, x, m)
                 graphs[d][slot] = (x, y)
                 y = y.detach()
-            return y if s < S - 1 else None
+            return s, y
+
+        def objective(d, v, s, m, y, gslot):
+            """(loss or None, output, its cotangent) to back-propagate from
+            stage s: on the last stage its microbatch's loss and the loss
+            / M, else the body output and the stored incoming
+            cotangent."""
+            if s == S - 1:
+                ce = head_loss(cfg, model, y, tgts[m], pad_scale)
+                return ce, ce * inv, None
+            return None, y, grad[d][gslot]
+
+        def release(d, aslot, gslot, s):
+            """The unit that reads the saved input and cotangent last frees
+            their slots."""
+            act[d][aslot] = None
+            if s < S - 1:
+                grad[d][gslot] = None
 
         def backward_unit(d, row):
+            """The full backward, or under a split schedule its input-grad
+            half (dgrad): returns (stage, input cotangent or None)."""
             nonlocal loss
-            v, m, aslot = (int(row[c]) for c in (COL_BWD_V, COL_BWD_M,
-                                                  COL_BWD_ASLOT))
-            s = stage_of(d, v, D)
+            v, m, aslot, gslot = (int(row[c]) for c in (
+                COL_BWD_V, COL_BWD_M, COL_BWD_ASLOT, COL_BWD_GSLOT))
+            s = stage_of(d, v)
             with torch.enable_grad():
+                if split:  # stage 0 has no B
+                    x = act[d][aslot].detach().requires_grad_()
+                    ce, out, g = objective(d, v, s, m, stage_body(d, v, x, m),
+                                           gslot)
+                    gx, = torch.autograd.grad(out, x, grad_outputs=g)
+                    if ce is not None:
+                        loss += ce.detach()
+                    return s, gx
                 if remat:
                     # stage 0 recomputes its embedding under autograd, so
                     # the input's gradient flows on into the tables
@@ -214,32 +276,64 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     y = stage_body(d, v, x, m)
                 else:
                     x, y = graphs[d].pop(aslot)
-                if s == S - 1:
-                    ce = head_loss(cfg, model, y, tgts[m], pad_scale)
-                    (ce * inv).backward()
+                ce, out, g = objective(d, v, s, m, y, gslot)
+                torch.autograd.backward(out, g)
+                if ce is not None:
                     loss += ce.detach()
+            release(d, aslot, gslot, s)
+            return s, (x.grad if s > 0 else None)
+
+        def wgrad_unit(d, row):
+            """The weight-grad half of a split backward: the stage's
+            parameters (and the embedding's on stage 0, the head's on the
+            last stage) from a second recompute; sends nothing."""
+            v, m, aslot, gslot = (int(row[c]) for c in (
+                COL_W_V, COL_W_M, COL_W_ASLOT, COL_W_GSLOT))
+            s = stage_of(d, v)
+            params = list(stages[d][v].parameters())
+            with torch.enable_grad():
+                if s == 0:  # the embedding's gradient through a recompute
+                    x = embed(m)
+                    params += [model.tok] + (
+                        [model.pos] if cfg.arch == "gpt2" else [])
                 else:
-                    gslot = int(row[COL_BWD_GSLOT])
-                    torch.autograd.backward(y, grad[d][gslot])
-                    grad[d][gslot] = None  # released: B(s, m) read it last
-            act[d][aslot] = None
-            return x.grad if s > 0 else None
+                    x = act[d][aslot]
+                _, out, g = objective(d, v, s, m, stage_body(d, v, x, m),
+                                      gslot)
+                if s == S - 1:
+                    params += list(model.norm.parameters()) + (
+                        [model.tok] if cfg.tie_embeddings
+                        else list(model.out.parameters()))
+                torch.autograd.backward(out, g, inputs=params)
+            release(d, aslot, gslot, s)
 
         for t in range(table.shape[0]):
-            fwd_send: List = [None] * D
-            bwd_send: List = [None] * D
+            sends = {key: [None] * D for key in inbox}
             for d in range(D):
                 row = table[t, d]
-                if row[COL_STORE_F_SLOT] >= 0:
-                    act[d][row[COL_STORE_F_SLOT]] = fwd_in[d]
-                if row[COL_STORE_B_SLOT] >= 0:
-                    grad[d][row[COL_STORE_B_SLOT]] = bwd_in[d]
+                for buf, off, col in CHANNELS:
+                    if row[col] >= 0:
+                        bufs[buf][d][row[col]] = inbox[(buf, off)][d]
                 if row[COL_FWD_M] >= 0:
-                    fwd_send[d] = forward_unit(d, row)
+                    s, y = forward_unit(d, row)
+                    if s < S - 1:
+                        route = fwd_route(placement, s, D)
+                        if route == "local":
+                            act[d][row[COL_FWD_LOCAL_SLOT]] = y
+                        else:
+                            sends[("act", int(route))][d] = y
                 if row[COL_BWD_M] >= 0:
-                    bwd_send[d] = backward_unit(d, row)
-            fwd_in = [fwd_send[(d - 1) % D] for d in range(D)]
-            bwd_in = [bwd_send[(d + 1) % D] for d in range(D)]
+                    s, gx = backward_unit(d, row)
+                    if s > 0:
+                        route = bwd_route(placement, s, D)
+                        if route == "local":
+                            grad[d][row[COL_BWD_LOCAL_SLOT]] = gx
+                        else:
+                            sends[("grad", int(route))][d] = gx
+                if row[COL_W_M] >= 0:
+                    wgrad_unit(d, row)
+            inbox = {(buf, off): [sends[(buf, off)][(d - off) % D]
+                                  for d in range(D)] for buf, off in inbox}
         return loss * inv
 
     return grad_fn
@@ -335,7 +429,7 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     act[d][store] = fwd_in[d]
                 if m < 0:
                     continue
-                s = stage_of(d, v, D)
+                s = placement_stage_of("wrap", d, v, D)
                 if s == 0:
                     x = embed_apply(cfg, model, toks[m])
                 else:

@@ -7,7 +7,9 @@ tables (the counterpart of ``scripts/run_sweep.py``).
 On the card by default, at the reference's size: ref_decoder, dim 768,
 vocab 10000, ffn 2048, batch 32, seq 128, 4 microbatches, 5 timed
 iterations after 2 warm-ups, f32; layers {4, 8, 12} x heads {4, 8, 12} x
-devices {2, 4} x {GPipe, 1F1B, Interleaved1F1B}. Writes ``sweep.csv``
+devices {2, 4} x {GPipe, 1F1B, Interleaved1F1B} (``--schedules`` picks
+others, e.g. ``--schedules 1F1B ZBH1 ZBV`` for the zero-bubble rows; ZBV
+lifts M to 2D). Writes ``sweep.csv``
 (every row and column) and ``speedup.csv`` under ``--out`` with the
 stdlib ``csv`` module (the H100 host has no pandas), and prints both
 tables with the card's name.
@@ -41,7 +43,10 @@ def main(argv=None) -> int:
                     help="model width (default: the reference's 768, 64 "
                          "under --quick)")
     ap.add_argument("--dtype", default="float32")
-    ap.add_argument("--schedules", nargs="+", default=None)
+    ap.add_argument("--schedules", nargs="+", default=None,
+                    help="schedules to sweep (default: the reference's "
+                         "GPipe, 1F1B, Interleaved1F1B); any of "
+                         "parallel.schedules.schedule_names()")
     ap.add_argument("--quick", action="store_true",
                     help="a 6-config smoke run at a small size")
     args = ap.parse_args(argv)

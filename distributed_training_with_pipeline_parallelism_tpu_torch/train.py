@@ -7,6 +7,14 @@ counterpart of ``scripts/train.py``: the same flags and defaults, through
         --batch 24 --seq 1024 --steps 20 --ckpt /tmp/ck --eval-every 10 \\
         --flash on --fused-xent --dtype bfloat16 --param-dtype float32
 
+    # zero-bubble: ZBH1, or ZBV with its two V-placed chunks a device
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --pipe 4 --schedule ZBH1 --microbatches 4 \\
+        --batch 24 --seq 1024 --steps 20
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --pipe 2 --schedule ZBV --microbatches 4 \\
+        --batch 24 --seq 1024 --steps 20
+
     # a tiny run on the CPU (the kernels' plain versions)
     python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
         --model ref --layers 2 --dim 32 --heads 2 --vocab 64 --seq 16 \\
@@ -27,7 +35,7 @@ import os
 
 import numpy as np
 
-from .parallel.schedules import NOT_PORTED, SCHEDULE_NAMES
+from .parallel.schedules import schedule_names
 
 _ITEM = {8: "ROADMAP.md Queue 1, item 8 (torch.distributed transport)",
          11: "ROADMAP.md Queue 1, item 11 (other parallelism)",
@@ -42,7 +50,9 @@ def parser() -> argparse.ArgumentParser:
                          "qwen2-0.5b, gemma-2b, llama-debug, ...), or ref "
                          "(the reference's ref_decoder)")
     ap.add_argument("--schedule", default="1F1B",
-                    choices=list(SCHEDULE_NAMES + NOT_PORTED))
+                    choices=list(schedule_names()),
+                    help="a built-in schedule or one registered with "
+                         "parallel.schedules.register_schedule")
     ap.add_argument("--pipe", type=int, default=2)
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
@@ -55,8 +65,10 @@ def parser() -> argparse.ArgumentParser:
                     choices=["auto", "remat", "stored"],
                     help="pipeline backward: auto (plain autograd at --pipe "
                          "1, the rematerialising backward above), remat, "
-                         "stored")
-    ap.add_argument("--virtual", type=int, default=1)
+                         "stored (not for the split-backward ZBH1/ZBV)")
+    ap.add_argument("--virtual", type=int, default=0,
+                    help="virtual stages per device (default: 2 for ZBV, "
+                         "else 1)")
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="accumulate gradients over k batches per optimizer "
@@ -252,10 +264,11 @@ def main(argv=None) -> int:
     cfg = build_config(args)
     sched = ScheduleConfig(name=args.schedule,
                            n_microbatches=args.microbatches,
-                           n_virtual=args.virtual)
+                           n_virtual=args.virtual or (
+                               2 if args.schedule == "ZBV" else 1))
     print(f"model={args.model} {cfg.dim}d x {cfg.n_layers}L x "
           f"{cfg.n_heads}H, pipe={args.pipe} on {device}, {args.schedule} "
-          f"M={args.microbatches} V={args.virtual}", flush=True)
+          f"M={args.microbatches} V={sched.n_virtual}", flush=True)
     optimizer = train.adamw(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, max_grad_norm=args.max_grad_norm,

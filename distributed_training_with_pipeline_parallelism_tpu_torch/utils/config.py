@@ -179,10 +179,12 @@ def resolve_device(device="cuda") -> torch.device:
 class ScheduleConfig:
     """Pipeline schedule selection (the JAX ``ScheduleConfig``).
 
-    ``name`` is one of the port's schedules: "GPipe", "1F1B",
-    "Interleaved1F1B" (the reference's three) or "BFS". ``n_virtual`` is
-    the number of virtual stages per device; :func:`virtual_stages_for`
-    gives the reference's rule."""
+    ``name`` is "GPipe", "1F1B", "Interleaved1F1B" (the reference's
+    three), "BFS", the zero-bubble "ZBH1" and "ZBV" (split backward; ZBV
+    in the V placement, ``n_virtual=2``), or a name registered with
+    ``parallel.schedules.register_schedule``. ``n_virtual`` is the number
+    of virtual stages per device; :func:`virtual_stages_for` gives the
+    reference's rule."""
 
     name: str = "GPipe"
     n_microbatches: int = 4
@@ -194,8 +196,11 @@ class ScheduleConfig:
 
 def virtual_stages_for(schedule_name: str, n_layers: int, n_pipe: int) -> int:
     """The reference's stages-per-worker rule: 2 for Interleaved1F1B (and
-    BFS) when ``n_layers % (2 * n_pipe) == 0``, else 1."""
+    BFS) when ``n_layers % (2 * n_pipe) == 0``, else 1; ZBV always runs
+    its 2 V-placed chunks, a registered schedule 1."""
     check_schedule_name(schedule_name)
+    if schedule_name == "ZBV":
+        return 2
     if (schedule_name in ("Interleaved1F1B", "BFS")
             and n_layers % (n_pipe * 2) == 0):
         return 2

@@ -12,7 +12,7 @@ from typing import Optional
 SCHEDULE_COLORS = {"GPipe": "tab:blue", "1F1B": "tab:orange",
                    "Interleaved1F1B": "tab:green", "BFS": "tab:purple"}
 PROC_MARKERS = {2: "o", 4: "s", 8: "^", 16: "D"}
-OP_COLORS = {"F": "#4e9ad1", "B": "#f29d4b"}
+OP_COLORS = {"F": "#4e9ad1", "B": "#f29d4b", "W": "#8ec07c"}
 
 
 def _mpl():
@@ -107,14 +107,14 @@ def plot_schedule_timeline(name_or_cs, n_devices: Optional[int] = None,
                            path: Optional[str] = None, ax=None,
                            annotate: bool = True):
     """Each device's ticks of the compiled tick table: a cell per action,
-    coloured by op (F blue, B orange), labelled with its microbatch,
+    coloured by op (F blue, B orange, W green), labelled with its microbatch,
     deeper virtual chunks darker; blank cells are the bubble. Takes a
     schedule name and its (D, V, M), or a ``CompiledSchedule``."""
     from matplotlib.colors import to_rgb
 
-    from ..parallel.schedules import (CompiledSchedule, chunk_of,
-                                      compile_schedule, device_of,
-                                      simulated_bubble)
+    from ..parallel.schedules import (CompiledSchedule, compile_schedule,
+                                      placement_chunk_of,
+                                      placement_device_of, simulated_bubble)
     if isinstance(name_or_cs, CompiledSchedule):
         cs = name_or_cs
     else:
@@ -128,8 +128,8 @@ def plot_schedule_timeline(name_or_cs, n_devices: Optional[int] = None,
     else:
         fig = ax.figure
     for action, tick in cs.ticks.items():
-        dev = device_of(action.stage, D)
-        chunk = chunk_of(action.stage, D)
+        dev = placement_device_of(cs.placement, action.stage, D)
+        chunk = placement_chunk_of(cs.placement, action.stage, D)
         shade = 1.0 - 0.35 * (chunk / max(1, V - 1)) if V > 1 else 1.0
         rgb = tuple(min(1.0, c * shade) for c in to_rgb(OP_COLORS[action.op]))
         ax.add_patch(plt.Rectangle((tick, D - 1 - dev + 0.08), 1.0, 0.84,
@@ -148,9 +148,11 @@ def plot_schedule_timeline(name_or_cs, n_devices: Optional[int] = None,
                  f"(makespan {cs.makespan} ticks, unit-cost bubble "
                  f"{bub:.1%})", fontsize=10)
     handles = [plt.Rectangle((0, 0), 1, 1, facecolor=OP_COLORS[o])
-               for o in ("F", "B")]
-    ax.legend(handles, ["forward", "backward"], fontsize=7,
-              loc="lower right")
+               for o in ("F", "B", "W")]
+    labels = ["forward", "backward (dgrad)" if cs.split_backward
+              else "backward", "weight grad"]
+    n_leg = 3 if cs.split_backward else 2
+    ax.legend(handles[:n_leg], labels[:n_leg], fontsize=7, loc="lower right")
     fig.tight_layout()
     if path:
         fig.savefig(path, dpi=120)

@@ -43,6 +43,7 @@ import torch
 from .checkpoint import (PendingSave, is_committed, read_commit_marker,
                          restore_checkpoint, save_checkpoint,
                          write_commit_marker)
+from .config import resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -394,13 +395,15 @@ GUARD_KEYS = ("step", "consec", "total", "last_anomaly_step",
               "last_bad_stage")
 
 
-def init_guard_state(start_step: int = 0, device="cpu"
+def init_guard_state(start_step: int = 0, device="cuda"
                      ) -> Dict[str, torch.Tensor]:
-    """The guard counters as int32 tensors on ``device``: the current
+    """The guard counters as int32 tensors on ``device`` (the card unless
+    the caller passes ``device="cpu"``, as every entry point): the current
     global step, consecutive and total anomaly counts, the last anomalous
     step (-1 = none) and the last anomaly's ``last_bad_stage`` (first
     pipeline stage with non-finite gradients; -2 = only the loss was
     non-finite; -1 = no anomaly yet)."""
+    device = resolve_device(device)
     values = (start_step, 0, 0, -1, -1)
     return {k: torch.full((), v, dtype=torch.int32, device=device)
             for k, v in zip(GUARD_KEYS, values)}

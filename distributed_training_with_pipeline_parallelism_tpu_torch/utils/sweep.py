@@ -48,8 +48,9 @@ SCHEDULES = ("GPipe", "1F1B", "Interleaved1F1B")
 # measured torch.cuda.max_memory_allocated over the run (None on the CPU)
 PORT_COLUMNS = ("mfu_card", "predicted_card_bytes",
                 "max_memory_allocated_bytes")
-_ITEM_4 = "ROADMAP.md Queue 1, item 4 (schedule artifacts, ZBH1/ZBV)"
 _ITEM_12 = "ROADMAP.md Queue 1, item 12 (observability)"
+_ITEM_12_ARTIFACTS = ("ROADMAP.md Queue 1, item 12 (schedule artifacts and "
+                      "the search, behind analysis/table_check.py)")
 
 
 def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
@@ -73,9 +74,11 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
     stages on it) before building anything; an overflow returns a
     ``skip_reason="predicted_oom"`` row.
 
-    ``report_dir``, ``dynamics=True`` and ``schedule_artifact`` raise
-    ``NotImplementedError`` (``ROADMAP.md`` items 12 and 4), as do ZBH1
-    and ZBV (item 4)."""
+    ZBV's steady state needs M >= 2D, so its row lifts
+    ``n_microbatches`` to 2D where it is smaller (recorded in the row's
+    ``n_microbatches``), as in JAX. ``report_dir``, ``dynamics=True``
+    and ``schedule_artifact`` raise ``NotImplementedError``
+    (``ROADMAP.md`` item 12)."""
     from ..analysis.cost_model import (backward_weights, cost_model_section,
                                        detect_hardware,
                                        resolve_backward_policy)
@@ -93,11 +96,12 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
             f"{_ITEM_12}")
     if schedule_artifact is not None:
         raise NotImplementedError(f"schedule artifacts are not ported yet: "
-                                  f"{_ITEM_4}")
-    ScheduleConfig(schedule_type)  # ZBH1/ZBV raise NotImplementedError here
+                                  f"{_ITEM_12_ARTIFACTS}")
     device = resolve_device(device)
     try:
         n_virtual = virtual_stages_for(schedule_type, n_layers, num_devices)
+        if schedule_type == "ZBV":
+            n_microbatches = max(n_microbatches, 2 * num_devices)
         cfg = ModelConfig(dim=dim, n_layers=n_layers, n_heads=n_heads,
                           vocab_size=vocab_size, arch=arch, dtype=dtype)
         sched = ScheduleConfig(name=schedule_type,
@@ -142,8 +146,8 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
         peak_alloc = (float(torch.cuda.max_memory_allocated(device))
                       if cuda else None)
         policy = resolve_backward_policy(cs, remat_backward, num_devices)
-        w_b, _ = backward_weights(policy)
-        sim = simulated_bubble(cs, w_f=1.0, w_b=w_b)
+        w_b, w_w = backward_weights(policy)
+        sim = simulated_bubble(cs, w_f=1.0, w_b=w_b, w_w=w_w)
         cost = cost_model_section(
             cs, cfg, batch_size=batch_size, seq_length=seq_length,
             hardware=hw, remat_backward=remat_backward,

@@ -323,7 +323,7 @@ def test_fault_plan_wrap_data_and_guard_state():
     with pytest.raises(tresilience.InjectedDataFault):
         next(it)
     assert tresilience.FaultPlan().wrap_data("x") == "x"
-    gs = tresilience.init_guard_state(7)
+    gs = tresilience.init_guard_state(7, device="cpu")
     assert {k: int(v) for k, v in gs.items()} == {
         "step": 7, "consec": 0, "total": 0, "last_anomaly_step": -1,
         "last_bad_stage": -1}

@@ -53,14 +53,6 @@ def test_virtual_stages_rule_matches_jax(name, L, D):
         jconfig.virtual_stages_for(name, L, D)
 
 
-@pytest.mark.parametrize("name", ["ZBH1", "ZBV"])
-def test_unported_schedules_raise(name):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tconfig.ScheduleConfig(name=name)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tsched.compile_schedule(name, 2, 1, 4)
-
-
 def test_verify_table_catches_a_stale_slot():
     cs = tsched.compile_schedule("1F1B", 2, 1, 4)
     bad = cs.table.copy()

@@ -63,11 +63,13 @@ def _schedules(name, L, D):
             tsched.compile_schedule(name, D, V, M), V)
 
 
-@pytest.mark.parametrize("L,H,D,name", CONFIGS)
+@pytest.mark.parametrize("L,H,D,name", CONFIGS + [
+    (8, 8, 2, "ZBH1"), (8, 8, 4, "ZBH1"), (8, 8, 2, "ZBV")])
 def test_bubble_columns_match_jax(L, H, D, name):
     """``bubble_analytic``, ``bubble_simulated`` (under the weight of the
     backward the sweep resolves) and the paper-comparable bubble, equal to
-    the JAX package's for each of the reference's 54 configs."""
+    the JAX package's for each of the reference's 54 configs, and for
+    the zero-bubble schedules (under the split backward's weights)."""
     jcs, tcs, V = _schedules(name, L, D)
     assert tsched.analytic_bubble_fraction(name, D, V, M) == \
         jsched.analytic_bubble_fraction(name, D, V, M)
@@ -77,17 +79,21 @@ def test_bubble_columns_match_jax(L, H, D, name):
     assert policy == jcm.resolve_backward_policy(jcs, None, D)
     w_b, w_w = tcm.backward_weights(policy)
     assert (w_b, w_w) == jcm.backward_weights(policy)
-    assert tsched.simulated_bubble(tcs, 1.0, w_b) == \
+    assert tsched.simulated_bubble(tcs, 1.0, w_b, w_w) == \
         jsched.simulated_bubble(jcs, 1.0, w_b, w_w)
 
 
 @pytest.mark.parametrize("L,D,name", list(itertools.product(
-    (4, 8, 12), (2, 4), ("GPipe", "1F1B", "Interleaved1F1B"))))
+    (4, 8, 12), (2, 4), ("GPipe", "1F1B", "Interleaved1F1B"))) + [
+        (8, 2, "ZBH1"), (8, 4, "ZBH1"), (8, 2, "ZBV")])
 def test_cost_and_memory_sections_match_jax(L, D, name):
     """Under one ``HardwareSpec``: the cost model's FLOPs, predicted step
     time, table-exact bubble and (from a given step time) MFU; the memory
     model's analytic section (live slot peaks, bytes, per-device peak);
-    the OOM preflight, also when the capacity is too small."""
+    the OOM preflight, also when the capacity is too small. The
+    zero-bubble cases price the split backward (B and W at 2 forward
+    units each), the W column, and under ZBV the reverse channels and
+    local hops."""
     H = {4: 4, 8: 8, 12: 12}[L]
     jcs, tcs, _ = _schedules(name, L, D)
     jcfg = dtpp.ModelConfig(n_layers=L, n_heads=H)
@@ -205,11 +211,9 @@ def test_error_and_skip_contracts():
     assert skip["predicted_peak_bytes"] > skip["hbm_bytes"] == 16e9
     for kw, match in ((dict(report_dir="x"), "item 12"),
                       (dict(dynamics=True), "item 12"),
-                      (dict(schedule_artifact="x"), "item 4")):
+                      (dict(schedule_artifact="x"), "item 12")):
         with pytest.raises(NotImplementedError, match=match):
             tsweep.run_one_experiment(4, 4, 2, "GPipe", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tsweep.run_one_experiment(4, 4, 2, "ZBH1", device="cpu")
 
 
 def test_run_sweep_writes_csv(tmp_path, capsys):
