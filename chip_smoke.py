@@ -150,6 +150,41 @@ JAX. Phases, each fatal on failure:
    (e) ``run_one_experiment`` rows for ZBH1 and ZBV at the sweep's
    headline L8/H8, D = 2 (f32, B = 32, S = 128; ZBV's M = 2D = 4).
 
+10. The ``torch.distributed`` transport: a world of 4 processes on the one
+    card (``parallel.mesh.launch``, gloo, every hand-off and collective
+    staged through pinned host memory; rank 0's ``mesh.describe()`` is
+    printed), tied GPT-2-small at full width, random weights from a
+    seed, both kernels routed on, M = 4. Every rank first runs a
+    one-layer model's forward and backward per config, all at once: a
+    first pipelined step would pay each rank's first launches one rank
+    after another down the pipe. (a) f32, B = 8: 1F1B at D = 4
+    x n_data = 1, 1F1B and Interleaved1F1B at D = 2 x n_data = 2, each
+    with ``comm_overlap`` "none" and "ring": the loss and every leaf of
+    each rank against the lockstep process's f32 1F1B D = 4 step on the
+    same weights (phase 4's bounds), "ring" bitwise equal to "none", and
+    each rank's launches equal to its row of the table
+    (``rank_launches``; at n_data = 1 summing to phase 4's 96 / 48 / 4 /
+    4). (b) Two clipped AdamW updates at D = 2 x 2, ZeRO-1 and plain,
+    against the lockstep process's train step on the whole model and
+    batch: each update's clipping norm within 1e-5, each leaf within
+    phase 4's bound of its move (the k biases, whose gradient is rounding
+    noise, within the learning rate a step). (c) bf16 over f32 master
+    weights, B = 24, 1F1B D = 4: the lockstep process, the world twice,
+    the lockstep process again (1 warm-up and 3 timed steps each):
+    tokens/s, finite losses, one counted step's launches by rank, and one
+    step profiled on ranks 0 and 3 (wall, the rank's device busy, idle
+    share, the host time of its hand-off waits and posts). (d) ``train.py
+    --pipe 2 --data 2 --backend gloo --zero1`` at full depth (S = 1024, B
+    = 8; 6 steps, an eval and a checkpoint every 3): its world starts
+    beside the phase's world and is killed (its whole process group) once
+    step 2 is committed, while the phase's world runs (a) and (b); (c)
+    starts only once it is gone. ``train.run``, the function each rank
+    of that world runs, runs over the phase's 2 x 2 mesh twice: unbroken
+    after (b), beside the killed world's last steps, and after (c) with
+    ``--auto-resume`` from the killed world's checkpoints; each rank
+    holds its share of step 5's files to the unbroken run's, bitwise.
+    The phase prints its seconds against the 90 it is held to.
+
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
@@ -159,7 +194,8 @@ them, the paged and speculative runs' 0 as their dense cache attention
 takes neither kernel; the llama prefill shape's times beside the flash
 kernel's; the reference shapes' bf16 times and the ref_decoder gate's
 launches beside each flash kernel's; phase 8's fit step, one eval and
-the entry point's whole run; phase 9's counted bf16 ZBH1 and ZBV steps),
+the entry point's whole run; phase 9's counted bf16 ZBH1 and ZBV steps;
+phase 10's counted bf16 world step by rank and summed),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -173,6 +209,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2470,6 +2507,688 @@ def phase_zero_bubble(report, device="cuda"):
     return step_launches
 
 
+# the world: 4 processes on the one card over gloo (staged through pinned
+# host memory), tied GPT-2-small at full width; the f32 gates at B = 8 as
+# (schedule, D, V, n_data), the bf16 timing at B = 24 over D = 4
+DIST_GATES = (("1F1B", 4, 1, 1), ("1F1B", 2, 1, 2),
+              ("Interleaved1F1B", 2, 2, 2))
+DIST_M, DIST_GATE_B, DIST_TIME_B = 4, 8, 24
+DIST_WARMUP, DIST_TIMED = 1, 3
+# (b): two AdamW updates that both move (no warm-up of the learning rate),
+# each clipped (the gradient's norm at these weights is far above 0.1)
+DIST_OPT = dict(warmup_steps=0, max_grad_norm=0.1)
+DIST_STEPS = 2
+# (d): train.py's world, GPT-2-small tied at full depth, S = 1024, ZeRO-1
+DIST_TRAIN_ARGS = ["--model", "gpt2-small", "--tie-embeddings", "--pipe",
+                   "2", "--data", "2", "--backend", "gloo", "--zero1",
+                   "--batch", "8", "--seq", "1024", "--microbatches", "2",
+                   "--steps", "6", "--ckpt-every", "3", "--eval-every", "3",
+                   "--eval-batches", "1", "--flash", "on", "--fused-xent",
+                   "--anomaly-guard"]
+DIST_WAIT_S = 300  # the longest the world waits for the killed world
+
+
+def dist_config(bf16=False):
+    """Tied GPT-2-small with both kernels routed on; bf16 compute over f32
+    master weights for the timing."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import gpt2_config
+    kw = dict(dtype="bfloat16", param_dtype="float32") if bf16 else {}
+    return gpt2_config("small", tie_embeddings=True, use_flash_attention=True,
+                       use_fused_xent=True, **kw)
+
+
+def rank_launches(cfg, sched, D, d):
+    """Kernel launches of pipe rank d's row of the table under the
+    rematerialising backward: lps forward layers a forward unit and lps a
+    backward unit's recompute, lps backward layers a backward unit, and
+    one cross entropy each way a backward unit of the last stage."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+        schedules)
+    cs = schedules.compile_schedule(sched.name, D, sched.n_virtual,
+                                    sched.n_microbatches)
+    row = cs.table[:, d]
+    S = D * sched.n_virtual
+    lps = cfg.n_layers // S
+    n_f = int((row[:, schedules.COL_FWD_M] >= 0).sum())
+    b_stages = [schedules.placement_stage_of(cs.placement, d, int(v), D)
+                for v in row[row[:, schedules.COL_BWD_M] >= 0,
+                             schedules.COL_BWD_V]]
+    last = sum(s == S - 1 for s in b_stages)
+    return {"flash_fwd": lps * (n_f + len(b_stages)),
+            "flash_bwd": lps * len(b_stages), "xent_fwd": last,
+            "xent_bwd": last}
+
+
+def leaf_ratio(got, want, leaf_scale, total) -> float:
+    """Phase 4's leaf bound: |got - want| over 1e-4 of the leaf's own
+    scale plus 1e-6 of the whole model's (1.0 at the bound)."""
+    return ((got.double() - want.double()).norm()
+            / (1e-4 * leaf_scale + 1e-6 * total)).item()
+
+
+def signal_file(path, status: str) -> None:
+    """Write ``status`` ("ok", or what went wrong) to ``path`` at once."""
+    tmp = Path(str(path) + ".tmp")
+    tmp.write_text(status)
+    tmp.rename(path)
+
+
+def wait_for(path, what: str) -> float:
+    """Wait for :func:`signal_file`'s ``path``; fail unless it says "ok".
+    Returns the seconds waited."""
+    t = time.perf_counter()
+    path = Path(path)
+    while not path.exists():
+        check(time.perf_counter() - t < DIST_WAIT_S, f"{what} never came")
+        time.sleep(0.05)
+    check(path.read_text() == "ok", f"{what}: {path.read_text()}")
+    return time.perf_counter() - t
+
+
+def dist_warm(configs, device, shape):
+    """The rank's first-use costs, paid by every rank of the world at once:
+    a pipelined first step pays them rank after rank down the pipe (each
+    rank's first backward waits for the next rank's). For each config, a
+    one-layer model's forward and backward at the gates' microbatch
+    ``shape`` (rows, sequence): both flash kernels, both cross-entropy
+    kernels, the GEMMs of a block and of the head. Returns the seconds."""
+    import torch
+    from distributed_training_with_pipeline_parallelism_tpu_torch import (
+        init_params)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        transformer_loss)
+    t = time.perf_counter()
+    for c in configs:
+        c1 = dataclasses.replace(c, n_layers=1)
+        model = init_params(c1, torch.Generator().manual_seed(SEED), device)
+        tokens = torch.zeros(shape, dtype=torch.long, device=device)
+        transformer_loss(c1, model, tokens, tokens).backward()
+        del model
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def dist_profile(step, mesh, profile_it):
+    """One step on every rank; the ranks with ``profile_it`` under the
+    profiler: wall, this rank's device busy, its idle share, and the host
+    time of its hand-off waits and posts (the transport's spans)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not profile_it:
+        step()
+        torch.cuda.synchronize()
+        mesh.barrier()
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    mesh.barrier()
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    spans = {}  # a span's copies also make a device-side entry of its name
+    for e in avg:
+        if e.key in ("handoff_wait", "handoff_post"):
+            spans[e.key] = max(spans.get(e.key, 0.0), e.cpu_time_total / 1e3)
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                idle_share=1 - busy / (wall * 1e3),
+                handoff_wait_ms=spans.get("handoff_wait", 0.0),
+                handoff_post_ms=spans.get("handoff_post", 0.0))
+
+
+def dist_worker(mesh, spec):
+    """One rank of phase 10's world: the warm-up, (a) the f32 gates, (b)
+    the clipped train steps against the lockstep one, then, once the
+    killed ``train.py`` world is gone, (c) the bf16 timing and the
+    profiled step and (d) ``train.run`` unbroken and resumed. Returns this
+    rank's numbers; raises (failing the world) at a gate."""
+    import io
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch import (
+        train as tmain)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.mesh import (
+        make_mesh)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.selftest import (
+        record_norms)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
+        torch_dtype)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
+        batch_sharding)
+    device = mesh.device
+    kernels = all_kernels()
+    cfg, cfg16 = dist_config(), dist_config(bf16=True)
+    tokens, targets = (torch.from_numpy(spec[k]) for k in ("tokens",
+                                                           "targets"))
+    gate = (tokens[:DIST_GATE_B], targets[:DIST_GATE_B])
+    meshes = {(mesh.n_pipe, mesh.n_data): mesh}
+    res = dict(rank=mesh.rank, describe=mesh.describe(), gates=[])
+    t_phase = time.perf_counter()
+    res["warm_s"] = dist_warm((cfg, cfg16), device,
+                              (DIST_GATE_B // DIST_M, tokens.shape[1]))
+    # the launcher's references, made while this world started: the whole
+    # model's values (cfg16 keeps f32 masters too), the lockstep gradients
+    res["refs_wait_s"] = wait_for(spec["refs_ready"], "the references")
+    whole = torch.load(spec["whole"], mmap=True, weights_only=True)
+    ref = torch.load(spec["ref"], mmap=True, weights_only=True)
+    mesh.barrier()
+
+    def mesh_of(D, nd):
+        if (D, nd) not in meshes:
+            meshes[(D, nd)] = make_mesh(D, nd, backend=mesh.backend,
+                                        device=device)
+        return meshes[(D, nd)]
+
+    def view(c, m, sched):
+        """The rank's view of the seeded model: its stages' blocks."""
+        from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+            Transformer)
+        own = port.owned_layers(c.n_layers, sched, m.n_pipe, m.pipe)
+        v = Transformer(c, device=device, dtype=torch_dtype(c.storage_dtype),
+                        layers=own)
+        v.load_state_dict({k: whole[k] for k in v.state_dict()})
+        return v
+
+    def local(m, batch):
+        return tuple(x.to(device) for x in batch_sharding(m)(batch))
+
+    # (a) the f32 gates: against the lockstep step, ring against none,
+    # launches against the rank's row of the table
+    for name, D, V, nd in DIST_GATES:
+        t_gate = time.perf_counter()
+        m = mesh_of(D, nd)
+        sched = port.ScheduleConfig(name, DIST_M, V)
+        model = view(cfg, m, sched)
+        view_s = time.perf_counter() - t_gate
+        batch = local(m, gate)
+        runs = {}
+        for co in ("none", "ring"):
+            fn = port.make_pipeline_grad_fn(cfg, sched, D, device=device,
+                                            mesh=m, comm_overlap=co)
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+            t = time.perf_counter()
+            loss = fn(model, *batch).item()
+            wall = time.perf_counter() - t
+            runs[co] = (loss, {n: p.grad.clone()
+                               for n, p in model.named_parameters()},
+                        {k.name: k.launches for k in kernels}, wall)
+        (loss, grads, launches, wall), ring = runs["none"], runs["ring"]
+        check(ring[0] == loss and all(torch.equal(ring[1][n], g)
+                                      for n, g in grads.items()),
+              f"{name} D={D} x {nd}: ring differs from none")
+        rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        worst, leaf = -1.0, None
+        for n, g in grads.items():
+            r = ref["grads"][n].to(device)
+            ratio = leaf_ratio(g, r, r.double().norm(), ref["g_norm"])
+            if ratio > worst:
+                worst, leaf = ratio, n
+        want = rank_launches(cfg, sched, D, m.pipe)
+        check(rel <= 1e-5, f"{name} D={D} x {nd} rank {mesh.rank}: loss "
+              f"rel err {rel} > 1e-5")
+        check(worst <= 1.0, f"{name} D={D} x {nd} rank {mesh.rank}: leaf "
+              f"{leaf} over its bound ({worst})")
+        check(launches == want, f"{name} D={D} x {nd} rank {mesh.rank}: "
+              f"launches {launches} != the table's {want}")
+        res["gates"].append(dict(
+            schedule=name, D=D, V=V, n_data=nd, pipe=m.pipe, data=m.data,
+            loss=loss, loss_rel_err=rel, worst_bound_ratio=worst,
+            worst_leaf=leaf, launches=launches, step_s=wall,
+            ring_step_s=ring[3], view_s=view_s,
+            gate_s=time.perf_counter() - t_gate))
+        del model, grads, runs, ring
+
+    # (b) DIST_STEPS clipped AdamW updates, ZeRO-1 and plain, D = 2 x 2,
+    # against the lockstep process's train step on the whole model and
+    # batch: each update's clipping norm (the world's) within 1e-5, each
+    # leaf within phase 4's bound of its move; the k biases, whose gradient
+    # is rounding noise (softmax ignores a shift), within the two learning
+    # rates a step that Adam may move them on the noise's sign
+    m = mesh_of(2, 2)
+    sched = port.ScheduleConfig("1F1B", DIST_M)
+    opt = port.adamw(**DIST_OPT)
+    step = port.make_train_step(cfg, sched, 2, opt, device=device, mesh=m)
+    batch = local(m, gate)
+    after = torch.load(spec["train_ref"], mmap=True, weights_only=True)
+    res["train"] = {}
+    for label in ("zero1", "plain"):
+        model = view(cfg, m, sched)
+        state = (port.init_sharded_opt_state(opt, model, m)
+                 if label == "zero1" else opt.init(model))
+        norms = []
+        record_norms(state, norms)
+        for _ in range(DIST_STEPS):
+            step(model, state, *batch)
+        norm_err = max(abs(a - b) / b for a, b in zip(norms, after["norms"]))
+        check(len(norms) == DIST_STEPS and norm_err <= 1e-5,
+              f"{label} rank {mesh.rank}: clipping norms {norms} against "
+              f"the lockstep's {after['norms']}")
+        worst, leaf, k_bias = -1.0, None, 0.0
+        for n, p in model.named_parameters():
+            q = after["params"][n].to(device)
+            if n.endswith("attn.k.bias"):
+                k_bias = max(k_bias, (p.detach() - q).abs().max().item())
+                continue
+            move = (q.double() - whole[n].to(device).double()).norm()
+            ratio = leaf_ratio(p.detach(), q, move, after["move_norm"])
+            if ratio > worst:
+                worst, leaf = ratio, n
+        check(worst <= 1.0, f"{label} rank {mesh.rank}: leaf {leaf} over "
+              f"its bound ({worst})")
+        check(k_bias <= 2 * opt.learning_rate * DIST_STEPS,
+              f"{label} rank {mesh.rank}: a k bias {k_bias} off")
+        res["train"][label] = dict(norms=norms, norm_rel_err=norm_err,
+                                   worst_bound_ratio=worst, worst_leaf=leaf,
+                                   k_bias_max_abs=k_bias)
+        del model, state
+    del after
+    res["gates_s"] = time.perf_counter() - t_phase
+
+    # (d) train.run, the function each rank of train.py's world runs, over
+    # this world's 2 x 2 mesh: unbroken now, beside the killed world's
+    # last steps; resumed from its checkpoints once it is gone
+    res["train_main"] = {}
+
+    def train_main(label, extra):
+        t_run = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tmain.run(tmain.parser().parse_args(DIST_TRAIN_ARGS + extra),
+                      mesh_of(2, 2))
+        res["train_main"][label] = dict(seconds=time.perf_counter() - t_run,
+                                        output=out.getvalue())
+
+    train_main("unbroken", ["--ckpt", spec["unbroken"]])
+
+    # the killed train.py world, started beside this one, is gone before
+    # the timing
+    res["killed_wait_s"] = wait_for(spec["killed_done"],
+                                    "the killed train.py world's end")
+    mesh.barrier()
+
+    # (c) bf16 timing of the D = 4 world (twice), one counted step and one
+    # profiled step (ranks 0 and D - 1)
+    m = mesh_of(4, 1)
+    sched = port.ScheduleConfig("1F1B", DIST_M)
+    model = view(cfg16, m, sched)
+    opt = port.adamw(warmup_steps=2, total_steps=100)
+    state = opt.init(model)
+    step = port.make_train_step(cfg16, sched, 4, opt, device=device,
+                                mesh=m)
+    batch = local(m, (tokens, targets))
+    losses = []
+
+    def run(mdl, t, y):
+        loss = step(mdl, state, t, y)
+        losses.append(loss)
+        return loss
+
+    res["timed"] = [port.run_train_iterations(
+        run, model, *batch, num_iterations=DIST_TIMED,
+        warmup_iterations=DIST_WARMUP, mesh=m) for _ in range(2)]
+    res["losses"] = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"rank {mesh.rank}: non-finite bf16 loss {res['losses']}")
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    run(model, *batch).item()
+    res["step_launches"] = {k.name: k.launches for k in kernels}
+    check(res["step_launches"] == rank_launches(cfg16, sched, 4, m.pipe),
+          f"bf16 rank {mesh.rank}: launches {res['step_launches']}")
+    res["profile"] = dist_profile(lambda: run(model, *batch), m,
+                                  m.pipe in (0, 3))
+    del model, state
+    torch.cuda.empty_cache()
+
+    # (d) the resume; then each rank holds its share of step 5's files to
+    # the unbroken run's, bitwise
+    train_main("resumed", ["--ckpt", spec["killed"], "--auto-resume"])
+    unbroken, resumed = (Path(spec[k]) / "step_5"
+                         for k in ("unbroken", "killed"))
+    names = sorted(p.name for p in unbroken.glob("*.pt"))
+    check(names == sorted(p.name for p in resumed.glob("*.pt")),
+          f"step 5's files differ: {names}")
+    res["resume_checked"] = names[mesh.rank::mesh.world]
+    same_files(unbroken, resumed, res["resume_checked"])
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def same_files(a, b, names):
+    """Every tensor and value of each checkpoint file ``names`` equal in
+    dirs ``a`` and ``b``."""
+    import torch
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree, key=str):
+                yield from leaves(tree[k], path + (str(k),))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, path + (str(i),))
+        else:
+            yield path, tree
+
+    for name in names:
+        x, y = (dict(leaves(torch.load(Path(d) / name, map_location="cpu",
+                                       weights_only=True)))
+                for d in (a, b))
+        check(x.keys() == y.keys(), f"{name}: other keys")
+        for k, v in x.items():
+            same = (torch.equal(v, y[k]) if isinstance(v, torch.Tensor)
+                    else v == y[k])
+            check(same, f"{name}: {'/'.join(k)} differs after the resume")
+
+
+class KilledWorld:
+    """(d)'s ``train.py`` world (``DIST_TRAIN_ARGS``), started beside
+    phase 10's world and killed (its whole process group) once step 2 is
+    committed. Then ``done`` holds "ok", or what went wrong, for the
+    phase's world to read."""
+
+    def __init__(self, tmp):
+        self.dir = Path(tmp) / "killed"
+        self.done = Path(tmp) / "killed_done"
+        self.lines = []  # (seconds since the start, line)
+        self.status, self.killed_s = "running", None
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.train", *DIST_TRAIN_ARGS,
+             "--ckpt", str(self.dir)], text=True, start_new_session=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        self._watch = threading.Thread(target=self._kill_after_commit,
+                                       daemon=True)
+        self._watch.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter() - self.t0, line.rstrip()))
+
+    def _kill_after_commit(self):
+        import signal
+        marker = self.dir / "step_2" / "_COMMITTED.json"
+        status = "ok"
+        while not marker.exists() and self.proc.poll() is None:
+            if time.perf_counter() - self.t0 > DIST_WAIT_S:
+                status = "step 2 never committed"
+                break
+            time.sleep(0.05)
+        self.stop()
+        if status == "ok" and self.proc.returncode != -signal.SIGKILL:
+            status = f"it ended with {self.proc.returncode} before the kill"
+        elif status == "ok" and (self.dir / "step_5" /
+                                 "_COMMITTED.json").exists():
+            status = "the kill came after the last save"
+        self.killed_s = time.perf_counter() - self.t0
+        self.status = status
+        signal_file(self.done, status)
+
+    def stop(self):
+        import os
+        import signal
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        self.proc.wait()
+
+    def finish(self):
+        """Stop the world if it still runs; its record."""
+        self.stop()
+        self._watch.join(timeout=60)
+        self._reader.join(timeout=60)
+        out = "\n".join(line for _, line in self.lines)
+        check(self.status == "ok",
+              f"the killed train.py world: {self.status}\n{out[-3000:]}")
+        return dict(status=self.status, killed_s=self.killed_s,
+                    output=self.lines)
+
+
+def phase_dist(report, device="cuda"):
+    """The torch.distributed transport (see the module doc): the lockstep
+    timing here, then a world of 4 processes on the one card for the
+    gates, the world's timing and ``train.run``, beside which
+    ``train.py``'s world runs until it is killed; while both start, the f32
+    reference step and the lockstep train steps run here. Returns the
+    launches of rank r's counted bf16 step (D = 4, 1F1B) by rank."""
+    import shutil
+    import tempfile
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.selftest import (
+        record_norms)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
+        torch_dtype)
+    t0 = time.perf_counter()
+    cfg, cfg16 = dist_config(), dist_config(bf16=True)
+    g = torch.Generator().manual_seed(SEED + 1)
+    tokens, targets = (torch.randint(0, cfg.vocab_size,
+                                     (DIST_TIME_B, TRAIN_S), generator=g)
+                       for _ in range(2))
+    gate = (tokens[:DIST_GATE_B].to(device), targets[:DIST_GATE_B].to(device))
+    sched = port.ScheduleConfig("1F1B", DIST_M)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    res, killed, world = {}, None, None
+    # the seeded model's values, drawn once (cfg16 keeps f32 masters too)
+    init_state = port.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                  device).state_dict()
+
+    def seeded(c):
+        model = Transformer(c, device=device, dtype=torch_dtype(
+            c.storage_dtype))
+        model.load_state_dict(init_state)
+        return model
+
+    def references():
+        """The f32 1F1B D = 4 step on B = 8 and (b)'s two lockstep train
+        steps, written for the ranks with the model's values."""
+        model = seeded(cfg)
+        torch.save({n: t.cpu() for n, t in init_state.items()},
+                   Path(tmp) / "whole.pt")
+        fn = port.make_pipeline_grad_fn(cfg, sched, 4, device=device)
+        loss = fn(model, *gate).item()
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        g_norm = math.sqrt(sum((x.double() ** 2).sum().item()
+                               for x in grads.values()))
+        torch.save({"grads": grads, "loss": loss, "g_norm": g_norm},
+                   Path(tmp) / "ref.pt")
+        del grads, fn
+        # (b)'s: the lockstep train step at D = 2 on the whole batch, in
+        # the world's microbatches (M x n_data of them)
+        model.zero_grad(set_to_none=True)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = port.adamw(**DIST_OPT)
+        state = opt.init(model)
+        norms = []
+        record_norms(state, norms)
+        step = port.make_train_step(
+            cfg, port.ScheduleConfig("1F1B", 2 * DIST_M), 2, opt,
+            device=device)
+        for _ in range(DIST_STEPS):
+            step(model, state, *gate)
+        check(all(n > DIST_OPT["max_grad_norm"] for n in norms),
+              f"the lockstep train step's norms {norms} took no clip")
+        move_norm = math.sqrt(sum(
+            ((p.detach().double() - before[n].double()) ** 2).sum().item()
+            for n, p in model.named_parameters()))
+        torch.save({"params": {n: p.detach().cpu()
+                               for n, p in model.named_parameters()},
+                    "norms": norms, "move_norm": move_norm},
+                   Path(tmp) / "train_ref.pt")
+        del model, before, state, step
+        torch.cuda.empty_cache()
+        return loss
+
+    # the lockstep process's bf16 timing, before and after the world's
+    def lockstep_tps():
+        m = seeded(cfg16)
+        opt = port.adamw(warmup_steps=2, total_steps=100)
+        st = opt.init(m)
+        step = port.make_train_step(cfg16, sched, 4, opt, device=device)
+        out = port.run_train_iterations(
+            lambda mm, t, y: step(mm, st, t, y), m, tokens.to(device),
+            targets.to(device), num_iterations=DIST_TIMED,
+            warmup_iterations=DIST_WARMUP)
+        del m, st
+        torch.cuda.empty_cache()
+        return out["throughput"]
+
+    def run_world(spec, box):
+        try:
+            box["ranks"] = port.launch(dist_worker, port.MeshConfig(4, 1),
+                                       spec, backend="gloo", device=device,
+                                       timeout_s=300)
+        except BaseException as e:  # re-raised by the phase
+            box["error"] = e
+
+    try:
+        lock = [lockstep_tps()]
+        spec = dict(tokens=tokens.numpy(), targets=targets.numpy(),
+                    **{k: str(Path(tmp) / v) for k, v in (
+                        ("whole", "whole.pt"), ("ref", "ref.pt"),
+                        ("train_ref", "train_ref.pt"),
+                        ("refs_ready", "refs_ready"),
+                        ("unbroken", "unbroken"), ("killed", "killed"),
+                        ("killed_done", "killed_done"))})
+        # the killed train.py world and this phase's world start together;
+        # the references are made while they start
+        t_world = time.perf_counter()
+        killed = KilledWorld(tmp)
+        box = {}
+        world = threading.Thread(target=run_world, args=(spec, box))
+        world.start()
+        try:
+            loss = references()
+        except BaseException as e:
+            signal_file(spec["refs_ready"], f"the launcher failed: {e!r}")
+            raise
+        signal_file(spec["refs_ready"], "ok")
+        res["refs_s"] = time.perf_counter() - t_world
+        world.join()
+        if "error" in box:
+            raise box["error"]
+        ranks = box["ranks"]
+        world_s = time.perf_counter() - t_world
+        res["killed_world"] = killed.finish()
+        lock.append(lockstep_tps())
+        print(f"  mesh.describe() of rank 0: {ranks[0]['describe']}")
+        for r in ranks:
+            check(r["describe"]["staging"], f"rank {r['rank']}: gloo on "
+                  f"CUDA without staging")
+        print(f"  warm-up (one-layer model per config, every rank at once): "
+              f"{max(r['warm_s'] for r in ranks):.2f} s")
+        for i, (name, D, V, nd) in enumerate(DIST_GATES):
+            rows = [r["gates"][i] for r in ranks]
+            total = {k: sum(x["launches"][k] for x in rows)
+                     for k in rows[0]["launches"]}
+            print(f"  f32 {name} D={D} V={V} x data {nd}: loss "
+                  f"{rows[0]['loss']:.6f} (rel err "
+                  f"{max(x['loss_rel_err'] for x in rows):.2e} vs lockstep "
+                  f"{loss:.6f}), worst leaf at "
+                  f"{max(x['worst_bound_ratio'] for x in rows):.3f} of its "
+                  f"bound, ring == none, launches by rank "
+                  f"{[x['launches'] for x in rows]} (sum {total}), step "
+                  f"{max(x['step_s'] for x in rows):.2f} s (ring "
+                  f"{max(x['ring_step_s'] for x in rows):.2f} s)")
+            check(all(v > 0 for v in total.values()),
+                  f"{name} D={D}: a kernel was never launched: {total}")
+            if nd == 1:
+                check(total == dict(flash_fwd=96, xent_fwd=4, flash_bwd=48,
+                                    xent_bwd=4),
+                      f"{name} D={D}: the ranks' launches sum to {total}")
+            res[f"f32_{name}_D{D}_data{nd}"] = dict(ranks=rows,
+                                                    launches_sum=total)
+        res["train"] = [r["train"] for r in ranks]
+        for label in ("zero1", "plain"):
+            rows = [r["train"][label] for r in ranks]
+            print(f"  {label} AdamW, {DIST_STEPS} clipped updates (D=2 x "
+                  f"data 2) vs the lockstep train step: norms "
+                  f"{[round(x, 4) for x in rows[0]['norms']]} (rel err "
+                  f"{max(x['norm_rel_err'] for x in rows):.2e}), worst leaf "
+                  f"at {max(x['worst_bound_ratio'] for x in rows):.3f} of "
+                  f"its bound, k biases within "
+                  f"{max(x['k_bias_max_abs'] for x in rows):.2e}")
+        world_tps = [[r["timed"][i]["throughput"] for r in ranks]
+                     for i in range(2)]
+        res["bf16"] = dict(
+            lockstep_tokens_per_s=lock,
+            world_tokens_per_s=[w[0] for w in world_tps],
+            world_tokens_per_s_by_rank=world_tps,
+            ratio=sum(w[0] for w in world_tps) / sum(lock),
+            losses=[r["losses"] for r in ranks],
+            step_launches=[r["step_launches"] for r in ranks],
+            profile={r["rank"]: r["profile"] for r in ranks if r["profile"]})
+        print(f"  bf16 1F1B D=4, B={DIST_TIME_B}, in turns: lockstep "
+              f"{lock[0]:.1f}, world {world_tps[0][0]:.1f}, world "
+              f"{world_tps[1][0]:.1f}, lockstep {lock[1]:.1f} tokens/s "
+              f"(world / lockstep {res['bf16']['ratio']:.4f}); launches "
+              f"by rank {res['bf16']['step_launches']}")
+        for r, p in sorted(res["bf16"]["profile"].items()):
+            print(f"  rank {r} profiled step: wall {p['wall_ms']:.1f} ms, "
+                  f"its device busy {p['device_busy_ms']:.1f} ms, idle share "
+                  f"{p['idle_share']:.3f}, hand-off wait "
+                  f"{p['handoff_wait_ms']:.1f} ms, posts "
+                  f"{p['handoff_post_ms']:.1f} ms")
+
+        # (d) the resume restored, and the ranks compared every file
+        tm = ranks[0]["train_main"]
+        check("resumed from" in tm["resumed"]["output"],
+              f"the resume restored nothing:\n"
+              f"{tm['resumed']['output'][-3000:]}")
+        names = sorted(n for r in ranks for n in r["resume_checked"])
+        check(len(names) == len(ranks), f"step 5's files: {names}")
+        losses = {label: [float(x.split()[-1])
+                          for x in tm[label]["output"].splitlines()
+                          if x.startswith("step ") and ": loss " in x]
+                  for label in tm}
+        check(all(v and all(math.isfinite(x) for x in v)
+                  for v in losses.values()), f"train.run's losses {losses}")
+        res["train_main"] = dict(
+            args=DIST_TRAIN_ARGS, checked=names, losses=losses,
+            seconds={k: v["seconds"] for k, v in tm.items()},
+            output={k: v["output"][-2000:] for k, v in tm.items()})
+        res["world_s"] = world_s
+        res["world_ranks_s"] = [{k: r[k] for k in (
+            "warm_s", "refs_wait_s", "gates_s", "killed_wait_s", "seconds")}
+            for r in ranks]
+        kw = res["killed_world"]
+        print(f"  train.py --pipe 2 --data 2 --backend gloo --zero1 (12 "
+              f"layers, S={TRAIN_S}): its world killed after step 2's "
+              f"commit at {kw['killed_s']:.1f} s (beside this world's "
+              f"gates), train.run resumed in this world in "
+              f"{tm['resumed']['seconds']:.1f} s, unbroken in "
+              f"{tm['unbroken']['seconds']:.1f} s: step 5's {len(names)} "
+              f"files bitwise equal, losses {losses}")
+    finally:
+        if world is not None:
+            world.join()
+        if killed is not None:
+            killed.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del init_state
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 10: {res['seconds']:.1f} s against the 90 s it is held "
+          f"to (the world {res['world_s']:.1f} s, its ranks waited "
+          f"{max(r['killed_wait_s'] for r in res['world_ranks_s']):.1f} s "
+          f"for the killed world)")
+    report["dist"] = res
+    return {r["rank"]: r["step_launches"] for r in ranks}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2510,6 +3229,10 @@ def main() -> int:
     t9 = time.perf_counter()
     zb_step_launches = phase_zero_bubble(report)
     report["zero_bubble"]["seconds"] = time.perf_counter() - t9
+    torch.cuda.empty_cache()
+    print("[10] the torch.distributed transport: a gloo world of 4 "
+          "processes on the card, tied GPT-2-small")
+    dist_launches = phase_dist(report)
     report["seconds"] = time.perf_counter() - t0
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
@@ -2553,7 +3276,11 @@ def main() -> int:
                 "eval": eval_launches[name],
                 "fit_main": fit_main_launches[name],
                 "zbh1_step": zb_step_launches["ZBH1"][name],
-                "zbv_step": zb_step_launches["ZBV"][name]}))
+                "zbv_step": zb_step_launches["ZBV"][name],
+                "dist_step_by_rank": [dist_launches[r][name]
+                                      for r in sorted(dist_launches)],
+                "dist_step": sum(dist_launches[r][name]
+                                 for r in dist_launches)}))
         if name.startswith("flash"):
             kernels[-1]["ref_shapes"] = [
                 {k: main_shapes[(f"{name}_ref{dh}", "bfloat16")][k]

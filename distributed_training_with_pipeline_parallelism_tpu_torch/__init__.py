@@ -34,7 +34,13 @@ package's. Ported so far:
 - zero-bubble training: ZBH1 and ZBV with the split backward (W units)
   and the V placement through the executor, ``fit``, the sweep and the
   cost and memory models, and the custom-schedule registry
-  (``parallel.schedules.register_schedule``).
+  (``parallel.schedules.register_schedule``);
+- the ``torch.distributed`` transport: one process per (data, pipe)
+  coordinate (``MeshConfig``, ``launch``, ``make_mesh``), each running its
+  row of the tick table on its view of the model (``owned_layers``) with
+  the hand-offs as sends and receives, ``comm_overlap="ring"``, the
+  data-parallel all-reduce and ZeRO-1 (``init_sharded_opt_state``),
+  through ``make_train_step``, ``fit`` and ``train.py --backend``.
 
 Hand-written CUDA kernels (``csrc/``): flash-attention forward and
 backward (``flash_fwd.cu``, ``flash_bwd.cu``) and the fused cross-entropy
@@ -48,18 +54,22 @@ from .models.generate import generate
 from .models.gpt2 import gpt2_config
 from .models.llama import llama_config
 from .models.transformer import init_params
-from .parallel.pipeline import make_pipeline_grad_fn, make_pipeline_loss_fn
+from .parallel.mesh import init_multihost, launch, make_mesh
+from .parallel.pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
+                                owned_layers)
 from .parallel.pipelined_decode import make_pipeline_generate_fn
 from .parallel.schedules import compile_schedule
 from .serving import (Request, ServingEngine, make_serving_step_fn,
                       run_serve_bench, synth_trace)
-from .utils.config import ModelConfig, RunConfig, ScheduleConfig
+from .utils.config import MeshConfig, ModelConfig, RunConfig, ScheduleConfig
 from .utils.metrics import run_train_iterations
 from .utils.sweep import run_one_experiment, sweep_rows
-from .utils.train import adamw, fit, make_train_step
+from .utils.train import adamw, fit, init_sharded_opt_state, make_train_step
 from .utils.weights import from_jax_params
 
-__all__ = ["ModelConfig", "ScheduleConfig", "RunConfig", "gpt2_config",
+__all__ = ["ModelConfig", "ScheduleConfig", "RunConfig", "MeshConfig",
+           "make_mesh", "launch", "init_multihost", "owned_layers",
+           "init_sharded_opt_state", "gpt2_config",
            "llama_config", "generate", "make_pipeline_generate_fn",
            "init_params", "from_jax_params", "compile_schedule",
            "make_pipeline_grad_fn", "make_pipeline_loss_fn",

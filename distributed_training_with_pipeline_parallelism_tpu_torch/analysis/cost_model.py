@@ -25,9 +25,10 @@ Differences from the JAX module:
 - No calibration correction (``ROADMAP.md`` Queue 1, item 12), no
   telemetry attribution and no ``table_report`` argument (item 12: the
   hop count comes from the table itself, as the static verifier counts
-  it), and only ``comm_overlap="none"``: the double-buffered ring
-  executor the JAX section also prices is item 8's, so its
-  ``step_s_comm_overlap`` keys are absent.
+  it), and only ``comm_overlap="none"``: the prices of the
+  double-buffered ring (the JAX ``comm_overlap_step_time``, whose
+  executor is ``make_pipeline_grad_fn(comm_overlap="ring")``) are item
+  12's, so its ``step_s_comm_overlap`` keys are absent.
 """
 
 from __future__ import annotations
@@ -206,8 +207,8 @@ def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
             f"ported yet: {_ITEM_12}")
     if comm_overlap != "none":
         raise NotImplementedError(
-            f"comm_overlap={comm_overlap!r} is not ported yet: ROADMAP.md "
-            f"Queue 1, item 8 (torch.distributed transport)")
+            f"comm_overlap={comm_overlap!r} prices are not ported yet: "
+            f"ROADMAP.md Queue 1, item 12 (the ring's comm_overlap_step_time)")
     table = cs.table
     T, D = int(table.shape[0]), int(table.shape[1])
     hw = hardware if hardware is not None else detect_hardware()

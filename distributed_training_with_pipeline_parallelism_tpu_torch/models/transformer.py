@@ -44,7 +44,7 @@ from __future__ import annotations
 import copy
 import functools
 import math
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 import torch.nn as nn
@@ -292,9 +292,14 @@ class Transformer(nn.Module):
     """The LM: token embeddings (plus learned positions for GPT-2), the
     family's blocks, a final norm (LayerNorm or RMSNorm), and a head
     (the token table under ``cfg.tie_embeddings``; with a bias for the
-    reference arch)."""
+    reference arch).
 
-    def __init__(self, cfg: ModelConfig, device=None, dtype=None):
+    ``layers`` (global indices) makes a pipe rank's view: only those
+    blocks are built; every other entry of ``self.layers`` is an empty
+    module, so the blocks keep their global index and parameter names."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=None,
+                 layers: Optional[Iterable[int]] = None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -308,8 +313,10 @@ class Transformer(nn.Module):
             self.norm = nn.LayerNorm(cfg.dim, eps=1e-5, **kw)
         block = {"ref_decoder": RefDecoderBlock, "gpt2": Block,
                  "llama": LlamaBlock}[cfg.arch]
+        own = set(range(cfg.n_layers) if layers is None else layers)
         self.layers = nn.ModuleList(
-            block(cfg, **kw) for _ in range(cfg.n_layers))
+            block(cfg, **kw) if i in own else nn.Module()
+            for i in range(cfg.n_layers))
         if not cfg.tie_embeddings:
             self.out = nn.Linear(cfg.dim, cfg.vocab_size,
                                  bias=cfg.arch == "ref_decoder", **kw)
@@ -322,20 +329,25 @@ _NORMS = ("ln1", "ln2", "ln3", "rms1", "rms2", "norm")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Transformer:
+                device="cuda", layers: Optional[Iterable[int]] = None
+                ) -> Transformer:
     """A randomly initialised model in ``cfg.storage_dtype`` on
     ``device``, drawn from ``generator`` (the JAX ``transformer_init``
     conventions: embeddings N(0, 0.02), the reference arch's token table
     N(0, 1) as ``nn.Embedding``'s, linear weights and biases
     uniform(+-1/sqrt(fan_in)) as torch's ``nn.Linear``, norm scales 1 and
     biases 0). The numbers differ from the JAX package's for the same
-    seed."""
+    seed. ``layers``: a pipe rank's view (:class:`Transformer`), holding
+    the whole model's values for its blocks (the draws of the other
+    blocks are made and dropped)."""
     device = resolve_device(device)
     model = Transformer(cfg, device=device,
-                        dtype=torch_dtype(cfg.storage_dtype))
+                        dtype=torch_dtype(cfg.storage_dtype), layers=layers)
+    own = dict(model.named_parameters())
+    whole = Transformer(cfg, device="meta")  # every draw, in order
     gdev = generator.device
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        for name, p in whole.named_parameters():
             if name in ("tok", "pos"):
                 std = 1.0 if cfg.arch == "ref_decoder" and name == "tok" \
                     else 0.02
@@ -346,10 +358,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                     torch.zeros(p.shape)
             else:
                 w = name[:-len("bias")] + "weight" if p.dim() == 1 else name
-                bound = 1.0 / math.sqrt(model.get_parameter(w).shape[1])
+                bound = 1.0 / math.sqrt(whole.get_parameter(w).shape[1])
                 x = (torch.rand(p.shape, generator=generator, device=gdev)
                      * 2 - 1) * bound
-            p.copy_(x)
+            if name in own:
+                own[name].copy_(x)
     return model
 
 

@@ -8,15 +8,27 @@ The JAX ``unstack_stage_layers`` (``:220``) has no counterpart: the port's
 stages are views of the model's own blocks, not stacked copies, so the
 gradients land in the model's ``.grad`` directly.
 
-All D stages run in one process on one device, in lockstep over the
-compiled ``[T, D, 17]`` tick table (the JAX ``tick``, ``:1244-1460``, with
-``comm_overlap="none"``). Each tick, each device banks last tick's
-arrivals on the four channels (+1 forward, column 0; -1 backward, 4; -1
-forward, 14; +1 backward, 16), runs its forward unit (columns 1-3) and
-its local forward hop (13), its backward unit (5-8) and local backward
-hop (15), then its weight-gradient unit (9-12); each hand-over goes to
-its receiver's mailbox at the end of the tick by the route of the stage
-that sent it (the single-process lockstep transport of ``ROADMAP.md``).
+The executor runs the compiled ``[T, D, 17]`` tick table (the JAX
+``tick``, ``:1244-1460``). Each tick, each device banks its arrivals on
+the four channels (+1 forward, column 0; -1 backward, 4; -1 forward, 14;
++1 backward, 16), runs its forward unit (columns 1-3) and its local
+forward hop (13), its backward unit (5-8) and local backward hop (15),
+then its weight-gradient unit (9-12); each hand-over leaves at the end of
+the tick by the route of the stage that sent it. A *transport* carries
+the hand-overs:
+
+- :class:`LockstepTransport` (the default): all D devices in this
+  process, in lockstep, each hand-over in its receiver's mailbox;
+- :class:`DistTransport` (``mesh=`` a :class:`.mesh.Mesh`): this process
+  runs only its own device's row of the table and the hand-overs are
+  ``torch.distributed`` sends and receives between pipe ranks, posted
+  together at the end of each tick.
+
+``comm_overlap`` chooses where an arrival is banked (the JAX
+``pipeline.py:713-727``): ``"none"`` at the top of the tick, ``"ring"``
+just before the unit that ``schedules.overlap_bank_stages`` names, so
+under the distributed transport the hop overlaps the tick's earlier
+units. Both give the same bits.
 """
 
 from __future__ import annotations
@@ -30,22 +42,30 @@ import torch.nn as nn
 from ..models.transformer import (Transformer, body_apply, embed_apply,
                                   head_loss)
 from ..ops.layers import fold_seed, global_pad_scale
-from ..utils.config import ModelConfig, ScheduleConfig, resolve_device
-from .schedules import (CHANNELS, COL_BWD_ASLOT, COL_BWD_GSLOT,
+from ..utils.config import (ModelConfig, ScheduleConfig, resolve_device,
+                            torch_dtype)
+from .mesh import DATA_AXIS, PIPE_AXIS, Mesh
+from .schedules import (BANK_BEFORE_B, BANK_BEFORE_F, BANK_BEFORE_W,
+                        BANK_END, CHANNELS, COL_BWD_ASLOT, COL_BWD_GSLOT,
                         COL_BWD_LOCAL_SLOT, COL_BWD_M, COL_BWD_V,
                         COL_FWD_LOCAL_SLOT, COL_FWD_M, COL_FWD_SLOT,
                         COL_FWD_V, COL_W_ASLOT, COL_W_GSLOT, COL_W_M,
                         COL_W_V, F, Action, _allocate_slots, bfs_order,
                         bwd_route, compile_schedule, fwd_route,
-                        placement_stage_of, schedule_ticks)
+                        overlap_bank_stages, placement_stage_of,
+                        schedule_placement, schedule_ticks)
 
-# mesh axes of the JAX executor that the single-device port does not run
+# mesh axes of the JAX executor: the data axis runs as a torch.distributed
+# world (``mesh=``), the others are not ported yet
 _AXIS_ITEMS = {
-    "data": "ROADMAP.md Queue 1, item 8 (torch.distributed transport)",
+    "data": "a 'data' axis runs over a torch.distributed world (ROADMAP.md "
+            "Queue 1, item 8): pass mesh=make_mesh(n_pipe, n_data) on each "
+            "rank of a parallel.mesh.launch world",
     "model": "ROADMAP.md Queue 1, item 11 (tensor parallelism)",
     "seq": "ROADMAP.md Queue 1, item 11 (sequence parallelism)",
     "expert": "ROADMAP.md Queue 1, item 11 (expert parallelism)",
 }
+COMM_OVERLAP = ("none", "ring", "auto")
 
 
 def _stage_index_map(n_devices: int, n_virtual: int,
@@ -83,19 +103,217 @@ def _check_axes(axes: Optional[Dict[str, int]]) -> None:
                              f"{sorted(_AXIS_ITEMS)}")
         if size > 1:
             raise NotImplementedError(
-                f"a {name!r} axis of size {size} is not ported yet: "
-                f"{_AXIS_ITEMS[name]}")
+                f"a {name!r} axis of size {size} in axes= is not run by "
+                f"this executor: {_AXIS_ITEMS[name]}")
+
+
+def owned_layers(n_layers: int, sched: ScheduleConfig, n_pipe: int,
+                 pipe: int) -> List[int]:
+    """The global layer indices pipe coordinate ``pipe`` holds under
+    ``sched``'s placement: its V chunks' stages, ``n_layers / (n_pipe *
+    V)`` layers each (a rank's view, ``init_params(..., layers=)``)."""
+    V = sched.n_virtual
+    S = n_pipe * V
+    if n_layers % S != 0:
+        raise ValueError(f"n_layers={n_layers} must divide evenly into "
+                         f"{S} stages")
+    lps = n_layers // S
+    placement = schedule_placement(sched.name)
+    return sorted(i for v in range(V)
+                  for s in (placement_stage_of(placement, pipe, v, n_pipe),)
+                  for i in range(s * lps, (s + 1) * lps))
+
+
+class LockstepTransport:
+    """Every device in this process, in lockstep: a hand-over waits in its
+    receiver's mailbox until the next tick (the single-process transport
+    of ``ROADMAP.md``)."""
+
+    def __init__(self, n_devices: int, channels=CHANNELS):
+        self.devices = range(n_devices)
+        self.channels = channels
+
+    def begin(self, shape, dtype) -> None:
+        D = len(self.devices)
+        self._inbox = [[None] * D for _ in self.channels]
+        self._outbox = [[None] * D for _ in self.channels]
+
+    def send(self, t: int, d: int, ci: int, x: torch.Tensor) -> None:
+        off = self.channels[ci][1]
+        self._outbox[ci][(d + off) % len(self.devices)] = x
+
+    def arrival(self, t: int, d: int, ci: int) -> torch.Tensor:
+        return self._inbox[ci][d]
+
+    def end_tick(self, t: int) -> None:
+        D = len(self.devices)
+        self._inbox = self._outbox
+        self._outbox = [[None] * D for _ in self.channels]
+
+    def finish(self) -> None:
+        pass
+
+
+def _check_hops(table: np.ndarray, channels, sends) -> None:
+    """Every hand-over the table sends at tick t is banked by its receiver
+    at t + 1, and every bank has its sender (``sends``: (t, d, ci)
+    triples): the pairing the distributed transport posts blind."""
+    T, D = table.shape[:2]
+    banks = {(t - 1, (d - channels[ci][1]) % D, ci)
+             for t in range(1, T) for d in range(D)
+             for ci, (_, _, col) in enumerate(channels)
+             if table[t, d, col] >= 0}
+    if any(table[0, d, col] >= 0 for d in range(D) for _, _, col in channels):
+        raise RuntimeError("the tick table banks an arrival at tick 0")
+    if set(sends) != banks:
+        raise RuntimeError(
+            f"the tick table's hand-overs do not pair: sent without a bank "
+            f"{sorted(set(sends) - banks)[:4]}, banked without a send "
+            f"{sorted(banks - set(sends))[:4]}")
+
+
+class DistTransport:
+    """This rank's row of the table over ``torch.distributed``: at the end
+    of tick t the rank posts its sends to pipe peers ``(d + offset) % D``
+    and its receives for tick t + 1 (where its row's bank column is set,
+    from ``(d - offset) % D``) in one ``batch_isend_irecv``, sends sorted
+    by channel, so every rank posts them in one order; the channel is the
+    message tag. :meth:`arrival` waits for one receive. A tick's sends are
+    waited for at the end of the next tick, which frees their buffers.
+    The waits and the posts are ``torch.profiler`` spans
+    (``handoff_wait``, ``handoff_post``)."""
+
+    def __init__(self, mesh: Mesh, table: np.ndarray, channels=CHANNELS):
+        # autograd imports this module (and sympy, seconds on a busy host)
+        # at the first backward that is handed its output's gradient: in a
+        # world that is each rank's first backward unit, which waits for
+        # the next rank's, so the imports would run one rank after another
+        # down the pipe. Here every rank pays it at once.
+        import torch.fx.experimental.symbolic_shapes  # noqa: F401
+        self.mesh = mesh
+        self.devices = [mesh.pipe]
+        self.channels = channels
+        d = mesh.pipe
+        self._recv_plan = [[ci for ci, (_, _, col) in enumerate(channels)
+                            if table[t, d, col] >= 0]
+                           for t in range(table.shape[0])]
+
+    def begin(self, shape, dtype) -> None:
+        self._meta = (tuple(shape), dtype)
+        self._pending: Dict = {}
+        self._sends: List = []
+        self._inflight: List = []
+
+    def send(self, t: int, d: int, ci: int, x: torch.Tensor) -> None:
+        self._sends.append((ci, x))
+
+    def arrival(self, t: int, d: int, ci: int) -> torch.Tensor:
+        work, buf = self._pending.pop((t, ci))
+        with torch.profiler.record_function("handoff_wait"):
+            return self.mesh.landed(work, buf)
+
+    def end_tick(self, t: int) -> None:
+        with torch.profiler.record_function("handoff_post"):
+            self._post(t)
+
+    def _post(self, t: int) -> None:
+        D, d = self.mesh.n_pipe, self.mesh.pipe
+        shape, dtype = self._meta
+        sends = [(x, (d + self.channels[ci][1]) % D, ci)
+                 for ci, x in sorted(self._sends, key=lambda e: e[0])]
+        plan = self._recv_plan[t + 1] if t + 1 < len(self._recv_plan) \
+            else []
+        recvs = [(shape, dtype, (d - self.channels[ci][1]) % D, ci)
+                 for ci in plan]
+        send_works, received = self.mesh.exchange(sends, recvs)
+        for work, _ in self._inflight:
+            work.wait()
+        self._inflight = send_works
+        self._sends = []
+        for ci, wb in zip(plan, received):
+            self._pending[(t + 1, ci)] = wb
+
+    def finish(self) -> None:
+        for work, _ in self._inflight:
+            work.wait()
+        self._inflight = []
+        if self._pending:
+            raise RuntimeError(f"arrivals never banked: "
+                               f"{sorted(self._pending)}")
+
+
+def _replicated(model: nn.Module) -> List[nn.Parameter]:
+    """The parameters every pipe rank holds: the embedding, the final norm
+    and the head (everything outside ``layers``)."""
+    return [p for n, p in model.named_parameters()
+            if not n.startswith("layers.")]
+
+
+def mesh_device(device, mesh: Optional[Mesh], n_stages: int
+                ) -> torch.device:
+    """The device an entry point computes on: ``resolve_device(device)``,
+    or with a mesh this rank's device, which ``device`` must name (its
+    type, and its index where given), and whose ``n_pipe`` must be
+    ``n_stages``."""
+    device = resolve_device(device)
+    if mesh is None:
+        return device
+    if mesh.n_pipe != n_stages:
+        raise ValueError(f"n_stages={n_stages} but the mesh has "
+                         f"n_pipe={mesh.n_pipe}")
+    if device.type != mesh.device.type or device.index not in (
+            None, mesh.device.index):
+        raise ValueError(f"device={str(device)!r} but this rank computes on "
+                         f"{mesh.device} (parallel.mesh.rank_device)")
+    return mesh.device
+
+
+def _pad_scale(cfg: ModelConfig, targets, M: int, mesh: Optional[Mesh]):
+    """``global_pad_scale`` over the whole global batch: the valid count
+    sums over the data axis (the JAX ``data_axis`` psum)."""
+    if cfg.pad_token_id is None:
+        return None
+    if mesh is None or mesh.n_data == 1:
+        return global_pad_scale(targets, cfg.pad_token_id, M)
+    n_valid = (targets != cfg.pad_token_id).sum().float()
+    mesh.all_reduce([n_valid], DATA_AXIS)
+    return M * mesh.n_data / n_valid.clamp_min(1.0)
 
 
 def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           n_stages: int, remat_backward=None,
-                          device="cuda", axes: Optional[Dict[str, int]] = None
+                          device="cuda", axes: Optional[Dict[str, int]] = None,
+                          mesh: Optional[Mesh] = None,
+                          comm_overlap: str = "none"
                           ) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: one pipelined forward and
-    backward over ``n_stages`` (D) lockstep devices under ``sched``, with
-    the gradients accumulated into the parameters' ``.grad`` (zero them
+    backward over ``n_stages`` (D) devices under ``sched``, with the
+    gradients accumulated into the parameters' ``.grad`` (zero them
     first). ``tokens``/``targets`` are [B, S] with B divisible by
     ``sched.n_microbatches`` (M); microbatches split dim 0.
+
+    Without ``mesh`` all D devices run in this process, in lockstep. With
+    ``mesh`` (this rank's :class:`.mesh.Mesh`, ``mesh.n_pipe == D``) the
+    rank runs only its pipe coordinate's row of the table and exchanges
+    the hand-overs with its pipe peers (:class:`DistTransport`). Then
+    ``model`` is the rank's view (``init_params`` or ``from_jax_params``
+    with ``layers=owned_layers(...)``, or a whole model, whose other
+    blocks stay unused) and ``tokens``/``targets`` are the rank's slice of
+    the global batch (``utils.data.batch_sharding``). After the ticks (the
+    JAX epilogue, ``pipeline.py:1683-1712``) the loss, held by the last
+    stage's rank, is summed over the pipe group; the gradients of the
+    replicated embedding, final norm and head are summed over the pipe
+    group, so every pipe rank holds them whole (tied: ``tok`` takes both
+    halves); layer gradients stay where their stage ran. With
+    ``mesh.n_data > 1`` the loss and every gradient are averaged over the
+    data group; a call with ``reduce_data=False`` averages only the loss
+    (the train step's ZeRO-1 reduce-scatters the gradients instead).
+
+    ``comm_overlap``: ``"none"`` banks every arrival at the top of its
+    tick (the lockstep); ``"ring"`` banks each channel just before the
+    unit that ``schedules.overlap_bank_stages`` names, so a hop overlaps
+    the tick's earlier units; ``"auto"`` is ``"ring"`` (the executor is
+    always unrolled). All three give the same bits.
 
     With ``cfg.dropout > 0`` the function takes a fourth argument, the
     step's seed (an int; the JAX step's PRNG key), and runs train-mode
@@ -105,7 +323,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     seed, microbatch, global layer, site), never on (D, V) or the
     placement: every schedule and stage split computes the loss and
     gradients of :func:`..models.transformer.transformer_loss` averaged
-    over the microbatches with ``rng = fold_seed(step_seed, m)``. Every
+    over the microbatches with ``rng = fold_seed(step_seed, m)``. With
+    ``mesh.n_data > 1`` the step seed first folds the data coordinate
+    (JAX ``:983-987``), so data replicas draw other masks. Every
     recompute re-seeds the same streams, so it redraws the masks its
     forward drew.
 
@@ -137,12 +357,15 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     through a recomputed embedding). W reads the saved input and the
     cotangent last, so it frees their slots.
 
-    Raises ``NotImplementedError`` for any ``axes`` entry (``"data"``,
-    ``"model"``, ``"seq"``, ``"expert"``) of size > 1, naming the
-    ``ROADMAP.md`` item that ports it.
+    ``axes``: a ``"data"`` entry above 1 raises ``NotImplementedError``
+    pointing at ``mesh``; ``"model"``, ``"seq"`` and ``"expert"`` above 1
+    raise it naming the ``ROADMAP.md`` item that ports them.
     """
-    device = resolve_device(device)
+    device = mesh_device(device, mesh, n_stages)
     _check_axes(axes)
+    if comm_overlap not in COMM_OVERLAP:
+        raise ValueError(f"comm_overlap={comm_overlap!r}: choose one of "
+                         f"{COMM_OVERLAP}")
     D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
     cs = compile_schedule(sched.name, D, V, M)  # raises on a bad (D, V, M)
     S = D * V
@@ -163,16 +386,50 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     inv = 1.0 / M
     lps = cfg.n_layers // S
     use_dropout = cfg.dropout > 0.0
+    # per tick, the stage before which each channel banks
+    banks = (overlap_bank_stages(table) if comm_overlap != "none"
+             else np.zeros((table.shape[0], len(CHANNELS)), np.int8))
+    channel_of = {(buf, off): ci for ci, (buf, off, _) in enumerate(CHANNELS)}
 
     def stage_of(d, v):
         return placement_stage_of(placement, d, v, D)
 
+    def send_channel(kind, s):
+        """The channel of stage s's hand-over, or None when it stays on
+        the device (the V's turn) or there is none."""
+        if kind == "act":
+            if s == S - 1:
+                return None
+            route = fwd_route(placement, s, D)
+        else:
+            if s == 0:
+                return None
+            route = bwd_route(placement, s, D)
+        return None if route == "local" else channel_of[(kind, int(route))]
+
+    transport = None
+    if mesh is not None and not plain:
+        sends = [(t, d, ci) for t in range(table.shape[0]) for d in range(D)
+                 for kind, col_m, col_v in (("act", COL_FWD_M, COL_FWD_V),
+                                            ("grad", COL_BWD_M, COL_BWD_V))
+                 if table[t, d, col_m] >= 0
+                 for ci in (send_channel(kind, stage_of(
+                     d, int(table[t, d, col_v]))),)
+                 if ci is not None]
+        _check_hops(table, CHANNELS, sends)
+        transport = DistTransport(mesh, table)
+    elif not plain:
+        transport = LockstepTransport(D)
+
     def grad_fn(model: Transformer, tokens, targets,
-                step_seed: Optional[int] = None) -> torch.Tensor:
+                step_seed: Optional[int] = None, *,
+                reduce_data: bool = True) -> torch.Tensor:
         if use_dropout and step_seed is None:
             raise ValueError(f"dropout={cfg.dropout} > 0: pass the step's "
                              f"seed as the fourth argument")
         seed = step_seed if use_dropout else None
+        if seed is not None and mesh is not None and mesh.n_data > 1:
+            seed = fold_seed(seed, mesh.data)
         tokens = torch.as_tensor(tokens, device=device).long()
         targets = torch.as_tensor(targets, device=device).long()
         b, seq = tokens.shape
@@ -189,8 +446,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
         def embed(m):
             return embed_apply(cfg, model, toks[m], rng=mb_rng(m))
 
-        pad_scale = (global_pad_scale(targets, cfg.pad_token_id, M)
-                     if cfg.pad_token_id is not None else None)
+        pad_scale = _pad_scale(cfg, targets, M, mesh)
         loss = torch.zeros((), dtype=torch.float32, device=device)
         if plain:
             with torch.enable_grad():
@@ -199,7 +455,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     ce = head_loss(cfg, model, y, tgts[m], pad_scale)
                     (ce * inv).backward()
                     loss += ce.detach()
-            return loss * inv
+            return _epilogue(model, loss * inv, mesh, reduce_data)
 
         stages = stack_stage_layers(model.layers, D, V, placement)
 
@@ -213,8 +469,6 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
         grad: List[List] = [[None] * cs.n_grad_slots for _ in range(D)]
         graphs: List[Dict] = [dict() for _ in range(D)]  # stored: slot -> (x, y)
         bufs = {"act": act, "grad": grad}
-        # mailboxes: last tick's hand-overs per channel and receiving device
-        inbox = {(buf, off): [None] * D for buf, off, _ in CHANNELS}
 
         def forward_unit(d, row):
             v, m, slot = (int(row[c]) for c in (COL_FWD_V, COL_FWD_M,
@@ -307,36 +561,65 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                 torch.autograd.backward(out, g, inputs=params)
             release(d, aslot, gslot, s)
 
+        transport.begin((b // M, seq, cfg.dim), torch_dtype(cfg.dtype))
         for t in range(table.shape[0]):
-            sends = {key: [None] * D for key in inbox}
-            for d in range(D):
+            for d in transport.devices:
                 row = table[t, d]
-                for buf, off, col in CHANNELS:
-                    if row[col] >= 0:
-                        bufs[buf][d][row[col]] = inbox[(buf, off)][d]
+                due = banks[t]
+
+                def bank(stage):
+                    for ci, (buf, _, col) in enumerate(CHANNELS):
+                        if row[col] >= 0 and due[ci] == stage:
+                            bufs[buf][d][row[col]] = transport.arrival(
+                                t, d, ci)
+
+                bank(BANK_BEFORE_F)
                 if row[COL_FWD_M] >= 0:
                     s, y = forward_unit(d, row)
-                    if s < S - 1:
-                        route = fwd_route(placement, s, D)
-                        if route == "local":
-                            act[d][row[COL_FWD_LOCAL_SLOT]] = y
-                        else:
-                            sends[("act", int(route))][d] = y
+                    ci = send_channel("act", s)
+                    if ci is not None:
+                        transport.send(t, d, ci, y)
+                    elif s < S - 1:
+                        act[d][row[COL_FWD_LOCAL_SLOT]] = y
+                bank(BANK_BEFORE_B)
                 if row[COL_BWD_M] >= 0:
                     s, gx = backward_unit(d, row)
-                    if s > 0:
-                        route = bwd_route(placement, s, D)
-                        if route == "local":
-                            grad[d][row[COL_BWD_LOCAL_SLOT]] = gx
-                        else:
-                            sends[("grad", int(route))][d] = gx
+                    ci = send_channel("grad", s)
+                    if ci is not None:
+                        transport.send(t, d, ci, gx)
+                    elif s > 0:
+                        grad[d][row[COL_BWD_LOCAL_SLOT]] = gx
+                bank(BANK_BEFORE_W)
                 if row[COL_W_M] >= 0:
                     wgrad_unit(d, row)
-            inbox = {(buf, off): [sends[(buf, off)][(d - off) % D]
-                                  for d in range(D)] for buf, off in inbox}
-        return loss * inv
+                bank(BANK_END)
+            transport.end_tick(t)
+        transport.finish()
+        return _epilogue(model, loss * inv, mesh, reduce_data)
 
     return grad_fn
+
+
+def _epilogue(model: nn.Module, loss: torch.Tensor, mesh: Optional[Mesh],
+              reduce_data: bool) -> torch.Tensor:
+    """The reductions after the ticks (see :func:`make_pipeline_grad_fn`);
+    ``loss`` is this rank's share, already scaled by 1/M. Without a mesh
+    it is the loss."""
+    if mesh is None:
+        return loss
+    repl = _replicated(model)
+    for p in repl:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    mesh.all_reduce([loss] + [p.grad for p in repl], PIPE_AXIS)
+    if mesh.n_data > 1:
+        nd = 1.0 / mesh.n_data
+        red = [loss]
+        if reduce_data:
+            red += [p.grad for p in model.parameters() if p.grad is not None]
+        torch._foreach_mul_(red, nd)
+        mesh.all_reduce(red, DATA_AXIS)
+    return loss
 
 
 def _fwd_tick_table(D: int, V: int, M: int):
@@ -379,10 +662,11 @@ def _fwd_tick_table(D: int, V: int, M: int):
 
 def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           n_stages: int, device="cuda",
-                          axes: Optional[Dict[str, int]] = None
+                          axes: Optional[Dict[str, int]] = None,
+                          mesh: Optional[Mesh] = None
                           ) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: the forward-only pipelined
-    loss over ``n_stages`` (D) lockstep devices, the evaluation twin of
+    loss over ``n_stages`` (D) devices, the evaluation twin of
     :func:`make_pipeline_grad_fn` (the JAX ``make_pipeline_loss_fn``).
 
     It runs the rows of :func:`_fwd_tick_table` (every schedule's forward
@@ -393,9 +677,13 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
     tensors go with their forward). The last stage takes each
     microbatch's token-mean cross entropy; the loss is the mean over the
     M microbatches, the single-device ``transformer_loss`` of the whole
-    batch. Other mesh axes raise as :func:`make_pipeline_grad_fn`'s do.
+    batch. With ``mesh`` the rank runs its row over the same transport as
+    the training step, on the +1 forward channel only, and the loss is
+    summed over the pipe group and averaged over the data group, so every
+    rank returns the global batch's loss. ``axes`` raise as
+    :func:`make_pipeline_grad_fn`'s do.
     """
-    device = resolve_device(device)
+    device = mesh_device(device, mesh, n_stages)
     _check_axes(axes)
     D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
     S = D * V
@@ -404,6 +692,15 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                          f"{S} stages")
     table, n_slots = _fwd_tick_table(D, V, M)
     lps = cfg.n_layers // S
+    channels = (("act", +1, 0),)  # the store column banks the +1 ring
+    if mesh is None:
+        transport = LockstepTransport(D, channels)
+    else:
+        _check_hops(table, channels, [
+            (t, d, 0) for t in range(table.shape[0]) for d in range(D)
+            if table[t, d, 2] >= 0
+            and placement_stage_of("wrap", d, int(table[t, d, 1]), D) < S - 1])
+        transport = DistTransport(mesh, table, channels)
 
     @torch.no_grad()
     def loss_fn(model: Transformer, tokens, targets) -> torch.Tensor:
@@ -415,18 +712,16 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                              f"n_microbatches={M}")
         toks = tokens.view(M, b // M, seq)
         tgts = targets.view(M, b // M, seq)
-        pad_scale = (global_pad_scale(targets, cfg.pad_token_id, M)
-                     if cfg.pad_token_id is not None else None)
+        pad_scale = _pad_scale(cfg, targets, M, mesh)
         stages = stack_stage_layers(model.layers, D, V)
         act: List[List] = [[None] * n_slots for _ in range(D)]
-        fwd_in: List = [None] * D
         loss = torch.zeros((), dtype=torch.float32, device=device)
+        transport.begin((b // M, seq, cfg.dim), torch_dtype(cfg.dtype))
         for t in range(table.shape[0]):
-            send: List = [None] * D
-            for d in range(D):
+            for d in transport.devices:
                 store, v, m, src = (int(c) for c in table[t, d])
                 if store >= 0:
-                    act[d][store] = fwd_in[d]
+                    act[d][store] = transport.arrival(t, d, 0)
                 if m < 0:
                     continue
                 s = placement_stage_of("wrap", d, v, D)
@@ -438,8 +733,15 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                 if s == S - 1:
                     loss += head_loss(cfg, model, y, tgts[m], pad_scale)
                 else:
-                    send[d] = y
-            fwd_in = [send[(d - 1) % D] for d in range(D)]
-        return loss / M
+                    transport.send(t, d, 0, y)
+            transport.end_tick(t)
+        transport.finish()
+        loss = loss / M
+        if mesh is not None:
+            mesh.all_reduce([loss], PIPE_AXIS)
+            if mesh.n_data > 1:
+                loss = loss / mesh.n_data
+                mesh.all_reduce([loss], DATA_AXIS)
+        return loss
 
     return loss_fn

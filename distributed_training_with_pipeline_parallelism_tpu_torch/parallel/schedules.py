@@ -9,7 +9,8 @@ split backward), the placements (``:427-455``), ``schedule_ticks``
 ``:457``, ``validate_order`` ``:526``, the column layout and routes
 (``:588-622``), ``CompiledSchedule`` ``:625``, ``_allocate_slots``
 ``:656``, ``compile_schedule``/``compile_order`` ``:683``/``:705``,
-``verify_table`` ``:829``, ``table_unit_activity`` ``:1483``, and the
+``verify_table`` ``:829``, ``table_unit_activity`` ``:1483``, the ring
+classifier ``overlap_bank_stages`` (``:1523-1617``), and the
 bubble and time models (``:1636-1826``). The tables are bit-identical to
 the JAX package's (``tests/test_torch_schedules.py``,
 ``tests/test_torch_zero_bubble.py``). Not ported: the schedule artifacts
@@ -503,6 +504,77 @@ CHANNELS = (("act", +1, COL_STORE_F_SLOT), ("grad", -1, COL_STORE_B_SLOT),
             ("act", -1, COL_STORE_F_NEG_SLOT),
             ("grad", +1, COL_STORE_B_POS_SLOT))
 
+
+# The ring channels in the bank order of ``CHANNELS``, as (bank column,
+# buffer). Under ``comm_overlap="ring"`` an arrival waits in its receive
+# buffer across the tick until its bank stage, so the hop that carries it
+# overlaps the tick's earlier units (the JAX double-buffered discipline).
+OVERLAP_CHANNELS: Tuple[Tuple[int, str], ...] = tuple(
+    (col, buf) for buf, _, col in CHANNELS)
+
+# Bank stages: stage k banks just before unit k, units ordered F (0), B
+# (1), W (2); stage 3 is the end of the tick. Stage 0 is the lockstep.
+BANK_BEFORE_F, BANK_BEFORE_B, BANK_BEFORE_W, BANK_END = 0, 1, 2, 3
+
+
+def overlap_bank_stages(table: np.ndarray) -> np.ndarray:
+    """The latest safe bank stage per (tick, ring channel): ``[T, 4]``
+    int8, channels in :data:`OVERLAP_CHANNELS` order (the JAX function,
+    bit-identical). A channel's arrival must be banked before the first
+    unit of its tick, on any device, that reads or writes the slot it
+    banks into (F: its input slot and the local forward slot; B: the
+    saved-input, incoming-gradient and local backward slots; W: its
+    saved-input and gradient slots); with no such unit it banks at the
+    end of the tick. Banking earlier is always lockstep-correct, so
+    taking the minimum over devices keeps every executor that banks at
+    these stages bit-identical to the lockstep one. Two channels of one
+    buffer that bank into the same slot in one tick take the same stage,
+    so their lockstep order decides."""
+    table = np.asarray(table)
+    if table.ndim != 3 or table.shape[2] < N_COLS:
+        raise ScheduleError(
+            f"overlap_bank_stages needs a [T, D, {N_COLS}] training table, "
+            f"got shape {table.shape}")
+    T, D, _ = table.shape
+    out = np.full((T, len(OVERLAP_CHANNELS)), BANK_END, dtype=np.int8)
+    f_on = table[:, :, COL_FWD_M] >= 0
+    b_on = table[:, :, COL_BWD_M] >= 0
+    w_on = table[:, :, COL_W_M] >= 0
+    # (stage, active mask, slot column, buffer): a write pins the bank
+    # before its unit as a read does
+    touches = (
+        (BANK_BEFORE_F, f_on, COL_FWD_SLOT, "act"),
+        (BANK_BEFORE_F, table[:, :, COL_FWD_LOCAL_SLOT] >= 0,
+         COL_FWD_LOCAL_SLOT, "act"),
+        (BANK_BEFORE_B, b_on, COL_BWD_ASLOT, "act"),
+        (BANK_BEFORE_B, b_on, COL_BWD_GSLOT, "grad"),
+        (BANK_BEFORE_B, table[:, :, COL_BWD_LOCAL_SLOT] >= 0,
+         COL_BWD_LOCAL_SLOT, "grad"),
+        (BANK_BEFORE_W, w_on, COL_W_ASLOT, "act"),
+        (BANK_BEFORE_W, w_on, COL_W_GSLOT, "grad"),
+    )
+    for ci, (bank_col, kind) in enumerate(OVERLAP_CHANNELS):
+        slots = table[:, :, bank_col]
+        banked = slots >= 0
+        if not banked.any():
+            continue
+        stage = np.full((T, D), BANK_END, dtype=np.int8)
+        for st, on, slot_col, k in touches:
+            if k != kind:
+                continue
+            hit = banked & on & (table[:, :, slot_col] == slots)
+            stage = np.where(hit, np.minimum(stage, st), stage)
+        stage = np.where(banked, stage, BANK_END)
+        out[:, ci] = stage.min(axis=1)
+    for i, j in ((0, 2), (1, 3)):
+        si = table[:, :, OVERLAP_CHANNELS[i][0]]
+        sj = table[:, :, OVERLAP_CHANNELS[j][0]]
+        clash = ((si >= 0) & (sj >= 0) & (si == sj)).any(axis=1)
+        if clash.any():
+            m = np.minimum(out[:, i], out[:, j])
+            out[:, i] = np.where(clash, m, out[:, i])
+            out[:, j] = np.where(clash, m, out[:, j])
+    return out
 
 def fwd_route(placement: str, s: int, D: int) -> str:
     """Where F(s)'s output travels to reach stage s+1: '+1' ring, '-1'

@@ -20,10 +20,20 @@ counterpart of ``scripts/train.py``: the same flags and defaults, through
         --model ref --layers 2 --dim 32 --heads 2 --vocab 64 --seq 16 \\
         --batch 4 --steps 2 --pipe 2 --device cpu
 
-All D = ``--pipe`` stages run in one process on the one device, in
-lockstep over the schedule's tick table. Flags for parts of the JAX
-package not ported yet (``--data`` or ``--tp``/``--sp``/``--ep`` above 1,
-``--zero1``, ``--fsdp``, ``--moe-experts``, ``--vocab-parallel``,
+    # a world: one process per (data, pipe) coordinate, 2 x 2, ZeRO-1
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --pipe 2 --data 2 --backend gloo --zero1 \\
+        --batch 24 --seq 1024 --steps 20 --flash on --fused-xent
+
+Without ``--backend`` all D = ``--pipe`` stages run in one process on the
+one device, in lockstep over the schedule's tick table. ``--backend gloo``
+or ``nccl`` launches a world of ``--pipe`` x ``--data`` processes
+(``parallel.mesh.launch``): each runs its pipe coordinate's row of the
+table on its view of the model and its data replica's rows of each
+global batch (on CUDA, gloo stages every hand-off through host memory;
+nccl needs a card per process). ``--data`` above 1 needs a backend.
+Flags for parts of the JAX package not ported yet (``--tp``/``--sp``/
+``--ep`` above 1, ``--fsdp``, ``--moe-experts``, ``--vocab-parallel``,
 ``--sp-attn ulysses``, ``--report-dir``, ``--dynamics``) raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
@@ -37,8 +47,7 @@ import numpy as np
 
 from .parallel.schedules import schedule_names
 
-_ITEM = {8: "ROADMAP.md Queue 1, item 8 (torch.distributed transport)",
-         11: "ROADMAP.md Queue 1, item 11 (other parallelism)",
+_ITEM = {11: "ROADMAP.md Queue 1, item 11 (other parallelism)",
          12: "ROADMAP.md Queue 1, item 12 (observability)"}
 
 
@@ -164,14 +173,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="run one process per (data, pipe) coordinate over "
+                         "torch.distributed with this backend (default: "
+                         "every stage in this process, in lockstep)")
     return ap
 
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for a flag of an unported part."""
-    unported = [("--data > 1", args.data > 1, 8),
-                ("--zero1", args.zero1, 8),
-                ("--tp > 1", args.tp > 1, 11), ("--sp > 1", args.sp > 1, 11),
+    unported = [("--tp > 1", args.tp > 1, 11), ("--sp > 1", args.sp > 1, 11),
                 ("--ep > 1", args.ep > 1, 11),
                 ("--sp-attn ulysses", args.sp_attn != "ring", 11),
                 ("--fsdp", args.fsdp, 11),
@@ -224,10 +235,12 @@ def build_config(args):
     return build(**overrides)
 
 
-def _load_weights(model, path: str) -> str:
+def _load_weights(model, path: str, mesh=None) -> str:
     """Copy the model weights of a checkpoint of this package into
-    ``model``; the step dir read."""
-    from .utils.checkpoint import restore_checkpoint
+    ``model`` (a rank's view takes its own entries, from a lockstep
+    ``state.pt`` or its pipe rank's file of a world's checkpoint); the
+    step dir read."""
+    from .utils.checkpoint import STATE_FILE, restore_checkpoint
     from .utils.train import _latest_step_dir
     latest = _latest_step_dir(path)
     if latest is not None:
@@ -235,7 +248,13 @@ def _load_weights(model, path: str) -> str:
     if not os.path.basename(os.path.normpath(path)).startswith("step_"):
         raise SystemExit(f"--resume {path}: not a checkpoint of this package "
                          f"(a --ckpt dir or one of its step_N dirs)")
-    model.load_state_dict(restore_checkpoint(path)["model"])
+    name = STATE_FILE
+    if mesh is not None and not os.path.exists(os.path.join(path, name)):
+        name = f"state_pipe{mesh.pipe}.pt"
+        if not os.path.exists(os.path.join(path, name)):
+            name = f"state_pipe{mesh.pipe}_data{mesh.data}.pt"
+    saved = restore_checkpoint(path, name)["model"]
+    model.load_state_dict({k: saved[k] for k in model.state_dict()})
     return path
 
 
@@ -249,35 +268,64 @@ def main(argv=None) -> int:
                         ("--preemption-safe", args.preemption_safe)):
         if given and not args.ckpt:
             ap.error(f"{flag} requires --ckpt")
+    if args.data > 1 and args.backend is None:
+        ap.error("--data > 1 runs one process per (data, pipe) coordinate: "
+                 "pass --backend gloo or nccl")
     check_ported(args)
+    if args.backend is None:
+        return run(args)
+    from .parallel.mesh import launch
+    from .utils.config import MeshConfig
+    launch(_rank_main, MeshConfig(args.pipe, args.data), args,
+           backend=args.backend, device=args.device)
+    return 0
 
+
+def _rank_main(mesh, args) -> int:
+    """One rank of a ``--backend`` world."""
+    return run(args, mesh)
+
+
+def run(args, mesh=None) -> int:
+    """Train as ``args`` say: every stage in this process, or this rank's
+    part of a world (``mesh``)."""
     import torch
 
     from .models.transformer import init_params
+    from .parallel.pipeline import owned_layers
     from .utils import train
     from .utils.config import ScheduleConfig, resolve_device
-    from .utils.data import (TokenFileDataset, prefetch_to_device,
-                             token_file_dtype)
+    from .utils.data import (TokenFileDataset, batch_sharding,
+                             prefetch_to_device, token_file_dtype)
     from .utils.resilience import AnomalyGuard
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = build_config(args)
     sched = ScheduleConfig(name=args.schedule,
                            n_microbatches=args.microbatches,
                            n_virtual=args.virtual or (
                                2 if args.schedule == "ZBV" else 1))
-    print(f"model={args.model} {cfg.dim}d x {cfg.n_layers}L x "
-          f"{cfg.n_heads}H, pipe={args.pipe} on {device}, {args.schedule} "
-          f"M={args.microbatches} V={sched.n_virtual}", flush=True)
+    say(f"model={args.model} {cfg.dim}d x {cfg.n_layers}L x "
+        f"{cfg.n_heads}H, pipe={args.pipe} on {device}, {args.schedule} "
+        f"M={args.microbatches} V={sched.n_virtual}", flush=True)
+    if mesh is not None:
+        say(f"world: {args.data} data x {args.pipe} pipe ranks, "
+            f"{mesh.describe()}", flush=True)
     optimizer = train.adamw(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, max_grad_norm=args.max_grad_norm,
         total_steps=max(1, args.steps // args.grad_accum))
+    layers = (None if mesh is None else
+              owned_layers(cfg.n_layers, sched, args.pipe, mesh.pipe))
     model = init_params(cfg, torch.Generator().manual_seed(args.seed),
-                        device=device)
+                        device=device, layers=layers)
     if args.resume:
-        print(f"loaded weights from {_load_weights(model, args.resume)}",
-              flush=True)
+        say(f"loaded weights from {_load_weights(model, args.resume, mesh)}",
+            flush=True)
+    # each rank keeps its data replica's rows of every global batch
+    sharding = None if mesh is None else batch_sharding(mesh)
 
     if (args.data_file and args.native_loader
             and token_file_dtype(args.data_file) != np.uint16):
@@ -290,12 +338,14 @@ def main(argv=None) -> int:
         loader = NativeTokenLoader(args.data_file, args.seq, args.batch,
                                    seed=args.seed,
                                    n_threads=args.loader_threads)
-        data = loader.batches()
+        data = loader.batches(sharding)
     elif args.data_file:
         data = TokenFileDataset(args.data_file, args.seq,
-                                seed=args.seed).batches(args.batch)
+                                seed=args.seed).batches(args.batch, sharding)
     else:
-        data = train.synthetic_data(cfg, args.batch, args.seq, seed=args.seed)
+        from .utils.data import synthetic_batches
+        data = synthetic_batches(cfg.vocab_size, args.batch, args.seq,
+                                 seed=args.seed, sharding=sharding)
     if args.prefetch > 0:
         data = prefetch_to_device(data, depth=args.prefetch, device=device)
 
@@ -306,10 +356,12 @@ def main(argv=None) -> int:
         eval_src = args.eval_file or args.data_file
         if eval_src:
             eval_data = lambda: TokenFileDataset(  # noqa: E731
-                eval_src, args.seq, seed=123).batches(args.batch)
+                eval_src, args.seq, seed=123).batches(args.batch, sharding)
         else:
-            eval_data = lambda: train.synthetic_data(  # noqa: E731
-                cfg, args.batch, args.seq, seed=123)
+            from .utils.data import synthetic_batches
+            eval_data = lambda: synthetic_batches(  # noqa: E731
+                cfg.vocab_size, args.batch, args.seq, seed=123,
+                sharding=sharding)
 
     try:
         _, history = train.fit(
@@ -328,14 +380,15 @@ def main(argv=None) -> int:
             guard=(AnomalyGuard(max_consecutive=args.anomaly_budget)
                    if args.anomaly_guard else None),
             handle_preemption=args.preemption_safe,
-            stall_timeout_s=args.stall_timeout or None, device=device)
+            stall_timeout_s=args.stall_timeout or None, device=device,
+            zero1=args.zero1, mesh=mesh)
     finally:
         if loader is not None:
             loader.close()
     if args.ckpt:
-        print(f"checkpoints in {args.ckpt}", flush=True)
+        say(f"checkpoints in {args.ckpt}", flush=True)
     if history:
-        print(f"final loss: {history[-1][1]:.4f}", flush=True)
+        say(f"final loss: {history[-1][1]:.4f}", flush=True)
     return 0
 
 

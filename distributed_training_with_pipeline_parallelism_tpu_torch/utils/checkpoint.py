@@ -4,7 +4,9 @@ JAX package's ``utils/checkpoint.py``, which saves through Orbax).
 A checkpoint is a directory ``step_{n}/`` holding one ``state.pt``: a
 nested dict of tensors and plain values (the model's state dict, the
 optimizer's, the step, the guard and accumulation state), written by
-``torch.save`` and read back with ``torch.load(weights_only=True)``. The
+``torch.save`` and read back with ``torch.load(weights_only=True)``. A
+world's checkpoint holds one file per writing rank instead
+(``resilience.CheckpointManager``: ``state_pipe{d}.pt``). The
 directory counts as *committed* once its ``_COMMITTED.json`` marker (the
 JAX file name and keys) has been renamed into place, strictly after the
 data file was flushed and ``fsync``ed; :mod:`.resilience` builds the
@@ -105,32 +107,34 @@ def snapshot_to_host(state):
     return host, event
 
 
-def _write(path: str, host_state, event) -> None:
+def _write(path: str, host_state, event, filename: str = STATE_FILE
+           ) -> None:
     if event is not None:
         event.synchronize()
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    tmp = os.path.join(path, filename + ".tmp")
     with open(tmp, "wb") as fh:
         torch.save(host_state, fh)
         fh.flush()
         os.fsync(fh.fileno())
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    os.replace(tmp, os.path.join(path, filename))
 
 
 class PendingSave:
     """An async save in flight on its writer thread. :meth:`wait` joins it
     and re-raises what the writer raised."""
 
-    def __init__(self, path: str, host_state, event) -> None:
+    def __init__(self, path: str, host_state, event,
+                 filename: str = STATE_FILE) -> None:
         self.path = path
         self._error: Optional[BaseException] = None
         self._thread = threading.Thread(
-            target=self._run, args=(host_state, event),
+            target=self._run, args=(host_state, event, filename),
             name="dtpp-checkpoint-writer", daemon=True)
         self._thread.start()
 
-    def _run(self, host_state, event) -> None:
+    def _run(self, host_state, event, filename) -> None:
         try:
-            _write(self.path, host_state, event)
+            _write(self.path, host_state, event, filename)
         except BaseException as e:  # re-raised by wait() on the caller's thread
             self._error = e
 
@@ -140,20 +144,12 @@ class PendingSave:
             raise self._error
 
 
-def save_checkpoint(path: str, state, wait: bool = True
-                    ) -> Optional[PendingSave]:
-    """Save ``state`` (a nested dict of tensors and plain values) to
-    checkpoint dir ``path``. The dir must not already hold a *committed*
-    checkpoint (refused — silent overwrite of good state is never right);
-    an existing **uncommitted** dir — the shell a run killed between flush
-    and commit leaves behind — is removed and the save retried, so a
-    resumed run can re-save the step it died on.
-
-    ``wait=False`` returns a :class:`PendingSave` as soon as the snapshot
-    is enqueued (see the module doc) and writes in the background; wait on
-    it before trusting the file. Saving does NOT write the commit marker:
-    callers (``resilience.CheckpointManager``) commit once the write has
-    finished."""
+def prepare_checkpoint_dir(path: str) -> str:
+    """Make checkpoint dir ``path`` (absolute) empty and ready: refuse a
+    *committed* one (silent overwrite of good state is never right);
+    remove an existing **uncommitted** one — the shell a run killed
+    between flush and commit leaves behind — so a resumed run can re-save
+    the step it died on."""
     apath = os.path.abspath(path)
     if os.path.isdir(apath):
         if is_committed(apath):
@@ -165,16 +161,35 @@ def save_checkpoint(path: str, state, wait: bool = True
             "save died mid-flush?); removing and re-saving", apath)
         shutil.rmtree(apath)
     os.makedirs(apath)
+    return apath
+
+
+def save_checkpoint(path: str, state, wait: bool = True,
+                    filename: str = STATE_FILE, prepare: bool = True
+                    ) -> Optional[PendingSave]:
+    """Save ``state`` (a nested dict of tensors and plain values) to
+    checkpoint dir ``path`` as ``filename``, after
+    :func:`prepare_checkpoint_dir` (``prepare=False``: the dir was
+    prepared already, as the ranks of a world write their files into one
+    dir that global rank 0 prepared).
+
+    ``wait=False`` returns a :class:`PendingSave` as soon as the snapshot
+    is enqueued (see the module doc) and writes in the background; wait on
+    it before trusting the file. Saving does NOT write the commit marker:
+    callers (``resilience.CheckpointManager``) commit once the write has
+    finished."""
+    apath = prepare_checkpoint_dir(path) if prepare \
+        else os.path.abspath(path)
     host, event = snapshot_to_host(state)
     if wait:
-        _write(apath, host, event)
+        _write(apath, host, event, filename)
         return None
-    return PendingSave(apath, host, event)
+    return PendingSave(apath, host, event, filename)
 
 
-def restore_checkpoint(path: str):
+def restore_checkpoint(path: str, filename: str = STATE_FILE):
     """The state saved by :func:`save_checkpoint` in ``path``, on the host
     (``torch.load(weights_only=True)``; the caller copies it into its live
     objects)."""
-    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+    return torch.load(os.path.join(path, filename), map_location="cpu",
                       weights_only=True)

@@ -4,7 +4,7 @@ The port's own copy of the fields of
 ``distributed_training_with_pipeline_parallelism_tpu/utils/config.py:ModelConfig``
 that the port reads, under the same names, with the same
 defaults and the same validation, plus ``ScheduleConfig``,
-``virtual_stages_for`` and ``RunConfig``. The one
+``virtual_stages_for``, ``MeshConfig`` and ``RunConfig``. The one
 behavioural difference is :meth:`ModelConfig.flash_for`: the JAX package's ``"auto"`` cut-over
 (causal, seq >= 1024, TPU only) is a TPU measurement and does not carry
 over; here ``"auto"`` picks the hand-written kernel for every causal call
@@ -173,6 +173,19 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain versions on the CPU")
     return device
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The world's shape (the JAX ``MeshConfig``): one process per (data,
+    pipe) coordinate, axis order ('data', 'pipe')."""
+
+    n_pipe: int = 2
+    n_data: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_pipe * self.n_data
 
 
 @dataclasses.dataclass(frozen=True)

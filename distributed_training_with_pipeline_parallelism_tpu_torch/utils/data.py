@@ -34,25 +34,68 @@ from .config import resolve_device
 Batch = Tuple[torch.Tensor, torch.Tensor]  # (tokens, targets), both [B, S]
 
 
+class BatchSharding:
+    """One rank's share of a global ``[B, ...]`` batch: block ``index`` of
+    ``n`` contiguous blocks of dim 0 (the JAX ``P(DATA_AXIS)`` split). A
+    call maps a batch (a tuple of arrays or tensors) to the rank's
+    rows."""
+
+    def __init__(self, n: int, index: int):
+        if not 0 <= index < n:
+            raise ValueError(f"block {index} of {n}")
+        self.n, self.index = n, index
+
+    def rows(self, x):
+        b = x.shape[0]
+        if b % self.n:
+            raise ValueError(f"batch {b} does not split into {self.n} "
+                             f"data shards")
+        k = b // self.n
+        return x[self.index * k:(self.index + 1) * k]
+
+    def __call__(self, batch):
+        return tuple(self.rows(x) for x in batch)
+
+
+def batch_sharding(mesh, axis: str = "data") -> BatchSharding:
+    """The rank's slice of global ``[B, S]`` batches over the mesh's data
+    axis (a :class:`.mesh.Mesh`; the JAX ``batch_sharding``): contiguous
+    blocks of dim 0 in data-coordinate order, the same for every pipe rank
+    of a data replica. The loaders and :func:`prefetch_to_device` take
+    it, so each rank draws the global batch stream and keeps its rows."""
+    coords = {"data": mesh.data, "pipe": mesh.pipe}
+    return BatchSharding(mesh.shape[axis], coords[axis])
+
+
+def _sharded(it: Iterator, sharding: Optional[BatchSharding]) -> Iterator:
+    return it if sharding is None else map(sharding, it)
+
+
 def synthetic_batches(vocab_size: int, batch_size: int, seq_length: int,
                       seed: int = 0, next_token_targets: bool = True,
+                      sharding: Optional[BatchSharding] = None,
                       ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Endless random-token batches — the reference's data regime.
 
     ``next_token_targets=True`` yields targets shifted by one (so training
     can actually reduce loss); ``False`` reproduces the reference exactly
-    (independent random targets, loss pinned at the entropy floor)."""
-    rng = np.random.default_rng(seed)
-    while True:
-        if next_token_targets:
-            toks = rng.integers(0, vocab_size,
-                                (batch_size, seq_length + 1), dtype=np.int32)
-            yield toks[:, :-1], toks[:, 1:]
-        else:
-            yield (rng.integers(0, vocab_size, (batch_size, seq_length),
-                                dtype=np.int32),
-                   rng.integers(0, vocab_size, (batch_size, seq_length),
-                                dtype=np.int32))
+    (independent random targets, loss pinned at the entropy floor).
+    ``sharding`` (:func:`batch_sharding`) yields the rank's rows of each
+    global batch."""
+    def gen():
+        rng = np.random.default_rng(seed)
+        while True:
+            if next_token_targets:
+                toks = rng.integers(0, vocab_size,
+                                    (batch_size, seq_length + 1),
+                                    dtype=np.int32)
+                yield toks[:, :-1], toks[:, 1:]
+            else:
+                yield (rng.integers(0, vocab_size, (batch_size, seq_length),
+                                    dtype=np.int32),
+                       rng.integers(0, vocab_size, (batch_size, seq_length),
+                                    dtype=np.int32))
+    return _sharded(gen(), sharding)
 
 
 def token_file_dtype(path: str, default: np.dtype = np.uint16) -> np.dtype:
@@ -100,10 +143,15 @@ class TokenFileDataset:
             for s in starts]).astype(np.int32)
         return crops[:, :-1], crops[:, 1:]
 
-    def batches(self, batch_size: int
+    def batches(self, batch_size: int,
+                sharding: Optional[BatchSharding] = None
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        while True:
-            yield self.sample(batch_size)
+        """Endless global batches of ``batch_size`` crops, or the rank's
+        rows of each (``sharding``)."""
+        def gen():
+            while True:
+                yield self.sample(batch_size)
+        return _sharded(gen(), sharding)
 
 
 def write_token_file(path: str, tokens: np.ndarray,
@@ -129,21 +177,18 @@ def encode_text_file_hf(text_path: str, out_path: str, tokenizer="gpt2",
         "(models/hf.py from local files only)")
 
 
-def batch_sharding(*args, **kwargs):
-    """The JAX package's data-axis batch placement; not ported yet."""
-    raise NotImplementedError(
-        "batch_sharding is not ported yet: ROADMAP.md Queue 1, item 8 "
-        "(torch.distributed transport, the data axis)")
-
-
 def prefetch_to_device(it: Iterator, depth: int = 2,
-                       device="cuda") -> Iterator[Batch]:
+                       device="cuda",
+                       sharding: Optional[BatchSharding] = None
+                       ) -> Iterator[Batch]:
     """Keep ``depth`` batches of ``it`` (tuples of numpy arrays or host
     tensors) in flight to ``device`` and yield them there as tensors (see
-    the module doc). On the CPU the batches are only converted."""
+    the module doc); ``sharding`` first keeps the rank's rows of each. On
+    the CPU the batches are only converted."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     device = resolve_device(device)
+    it = _sharded(it, sharding)
     if device.type != "cuda":
         for batch in it:
             yield tuple(torch.as_tensor(x) for x in batch)

@@ -147,9 +147,14 @@ class NativeTokenLoader:
             raise RuntimeError("loader closed while waiting for a batch")
         return toks, tgts
 
-    def batches(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        while True:
-            yield self.next()
+    def batches(self, sharding=None
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Endless batches, or the rank's rows of each (``sharding``, a
+        ``utils.data.BatchSharding``)."""
+        def gen():
+            while True:
+                yield self.next()
+        return gen() if sharding is None else map(sharding, gen())
 
     def close(self) -> None:
         with self._cond:

@@ -6,7 +6,9 @@ batch * seq * iters / elapsed, and ``{"elapsed_time", "throughput",
 
 Completion: a CUDA step returns before the device finishes, so the clock
 stops only after ``torch.cuda.synchronize()`` and one ``.item()`` of the
-last loss (the JAX ``force_completion``).
+last loss (the JAX ``force_completion``). In a world (``mesh``) every
+rank takes a barrier after its warm-ups and after its timed steps, so the
+window spans the slowest rank; the global batch is counted.
 """
 
 from __future__ import annotations
@@ -29,13 +31,18 @@ def force_completion(loss) -> None:
 def run_train_iterations(step: Callable, model, tokens, targets,
                          num_iterations: int = 10,
                          warmup_iterations: int = 2,
-                         seed: Optional[int] = None) -> Dict[str, float]:
+                         seed: Optional[int] = None,
+                         mesh=None) -> Dict[str, float]:
     """Time ``num_iterations`` calls of ``step(model, tokens, targets)``
     (returning the loss) after ``warmup_iterations`` untimed ones. With a
     ``seed`` (a step that runs train-mode dropout) the i-th call, warm-ups
     included, also takes ``seed + i`` as its step seed, so each step
-    draws new masks."""
-    total_toks = tokens.shape[0] * tokens.shape[1] * num_iterations
+    draws new masks. With ``mesh`` (this rank's ``parallel.mesh.Mesh``;
+    every rank calls it) ``tokens`` is the rank's slice and the tokens
+    count the global batch; global rank 0's numbers are the run's."""
+    n_data = 1 if mesh is None else mesh.n_data
+    total_toks = tokens.shape[0] * tokens.shape[1] * num_iterations * n_data
+    barrier = mesh.barrier if mesh is not None else (lambda: None)
 
     def call(i):
         if seed is None:
@@ -46,10 +53,12 @@ def run_train_iterations(step: Callable, model, tokens, targets,
     for i in range(warmup_iterations):
         out = call(i)
     force_completion(out)
+    barrier()
     start = time.perf_counter()
     for i in range(warmup_iterations, warmup_iterations + num_iterations):
         out = call(i)
     force_completion(out)
+    barrier()
     elapsed = time.perf_counter() - start
     return {"elapsed_time": elapsed, "throughput": total_toks / elapsed,
             "tokens_processed": total_toks}

@@ -40,7 +40,8 @@ from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
 
 import torch
 
-from .checkpoint import (PendingSave, is_committed, read_commit_marker,
+from .checkpoint import (STATE_FILE, PendingSave, is_committed,
+                         prepare_checkpoint_dir, read_commit_marker,
                          restore_checkpoint, save_checkpoint,
                          write_commit_marker)
 from .config import resolve_device
@@ -284,20 +285,55 @@ class CheckpointManager:
     for the write and commits it. A process that dies between write and
     commit leaves an uncommitted shell that restore skips and a later save
     of the same step overwrites.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``) every rank of the world calls
+    each method at the same point. Global rank 0 prepares ``step_{n}/``;
+    each pipe rank of data replica 0 writes its own part as
+    ``state_pipe{d}.pt`` (with ``zero1`` every rank writes, as
+    ``state_pipe{d}_data{k}.pt``, since each holds other moment blocks);
+    rank 0 places the commit marker only after a barrier that follows
+    every rank's ``fsync``, and alone runs retention. The digest is the
+    world's (every rank's structural digest, hashed in rank order), and
+    a rank restores the file of its own coordinates.
     """
 
     def __init__(self, checkpoint_dir: str, *, keep_last: Optional[int] = None,
                  fingerprint: Optional[str] = None,
-                 fault_plan: Optional[FaultPlan] = None) -> None:
+                 fault_plan: Optional[FaultPlan] = None, mesh=None,
+                 zero1: bool = False) -> None:
         self.checkpoint_dir = checkpoint_dir
         self.keep_last = keep_last
         self.fingerprint = fingerprint
         self.fault_plan = fault_plan
+        self.mesh = mesh
         self.gc_removed = 0
         self.n_saved = 0
         self.last_restored_path: Optional[str] = None
-        self._pending: Optional[Tuple[PendingSave, Dict[str, Any]]] = None
-        os.makedirs(checkpoint_dir, exist_ok=True)
+        self._pending: Optional[Tuple[Optional[PendingSave], Dict[str, Any],
+                                      str]] = None
+        self.lead = mesh is None or mesh.rank == 0
+        if mesh is None:
+            self.state_file, self.writes = STATE_FILE, True
+        elif zero1 and mesh.n_data > 1:
+            self.state_file = f"state_pipe{mesh.pipe}_data{mesh.data}.pt"
+            self.writes = True
+        else:
+            self.state_file = f"state_pipe{mesh.pipe}.pt"
+            self.writes = mesh.data == 0
+        if self.lead:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _digest(self, state) -> str:
+        digest = pytree_digest(state)
+        if self.mesh is None:
+            return digest
+        joined = ";".join(self.mesh.all_gather_object(digest))
+        return hashlib.sha256(joined.encode()).hexdigest()[:16]
 
     def step_path(self, step: int) -> str:
         return os.path.join(self.checkpoint_dir, f"step_{step}")
@@ -312,7 +348,7 @@ class CheckpointManager:
         path = self.step_path(step)
         meta = {"step": int(step),
                 "fingerprint": self.fingerprint,
-                "digest": pytree_digest(state),
+                "digest": self._digest(state),
                 "committed_unix": time.time()}
         prior = read_commit_marker(path)
         if (prior is not None and prior.get("step") == int(step)
@@ -320,46 +356,57 @@ class CheckpointManager:
             return path
         kill = (self.fault_plan is not None
                 and self.fault_plan.kill_in_save_step == step)
+        if self.lead:
+            prepare_checkpoint_dir(path)
+        self._barrier()
         # an injected kill must leave a fully-written-but-uncommitted
         # shell, so the write finishes before "dying"
-        pending = save_checkpoint(path, state, wait=wait or kill)
+        pending = None
+        if self.writes:
+            pending = save_checkpoint(path, state, wait=wait or kill,
+                                      filename=self.state_file,
+                                      prepare=False)
         if kill:
+            self._barrier()
             raise SimulatedKill(
                 f"injected kill after writing step_{step} (no commit "
                 "marker written)")
-        if pending is None:
-            write_commit_marker(path, meta)
-            self.n_saved += 1
-            self._gc()
-        else:
-            self._pending = (pending, meta)
+        self._pending = (pending, meta, path)
+        if wait:
+            self.commit_pending()
         return path
 
     def commit_pending(self) -> None:
-        """Land any outstanding async save: wait for its write, write its
-        commit marker, run retention GC."""
+        """Land any outstanding save: wait for its write, write its
+        commit marker, run retention GC (under a mesh: every rank's write
+        first, then rank 0's marker)."""
         if self._pending is None:
             return
-        pending, meta = self._pending
+        pending, meta, path = self._pending
         self._pending = None
-        pending.wait()
-        write_commit_marker(pending.path, meta)
+        if pending is not None:
+            pending.wait()
+        self._barrier()
+        if self.lead:
+            write_commit_marker(path, meta)
+            self._gc()
+        self._barrier()
         self.n_saved += 1
-        self._gc()
 
     def restore_latest(self, template) -> Optional[Tuple[int, str, Any]]:
         """The newest committed checkpoint matching this manager's
         fingerprint and the template's structural digest, as
-        ``(step, path, state)`` with the state on the host, or None."""
+        ``(step, path, state)`` with this rank's state on the host, or
+        None."""
         self.commit_pending()
         latest = latest_committed_step_dir(
             self.checkpoint_dir, fingerprint=self.fingerprint,
-            digest=pytree_digest(template))
+            digest=self._digest(template))
         if latest is None:
             return None
         n, path = latest
         self.last_restored_path = path
-        return n, path, restore_checkpoint(path)
+        return n, path, restore_checkpoint(path, self.state_file)
 
     def _gc(self) -> None:
         if self.keep_last:

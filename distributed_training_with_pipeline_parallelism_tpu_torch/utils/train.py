@@ -27,6 +27,7 @@ import functools
 import json
 import logging
 import math
+import os
 import time
 from typing import Callable, Iterator, Optional, Tuple
 
@@ -34,9 +35,10 @@ import torch
 import torch.nn as nn
 
 from ..ops.layers import fold_seed
-from ..parallel.pipeline import make_pipeline_grad_fn, make_pipeline_loss_fn
+from ..parallel.pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
+                                 mesh_device)
 from . import profiling
-from .config import ModelConfig, ScheduleConfig, resolve_device
+from .config import ModelConfig, ScheduleConfig
 from .dynamics import nonfinite_per_stage
 from .resilience import (AnomalyBudgetExceeded, AnomalyGuard,
                          CheckpointManager, PreemptionHandler, SimulatedKill,
@@ -44,32 +46,64 @@ from .resilience import (AnomalyBudgetExceeded, AnomalyGuard,
                          latest_committed_step_dir)
 
 
+def _param_groups(recipe: "AdamW", model: nn.Module, params, of):
+    """The fused AdamW's two groups over ``params`` (``of(p)`` is the
+    model parameter a tensor stands for): weight decay on the linear
+    matrices only."""
+    matrices = {id(m.weight) for m in model.modules()
+                if isinstance(m, nn.Linear)}
+    return [g for g in (
+        {"params": [t for t in params if id(of(t)) in matrices],
+         "weight_decay": recipe.weight_decay},
+        {"params": [t for t in params if id(of(t)) not in matrices],
+         "weight_decay": 0.0}) if g["params"]]
+
+
+def _fused_adamw(groups, lr):
+    """The fused ``torch.optim.AdamW`` (optax.adamw's defaults: b1 0.9, b2
+    0.999, eps 1e-8) with its state built now, not at the first update."""
+    opt = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            fused=True)
+    for g in groups:
+        for t in g["params"]:
+            opt.state[t].update(
+                step=torch.zeros((), dtype=torch.float32, device=t.device),
+                exp_avg=torch.zeros_like(t), exp_avg_sq=torch.zeros_like(t))
+    return opt
+
+
+def _global_order(model: nn.Module):
+    """name -> index in the whole model's parameter order (a rank's view
+    holds a subset of the whole model's parameters)."""
+    from ..models.transformer import Transformer
+    whole = Transformer(model.cfg, device="meta")
+    return {n: i for i, (n, _) in enumerate(whole.named_parameters())}
+
+
+def _counted(name: str, mesh) -> bool:
+    """Whether this rank's leaf ``name`` enters the world's clipping norm:
+    a layer's leaf where its stage runs, a replicated leaf (embedding,
+    final norm, head) on pipe coordinate 0 only."""
+    return mesh.pipe == 0 or name.startswith("layers.")
+
+
 class AdamWState:
     """The optimizer state of one model: the fused ``torch.optim.AdamW``
     over its parameters, whose state is built here (step count, both
     moments) rather than at the first update, and the learning-rate
-    tensor its groups share."""
+    tensor its groups share. The model may be a rank's view: the update
+    under a mesh clips by the whole world's norm (:meth:`global_norm`)."""
 
     def __init__(self, recipe: "AdamW", model: nn.Module):
-        matrices = {id(m.weight) for m in model.modules()
-                    if isinstance(m, nn.Linear)}
-        params = list(model.parameters())
-        groups = [
-            {"params": [p for p in params if id(p) in matrices],
-             "weight_decay": recipe.weight_decay},
-            {"params": [p for p in params if id(p) not in matrices],
-             "weight_decay": 0.0}]
-        self.params = params
+        named = list(model.named_parameters())
+        self.params = [p for _, p in named]
+        self.names = [n for n, _ in named]
+        self._model = model
+        self._where = None  # the leaves' places in the whole model's order
         self.lr = torch.zeros((), dtype=torch.float32,
-                              device=params[0].device)
-        # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8
-        self.optimizer = torch.optim.AdamW(
-            [g for g in groups if g["params"]], lr=self.lr,
-            betas=(0.9, 0.999), eps=1e-8, fused=True)
-        for p in params:
-            self.optimizer.state[p].update(
-                step=torch.zeros((), dtype=torch.float32, device=p.device),
-                exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+                              device=self.params[0].device)
+        self.optimizer = _fused_adamw(
+            _param_groups(recipe, model, self.params, lambda t: t), self.lr)
 
     @property
     def count(self) -> torch.Tensor:
@@ -80,6 +114,37 @@ class AdamWState:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
+    def grads(self):
+        """The gradients the update steps on (``.grad`` of the
+        parameters that have one)."""
+        return [p.grad for p in self.params if p.grad is not None]
+
+    def global_norm(self, grads, mesh=None) -> torch.Tensor:
+        """The norm of the whole gradient (optax's ``global_norm``): the
+        norm of the per-leaf norms, in the whole model's leaf order; under
+        ``mesh`` (the train step's) each leaf's norm comes from the rank
+        that holds it (the replicated leaves from pipe coordinate 0),
+        summed over the pipe group, so the value is the lockstep one. The
+        gradients are the data group's mean already."""
+        norms = torch._foreach_norm(grads)
+        if mesh is None:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        if self._where is None:
+            order = _global_order(self._model)
+            self._where = ([order[n] for n in self.names], len(order))
+        where, n_global = self._where
+        vec = torch.zeros(n_global, dtype=torch.float32,
+                          device=grads[0].device)
+        have = [i for i, p in enumerate(self.params) if p.grad is not None]
+        for i, n in zip(have, norms):
+            if _counted(self.names[i], mesh):
+                vec[where[i]] = n.float()
+        mesh.all_reduce([vec], "pipe")
+        return torch.linalg.vector_norm(vec)
+
+    def finish(self) -> None:
+        """After the step: nothing to gather."""
+
     def state_dict(self):
         return self.optimizer.state_dict()
 
@@ -87,6 +152,118 @@ class AdamWState:
         self.optimizer.load_state_dict(state)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr  # the loaded groups carry a host copy
+
+
+class ShardedAdamWState:
+    """ZeRO-1 (the JAX ``init_sharded_opt_state`` / ``shard_opt_state``):
+    data rank k of n holds block k of every parameter's flattened (and
+    zero-padded to a multiple of n) values as its master copy, and both
+    Adam moments only for that block. The update reduce-scatters the
+    local gradients over the data group into the rank's blocks (their
+    mean), clips by the world's norm, steps the fused AdamW on the blocks
+    and all-gathers the parameters. The train step hands it gradients
+    that were not averaged over the data group (the pipeline's gradient
+    function called with ``reduce_data=False``)."""
+
+    def __init__(self, recipe: "AdamW", model: nn.Module, mesh):
+        named = list(model.named_parameters())
+        self.params = [p for _, p in named]
+        self.mesh = mesh
+        n = mesh.n_data
+        self._chunks = [-(-p.numel() // n) for p in self.params]
+        self._offsets = [sum(self._chunks[:i])
+                         for i in range(len(self.params))]
+        total = sum(self._chunks)
+        dev = self.params[0].device
+        self._master = torch.zeros(total, dtype=self.params[0].dtype,
+                                   device=dev)
+        self.shards = [self._master[o:o + c]
+                       for o, c in zip(self._offsets, self._chunks)]
+        self._of = {id(t): p for t, p in zip(self.shards, self.params)}
+        self.refresh()
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.optimizer = _fused_adamw(
+            _param_groups(recipe, model, self.shards,
+                          lambda t: self._of[id(t)]), self.lr)
+        order = _global_order(model)
+        self._where = [order[nm] for nm, _ in named]
+        self._n_global = len(order)
+        self._counted = [_counted(nm, mesh) for nm, _ in named]
+
+    def refresh(self) -> None:
+        """Master blocks <- the parameters' values (at init, and after the
+        model was loaded from a checkpoint)."""
+        n = self.mesh.n_data
+        with torch.no_grad():
+            for p, t, c in zip(self.params, self.shards, self._chunks):
+                flat = torch.zeros(n * c, dtype=p.dtype, device=p.device)
+                flat[:p.numel()] = p.detach().reshape(-1)
+                k = self.mesh.data
+                t.copy_(flat[k * c:(k + 1) * c])
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self.optimizer.state[self.shards[0]]["step"]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def grads(self):
+        """Reduce-scatter the parameters' local gradients over the data
+        group: each block's mean lands as the block's ``.grad``."""
+        n = self.mesh.n_data
+        total = sum(self._chunks)
+        flat = torch.zeros((n, total), dtype=self._master.dtype,
+                           device=self._master.device)
+        for p, o, c in zip(self.params, self._offsets, self._chunks):
+            if p.grad is not None:
+                g = torch.zeros(n * c, dtype=flat.dtype, device=flat.device)
+                g[:p.numel()] = p.grad.reshape(-1)
+                flat[:, o:o + c] = g.view(n, c)
+        flat.mul_(1.0 / n)
+        out = torch.empty(total, dtype=flat.dtype, device=flat.device)
+        self.mesh.reduce_scatter(out, flat.reshape(-1))
+        for t, o, c in zip(self.shards, self._offsets, self._chunks):
+            t.grad = out[o:o + c]
+        return [t.grad for t in self.shards]
+
+    def global_norm(self, grads, mesh=None) -> torch.Tensor:
+        """The world's gradient norm from the blocks: each leaf's squared
+        norm sums over its data blocks (and, for the replicated leaves,
+        comes from pipe coordinate 0 only), then the norm of the leaf
+        norms. ``mesh`` must be the one the state was sharded over."""
+        _check_mesh(self, mesh)
+        sq = torch.zeros(self._n_global, dtype=torch.float32,
+                         device=grads[0].device)
+        for i, g in enumerate(grads):
+            if self._counted[i]:
+                sq[self._where[i]] = g.float().square().sum()
+        self.mesh.all_reduce([sq], "world")
+        return torch.linalg.vector_norm(sq.sqrt())
+
+    def finish(self) -> None:
+        """All-gather the updated blocks into the parameters."""
+        n = self.mesh.n_data
+        total = sum(self._chunks)
+        out = torch.empty(n * total, dtype=self._master.dtype,
+                          device=self._master.device)
+        self.mesh.all_gather(out, self._master)
+        out = out.view(n, total)
+        with torch.no_grad():
+            for p, o, c in zip(self.params, self._offsets, self._chunks):
+                p.copy_(out[:, o:o + c].reshape(-1)[:p.numel()].view_as(p))
+        for t in self.shards:
+            t.grad = None
+
+    def state_dict(self):
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state) -> None:
+        self.optimizer.load_state_dict(state)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr
+        self.refresh()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,18 +290,19 @@ class AdamW:
     def init(self, model: nn.Module) -> AdamWState:
         return AdamWState(self, model)
 
-    def update(self, state: AdamWState,
-               ok: Optional[torch.Tensor] = None) -> None:
+    def update(self, state, ok: Optional[torch.Tensor] = None,
+               mesh=None) -> None:
         """Clip the gradients to the global norm (optax's
         ``clip_by_global_norm``: unchanged below the limit, else scaled by
-        ``max_grad_norm / norm``), set the learning rate from the step
-        count, take one AdamW step. ``ok`` (a device bool) false skips the
-        update on the device: parameters, moments and count stay. No host
-        synchronisation."""
-        grads = [p.grad for p in state.params if p.grad is not None]
+        ``max_grad_norm / norm``; under ``mesh``, the train step's, the
+        whole world's norm), set the learning rate from the step count,
+        take one AdamW step. ``ok`` (a device bool) false skips the update
+        on the device: parameters, moments and count stay. No host
+        synchronisation without a mesh (a staged world's collectives
+        synchronise)."""
+        grads = state.grads()
         if grads:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            norm = state.global_norm(grads, mesh)
             scale = torch.where(norm < self.max_grad_norm, 1.0,
                                 self.max_grad_norm / norm)
             torch._foreach_mul_(grads, scale)
@@ -133,6 +311,7 @@ class AdamW:
         opt.grad_scale = None
         opt.found_inf = None if ok is None else (~ok).to(torch.float32)
         opt.step()
+        state.finish()
 
 
 def adamw(learning_rate: float = 3e-4, weight_decay: float = 0.01,
@@ -185,7 +364,7 @@ class MultiSteps:
         return MultiStepsState(self.optimizer.init(model))
 
     def update(self, state: MultiStepsState,
-               ok: Optional[torch.Tensor] = None) -> None:
+               ok: Optional[torch.Tensor] = None, mesh=None) -> None:
         pairs = [(p.grad, a) for p, a in zip(state.params, state.acc)
                  if p.grad is not None]
         grads, acc = [g for g, _ in pairs], [a for _, a in pairs]
@@ -200,17 +379,50 @@ class MultiSteps:
             torch._foreach_copy_(acc, grads)
             torch._foreach_mul_(acc, keep)
             state.mini_step.copy_(torch.where(emit, 0, n + 1))
-            self.optimizer.update(state.inner, emit)
+            self.optimizer.update(state.inner, emit, mesh)
             return
         for a, g in zip(acc, grads):
             a.copy_(torch.where(ok, g * keep, a))
         state.mini_step.copy_(torch.where(ok, torch.where(emit, 0, n + 1), n))
-        self.optimizer.update(state.inner, ok & emit)
+        self.optimizer.update(state.inner, ok & emit, mesh)
+
+
+def init_sharded_opt_state(optimizer, model: nn.Module, mesh):
+    """ZeRO-1's optimizer state (the JAX ``init_sharded_opt_state``): a
+    :class:`ShardedAdamWState` whose moments are born as this data rank's
+    blocks (inside a :class:`MultiSteps`' state for ``grad_accum``).
+    Without a data axis larger than 1 it is ``optimizer.init(model)``, as
+    in JAX."""
+    if mesh is None or mesh.n_data <= 1:
+        return optimizer.init(model)
+    if isinstance(optimizer, MultiSteps):
+        return MultiStepsState(ShardedAdamWState(optimizer.optimizer, model,
+                                                 mesh))
+    return ShardedAdamWState(optimizer, model, mesh)
+
+
+def _check_mesh(state: ShardedAdamWState, mesh) -> None:
+    if mesh is not state.mesh:
+        raise ValueError("this ZeRO-1 optimizer state was sharded over "
+                         "another mesh than the train step's: pass the "
+                         "step's mesh to init_sharded_opt_state")
+
+
+def _reduce_data(opt_state, mesh) -> bool:
+    """Whether the pipeline's epilogue averages the gradients over the
+    data group: for every state but ZeRO-1's, whose update reduce-scatters
+    them (and which must have been sharded over ``mesh``)."""
+    inner = getattr(opt_state, "inner", opt_state)
+    if isinstance(inner, ShardedAdamWState):
+        _check_mesh(inner, mesh)
+        return False
+    return True
 
 
 def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     optimizer, remat_backward=None, device="cuda",
-                    guard=None, fault_plan=None) -> Callable:
+                    guard=None, fault_plan=None, mesh=None,
+                    comm_overlap: str = "none") -> Callable:
     """``step(model, opt_state, tokens, targets[, step_seed]) -> loss``:
     the pipeline's gradients (:func:`..parallel.pipeline.make_pipeline_grad_fn`),
     then the optimizer's update of ``model`` in place. ``opt_state`` is
@@ -231,10 +443,26 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     caller reads the loss. ``fault_plan.nan_grad_steps`` (requires the
     guard) poisons the gradients and the loss with NaN at those global
     steps by a compare with the device step counter; with
-    ``fault_plan.nan_grad_stage`` only that stage's layer gradients."""
+    ``fault_plan.nan_grad_stage`` only that stage's layer gradients.
+
+    With ``mesh`` (this rank's ``parallel.mesh.Mesh``) the step runs the
+    rank's row over the distributed transport (``comm_overlap`` as in
+    :func:`..parallel.pipeline.make_pipeline_grad_fn`) on the rank's view
+    and batch slice. The pipeline's epilogue averages the gradients over
+    the data group before the update, except under ZeRO-1 (``opt_state``
+    from :func:`init_sharded_opt_state` over this ``mesh``), whose update
+    reduce-scatters them; the clipping norm is the world's; the guard's
+    verdict is the maximum over the world, so every rank skips the same
+    step."""
     grad_fn = make_pipeline_grad_fn(cfg, sched, n_stages,
                                     remat_backward=remat_backward,
-                                    device=device)
+                                    device=device, mesh=mesh,
+                                    comm_overlap=comm_overlap)
+
+    def gradients(model, opt_state, tokens, targets, step_seed):
+        opt_state.zero_grad()
+        return grad_fn(model, tokens, targets, step_seed,
+                       reduce_data=_reduce_data(opt_state, mesh))
     S = n_stages * sched.n_virtual
     nan_steps = tuple(getattr(fault_plan, "nan_grad_steps", ()) or ())
     nan_stage = getattr(fault_plan, "nan_grad_stage", None)
@@ -249,17 +477,15 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     if guard is None:
         def step(model: nn.Module, opt_state, tokens, targets,
                  step_seed: Optional[int] = None) -> torch.Tensor:
-            opt_state.zero_grad()
-            loss = grad_fn(model, tokens, targets, step_seed)
-            optimizer.update(opt_state)
+            loss = gradients(model, opt_state, tokens, targets, step_seed)
+            optimizer.update(opt_state, mesh=mesh)
             return loss
 
         return step
 
     def guarded_step(model: nn.Module, opt_state, tokens, targets,
                      guard_state, step_seed: Optional[int] = None):
-        opt_state.zero_grad()
-        loss = grad_fn(model, tokens, targets, step_seed)
+        loss = gradients(model, opt_state, tokens, targets, step_seed)
         step = guard_state["step"]
         if nan_steps:
             bad = functools.reduce(torch.logical_or,
@@ -278,13 +504,17 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                                      if p.grad is not None], poison)
         nf = nonfinite_per_stage(cfg.n_layers, S, model)
         loss_ok = torch.isfinite(loss)
+        if mesh is not None:  # one verdict for the world
+            flags = torch.cat([nf, (~loss_ok).to(torch.int32).reshape(1)])
+            mesh.all_reduce([flags], "world", op="max")
+            nf, loss_ok = flags[:S], flags[S] == 0
         stage_ok = nf == 0
         grads_ok = stage_ok.all()
         ok = loss_ok & grads_ok
         first_bad = torch.where(
             grads_ok, torch.where(loss_ok, -1, -2),
             (~stage_ok).to(torch.int32).argmax()).to(torch.int32)
-        optimizer.update(opt_state, ok)
+        optimizer.update(opt_state, ok, mesh)
         guard_state = {
             "step": step + 1,
             "consec": torch.where(ok, 0, guard_state["consec"] + 1),
@@ -300,14 +530,15 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
 
 
 def make_eval_fn(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
-                 device="cuda") -> Callable:
+                 device="cuda", mesh=None) -> Callable:
     """The eval-mode loss ``(model, tokens, targets) -> loss``: the
     forward-only pipelined loss
-    (:func:`..parallel.pipeline.make_pipeline_loss_fn`) with dropout
-    off."""
+    (:func:`..parallel.pipeline.make_pipeline_loss_fn`, over the
+    distributed transport with ``mesh``) with dropout off."""
     eval_cfg = (dataclasses.replace(cfg, dropout=0.0)
                 if cfg.dropout else cfg)
-    return make_pipeline_loss_fn(eval_cfg, sched, n_stages, device=device)
+    return make_pipeline_loss_fn(eval_cfg, sched, n_stages, device=device,
+                                 mesh=mesh)
 
 
 def evaluate(eval_fn, model: nn.Module, data: Iterator, num_batches: int
@@ -339,7 +570,6 @@ def _latest_step_dir(checkpoint_dir: str) -> Optional[Tuple[int, str]]:
 
 # fit's arguments that select parts of the JAX package not ported yet
 _FIT_NOT_PORTED = {
-    "zero1": "ROADMAP.md Queue 1, item 8 (torch.distributed transport)",
     "fsdp": "ROADMAP.md Queue 1, item 11 (FSDP)",
     "moe": "ROADMAP.md Queue 1, item 11 (expert parallelism and MoE)",
     "sp_attn_impl": "ROADMAP.md Queue 1, item 11 (sequence parallelism)",
@@ -369,11 +599,27 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         keep_last: Optional[int] = None, guard=None, fault_plan=None,
         handle_preemption: bool = False,
         stall_timeout_s: Optional[float] = None, dynamics=None,
-        device="cuda"):
+        device="cuda", mesh=None):
     """Training loop over a ``(tokens, targets)`` iterator over ``n_stages``
-    (D) lockstep pipeline stages (the JAX ``fit``, in its order of
-    events). Trains ``model`` in place and returns ``(model, history)``,
-    history a list of ``(step, loss)`` at the log points.
+    (D) pipeline stages (the JAX ``fit``, in its order of events). Trains
+    ``model`` in place and returns ``(model, history)``, history a list of
+    ``(step, loss)`` at the log points.
+
+    Without ``mesh`` the D stages run in lockstep in this process. With
+    ``mesh`` (this rank's ``parallel.mesh.Mesh``; every rank of the world
+    calls ``fit`` alike) ``model`` is the rank's view, ``data`` yields the
+    rank's slice of each global batch (``utils.data.batch_sharding``),
+    and the steps run over the distributed transport
+    (:func:`make_train_step`). ``zero1`` shards the optimizer's moments
+    over the data group (:func:`init_sharded_opt_state`; without a data
+    axis above 1 it is plain AdamW, as in JAX). Log lines and metrics
+    come from global rank 0 and count the global batch; checkpoints are
+    the world's (``resilience.CheckpointManager`` with the mesh; the
+    fingerprint holds the mesh's shape, so a restore needs the same
+    shape); ``profile_dir`` gets one trace per rank (``rank{r}/``). A
+    crash is not banked under a mesh (the other ranks are blocked in the
+    step: the launcher fails the world, and the run resumes from the
+    last committed checkpoint), and the preemption flag is the world's.
 
     - ``checkpoint_dir`` + ``checkpoint_every``: save every n steps (and at
       the end) to ``step_{n}/`` through ``resilience.CheckpointManager``
@@ -410,12 +656,12 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
       faults.
 
     The dropout seed of step i is ``fold_seed(dropout_seed, i)``, so a
-    resumed run draws the unbroken run's masks. ``moe``, ``zero1``,
+    resumed run draws the unbroken run's masks. ``moe``,
     ``fsdp``, ``tp_vocab_parallel``, an ``sp_attn_impl`` other than
     "ring", ``report_dir``, ``telemetry`` and ``dynamics`` raise
     ``NotImplementedError`` naming their ``ROADMAP.md`` items.
     """
-    given = {"zero1": zero1, "fsdp": fsdp, "moe": moe is not None,
+    given = {"fsdp": fsdp, "moe": moe is not None,
              "sp_attn_impl": sp_attn_impl != "ring",
              "tp_vocab_parallel": tp_vocab_parallel,
              "report_dir": report_dir is not None,
@@ -425,7 +671,11 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         if on:
             raise NotImplementedError(f"fit's {name} is not ported yet: "
                                       f"{_FIT_NOT_PORTED[name]}")
-    device = resolve_device(device)
+    device = mesh_device(device, mesh, n_stages)
+    rank0 = mesh is None or mesh.rank == 0
+    verbose = verbose and rank0
+    metrics_path = metrics_path if rank0 else None
+    n_data = 1 if mesh is None else mesh.n_data
     if guard is True:
         guard = AnomalyGuard()
     if optimizer is None:
@@ -436,8 +686,9 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         optimizer = MultiSteps(optimizer, grad_accum)
     step_fn = make_train_step(cfg, sched, n_stages, optimizer,
                               remat_backward=remat_backward, device=device,
-                              guard=guard, fault_plan=fault_plan)
-    opt_state = optimizer.init(model)
+                              guard=guard, fault_plan=fault_plan, mesh=mesh)
+    opt_state = (init_sharded_opt_state(optimizer, model, mesh) if zero1
+                 else optimizer.init(model))
     guard_state = init_guard_state(0, device) if guard is not None else None
 
     def _state(i):
@@ -449,8 +700,10 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     if checkpoint_dir:
         mgr = CheckpointManager(
             checkpoint_dir, keep_last=keep_last,
-            fingerprint=config_fingerprint(cfg, sched, {"pipe": n_stages}),
-            fault_plan=fault_plan)
+            fingerprint=config_fingerprint(
+                cfg, sched, {"pipe": n_stages} if mesh is None
+                else mesh.shape),
+            fault_plan=fault_plan, mesh=mesh, zero1=zero1)
     if fault_plan is not None:
         data = fault_plan.wrap_data(data)
 
@@ -478,7 +731,15 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
 
     eval_fn = None
     if eval_data is not None and eval_every:
-        eval_fn = make_eval_fn(cfg, sched, n_stages, device=device)
+        eval_fn = make_eval_fn(cfg, sched, n_stages, device=device,
+                               mesh=mesh)
+    if profile_dir is not None and mesh is not None:
+        profile_dir = os.path.join(profile_dir, f"rank{mesh.rank}")
+    # under a mesh the preemption flag is the world's: one host read a
+    # step, only where a preemption can come
+    world_preempt = mesh is not None and (
+        handle_preemption or getattr(fault_plan, "preempt_at_step", None)
+        is not None)
 
     def _eval(i):
         m = evaluate(eval_fn, model, eval_data(), eval_batches)
@@ -536,7 +797,7 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                 last_done = i
                 if watchdog is not None:
                     watchdog.beat(i)
-                window_tokens += tokens.shape[0] * tokens.shape[1]
+                window_tokens += tokens.shape[0] * tokens.shape[1] * n_data
                 if i % log_every == 0 or i == num_steps - 1:
                     # one read-back closes the window: the loss and, from
                     # the same step, the guard counters (exact in f64)
@@ -589,7 +850,8 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     # eval time isn't train time: restart the whole window
                     window_start = time.perf_counter()
                     window_tokens = 0
-                if preempt.triggered:
+                if (mesh.any(preempt.triggered) if world_preempt
+                        else preempt.triggered):
                     # the in-flight step already finished: bank it
                     # synchronously and exit resumable
                     preempted = True
@@ -609,7 +871,7 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     except BaseException:
         # crash-safe exit: the model holds step last_done's outputs — bank
         # them committed so the run resumes instead of restarting
-        if mgr is not None and last_done >= start_step:
+        if mgr is not None and mesh is None and last_done >= start_step:
             try:
                 _save(last_done, wait=True)
                 if verbose:

@@ -16,7 +16,7 @@ does with its own.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -47,7 +47,8 @@ _BLOCK_NORMS = {"ref_decoder": ("ln1", "ln2", "ln3"), "gpt2": ("ln1", "ln2"),
                 "llama": ("rms1", "rms2")}
 
 
-def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda") -> Transformer:
+def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda",
+                    layers: Optional[Iterable[int]] = None) -> Transformer:
     """The port's model holding the weights of the JAX pytree with numpy
     leaves, in ``cfg.storage_dtype`` on ``device``. Reference:
     ``{"embed": {"tok"}, "layers": {"self_attn", "cross_attn", "ln1",
@@ -57,7 +58,10 @@ def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda") -> Transformer:
     "lin2"}, "head": {"norm", "out"}}``; llama: ``{"embed": {"tok"},
     "layers": {"rms1", "attn", "rms2", "w1", "w2", "w3"}, "head": {"norm",
     "out"}}`` with q/k/v biases under ``cfg.attention_qkv_bias``; layer
-    leaves stacked [L, ...]; no ``out`` when tied."""
+    leaves stacked [L, ...]; no ``out`` when tied. ``layers`` (global
+    indices): a pipe rank's view, holding only those blocks besides the
+    embedding and the head (``models.transformer.Transformer``), so a
+    world of ranks can be held to the JAX mesh on the same weights."""
     device = resolve_device(device)
     state = {"tok": tree["embed"]["tok"],
              "norm.weight": tree["head"]["norm"]["scale"]}
@@ -70,18 +74,19 @@ def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda") -> Transformer:
         state["out.weight"] = np.asarray(out["w"]).T
         if "b" in out:
             state["out.bias"] = out["b"]
-    layers = tree["layers"]
-    for i in range(cfg.n_layers):
+    own = range(cfg.n_layers) if layers is None else sorted(set(layers))
+    leaves = tree["layers"]
+    for i in own:
         for norm in _BLOCK_NORMS[cfg.arch]:
-            state[f"layers.{i}.{norm}.weight"] = layers[norm]["scale"][i]
-            if "bias" in layers[norm]:
-                state[f"layers.{i}.{norm}.bias"] = layers[norm]["bias"][i]
-        for name, leaf in _linears(cfg, layers).items():
+            state[f"layers.{i}.{norm}.weight"] = leaves[norm]["scale"][i]
+            if "bias" in leaves[norm]:
+                state[f"layers.{i}.{norm}.bias"] = leaves[norm]["bias"][i]
+        for name, leaf in _linears(cfg, leaves).items():
             state[f"layers.{i}.{name}.weight"] = np.asarray(leaf["w"][i]).T
             if "b" in leaf:
                 state[f"layers.{i}.{name}.bias"] = leaf["b"][i]
     dtype = torch_dtype(cfg.storage_dtype)
-    model = Transformer(cfg, device=device, dtype=dtype)
+    model = Transformer(cfg, device=device, dtype=dtype, layers=own)
     model.load_state_dict({k: _tensor(v).to(device=device, dtype=dtype)
                            for k, v in state.items()})
     return model

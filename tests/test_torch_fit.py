@@ -458,7 +458,6 @@ def test_train_main_runs_on_cpu(tmp_path, data):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--data", "2"], "item 8"), (["--zero1"], "item 8"),
     (["--tp", "2"], "item 11"), (["--sp", "2"], "item 11"),
     (["--ep", "2"], "item 11"), (["--sp-attn", "ulysses"], "item 11"),
     (["--fsdp"], "item 11"), (["--vocab-parallel"], "item 11"),
@@ -471,7 +470,7 @@ def test_unported_flags_raise(argv, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(zero1=True), "item 8"), (dict(fsdp=True), "item 11"),
+    (dict(fsdp=True), "item 11"),
     (dict(moe=object()), "item 11"), (dict(sp_attn_impl="ulysses"), "item 11"),
     (dict(tp_vocab_parallel=True), "item 11"),
     (dict(report_dir="r"), "item 12"), (dict(telemetry=object()), "item 12"),
@@ -482,6 +481,71 @@ def test_fit_unported_arguments_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.fit(tcfg, port.ScheduleConfig("1F1B", M), 2, None, iter([]),
                    1, device="cpu", **kw)
+
+
+WORLD = ["--model", "gpt2-small", "--layers", "4", "--dim", "32", "--heads",
+         "2", "--vocab", "97", "--seq", "16", "--batch", "8", "--steps", "4",
+         "--pipe", "2", "--data", "2", "--microbatches", "2", "--device",
+         "cpu", "--backend", "gloo", "--eval-every", "2", "--eval-batches",
+         "1", "--ckpt-every", "1", "--anomaly-guard", "--prefetch", "0"]
+
+
+def test_train_world_resumes_bitwise_after_a_kill(tmp_path):
+    """``train.py --pipe 2 --data 2 --backend gloo`` on the CPU: a world of
+    4 processes with an eval every 2 steps and a checkpoint a step, killed
+    (the launcher's whole process group) once step 1 is committed, then
+    resumed with ``--auto-resume``: its last checkpoint (every rank's
+    file: model, optimizer, guard, step) equals the unbroken run's
+    bitwise. The unbroken and the killed run go side by side."""
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = [sys.executable, "-m",
+           "distributed_training_with_pipeline_parallelism_tpu_torch.train",
+           *WORLD]
+    full, killed = str(tmp_path / "full"), str(tmp_path / "killed")
+    runs = [subprocess.Popen(cmd + ["--ckpt", ck], cwd=root, env=env,
+                             start_new_session=True, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for ck in (full, killed)]
+    try:
+        marker = os.path.join(killed, "step_1", "_COMMITTED.json")
+        deadline = time.monotonic() + 120
+        while not os.path.exists(marker) and runs[1].poll() is None:
+            assert time.monotonic() < deadline, "step 1 never committed"
+            time.sleep(0.05)
+        os.killpg(runs[1].pid, signal.SIGKILL)
+        runs[1].wait(timeout=30)
+        out, _ = runs[0].communicate(timeout=120)
+        assert runs[0].returncode == 0, out
+    finally:
+        for r in runs:
+            if r.poll() is None:
+                os.killpg(r.pid, signal.SIGKILL)
+                r.wait()
+    assert runs[1].returncode == -signal.SIGKILL
+    assert "step 1: eval_loss" in out and "final loss" in out
+    assert not tcheckpoint.is_committed(os.path.join(killed, "step_3"))
+    res = subprocess.run(cmd + ["--ckpt", killed, "--auto-resume"], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "resumed from" in res.stdout
+    for name in ("state_pipe0.pt", "state_pipe1.pt"):
+        a, b = (torch.load(os.path.join(ck, "step_3", name),
+                           weights_only=True) for ck in (full, killed))
+        assert a["step"] == b["step"] == 3
+        flat_a = dict(tresilience._leaves(a))
+        flat_b = dict(tresilience._leaves(b))
+        assert flat_a.keys() == flat_b.keys()
+        for k, v in flat_a.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, flat_b[k]), (name, k)
+            else:
+                assert v == flat_b[k], (name, k)
 
 
 def test_resume_flag_rejects_a_foreign_dir(tmp_path):

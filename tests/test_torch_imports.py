@@ -37,7 +37,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "run_sweep.py", "utils/sweep.py", "utils/plotting.py",
             "train.py", "utils/resilience.py", "utils/checkpoint.py",
             "utils/data.py", "utils/data_native.py", "utils/dynamics.py",
-            "utils/profiling.py"} <= names
+            "utils/profiling.py", "parallel/mesh.py",
+            "parallel/selftest.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}, bad
@@ -53,7 +54,8 @@ _SERVING = dict(n_slots=2, max_len=8, prompt_max=4, out_max=4)
                                    "train_step", "serving_step_fn",
                                    "serving_engine", "serve_bench",
                                    "sweep_experiment", "loss_fn", "fit",
-                                   "prefetch", "train_main"])
+                                   "prefetch", "train_main", "launch",
+                                   "train_world"])
 def test_entry_points_default_to_cuda(entry):
     """Without ``device=`` an entry point asks for CUDA: on a host without
     it the call raises instead of running on the CPU."""
@@ -85,6 +87,11 @@ def test_entry_points_default_to_cuda(entry):
         "prefetch": lambda: next(prefetch_to_device(iter([(prompt,)]))),
         "train_main": lambda: train_main(["--model", "gpt2-small",
                                           "--steps", "1"]),
+        "launch": lambda: port.launch(print, port.MeshConfig(2, 1),
+                                      backend="gloo"),
+        "train_world": lambda: train_main(["--model", "gpt2-small",
+                                           "--steps", "1", "--backend",
+                                           "gloo"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -107,10 +107,58 @@ def test_native_loader_bit_identical(token_file):
 
 
 def test_unported_data_parts_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tdata.batch_sharding(None)
+    """``batch_sharding`` gives each rank of a 2 x 4 world the rows the JAX
+    ``P(DATA_AXIS)`` split puts on the device at its coordinates of the
+    simulated mesh, through the loaders and the prefetch alike;
+    ``encode_text_file_hf`` is still unported."""
+    import jax
+    from distributed_training_with_pipeline_parallelism_tpu.parallel.mesh import (
+        make_mesh)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.mesh import (
+        Mesh)
+    jmesh = make_mesh(n_pipe=4, n_data=2)
+    x = np.arange(8 * 3).reshape(8, 3)
+    placed = jax.device_put(x, jdata.batch_sharding(jmesh))
+    rows = {s.device: np.asarray(s.data) for s in placed.addressable_shards}
+    stream = tdata.synthetic_batches(97, 8, 5, seed=3)
+    whole = [next(stream) for _ in range(2)]
+    for k in range(2):
+        for p in range(4):
+            rank = Mesh(4, 2, k * 4 + p, "gloo", torch.device("cpu"))
+            shard = tdata.batch_sharding(rank)
+            np.testing.assert_array_equal(shard((x,))[0],
+                                          rows[jmesh.devices[k, p]])
+            got = tdata.synthetic_batches(97, 8, 5, seed=3, sharding=shard)
+            fetched = tdata.prefetch_to_device(
+                tdata.synthetic_batches(97, 8, 5, seed=3), device="cpu",
+                sharding=shard)
+            for (t, y), (ft, fy), (wt, wy) in zip(got, fetched, whole):
+                np.testing.assert_array_equal(t, wt[4 * k:4 * k + 4])
+                np.testing.assert_array_equal(y, wy[4 * k:4 * k + 4])
+                np.testing.assert_array_equal(ft.numpy(), t)
+                np.testing.assert_array_equal(fy.numpy(), y)
+    with pytest.raises(ValueError, match="does not split"):
+        tdata.BatchSharding(3, 0).rows(x)
     with pytest.raises(NotImplementedError, match="item 11"):
         tdata.encode_text_file_hf("a", "b")
+
+
+def test_file_loaders_take_the_rank_slice(token_file):
+    """The token-file sampler and the native loader (one thread) yield the
+    rank's rows of the global batches they yield without a sharding."""
+    shard = tdata.BatchSharding(2, 1)
+    plain = tdata.TokenFileDataset(token_file, 16, seed=7).batches(4)
+    sliced = tdata.TokenFileDataset(token_file, 16, seed=7).batches(4, shard)
+    with tdata_native.NativeTokenLoader(token_file, 16, 4, seed=7,
+                                        n_threads=1) as a, \
+            tdata_native.NativeTokenLoader(token_file, 16, 4, seed=7,
+                                           n_threads=1) as b:
+        native, native_sliced = a.batches(), b.batches(shard)
+        for _ in range(3):
+            for whole, part in ((next(plain), next(sliced)),
+                                (next(native), next(native_sliced))):
+                for w, q in zip(whole, part):
+                    np.testing.assert_array_equal(q, w[2:])
 
 
 def test_encode_text_file_matches_jax(tmp_path):
