@@ -13,7 +13,8 @@ JAX. Phases, each fatal on failure:
    all started together); each kernel's registers and spills as ptxas
    reports them, and no spill in a tensor-core kernel (``*_tc``).
 2. Every kernel against its plain PyTorch version on the card at the
-   decode and training paths' shapes, with stated tolerances, timed beside
+   decode and training paths' shapes (and phase 11's attention shapes at
+   a model rank's H/T heads), with stated tolerances, timed beside
    its plain version, its bound and one library call that computes the
    same function (a yardstick only; the port never calls it; the device
    kernels it ran are recorded by name). The attention kernels' achieved
@@ -97,7 +98,11 @@ JAX. Phases, each fatal on failure:
    schedules, f32, 5 timed steps after 2 warm-ups: 18 rows of tokens/s,
    speedup, efficiency, bubble columns, the card's MFU and peak memory;
    then one f32 step of the headline row (L8/H8, GPipe, D = 2) under the
-   profiler for its idle share.
+   profiler for its idle share. (e) The sweep as the reference runs it:
+   the L8/H8 rows at D = 2 and 4 under the three schedules as world rows
+   (``sweep_rows(..., backend="gloo")``: one world of D processes per D,
+   staged on the one card; 3 timed steps after 2), each world row's
+   tokens/s beside its lockstep row's, the bubble columns equal.
 
 8. ``fit``, the training entry point: tied GPT-2-small at full width,
    random weights from a seed, 1F1B at D = 4, M = 4, S = 1024, both
@@ -185,6 +190,38 @@ JAX. Phases, each fatal on failure:
     holds its share of step 5's files to the unbroken run's, bitwise.
     The phase prints its seconds against the 90 it is held to.
 
+11. Megatron tensor parallelism: a world of pipe 2 x model 2 processes on
+    the card (gloo, staged), each rank its model coordinate's shard of its
+    stages (``parallel.tensor_parallel.shard_model``), every rank warmed
+    at once first. (a) Tied GPT-2-small at full width and depth, f32, B =
+    8, S = 1024, M = 4, 1F1B and Interleaved1F1B (V = 2), each with
+    ``tp_overlap`` "none" and "ring": the loss within 1e-5 and every leaf,
+    its error and norm gathered over the model group, within phase 4's
+    bound of the lockstep process's D = 2 step on the same weights; each
+    rank's launches those of the same pipe rank of a pipe-2 world
+    (``tp_rank_launches``), the flash kernels at 6 of the 12 heads. (b)
+    Llama-3.2-1B at full width, 4 layers, f32 (GQA 32/8 split to 16/4 a
+    rank), the tied head vocab-parallel (128256 / 2), B = 4, S = 256, M =
+    2: the same gate; no cross-entropy kernel (the vocab-parallel loss
+    bypasses K1, as in JAX). (c) ``ref_decoder`` L8/H8 (B = 32, S = 128,
+    M = 4) with the vocab-parallel untied head: the flash kernels forced
+    on (K2/K3, non-causal, 4 of 8 heads), then dropout 0.1 on the dense
+    path (the head-sharded masks) on one step seed, each against the
+    lockstep process's step, whose relu masks each rank replays on its
+    columns (``ReluMasks``: the row-parallel sums round otherwise,
+    and the kink turns that into gradient jumps; fewer than 1e-6 of the
+    relu inputs may change sign). (d) bf16 over f32 masters, B = 24, 1F1B: the
+    lockstep process (D = 2), the world twice, the lockstep process again
+    (1 warm-up and 2 timed ``make_train_step`` steps each): tokens/s,
+    launches by rank, one step profiled on every rank (idle share, the
+    model-axis all-reduces' count and host time, the hand-offs'). (e)
+    ``train.py --pipe 2 --tp 2 --backend gloo`` at 4 layers, S = 256, 4
+    steps: its world starts beside the phase's and is killed once step 1
+    is committed; ``train.run`` runs over the phase's mesh unbroken and then
+    resumed from the killed world's checkpoints, each rank holding its
+    share of step 3's files to the unbroken run's, bitwise. The phase
+    prints its seconds.
+
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
@@ -193,9 +230,11 @@ that are timed, by path, the llama decode's and the serving runs' among
 them, the paged and speculative runs' 0 as their dense cache attention
 takes neither kernel; the llama prefill shape's times beside the flash
 kernel's; the reference shapes' bf16 times and the ref_decoder gate's
-launches beside each flash kernel's; phase 8's fit step, one eval and
-the entry point's whole run; phase 9's counted bf16 ZBH1 and ZBV steps;
-phase 10's counted bf16 world step by rank and summed),
+launches beside each flash kernel's; phase 11's attention shapes at a
+model rank's H/T heads, bf16, beside each flash kernel's; phase 8's fit
+step, one eval and the entry point's whole run; phase 9's counted bf16 ZBH1 and ZBV steps;
+phase 10's counted bf16 world step by rank and summed; phase 11's
+counted bf16 TP world step by rank and summed),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -299,6 +338,16 @@ def all_kernels():
     from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
         XENT_BWD, XENT_FWD)
     return (FLASH_FWD, XENT_FWD, FLASH_BWD, XENT_BWD)
+
+
+def tp_shapes():
+    """Phase 11's attention shapes at a model rank's H/T heads (one
+    microbatch): the bf16 GPT-2 timing step's (6 of 12 heads), the
+    Llama-3.2-1B gate's (16 of 32, causal) and the ref_decoder gate's (4
+    of 8, head_dim 96, non-causal): name -> ([b, s, h, dh], causal)."""
+    return {"gpt2": ([TP_TIME_B // TP_M, TRAIN_S, 6, 64], True),
+            "llama": ([TP_LLAMA_B // TP_LLAMA_M, TP_LLAMA_S, 16, 64], True),
+            "ref": ([REF_B // REF_M, REF_S, 4, 96], False)}
 
 
 def main_config():
@@ -580,6 +629,13 @@ def phase_kernels(report):
         for dh, shape in REF_SHAPES.items():
             main[(f"flash_fwd_ref{dh}", dtype)] = flash_case(
                 *shape, dtype, False, None, "packed", tol[dtype])
+    for name, (shape, causal) in tp_shapes().items():
+        # phase 11's attention at a model rank's H/T heads (bf16: phase
+        # 11's f32 gates hold the f32 kernels there)
+        main[(f"flash_fwd_tp_{name}", "bfloat16")] = flash_case(
+            *shape, "bfloat16", causal, None, "packed", tol["bfloat16"])
+        main[(f"flash_bwd_tp_{name}", "bfloat16")] = flash_bwd_case(
+            *shape, "bfloat16", causal, None, "packed", 1e-2)
     for dtype, rtol in (("bfloat16", 1e-3), ("float32", 1e-5)):
         # the training path's loss: one microbatch's rows of the vocab
         main[("xent_fwd", dtype)] = xent_case(TRAIN_B // TRAIN_M * TRAIN_S,
@@ -1578,42 +1634,71 @@ def ref_config(n_heads, **kw):
 
 
 class ReluMasks:
-    """Record which relu inputs are positive in one run, then replay those
-    masks in a second run of the same tick table (``relu(x) = x * mask``,
-    whose gradient is the mask): the reference block's relu has a kink at
-    0, where an f32 rounding difference upstream flips a unit and moves a
-    lin1 leaf by about one token's term in 4096 (~5e-4 of its norm; on an
-    H100 a dozen flips in 134M units part the f32 ref_decoder step from
-    the plain one at 8x the gate's leaf bound). Replayed masks make the
-    two runs one piecewise-linear function, so the gate holds the
-    kernels, not the kink, to its bound; ``flips`` counts the units whose
-    sign the runs disagree on, which must stay below 1e-6 of them."""
+    """Record which relu inputs are positive in one pipelined run, then
+    replay those masks in a second run of the same tick table (``relu(x)
+    = x * mask``, whose gradient is the mask): the reference block's relu
+    has a kink at 0, where an f32 rounding difference upstream flips a
+    unit and moves a lin1 leaf by about one token's term in 4096 (~5e-4
+    of its norm; on an H100 a dozen flips in 134M units part the f32
+    ref_decoder step from the plain one at 8x the gate's leaf bound).
+    Replayed masks make the two runs one piecewise-linear function, so a
+    gate holds the kernels (or the model axis), not the kink, to its
+    bound; ``flips`` counts the units whose sign the runs disagree on,
+    which must stay below 1e-6 of them. Each mask is keyed by (global
+    layer, the layer's call count), which one tick table orders alike in
+    every process that runs the layer, so the second run may be a TP
+    world's rank (another process, its stages only), which replays its
+    ``shard`` = (n, index) block of the mask's columns; the pipeline's
+    ``body_apply`` is wrapped to tell the relu its layer."""
 
-    def __init__(self):
-        self.masks, self.flips, self.units = [], 0, 0
-        self.replaying = False
+    def __init__(self, masks=None, shard=None):
+        self.masks = {} if masks is None else masks
+        self.shard = shard
+        self.flips = self.units = 0
 
     @contextlib.contextmanager
     def patched(self, replay: bool):
         from distributed_training_with_pipeline_parallelism_tpu_torch.models import (
             transformer as tfm)
-        real, self.replaying = tfm.relu, replay
-        masks = iter(self.masks) if replay else None
+        from distributed_training_with_pipeline_parallelism_tpu_torch.ops.layers import (
+            fold_seed)
+        from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+            pipeline as pp)
+        real_body, real_relu = pp.body_apply, tfm.relu
+        layer, calls = [None], {}
+
+        def body_apply(cfg, layers, h, rng=None, layer_offset=0, tp=None):
+            rope = tfm.rope_table(cfg, h.shape[1], h.device)
+            for i, block in enumerate(layers):
+                layer[0] = layer_offset + i
+                rng_l = None if rng is None else fold_seed(rng, layer[0])
+                h = block(cfg, h, rope, rng_l, tp)
+            return h
 
         def relu(x):
-            if masks is None:
-                self.masks.append(x > 0)
-                return real(x)
-            mask = next(masks)
+            key = (layer[0], calls.get(layer[0], 0))
+            calls[layer[0]] = key[1] + 1
+            if not replay:
+                self.masks[key] = x > 0
+                return real_relu(x)
+            mask = self.masks[key]
+            if self.shard is not None:
+                n, j = self.shard
+                w = mask.shape[-1] // n
+                mask = mask[..., j * w:(j + 1) * w]
+            mask = mask.to(x.device)
             self.flips += int(((x > 0) != mask).sum())
             self.units += mask.numel()
             return x * mask
 
-        tfm.relu = relu
+        pp.body_apply, tfm.relu = body_apply, relu
         try:
             yield self
         finally:
-            tfm.relu = real
+            pp.body_apply, tfm.relu = real_body, real_relu
+
+
+REF_WORLD_TIMED = 3  # (e)'s timed steps a world row, after 2 warm-ups
 
 
 def phase_ref(report, device="cuda"):
@@ -1760,6 +1845,36 @@ def phase_ref(report, device="cuda"):
         check(math.isfinite(r["throughput"]) and r["throughput"] > 0,
               f"sweep row {r['schedule']}: throughput {r['throughput']}")
     res["sweep"] = dict(rows=rows, speedup=list(speedup.values()))
+
+    # (e) the headline rows as the reference runs them: a world of D
+    # processes a config (one world per D), beside the lockstep rows
+    t0 = time.perf_counter()
+    world_rows = sweep_rows(layers=(8,), heads=(8,), devices=(2, 4),
+                            verbose=False, device=device, backend="gloo",
+                            num_iterations=REF_WORLD_TIMED)
+    check(len(world_rows) == 6 and all("throughput" in r
+                                       for r in world_rows),
+          f"world sweep: {len(world_rows)} rows, not 6 timed ones: "
+          f"{[r.get('error') for r in world_rows]}")
+    lock = {(r["num_processes"], r["schedule"]): r for r in rows
+            if r["n_heads"] == 8}
+    print(f"  the sweep as a world (gloo, staged; two worlds, D = 2 and 4): "
+          f"6 rows in {time.perf_counter() - t0:.1f} s")
+    for r in world_rows:
+        twin = lock[(r["num_processes"], r["schedule"])]
+        check(r["transport"] == "gloo-staged"
+              and r["world_ranks"] == r["num_processes"],
+              f"world row {r['schedule']}: {r['transport']}")
+        for k in ("bubble_analytic", "bubble_simulated",
+                  "bubble_table_exact"):
+            check(r[k] == twin[k], f"world row {r['schedule']}: {k}")
+        print(f"    L8 H8 D{r['num_processes']} {r['schedule']:<16} world "
+              f"{r['throughput']:10.1f} tokens/s, lockstep "
+              f"{twin['throughput']:10.1f} (world / lockstep "
+              f"{r['throughput'] / twin['throughput']:.4f}), bubble "
+              f"analytic {r['bubble_analytic']:.4f}")
+    res["world_sweep"] = dict(rows=world_rows,
+                              seconds=time.perf_counter() - t0)
 
     # where the time goes: one f32 step of the headline config (L8/H8,
     # GPipe, D = 2), as the sweep runs it
@@ -2889,19 +3004,21 @@ def same_files(a, b, names):
 
 
 class KilledWorld:
-    """(d)'s ``train.py`` world (``DIST_TRAIN_ARGS``), started beside
-    phase 10's world and killed (its whole process group) once step 2 is
-    committed. Then ``done`` holds "ok", or what went wrong, for the
-    phase's world to read."""
+    """A ``train.py`` world (phase 10's ``DIST_TRAIN_ARGS``, or ``args``),
+    started beside the phase's world and killed (its whole process group)
+    once step ``kill_after`` is committed, before step ``last``'s save.
+    Then ``done`` holds "ok", or what went wrong, for the phase's world to
+    read."""
 
-    def __init__(self, tmp):
+    def __init__(self, tmp, args=DIST_TRAIN_ARGS, kill_after=2, last=5):
         self.dir = Path(tmp) / "killed"
         self.done = Path(tmp) / "killed_done"
+        self.kill_after, self.last = kill_after, last
         self.lines = []  # (seconds since the start, line)
         self.status, self.killed_s = "running", None
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", f"{PKG}.train", *DIST_TRAIN_ARGS,
+            [sys.executable, "-m", f"{PKG}.train", *args,
              "--ckpt", str(self.dir)], text=True, start_new_session=True,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         self._reader = threading.Thread(target=self._read, daemon=True)
@@ -2916,17 +3033,17 @@ class KilledWorld:
 
     def _kill_after_commit(self):
         import signal
-        marker = self.dir / "step_2" / "_COMMITTED.json"
+        marker = self.dir / f"step_{self.kill_after}" / "_COMMITTED.json"
         status = "ok"
         while not marker.exists() and self.proc.poll() is None:
             if time.perf_counter() - self.t0 > DIST_WAIT_S:
-                status = "step 2 never committed"
+                status = f"step {self.kill_after} never committed"
                 break
             time.sleep(0.05)
         self.stop()
         if status == "ok" and self.proc.returncode != -signal.SIGKILL:
             status = f"it ended with {self.proc.returncode} before the kill"
-        elif status == "ok" and (self.dir / "step_5" /
+        elif status == "ok" and (self.dir / f"step_{self.last}" /
                                  "_COMMITTED.json").exists():
             status = "the kill came after the last save"
         self.killed_s = time.perf_counter() - self.t0
@@ -3189,6 +3306,510 @@ def phase_dist(report, device="cuda"):
     return {r["rank"]: r["step_launches"] for r in ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: Megatron tensor parallelism, pipe 2 x model 2
+# ---------------------------------------------------------------------------
+
+TP_MESH = (2, 1, 2)  # (n_pipe, n_data, n_model)
+TP_M, TP_GATE_B, TP_TIME_B = 4, 8, 24
+TP_GATES = (("1F1B", 1), ("Interleaved1F1B", 2))
+# (b): Llama-3.2-1B at full width, 4 of its 16 layers
+TP_LLAMA_LAYERS, TP_LLAMA_B, TP_LLAMA_S, TP_LLAMA_M = 4, 4, 256, 2
+TP_DROP_SEED = 11  # (c)'s step seed
+# (e): train.py's TP world, tied GPT-2-small at 4 layers, S = 256
+TP_TRAIN_ARGS = ["--model", "gpt2-small", "--tie-embeddings", "--layers",
+                 "4", "--pipe", "2", "--tp", "2", "--backend", "gloo",
+                 "--batch", "8", "--seq", "256", "--microbatches", "2",
+                 "--steps", "4", "--ckpt-every", "1", "--flash", "on",
+                 "--fused-xent", "--anomaly-guard"]
+TP_TIMED = 2  # (d)'s timed steps a run, after DIST_WARMUP
+
+
+def tp_llama_config():
+    """Llama-3.2-1B at full width (GQA 32/8, tied, vocab 128256) and
+    ``TP_LLAMA_LAYERS`` layers, the flash kernels on, f32."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import llama_config
+    return llama_config("llama3.2-1b", n_layers=TP_LLAMA_LAYERS,
+                        use_flash_attention=True, use_fused_xent=True)
+
+
+def tp_ref_config(dropout=0.0):
+    """The reference's L8/H8 with the flash kernels forced on, or with
+    dropout (the dense path)."""
+    if dropout:
+        return ref_config(8, dropout=dropout, use_fused_xent=True)
+    return ref_config(8, use_flash_attention=True, use_fused_xent=True)
+
+
+def tp_gates():
+    """(name, config, schedule, vocab-parallel, batch rows, seq, step
+    seed) of (a)-(c)'s f32 gates: each the world's step against the
+    lockstep process's on the same weights and batch."""
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    cfg = dist_config()
+    gates = [(f"gpt2_{s}", cfg, port.ScheduleConfig(s, TP_M, V), False,
+              TP_GATE_B, TRAIN_S, None) for s, V in TP_GATES]
+    gates.append(("llama", tp_llama_config(),
+                  port.ScheduleConfig("1F1B", TP_LLAMA_M), True, TP_LLAMA_B,
+                  TP_LLAMA_S, None))
+    gates.append(("ref", tp_ref_config(), port.ScheduleConfig("1F1B", REF_M),
+                  True, REF_B, REF_S, None))
+    gates.append(("ref_dropout", tp_ref_config(0.1),
+                  port.ScheduleConfig("1F1B", REF_M), True, REF_B, REF_S,
+                  TP_DROP_SEED))
+    return gates
+
+
+def tp_rank_launches(cfg, sched, D, d, vocab_parallel):
+    """The launches of pipe rank d of a pipe-D world (``rank_launches``),
+    which each of its model ranks makes at H/T heads; the vocab-parallel
+    head launches no cross-entropy kernel (it bypasses K1, as in JAX)."""
+    import torch
+    want = rank_launches(cfg, sched, D, d)
+    ref = cfg.arch == "ref_decoder"  # self- and cross-attention a layer
+    if not cfg.flash_for(not ref, torch.device("cuda")):
+        want.update(flash_fwd=0, flash_bwd=0)
+    elif ref:
+        want.update(flash_fwd=2 * want["flash_fwd"],
+                    flash_bwd=2 * want["flash_bwd"])
+    if vocab_parallel:
+        want.update(xent_fwd=0, xent_bwd=0)
+    return want
+
+
+def tp_compare(mesh, cfg, vocab_parallel, model, ref):
+    """(loss rel err, worst leaf ratio, its leaf) of this rank's shard's
+    gradients against the lockstep ``ref``: each leaf's error and norm
+    gathered over the model group (a split leaf's parts summed, a
+    replicated leaf's taken once), phase 4's bound."""
+    import torch
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+        tensor_parallel as ttp)
+    names, sq = [], []
+    for n, p in model.named_parameters():
+        dim = ttp.split_dim(cfg, n, vocab_parallel)
+        r = ttp.shard_tensor(ref["grads"][n], dim, mesh.n_model,
+                             mesh.model).to(p.device)
+        w = 1.0 if dim is not None or mesh.model == 0 else 0.0
+        sq.append(torch.stack([(p.grad.double() - r.double()).square().sum(),
+                               r.double().square().sum()]) * w)
+        names.append(n)
+    sq = torch.stack(sq)
+    mesh.all_reduce([sq], "model")
+    ratios = (sq[:, 0].sqrt() / (1e-4 * sq[:, 1].sqrt()
+                                 + 1e-6 * ref["g_norm"])).tolist()
+    worst = max(range(len(names)), key=lambda i: ratios[i])
+    return ratios[worst], names[worst]
+
+
+def tp_profile(step, mesh):
+    """One step on every rank under the profiler: wall, the rank's device
+    busy, its idle share, and the host time of its model-axis all-reduces
+    and hand-off waits and posts (their spans)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    mesh.barrier()
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    spans = {}
+    for e in avg:
+        if e.key in ("tp_all_reduce", "handoff_wait", "handoff_post"):
+            spans[e.key] = max(spans.get(e.key, 0.0), e.cpu_time_total / 1e3)
+            spans[e.key + "_count"] = max(spans.get(e.key + "_count", 0),
+                                          e.count)
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                idle_share=1 - busy / (wall * 1e3),
+                tp_all_reduce_ms=spans.get("tp_all_reduce", 0.0),
+                tp_all_reduces=spans.get("tp_all_reduce_count", 0),
+                handoff_wait_ms=spans.get("handoff_wait", 0.0),
+                handoff_post_ms=spans.get("handoff_post", 0.0))
+
+
+def tp_worker(mesh, spec):
+    """One rank of phase 11's world: the warm-up, (a)-(c) the f32 gates,
+    (e) ``train.run`` unbroken beside the killed ``train.py`` world, then
+    (d) the bf16 timing, one counted and one profiled step, and (e) the
+    resume. Returns this rank's numbers; raises (failing the world) at a
+    gate."""
+    import io
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch import (
+        train as tmain)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+        tensor_parallel as ttp)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
+        torch_dtype)
+    device = mesh.device
+    kernels = all_kernels()
+    cfg16 = dist_config(bf16=True)
+    res = dict(rank=mesh.rank, describe=mesh.describe(), gates={})
+    t_phase = time.perf_counter()
+    gates = tp_gates()
+    res["warm_s"] = sum(dist_warm((c,), device, (b // sch.n_microbatches, S))
+                        for _, c, sch, _, b, S, _ in gates[0:4:3])
+    res["warm_s"] += dist_warm((cfg16,), device, (TP_TIME_B // TP_M,
+                                                  TRAIN_S))
+    res["refs_wait_s"] = 0.0
+
+    def shard(c, sched, vp, whole):
+        own = port.owned_layers(c.n_layers, sched, mesh.n_pipe, mesh.pipe)
+        v = Transformer(c, device=device, dtype=torch_dtype(c.storage_dtype),
+                        layers=own)
+        v.load_state_dict({k: whole[k] for k in v.state_dict()})
+        return ttp.shard_model(v, c, mesh, vocab_parallel=vp)
+
+    def batch_of(b, S, seed):
+        g = torch.Generator().manual_seed(seed)
+        return tuple(torch.randint(0, 10 ** 9, (b, S), generator=g)
+                     for _ in range(2))
+
+    # (a)-(c): the f32 gates against the lockstep process's step
+    for name, c, sched, vp, b, S, step_seed in gates:
+        # the launcher's references come gate by gate while the gates run
+        res["refs_wait_s"] += wait_for(spec[f"{name}_ready"],
+                                       f"the references of {name}")
+        t_gate = time.perf_counter()
+        whole = torch.load(spec[f"{name}_whole"], mmap=True,
+                           weights_only=True)
+        ref = torch.load(spec[f"{name}_ref"], mmap=True, weights_only=True)
+        tokens, targets = (x % c.vocab_size for x in batch_of(b, S, SEED + 2))
+        batch = (tokens.to(device), targets.to(device))
+        extra = () if step_seed is None else (step_seed,)
+        model = shard(c, sched, vp, whole)
+        # the reference block's relu kink: replay the lockstep step's masks
+        relu = (ReluMasks(torch.load(spec[f"{name}_relu"],
+                                          weights_only=True),
+                               (mesh.n_model, mesh.model))
+                if c.arch == "ref_decoder" else None)
+        runs = {}
+        for co in (("none", "ring") if name.startswith("gpt2")
+                   else ("none",)):
+            cc = dataclasses.replace(c, tp_overlap=co)
+            fn = port.make_pipeline_grad_fn(cc, sched, mesh.n_pipe,
+                                            device=device, mesh=mesh,
+                                            tp_vocab_parallel=vp)
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+            hops = mesh.hops
+            t = time.perf_counter()
+            with (relu.patched(True) if relu is not None
+                  else contextlib.nullcontext()):
+                loss = fn(model, *batch, *extra).item()
+            wall = time.perf_counter() - t
+            launches = {k.name: k.launches for k in kernels}
+            rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+            worst, leaf = tp_compare(mesh, c, vp, model, ref)
+            runs[co] = dict(loss=loss, loss_rel_err=rel,
+                            worst_bound_ratio=worst, worst_leaf=leaf,
+                            launches=launches, step_s=wall,
+                            hops=mesh.hops - hops)
+            if relu is not None:
+                runs[co].update(relu_flips=relu.flips,
+                                relu_units=relu.units)
+                check(relu.flips < 1e-6 * relu.units,
+                      f"TP {name} rank {mesh.rank}: {relu.flips} of "
+                      f"{relu.units} relu inputs changed sign")
+            check(rel <= 1e-5, f"TP {name} {co} rank {mesh.rank}: loss rel "
+                  f"err {rel} > 1e-5")
+            check(worst <= 1.0, f"TP {name} {co} rank {mesh.rank}: leaf "
+                  f"{leaf} over its bound ({worst})")
+            want = tp_rank_launches(c, sched, mesh.n_pipe, mesh.pipe, vp)
+            check(launches == want, f"TP {name} {co} rank {mesh.rank}: "
+                  f"launches {launches} != the table's {want}")
+        res["gates"][name] = dict(runs, gate_s=time.perf_counter() - t_gate)
+        del model, whole, ref
+        torch.cuda.empty_cache()
+    res["gates_s"] = time.perf_counter() - t_phase
+
+    # (e) train.run over this world's mesh, unbroken, beside the killed
+    # train.py world
+    res["train_main"] = {}
+
+    def train_main(label, extra):
+        t_run = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tmain.run(tmain.parser().parse_args(TP_TRAIN_ARGS + extra), mesh)
+        res["train_main"][label] = dict(seconds=time.perf_counter() - t_run,
+                                        output=out.getvalue())
+
+    train_main("unbroken", ["--ckpt", spec["unbroken"]])
+    res["killed_wait_s"] = wait_for(spec["killed_done"],
+                                    "the killed train.py TP world's end")
+    mesh.barrier()
+
+    # (d) bf16 timing (twice), one counted step, one profiled step
+    sched = port.ScheduleConfig("1F1B", TP_M)
+    whole = torch.load(spec["gpt2_1F1B_whole"], mmap=True, weights_only=True)
+    model = shard(cfg16, sched, False, whole)
+    opt = port.adamw(warmup_steps=2, total_steps=100)
+    state = opt.init(model)
+    step = port.make_train_step(cfg16, sched, mesh.n_pipe, opt,
+                                device=device, mesh=mesh)
+    tokens, targets = (x % cfg16.vocab_size
+                       for x in batch_of(TP_TIME_B, TRAIN_S, SEED + 3))
+    batch = (tokens.to(device), targets.to(device))
+    losses = []
+
+    def run(mdl, t, y):
+        loss = step(mdl, state, t, y)
+        losses.append(loss)
+        return loss
+
+    res["timed"] = [port.run_train_iterations(
+        run, model, *batch, num_iterations=TP_TIMED,
+        warmup_iterations=DIST_WARMUP, mesh=mesh) for _ in range(2)]
+    res["losses"] = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"TP rank {mesh.rank}: non-finite bf16 loss {res['losses']}")
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    run(model, *batch).item()
+    res["step_launches"] = {k.name: k.launches for k in kernels}
+    want = tp_rank_launches(cfg16, sched, mesh.n_pipe, mesh.pipe, False)
+    check(res["step_launches"] == want,
+          f"TP bf16 rank {mesh.rank}: launches {res['step_launches']} != "
+          f"the pipe rank's {want}")
+    res["profile"] = tp_profile(lambda: run(model, *batch), mesh)
+    del model, state, whole
+    torch.cuda.empty_cache()
+
+    # (e) the resume; each rank holds its share of step 3's files to the
+    # unbroken run's, bitwise (a world commits a step at its next save, so
+    # the kill after step 1's commit comes a step before the last save)
+    train_main("resumed", ["--ckpt", spec["killed"], "--auto-resume"])
+    unbroken, resumed = (Path(spec[k]) / "step_3"
+                         for k in ("unbroken", "killed"))
+    names = sorted(p.name for p in unbroken.glob("*.pt"))
+    check(names == sorted(p.name for p in resumed.glob("*.pt")),
+          f"TP step 3's files differ: {names}")
+    res["resume_checked"] = names[mesh.rank::mesh.world]
+    same_files(unbroken, resumed, res["resume_checked"])
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def phase_tp(report, device="cuda"):
+    """Megatron tensor parallelism (see the module doc): the lockstep
+    timing here, then a world of pipe 2 x model 2 processes on the one
+    card for the f32 gates, the bf16 timing and ``train.run``, beside
+    which ``train.py``'s TP world runs until it is killed; while both
+    start, the references are made here. Returns the launches of rank
+    r's counted bf16 step by rank."""
+    import shutil
+    import tempfile
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
+        torch_dtype)
+    t0 = time.perf_counter()
+    cfg16 = dist_config(bf16=True)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tp-")
+    res, killed, world = {}, None, None
+
+    def batch_of(b, S, seed):
+        g = torch.Generator().manual_seed(seed)
+        return tuple(torch.randint(0, 10 ** 9, (b, S), generator=g)
+                     for _ in range(2))
+
+    def references(spec):
+        """Each gate's whole model and the lockstep process's f32 step on
+        it, written for the ranks."""
+        inits = {}
+        for name, c, sched, vp, b, S, step_seed in tp_gates():
+            path = spec[f"{name}_whole"]
+            if path not in inits:
+                inits[path] = {n: t.cpu() for n, t in port.init_params(
+                    c, torch.Generator().manual_seed(SEED),
+                    device).state_dict().items()}
+                torch.save(inits[path], path)
+            model = Transformer(c, device=device,
+                                dtype=torch_dtype(c.storage_dtype))
+            model.load_state_dict(inits[path])
+            tokens, targets = (x % c.vocab_size
+                               for x in batch_of(b, S, SEED + 2))
+            fn = port.make_pipeline_grad_fn(c, sched, TP_MESH[0],
+                                            device=device)
+            extra = () if step_seed is None else (step_seed,)
+            relu = ReluMasks()
+            with (relu.patched(False) if c.arch == "ref_decoder"
+                  else contextlib.nullcontext()):
+                loss = fn(model, tokens.to(device), targets.to(device),
+                          *extra).item()
+            if c.arch == "ref_decoder":
+                torch.save({k: m.cpu() for k, m in relu.masks.items()},
+                           spec[f"{name}_relu"])
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters()}
+            g_norm = math.sqrt(sum((x.double() ** 2).sum().item()
+                                   for x in grads.values()))
+            torch.save({"grads": grads, "loss": loss, "g_norm": g_norm},
+                       spec[f"{name}_ref"])
+            res.setdefault("lockstep_loss", {})[name] = loss
+            del model, grads, fn
+            torch.cuda.empty_cache()
+            signal_file(spec[f"{name}_ready"], "ok")
+
+    def lockstep_tps():
+        m = port.init_params(cfg16, torch.Generator().manual_seed(SEED),
+                             device)
+        opt = port.adamw(warmup_steps=2, total_steps=100)
+        st = opt.init(m)
+        sched = port.ScheduleConfig("1F1B", TP_M)
+        step = port.make_train_step(cfg16, sched, TP_MESH[0], opt,
+                                    device=device)
+        tokens, targets = (x % cfg16.vocab_size
+                           for x in batch_of(TP_TIME_B, TRAIN_S, SEED + 3))
+        out = port.run_train_iterations(
+            lambda mm, t, y: step(mm, st, t, y), m, tokens.to(device),
+            targets.to(device), num_iterations=TP_TIMED,
+            warmup_iterations=DIST_WARMUP)
+        del m, st
+        torch.cuda.empty_cache()
+        return out["throughput"]
+
+    def run_world(spec, box):
+        try:
+            box["ranks"] = port.launch(tp_worker, port.MeshConfig(*TP_MESH),
+                                       spec, backend="gloo", device=device,
+                                       timeout_s=300)
+        except BaseException as e:  # re-raised by the phase
+            box["error"] = e
+
+    try:
+        lock = [lockstep_tps()]
+        spec = {k: str(Path(tmp) / k) for k in (
+            "unbroken", "killed", "killed_done")}
+        for name, c, *_ in tp_gates():  # one whole model a family
+            spec[f"{name}_whole"] = str(Path(tmp) / f"whole_{c.arch}.pt")
+            spec[f"{name}_ref"] = str(Path(tmp) / f"{name}_ref.pt")
+            spec[f"{name}_relu"] = str(Path(tmp) / f"{name}_relu.pt")
+            spec[f"{name}_ready"] = str(Path(tmp) / f"{name}_ready")
+        t_world = time.perf_counter()
+        killed = KilledWorld(tmp, TP_TRAIN_ARGS, kill_after=1, last=3)
+        box = {}
+        world = threading.Thread(target=run_world, args=(spec, box))
+        world.start()
+        try:
+            references(spec)
+        except BaseException as e:
+            for name, *_ in tp_gates():
+                if not Path(spec[f"{name}_ready"]).exists():
+                    signal_file(spec[f"{name}_ready"],
+                                f"the launcher failed: {e!r}")
+            raise
+        res["refs_s"] = time.perf_counter() - t_world
+        world.join()
+        if "error" in box:
+            raise box["error"]
+        ranks = box["ranks"]
+        res["world_s"] = time.perf_counter() - t_world
+        res["killed_world"] = killed.finish()
+        lock.append(lockstep_tps())
+        print(f"  mesh.describe() of rank 0: {ranks[0]['describe']}")
+        for r in ranks:
+            check(r["describe"]["transport"] == "gloo-staged",
+                  f"rank {r['rank']}: {r['describe']}")
+        print(f"  warm-up (one-layer models, every rank at once): "
+              f"{max(r['warm_s'] for r in ranks):.2f} s; the references "
+              f"{res['refs_s']:.1f} s")
+        for name, c, sched, vp, b, S, _ in tp_gates():
+            rows = [r["gates"][name] for r in ranks]
+            for co in [k for k in rows[0] if k != "gate_s"]:
+                g = [x[co] for x in rows]
+                total = {k: sum(x["launches"][k] for x in g)
+                         for k in g[0]["launches"]}
+                print(f"  f32 {name} ({sched.name} V={sched.n_virtual}, "
+                      f"B={b}, S={S}, {c.n_heads}/{c.kv_heads} heads over 2"
+                      f"{', vocab-parallel' if vp else ''}) {co}: loss "
+                      f"{g[0]['loss']:.6f} (rel err "
+                      f"{max(x['loss_rel_err'] for x in g):.2e} vs lockstep "
+                      f"{res['lockstep_loss'][name]:.6f}), worst leaf at "
+                      f"{max(x['worst_bound_ratio'] for x in g):.3f} of its "
+                      f"bound, launches by rank "
+                      f"{[x['launches'] for x in g]}, ring hops "
+                      f"{[x['hops'] for x in g]}, step "
+                      f"{max(x['step_s'] for x in g):.2f} s"
+                      + (f", relu sign changes {[x['relu_flips'] for x in g]}"
+                         f" of {g[0]['relu_units']} a rank"
+                         if "relu_flips" in g[0] else ""))
+                if co == "none" and name != "ref_dropout":
+                    check(all(v > 0 for k, v in total.items()
+                              if k.startswith("flash")),
+                          f"TP {name}: a flash kernel was never launched: "
+                          f"{total}")
+            res[f"f32_{name}"] = rows
+        world_tps = [[r["timed"][i]["throughput"] for r in ranks]
+                     for i in range(2)]
+        res["bf16"] = dict(
+            lockstep_tokens_per_s=lock,
+            world_tokens_per_s=[w[0] for w in world_tps],
+            ratio=sum(w[0] for w in world_tps) / sum(lock),
+            losses=[r["losses"] for r in ranks],
+            step_launches=[r["step_launches"] for r in ranks],
+            profile={r["rank"]: r["profile"] for r in ranks})
+        print(f"  bf16 1F1B pipe 2 x model 2, B={TP_TIME_B}, S={TRAIN_S}, in "
+              f"turns ({DIST_WARMUP} warm-up, {TP_TIMED} timed steps "
+              f"each): lockstep (D=2) {lock[0]:.1f}, world "
+              f"{world_tps[0][0]:.1f}, world {world_tps[1][0]:.1f}, "
+              f"lockstep {lock[1]:.1f} tokens/s (world / lockstep "
+              f"{res['bf16']['ratio']:.4f}); launches by rank "
+              f"{res['bf16']['step_launches']}")
+        for r, p in sorted(res["bf16"]["profile"].items()):
+            print(f"  rank {r} profiled step: wall {p['wall_ms']:.1f} ms, "
+                  f"its device busy {p['device_busy_ms']:.1f} ms, idle share "
+                  f"{p['idle_share']:.3f}, {p['tp_all_reduces']} model-axis "
+                  f"all-reduces {p['tp_all_reduce_ms']:.1f} ms, hand-off "
+                  f"wait {p['handoff_wait_ms']:.1f} ms, posts "
+                  f"{p['handoff_post_ms']:.1f} ms")
+        tm = ranks[0]["train_main"]
+        check("resumed from" in tm["resumed"]["output"],
+              f"the TP resume restored nothing:\n"
+              f"{tm['resumed']['output'][-3000:]}")
+        names = sorted(n for r in ranks for n in r["resume_checked"])
+        check(len(names) == len(ranks), f"TP step 3's files: {names}")
+        res["train_main"] = dict(
+            args=TP_TRAIN_ARGS, checked=names,
+            seconds={k: v["seconds"] for k, v in tm.items()},
+            output={k: v["output"][-2000:] for k, v in tm.items()})
+        res["world_ranks_s"] = [{k: r[k] for k in (
+            "warm_s", "refs_wait_s", "gates_s", "killed_wait_s", "seconds")}
+            for r in ranks]
+        print(f"  train.py --pipe 2 --tp 2 --backend gloo (4 layers, S=256): "
+              f"its world killed after step 1's commit at "
+              f"{res['killed_world']['killed_s']:.1f} s, train.run unbroken "
+              f"{tm['unbroken']['seconds']:.1f} s and resumed "
+              f"{tm['resumed']['seconds']:.1f} s in this world: step 3's "
+              f"{len(names)} files bitwise equal")
+    finally:
+        if world is not None:
+            world.join()
+        if killed is not None:
+            killed.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 11: {res['seconds']:.1f} s (the world "
+          f"{res['world_s']:.1f} s)")
+    report["tp"] = res
+    return {r["rank"]: r["step_launches"] for r in ranks}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3233,6 +3854,10 @@ def main() -> int:
     print("[10] the torch.distributed transport: a gloo world of 4 "
           "processes on the card, tied GPT-2-small")
     dist_launches = phase_dist(report)
+    torch.cuda.empty_cache()
+    print("[11] Megatron tensor parallelism: a gloo world of pipe 2 x model "
+          "2 on the card, GPT-2-small, Llama-3.2-1B, ref_decoder")
+    tp_launches = phase_tp(report)
     report["seconds"] = time.perf_counter() - t0
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
@@ -3280,7 +3905,10 @@ def main() -> int:
                 "dist_step_by_rank": [dist_launches[r][name]
                                       for r in sorted(dist_launches)],
                 "dist_step": sum(dist_launches[r][name]
-                                 for r in dist_launches)}))
+                                 for r in dist_launches),
+                "tp_step_by_rank": [tp_launches[r][name]
+                                    for r in sorted(tp_launches)],
+                "tp_step": sum(tp_launches[r][name] for r in tp_launches)}))
         if name.startswith("flash"):
             kernels[-1]["ref_shapes"] = [
                 {k: main_shapes[(f"{name}_ref{dh}", "bfloat16")][k]
@@ -3288,6 +3916,13 @@ def main() -> int:
                            "tflops", "plain_ms", "bound_ms", "bound_by",
                            "library_ms")}
                 for dh in REF_SHAPES]
+        if name.startswith("flash"):
+            kernels[-1]["tp_shapes"] = [
+                dict({k: main_shapes[(f"{name}_tp_{m}", "bfloat16")][k]
+                      for k in ("shape", "dtype", "causal", "max_abs_err",
+                                "ms", "tflops", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}, model=m)
+                for m in tp_shapes()]
         if name == "flash_fwd":
             r = main_shapes[("flash_fwd_llama", "bfloat16")]
             kernels[-1]["llama_prefill"] = {

@@ -40,7 +40,14 @@ package's. Ported so far:
   row of the tick table on its view of the model (``owned_layers``) with
   the hand-offs as sends and receives, ``comm_overlap="ring"``, the
   data-parallel all-reduce and ZeRO-1 (``init_sharded_opt_state``),
-  through ``make_train_step``, ``fit`` and ``train.py --backend``.
+  through ``make_train_step``, ``fit`` and ``train.py --backend``;
+- Megatron tensor parallelism on the world's model axis
+  (``MeshConfig(n_model=T)``, ``parallel.tensor_parallel``:
+  ``shard_model``, ``gather_model``, ``make_tp_grad_fn``;
+  ``ops.collectives``: the conjugate collectives, the vocab-parallel
+  cross entropy and the collective-matmul ring) inside the pipeline,
+  through ``fit`` and ``train.py --tp``, and the reference's sweep run as
+  a world of D processes (``run_one_experiment(backend=)``).
 
 Hand-written CUDA kernels (``csrc/``): flash-attention forward and
 backward (``flash_fwd.cu``, ``flash_bwd.cu``) and the fused cross-entropy
@@ -59,6 +66,7 @@ from .parallel.pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
                                 owned_layers)
 from .parallel.pipelined_decode import make_pipeline_generate_fn
 from .parallel.schedules import compile_schedule
+from .parallel.tensor_parallel import gather_model, shard_model
 from .serving import (Request, ServingEngine, make_serving_step_fn,
                       run_serve_bench, synth_trace)
 from .utils.config import MeshConfig, ModelConfig, RunConfig, ScheduleConfig
@@ -69,7 +77,8 @@ from .utils.weights import from_jax_params
 
 __all__ = ["ModelConfig", "ScheduleConfig", "RunConfig", "MeshConfig",
            "make_mesh", "launch", "init_multihost", "owned_layers",
-           "init_sharded_opt_state", "gpt2_config",
+           "init_sharded_opt_state", "shard_model", "gather_model",
+           "gpt2_config",
            "llama_config", "generate", "make_pipeline_generate_fn",
            "init_params", "from_jax_params", "compile_schedule",
            "make_pipeline_grad_fn", "make_pipeline_loss_fn",

@@ -33,6 +33,18 @@ stack whose first global layer is ``layer_offset`` folds
 with its folded seed (``ops.layers.fold_seed``), so a mask depends only on
 (seed, global layer, site).
 
+Tensor parallelism (``tp``, a ``parallel.mesh.Mesh`` with ``n_model``
+above 1, whose rank holds ``parallel.tensor_parallel.shard_model``'s
+shard): the JAX ``tp_axis`` path (``models/transformer.py:76-224``,
+``ops/attention.py:163-197``). Each attention runs on its H/T local heads
+(n_kv/T kv heads) behind ``tp_copy`` on its inputs, with head-sharded
+dropout on its probabilities and a row-parallel output projection; each
+MLP runs on its F/T columns behind ``tp_copy`` and ends in a row-parallel
+projection, or, where ``cfg.tp_overlap`` resolves to ``"ring"`` (no
+dropout), through the collective-matmul ring. The reference arch's FFN
+activation takes the sharded dropout on its columns. The flash route is
+unchanged, at the local head count.
+
 Mixed precision (``cfg.param_dtype`` set): every use casts its parameter
 to the activation dtype with ``.to``, a differentiable cast, so gradients
 reach the storage-dtype parameters (the JAX ``compute_cast`` inside
@@ -49,13 +61,14 @@ from typing import Iterable, Optional
 import torch
 import torch.nn as nn
 
+from ..ops import collectives as col
 from ..ops.attention import (Rope, apply_rope, band_mask, gqa_expand,
                              rope_frequencies, scaled_dot_attention)
 from ..ops.flash_attention import flash_attention
 from ..ops.layers import (dropout_apply, embedding, fold_seed, gelu,
                           global_pad_scale, layer_norm, linear, relu,
                           rms_norm, seeded_generator, select_masked_xent_sum,
-                          select_xent, silu)
+                          select_xent, sharded_dropout_apply, silu)
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
 
 
@@ -95,18 +108,47 @@ def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return linear(x, _c(lin.weight, x), bias)
 
 
+def _row(lin: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """``lin`` applied to ``x``; row-parallel under ``tp`` (the JAX
+    ``_ffn_out`` / ``tp_output_projection``)."""
+    if not col.tp_active(tp):
+        return _linear(lin, x)
+    bias = None if lin.bias is None else _c(lin.bias, x)
+    return col.row_parallel_linear(x, _c(lin.weight, x), bias, tp)
+
+
+def _shard_of(tp):
+    """(n_shards, index) of ``tp``'s model axis."""
+    return (tp.n_model, tp.model) if col.tp_active(tp) else (1, 0)
+
+
+def _ring(cfg: ModelConfig, tp, h: torch.Tensor,
+          generator: Optional[torch.Generator]) -> bool:
+    """Whether an MLP runs the collective-matmul ring (the JAX
+    ``mlp_block`` rule: TP, no dropout, ``tp_overlap`` resolving to
+    "ring")."""
+    if not col.tp_active(tp) or cfg.tp_overlap == "none" or (
+            generator is not None and cfg.dropout > 0.0):
+        return False
+    from ..parallel.tensor_parallel import resolve_tp_overlap
+    return resolve_tp_overlap(cfg.tp_overlap, tp.n_model,
+                              h.shape[1]) == "ring"
+
+
 def _ln(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return layer_norm(x, _c(ln.weight, x), _c(ln.bias, x))
 
 
 def attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor, causal: bool,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           tp=None) -> torch.Tensor:
     """Core attention of q [b, s, h, d] over k, v [b, t, h, d] (kv heads
     already expanded): the flash kernel where ``cfg.flash_for`` picks it,
     else dense attention with a causal band (``cfg.sliding_window``) when
     ``causal`` and dropout on its probabilities drawn from ``generator``
-    (which ``cfg`` never pairs with the kernel)."""
+    (which ``cfg`` never pairs with the kernel); under ``tp`` the h heads
+    are this rank's block and the mask the unsharded one's block."""
     if cfg.flash_for(causal, q.device):
         return flash_attention(q, k, v, causal=causal,
                                window=cfg.sliding_window)
@@ -114,50 +156,55 @@ def attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     if causal:
         mask = band_mask(q.shape[1], k.shape[1], cfg.sliding_window,
                          device=q.device)[None, None]
-    return scaled_dot_attention(q, k, v, mask, cfg.dropout, generator)
+    return scaled_dot_attention(q, k, v, mask, cfg.dropout, generator,
+                                _shard_of(tp))
 
 
 def mha_apply(cfg: ModelConfig, attn: nn.ModuleDict, q_in: torch.Tensor,
               kv_in: torch.Tensor,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              tp=None) -> torch.Tensor:
     """The reference's multi-head attention (the JAX ``mha_apply``): queries
     from ``q_in`` [b, s, dim], keys and values from ``kv_in`` [b, t, dim],
-    no mask and no positions, then the output projection."""
+    no mask and no positions, then the output projection (row-parallel
+    over this rank's heads under ``tp``)."""
     b, s, _ = q_in.shape
+    q_in, kv_in = col.tp_attention_inputs(q_in, kv_in, tp)
 
     def heads(name, x):
-        return _linear(attn[name], x).view(b, x.shape[1], cfg.n_heads,
-                                           cfg.head_dim)
+        return _linear(attn[name], x).view(b, x.shape[1], -1, cfg.head_dim)
 
     att = attend(cfg, heads("q", q_in), heads("k", kv_in), heads("v", kv_in),
-                 False, generator)
-    return _linear(attn["o"], att.reshape(b, s, -1))
+                 False, generator, tp)
+    return _row(attn["o"], att.reshape(b, s, -1), tp)
 
 
 class _Block(nn.Module):
     """What a GPT-2 and a llama block share: the attention half, built
     from the family's ``attn_norm``, ``qkv`` and ``mlp``."""
 
-    def proj(self, att: torch.Tensor) -> torch.Tensor:
-        """The output projection of attention [b, s, heads * head_dim]."""
-        return _linear(self.attn["o"], att)
+    def proj(self, att: torch.Tensor, tp=None) -> torch.Tensor:
+        """The output projection of attention [b, s, heads * head_dim]
+        (row-parallel under ``tp``)."""
+        return _row(self.attn["o"], att, tp)
 
     def forward(self, cfg: ModelConfig, h: torch.Tensor,
                 rope: Optional[Rope] = None,
-                rng: Optional[int] = None) -> torch.Tensor:
+                rng: Optional[int] = None, tp=None) -> torch.Tensor:
         """Full-sequence causal forward on h [b, s, dim] (``rope``: the
         table's rows 0 .. s-1 for llama); differentiable (the flash route
         through the kernels' autograd function). GQA kv heads are
         expanded before attention; the band carries
         ``cfg.sliding_window``. ``rng``: the layer's dropout seed (sites
-        0-2: the probabilities, the attention branch, the MLP branch)."""
+        0-2: the probabilities, the attention branch, the MLP branch).
+        ``tp``: this rank's heads and columns (see the module doc)."""
         b, s, _ = h.shape
-        q, k, v = self.qkv(cfg, self.attn_norm(h), rope)
-        k, v = gqa_expand(k, v, cfg.n_heads)
-        att = attend(cfg, q, k, v, True, _site(cfg, rng, 0, h.device))
-        att = self.proj(att.reshape(b, s, -1))
+        q, k, v = self.qkv(cfg, col.tp_copy(self.attn_norm(h), tp), rope)
+        k, v = gqa_expand(k, v, q.shape[2])
+        att = attend(cfg, q, k, v, True, _site(cfg, rng, 0, h.device), tp)
+        att = self.proj(att.reshape(b, s, -1), tp)
         h = h + dropout_apply(att, cfg.dropout, _site(cfg, rng, 1, h.device))
-        return self.mlp(h, _site(cfg, rng, 2, h.device))
+        return self.mlp(h, _site(cfg, rng, 2, h.device), tp, cfg)
 
 
 class Block(_Block):
@@ -183,16 +230,25 @@ class Block(_Block):
         """Project the normalised input [b, s, dim] to q, k, v
         [b, s, heads, head_dim]."""
         b, s, _ = a.shape
-        return tuple(_linear(self.attn[n], a)
-                     .view(b, s, cfg.n_heads, cfg.head_dim)
+        return tuple(_linear(self.attn[n], a).view(b, s, -1, cfg.head_dim)
                      for n in ("q", "k", "v"))
 
     def mlp(self, h: torch.Tensor,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, tp=None,
+            cfg: Optional[ModelConfig] = None) -> torch.Tensor:
         """The post-attention half: h + lin2(gelu(lin1(ln2(h)))), the
-        branch under dropout drawn from ``generator``."""
-        z = gelu(_linear(self.lin1, _ln(self.ln2, h)))
-        return h + dropout_apply(_linear(self.lin2, z), self.dropout,
+        branch under dropout drawn from ``generator``; under ``tp`` this
+        rank's columns, or the collective-matmul ring (the JAX
+        ``mlp_block`` and ``_mlp_block_ring``)."""
+        m = _ln(self.ln2, h)
+        if cfg is not None and _ring(cfg, tp, h, generator):
+            z = col.all_gather_matmul(col.seq_scatter(m, tp),
+                                      _c(self.lin1.weight, m), tp)
+            z = gelu(z + _c(self.lin1.bias, m))
+            ff = col.matmul_reduce_scatter(z, _c(self.lin2.weight, z), tp)
+            return h + (col.seq_all_gather(ff, tp) + _c(self.lin2.bias, ff))
+        z = gelu(_linear(self.lin1, col.tp_copy(m, tp)))
+        return h + dropout_apply(_row(self.lin2, z, tp), self.dropout,
                                  generator)
 
 
@@ -231,18 +287,28 @@ class LlamaBlock(_Block):
         without the GQA expansion)."""
         b, s, _ = a.shape
         hd = cfg.head_dim
-        q = _linear(self.attn["q"], a).view(b, s, cfg.n_heads, hd)
-        k = _linear(self.attn["k"], a).view(b, s, cfg.kv_heads, hd)
-        v = _linear(self.attn["v"], a).view(b, s, cfg.kv_heads, hd)
+        q = _linear(self.attn["q"], a).view(b, s, -1, hd)
+        k = _linear(self.attn["k"], a).view(b, s, -1, hd)
+        v = _linear(self.attn["v"], a).view(b, s, -1, hd)
         return apply_rope(q, rope), apply_rope(k, rope), v
 
     def mlp(self, h: torch.Tensor,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, tp=None,
+            cfg: Optional[ModelConfig] = None) -> torch.Tensor:
         """The post-attention half: h + w2(act(w1 m) * w3 m), m = rms2(h),
-        the branch under dropout drawn from ``generator``."""
+        the branch under dropout drawn from ``generator``; under ``tp``
+        this rank's columns, or the collective-matmul ring."""
         m = self._rms(self.rms2, h)
+        if cfg is not None and _ring(cfg, tp, h, generator):
+            ms = col.seq_scatter(m, tp)
+            z1 = col.all_gather_matmul(ms, _c(self.w1.weight, m), tp)
+            z3 = col.all_gather_matmul(ms, _c(self.w3.weight, m), tp)
+            z = self.act(z1) * z3
+            ff = col.matmul_reduce_scatter(z, _c(self.w2.weight, z), tp)
+            return h + col.seq_all_gather(ff, tp)
+        m = col.tp_copy(m, tp)
         z = self.act(_linear(self.w1, m)) * _linear(self.w3, m)
-        return h + dropout_apply(_linear(self.w2, z), self.dropout,
+        return h + dropout_apply(_row(self.w2, z, tp), self.dropout,
                                  generator)
 
 
@@ -268,23 +334,25 @@ class RefDecoderBlock(nn.Module):
 
     def forward(self, cfg: ModelConfig, h: torch.Tensor,
                 rope: Optional[Rope] = None,
-                rng: Optional[int] = None) -> torch.Tensor:
+                rng: Optional[int] = None, tp=None) -> torch.Tensor:
         """h [b, s, dim] -> [b, s, dim]; ``rng``: the layer's dropout seed
         (sites 0-5: self-attention probabilities and branch,
         cross-attention probabilities and branch, the FFN's inner
         activation, the FFN branch; ``nn.TransformerDecoderLayer``'s
-        dropout sites)."""
+        dropout sites). ``tp``: this rank's heads and FFN columns; the
+        FFN activation's mask is the unsharded one's block of columns."""
         p = cfg.dropout
 
         def site(j):
             return _site(cfg, rng, j, h.device)
 
-        sa = mha_apply(cfg, self.self_attn, h, h, site(0))
+        sa = mha_apply(cfg, self.self_attn, h, h, site(0), tp)
         x = _ln(self.ln1, h + dropout_apply(sa, p, site(1)))
-        ca = mha_apply(cfg, self.cross_attn, x, h, site(2))
+        ca = mha_apply(cfg, self.cross_attn, x, h, site(2), tp)
         x = _ln(self.ln2, x + dropout_apply(ca, p, site(3)))
-        z = dropout_apply(relu(_linear(self.lin1, x)), p, site(4))
-        ff = _linear(self.lin2, z)
+        z = relu(_linear(self.lin1, col.tp_copy(x, tp)))
+        z = sharded_dropout_apply(z, p, site(4), *_shard_of(tp), shard_dim=-1)
+        ff = _row(self.lin2, z, tp)
         return _ln(self.ln3, x + dropout_apply(ff, p, site(5)))
 
 
@@ -398,15 +466,16 @@ def embed_apply(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
 
 def body_apply(cfg: ModelConfig, layers, h: torch.Tensor,
                rng: Optional[int] = None,
-               layer_offset: int = 0) -> torch.Tensor:
+               layer_offset: int = 0, tp=None) -> torch.Tensor:
     """Run a slice of blocks (any count) over h [b, s, dim] at positions
     0 .. s-1. ``rng`` (train mode) is the dropout seed: block ``i`` folds
     ``layer_offset + i``, its global layer index when the slice is a
-    pipeline stage, so every stage split draws the same masks."""
+    pipeline stage, so every stage split draws the same masks. ``tp``:
+    the rank's mesh when the blocks are its model-axis shards."""
     rope = rope_table(cfg, h.shape[1], h.device)
     for i, block in enumerate(layers):
         rng_l = None if rng is None else fold_seed(rng, layer_offset + i)
-        h = block(cfg, h, rope, rng_l)
+        h = block(cfg, h, rope, rng_l, tp)
     return h
 
 
@@ -447,12 +516,36 @@ def transformer_apply(cfg: ModelConfig, model: Transformer,
 
 
 def head_loss(cfg: ModelConfig, model: Transformer, h: torch.Tensor,
-              targets: torch.Tensor, pad_scale=None) -> torch.Tensor:
+              targets: torch.Tensor, pad_scale=None, tp=None,
+              vocab_parallel: bool = False) -> torch.Tensor:
     """The loss of hidden states h [b, s, dim] (the JAX ``_stage_ce``):
     the head, then the token-mean cross entropy through
     ``select_xent(cfg.use_fused_xent)``, or, with ``cfg.pad_token_id``,
     the masked NLL sum times ``pad_scale`` (see
-    ``ops.layers.global_pad_scale``)."""
+    ``ops.layers.global_pad_scale``).
+
+    ``vocab_parallel`` (under ``tp``): Megatron's parallel cross entropy
+    (the JAX ``_stage_ce_impl`` branch): this rank's vocab columns of the
+    head (the vocab-split ``out``; tied, its vocab rows of ``tok`` behind
+    ``tp_copy``, so their gradients sum over the group into the whole
+    table's), and ``ops.collectives.vocab_parallel_xent``: the ``[N, V]``
+    logits never exist and the fused-xent kernel is not on this route,
+    as in JAX."""
+    if vocab_parallel:
+        hn = col.tp_copy(head_norm_apply(cfg, model, h), tp)
+        hn2 = hn.reshape(-1, hn.shape[-1])
+        if cfg.tie_embeddings:
+            v_loc = cfg.vocab_size // tp.n_model
+            tok = col.tp_copy(_c(model.tok, hn), tp)
+            logits = linear(hn2, tok[tp.model * v_loc:(tp.model + 1) * v_loc])
+        else:
+            logits = _linear(model.out, hn2)
+        tgt = targets.reshape(-1)
+        if cfg.pad_token_id is not None:
+            s, _ = col.vocab_parallel_masked_xent_sum(logits, tgt, tp,
+                                                      cfg.pad_token_id)
+            return s * pad_scale
+        return col.vocab_parallel_xent(logits, tgt, tp)
     logits = head_apply(cfg, model, h)
     if cfg.pad_token_id is not None:
         s, _ = select_masked_xent_sum(cfg.use_fused_xent)(

@@ -7,11 +7,11 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .layers import dropout_apply
+from .layers import sharded_dropout_apply
 
 # the score of a masked element in the flash kernel and its plain
 # version: a large finite negative, so exp underflows to exactly 0 and a
@@ -119,17 +119,23 @@ def attention_scale(head_dim: int, dtype: torch.dtype) -> float:
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None,
                          dropout_rate: float = 0.0,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         head_shard: Optional[Tuple[int, int]] = None
                          ) -> torch.Tensor:
     """q [b,s,h,d] x k/v [b,t,h,d] -> [b,s,h,d]. ``mask`` broadcasts
     against the [b,h,s,t] scores; False positions get the dtype's most
     negative finite value. Softmax runs in f32 whatever the activation
     dtype, as in the JAX package. ``generator`` (train mode) applies
-    dropout to the probabilities, as torch's ``MultiheadAttention`` does."""
+    dropout to the probabilities, as torch's ``MultiheadAttention`` does.
+    ``head_shard`` = (n_shards, index) where the h heads are one
+    tensor-parallel block of all of them: the mask is the unsharded one's
+    block of heads (``ops.layers.sharded_dropout_apply``)."""
     scale = attention_scale(q.shape[-1], q.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    probs = dropout_apply(probs, dropout_rate, generator)
+    n, index = head_shard or (1, 0)
+    probs = sharded_dropout_apply(probs, dropout_rate, generator, n, index,
+                                  shard_dim=1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

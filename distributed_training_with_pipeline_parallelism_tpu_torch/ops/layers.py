@@ -91,16 +91,26 @@ def dropout_apply(x: torch.Tensor, rate: float,
 
 def sharded_dropout_apply(x: torch.Tensor, rate: float,
                           generator: Optional[torch.Generator],
-                          n_shards: int = 1) -> torch.Tensor:
-    """Dropout on one shard of a tensor split ``n_shards`` ways (the JAX
-    ``sharded_dropout_apply``). At one shard it is :func:`dropout_apply`;
-    the port has no tensor or sequence parallelism yet, so more shards
-    raise."""
-    if n_shards > 1:
-        raise NotImplementedError(
-            "dropout on a sharded tensor is not ported yet: ROADMAP.md "
-            "Queue 1, item 11 (tensor and sequence parallelism)")
-    return dropout_apply(x, rate, generator)
+                          n_shards: int = 1, index: int = 0,
+                          shard_dim: int = -1) -> torch.Tensor:
+    """Dropout on block ``index`` of ``n_shards`` of a tensor split along
+    ``shard_dim`` (tensor-parallel heads or FFN columns; the JAX
+    ``sharded_dropout_apply``): the mask is drawn at the full shape from
+    the replicated ``generator`` and this block sliced out, so each
+    shard's mask is the unsharded mask restricted to its slice, and every
+    shard advances the generator alike. At one shard it is
+    :func:`dropout_apply`."""
+    if generator is None or rate == 0.0:
+        return x
+    if n_shards == 1:
+        return dropout_apply(x, rate, generator)
+    dim = shard_dim % x.ndim
+    full = list(x.shape)
+    full[dim] *= n_shards
+    keep = torch.rand(full, generator=generator, device=x.device) >= rate
+    keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The world of processes: one per (data, pipe) coordinate (the counterpart
-of the JAX package's ``parallel/mesh.py``).
+"""The world of processes: one per (data, pipe, model) coordinate (the
+counterpart of the JAX package's ``parallel/mesh.py``).
 
 The JAX mesh is one program over a ('data', 'pipe') grid of devices; the
 reference runs one process per pipeline stage and joins them with
@@ -7,8 +7,10 @@ reference runs one process per pipeline stage and joins them with
 The port does the latter: :func:`launch` spawns one process per
 coordinate, :func:`init_multihost` joins it to the process group and
 :func:`make_mesh` gives it a :class:`Mesh`, its place in the grid and the
-groups it reduces over. Ranks follow the JAX grid's row-major order,
-``rank = data * n_pipe + pipe``.
+groups it reduces over. Ranks follow the JAX grid's row-major order with
+the model axis innermost, ``rank = (data * n_pipe + pipe) * n_model +
+model``. The model group (the ranks of one (data, pipe) coordinate) is
+where a stage's Megatron shards meet (``parallel.tensor_parallel``).
 
 The backend is the caller's choice, never switched quietly:
 
@@ -50,6 +52,9 @@ BACKENDS = ("gloo", "nccl")
 # collectives and hand-offs that wait longer than this fail the rank (and
 # so the world) instead of hanging
 DEFAULT_TIMEOUT_S = 600.0
+# the tag of a hop of the model-axis ring (ops.collectives): above every
+# hand-off channel's tag, and on the model group, never the world's
+RING_TAG = 1 << 10
 
 
 class WorldError(RuntimeError):
@@ -104,33 +109,45 @@ def init_multihost(coordinator_address: str, num_processes: int,
 
 @dataclasses.dataclass
 class Mesh:
-    """This rank's place in the ('data', 'pipe') grid, its groups and its
-    device. Built by :func:`make_mesh`."""
+    """This rank's place in the ('data', 'pipe', 'model') grid, its groups
+    and its device. Built by :func:`make_mesh`."""
 
     n_pipe: int
     n_data: int
     rank: int
     backend: str
     device: torch.device
-    pipe_group: Any = None  # the ranks of this data replica
-    data_group: Any = None  # the ranks at this pipe coordinate
+    pipe_group: Any = None  # the ranks of this (data, model) coordinate
+    data_group: Any = None  # the ranks at this (pipe, model) coordinate
+    n_model: int = 1
+    model_group: Any = None  # the ranks at this (data, pipe) coordinate
+    hops: int = 0  # model-ring hops posted (:meth:`ring_post`)
 
     @property
     def world(self) -> int:
-        return self.n_pipe * self.n_data
+        return self.n_pipe * self.n_data * self.n_model
+
+    @property
+    def model(self) -> int:
+        return self.rank % self.n_model
 
     @property
     def pipe(self) -> int:
-        return self.rank % self.n_pipe
+        return (self.rank // self.n_model) % self.n_pipe
 
     @property
     def data(self) -> int:
-        return self.rank // self.n_pipe
+        return self.rank // (self.n_model * self.n_pipe)
 
     @property
     def shape(self) -> Dict[str, int]:
-        """The JAX ``mesh.shape``: axis name -> size."""
-        return {DATA_AXIS: self.n_data, PIPE_AXIS: self.n_pipe}
+        """The JAX ``mesh.shape``: axis name -> size (the model axis where
+        it is above 1, as a config fingerprint of a (data, pipe) world
+        stays what it was)."""
+        shape = {DATA_AXIS: self.n_data, PIPE_AXIS: self.n_pipe}
+        if self.n_model > 1:
+            shape[MODEL_AXIS] = self.n_model
+        return shape
 
     @property
     def staging(self) -> bool:
@@ -138,24 +155,35 @@ class Mesh:
         host buffers."""
         return self.backend == "gloo" and self.device.type == "cuda"
 
-    def rank_of(self, data: int, pipe: int) -> int:
-        return data * self.n_pipe + pipe
+    @property
+    def transport(self) -> str:
+        """What moves this rank's messages: ``"gloo-staged"`` (CUDA
+        tensors through pinned host buffers), ``"gloo"`` or ``"nccl"``."""
+        return "gloo-staged" if self.staging else self.backend
+
+    def rank_of(self, data: int, pipe: int, model: int = 0) -> int:
+        return (data * self.n_pipe + pipe) * self.n_model + model
 
     def describe(self) -> Dict[str, Any]:
         return {"backend": self.backend, "staging": self.staging,
+                "transport": self.transport,
                 "world": self.world, "shape": self.shape,
                 "rank": self.rank, "coords": {DATA_AXIS: self.data,
-                                              PIPE_AXIS: self.pipe},
+                                              PIPE_AXIS: self.pipe,
+                                              MODEL_AXIS: self.model},
                 "device": str(self.device)}
 
     # -- collectives -----------------------------------------------------
 
     def _group(self, axis: str):
-        """(process group, size) of ``axis``: "pipe", "data" or "world"."""
+        """(process group, size) of ``axis``: "pipe", "data", "model" or
+        "world"."""
         if axis == PIPE_AXIS:
             return self.pipe_group, self.n_pipe
         if axis == DATA_AXIS:
             return self.data_group, self.n_data
+        if axis == MODEL_AXIS:
+            return self.model_group, self.n_model
         if axis == "world":
             return None, self.world
         raise ValueError(f"unknown axis {axis!r}")
@@ -255,7 +283,8 @@ class Mesh:
         """Post this rank's sends ``(tensor, peer pipe coordinate, tag)``
         and receives ``(shape, dtype, peer, tag)`` together
         (``batch_isend_irecv``: one order on every rank, so no pairing can
-        deadlock). Peers are pipe coordinates of this data replica.
+        deadlock). Peers are pipe coordinates of this rank's (data, model)
+        coordinate.
         Returns ``(send_works, [(work, buffer), ...])``: wait a receive's
         work before reading its buffer (:meth:`landed`), and keep the send
         works until they complete."""
@@ -264,14 +293,16 @@ class Mesh:
             wire = self._to_wire(t)
             wires.append(wire)
             ops.append(dist.P2POp(dist.isend, wire,
-                                  self.rank_of(self.data, peer), tag=tag))
+                                  self.rank_of(self.data, peer, self.model),
+                                  tag=tag))
         self._sync_for_wire()
         bufs = []
         for shape, dtype, peer, tag in recvs:
             buf = self._wire_buffer(shape, dtype)
             bufs.append(buf)
             ops.append(dist.P2POp(dist.irecv, buf,
-                                  self.rank_of(self.data, peer), tag=tag))
+                                  self.rank_of(self.data, peer, self.model),
+                                  tag=tag))
         works = dist.batch_isend_irecv(ops) if ops else []
         n = len(sends)
         return (list(zip(works[:n], wires)),
@@ -284,21 +315,49 @@ class Mesh:
             return buf.to(self.device, non_blocking=True)
         return buf
 
+    def ring_post(self, x: torch.Tensor, offset: int):
+        """Post one hop of the model-axis ring: ``x`` to model coordinate
+        ``(model + offset) % n_model``, and the receive of the same shape
+        from ``(model - offset) % n_model``, on the model group under
+        :data:`RING_TAG` (so no hop can match a pipe hand-off pending on
+        the world group). Counts the hop; :meth:`ring_wait` returns what
+        arrived."""
+        T, m = self.n_model, self.model
+        wire = self._to_wire(x)
+        self._sync_for_wire()
+        buf = self._wire_buffer(x.shape, x.dtype)
+        ops = [dist.P2POp(dist.isend, wire,
+                          self.rank_of(self.data, self.pipe, (m + offset) % T),
+                          group=self.model_group, tag=RING_TAG),
+               dist.P2POp(dist.irecv, buf,
+                          self.rank_of(self.data, self.pipe, (m - offset) % T),
+                          group=self.model_group, tag=RING_TAG)]
+        self.hops += 1
+        return dist.batch_isend_irecv(ops), wire, buf
+
+    def ring_wait(self, handle) -> torch.Tensor:
+        works, _, buf = handle
+        for w in works:
+            w.wait()
+        if self.staging:
+            return buf.to(self.device, non_blocking=True)
+        return buf
+
 
 def make_mesh(n_pipe: int, n_data: int = 1, n_model: int = 1,
               n_seq: int = 1, n_expert: int = 1, *, backend: str,
               device) -> Mesh:
     """This rank's :class:`Mesh` over the joined world
-    (:func:`init_multihost` first): the world must hold ``n_pipe *
-    n_data`` ranks. Every rank calls it with the same shape, in the same
-    order (it creates the pipe and data groups, a collective). ``n_model``,
-    ``n_seq`` and ``n_expert`` above 1 raise ``NotImplementedError``."""
-    for name, n in (("n_model", n_model), ("n_seq", n_seq),
-                    ("n_expert", n_expert)):
+    (:func:`init_multihost` first): the world must hold ``n_pipe * n_data
+    * n_model`` ranks. Every rank calls it with the same shape, in the
+    same order (it creates the pipe, data and model groups, a
+    collective). ``n_seq`` and ``n_expert`` above 1 raise
+    ``NotImplementedError``."""
+    for name, n in (("n_seq", n_seq), ("n_expert", n_expert)):
         if n > 1:
             raise NotImplementedError(
-                f"{name}={n}: tensor, sequence and expert axes are not "
-                f"ported yet: ROADMAP.md Queue 1, item 11")
+                f"{name}={n}: sequence and expert axes are not ported "
+                f"yet: ROADMAP.md Queue 1, item 11")
     _check_backend(backend)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a joined world: call "
@@ -307,20 +366,32 @@ def make_mesh(n_pipe: int, n_data: int = 1, n_model: int = 1,
         raise ValueError(f"backend={backend!r}, but the world was joined "
                          f"with {dist.get_backend()!r}")
     world = dist.get_world_size()
-    if world != n_pipe * n_data:
-        raise ValueError(f"a ({n_data} data x {n_pipe} pipe) mesh needs "
-                         f"{n_pipe * n_data} ranks, the world has {world}")
+    need = n_pipe * n_data * n_model
+    if world != need:
+        raise ValueError(f"a ({n_data} data x {n_pipe} pipe x {n_model} "
+                         f"model) mesh needs {need} ranks, the world has "
+                         f"{world}")
     rank = dist.get_rank()
     mesh = Mesh(n_pipe, n_data, rank, backend,
-                rank_device(device, backend, rank, world))
-    for k in range(n_data):  # every rank creates every group, in order
-        g = dist.new_group([k * n_pipe + p for p in range(n_pipe)])
-        if k == mesh.data:
-            mesh.pipe_group = g
+                rank_device(device, backend, rank, world), n_model=n_model)
+    at = mesh.rank_of
+    # every rank creates every group, in order
+    for k in range(n_data):
+        for j in range(n_model):
+            g = dist.new_group([at(k, p, j) for p in range(n_pipe)])
+            if (k, j) == (mesh.data, mesh.model):
+                mesh.pipe_group = g
     for p in range(n_pipe):
-        g = dist.new_group([k * n_pipe + p for k in range(n_data)])
-        if p == mesh.pipe:
-            mesh.data_group = g
+        for j in range(n_model):
+            g = dist.new_group([at(k, p, j) for k in range(n_data)])
+            if (p, j) == (mesh.pipe, mesh.model):
+                mesh.data_group = g
+    if n_model > 1:
+        for k in range(n_data):
+            for p in range(n_pipe):
+                g = dist.new_group([at(k, p, j) for j in range(n_model)])
+                if (k, p) == (mesh.data, mesh.pipe):
+                    mesh.model_group = g
     if mesh.device.type == "cuda":
         torch.cuda.set_device(mesh.device)
     return mesh
@@ -348,12 +419,16 @@ def _child(rank, mesh_cfg, store, backend, device, timeout_s, call,
             fn, args = pickle.load(f)
         world = mesh_cfg.n_devices
         if rank_device(device, backend, rank, world).type == "cpu":
-            # the ranks share the host's cores: no oversubscription
+            # the ranks share the host's cores: no oversubscription; and a
+            # fixed thread count for MKL, whose dynamic one (its default)
+            # changes a product's summation order from call to call, so
+            # the model ranks' replicated leaves would part
+            os.environ["MKL_DYNAMIC"] = "FALSE"
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         init_multihost(f"file://{store}", world, rank, backend=backend,
                        timeout_s=timeout_s)
-        mesh = make_mesh(mesh_cfg.n_pipe, mesh_cfg.n_data, backend=backend,
-                         device=device)
+        mesh = make_mesh(mesh_cfg.n_pipe, mesh_cfg.n_data, mesh_cfg.n_model,
+                         backend=backend, device=device)
         value = fn(mesh, *args)
         mesh.barrier()  # no rank leaves while another still talks to it
         results.put((rank, True, value))

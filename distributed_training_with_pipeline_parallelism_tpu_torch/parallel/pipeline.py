@@ -29,6 +29,14 @@ the hand-overs:
 just before the unit that ``schedules.overlap_bank_stages`` names, so
 under the distributed transport the hop overlaps the tick's earlier
 units. Both give the same bits.
+
+With a model axis (``mesh.n_model`` above 1) each rank holds its model
+coordinate's Megatron shard of its stages
+(``parallel.tensor_parallel.shard_model``) and runs its row of the table
+on it: the blocks complete over the model group mid-unit
+(``ops.collectives``), and the hand-offs go to the rank of the same model
+coordinate in the next pipe stage. ``tp_vocab_parallel`` splits the last
+stage's cross entropy over the vocab (the JAX ``_stage_ce_impl``).
 """
 
 from __future__ import annotations
@@ -55,13 +63,17 @@ from .schedules import (BANK_BEFORE_B, BANK_BEFORE_F, BANK_BEFORE_W,
                         overlap_bank_stages, placement_stage_of,
                         schedule_placement, schedule_ticks)
 
-# mesh axes of the JAX executor: the data axis runs as a torch.distributed
-# world (``mesh=``), the others are not ported yet
+# mesh axes of the JAX executor: the data and model axes run as a
+# torch.distributed world (``mesh=``), the others are not ported yet
 _AXIS_ITEMS = {
     "data": "a 'data' axis runs over a torch.distributed world (ROADMAP.md "
             "Queue 1, item 8): pass mesh=make_mesh(n_pipe, n_data) on each "
             "rank of a parallel.mesh.launch world",
-    "model": "ROADMAP.md Queue 1, item 11 (tensor parallelism)",
+    "model": "a 'model' axis (tensor parallelism) has no form in one "
+             "process; it runs over a torch.distributed world: pass "
+             "mesh=make_mesh(n_pipe, n_data, n_model) on each rank of a "
+             "parallel.mesh.launch world, with the rank's "
+             "parallel.tensor_parallel.shard_model",
     "seq": "ROADMAP.md Queue 1, item 11 (sequence parallelism)",
     "expert": "ROADMAP.md Queue 1, item 11 (expert parallelism)",
 }
@@ -242,6 +254,30 @@ class DistTransport:
                                f"{sorted(self._pending)}")
 
 
+def _tp_of(cfg: ModelConfig, mesh: Optional[Mesh],
+           tp_vocab_parallel: bool) -> Optional[Mesh]:
+    """The mesh whose model group splits the blocks, or None; checks the
+    Megatron shape contract (``tensor_parallel.check_tp``)."""
+    from .tensor_parallel import check_tp
+    T = 1 if mesh is None else mesh.n_model
+    check_tp(cfg, T, tp_vocab_parallel)
+    return mesh if T > 1 else None
+
+
+def _check_shard(model: nn.Module, tp: Optional[Mesh],
+                 tp_vocab_parallel: bool) -> None:
+    from .tensor_parallel import model_shard_of
+    if tp is None:
+        return
+    shard = model_shard_of(model)
+    want = (tp.n_model, tp.model, tp_vocab_parallel)
+    if shard is None or (shard.n, shard.index, shard.vocab_parallel) != want:
+        raise ValueError(
+            f"under a model axis the model must be this rank's shard: "
+            f"parallel.tensor_parallel.shard_model(model, cfg, mesh, "
+            f"vocab_parallel={tp_vocab_parallel}) (holds {shard})")
+
+
 def _replicated(model: nn.Module) -> List[nn.Parameter]:
     """The parameters every pipe rank holds: the embedding, the final norm
     and the head (everything outside ``layers``)."""
@@ -284,7 +320,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           n_stages: int, remat_backward=None,
                           device="cuda", axes: Optional[Dict[str, int]] = None,
                           mesh: Optional[Mesh] = None,
-                          comm_overlap: str = "none"
+                          comm_overlap: str = "none",
+                          tp_vocab_parallel: bool = False
                           ) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: one pipelined forward and
     backward over ``n_stages`` (D) devices under ``sched``, with the
@@ -357,12 +394,27 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     through a recomputed embedding). W reads the saved input and the
     cotangent last, so it frees their slots.
 
-    ``axes``: a ``"data"`` entry above 1 raises ``NotImplementedError``
-    pointing at ``mesh``; ``"model"``, ``"seq"`` and ``"expert"`` above 1
-    raise it naming the ``ROADMAP.md`` item that ports them.
+    With ``mesh.n_model > 1`` (tensor parallelism, the JAX ``tp_axis``
+    path) ``model`` is the rank's shard of its view
+    (``parallel.tensor_parallel.shard_model``; ``ValueError`` otherwise):
+    the blocks run on its heads and columns and complete over the model
+    group, the hand-offs go between ranks of one model coordinate, and
+    the epilogue is the one above: the model-sharded leaves stay sharded,
+    the replicated ones come out equal on every model rank (their
+    cotangents are complete before they reach them). ``tp_vocab_parallel``
+    splits the last stage's head and cross entropy over the vocab (the
+    JAX ``_stage_ce_impl``); it needs ``n_model > 1`` and a vocab that
+    divides by it. Heads, kv heads and ``ffn_dim`` must divide by
+    ``n_model``.
+
+    ``axes``: a ``"data"`` or ``"model"`` entry above 1 raises
+    ``NotImplementedError`` pointing at ``mesh``; ``"seq"`` and
+    ``"expert"`` above 1 raise it naming the ``ROADMAP.md`` item that
+    ports them.
     """
     device = mesh_device(device, mesh, n_stages)
     _check_axes(axes)
+    tp = _tp_of(cfg, mesh, tp_vocab_parallel)
     if comm_overlap not in COMM_OVERLAP:
         raise ValueError(f"comm_overlap={comm_overlap!r}: choose one of "
                          f"{COMM_OVERLAP}")
@@ -427,6 +479,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
         if use_dropout and step_seed is None:
             raise ValueError(f"dropout={cfg.dropout} > 0: pass the step's "
                              f"seed as the fourth argument")
+        _check_shard(model, tp, tp_vocab_parallel)
         seed = step_seed if use_dropout else None
         if seed is not None and mesh is not None and mesh.n_data > 1:
             seed = fold_seed(seed, mesh.data)
@@ -447,12 +500,18 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             return embed_apply(cfg, model, toks[m], rng=mb_rng(m))
 
         pad_scale = _pad_scale(cfg, targets, M, mesh)
+
+        def head(y, tgt):
+            return head_loss(cfg, model, y, tgt, pad_scale, tp,
+                             tp_vocab_parallel)
+
         loss = torch.zeros((), dtype=torch.float32, device=device)
         if plain:
             with torch.enable_grad():
                 for m in range(M):
-                    y = body_apply(cfg, model.layers, embed(m), mb_rng(m))
-                    ce = head_loss(cfg, model, y, tgts[m], pad_scale)
+                    y = body_apply(cfg, model.layers, embed(m), mb_rng(m),
+                                   tp=tp)
+                    ce = head(y, tgts[m])
                     (ce * inv).backward()
                     loss += ce.detach()
             return _epilogue(model, loss * inv, mesh, reduce_data)
@@ -463,7 +522,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             """Device d's chunk v on microbatch m; its first layer's global
             index keys the dropout streams."""
             return body_apply(cfg, stages[d][v], x, mb_rng(m),
-                              stage_of(d, v) * lps)
+                              stage_of(d, v) * lps, tp)
 
         act: List[List] = [[None] * cs.n_act_slots for _ in range(D)]
         grad: List[List] = [[None] * cs.n_grad_slots for _ in range(D)]
@@ -495,7 +554,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             / M, else the body output and the stored incoming
             cotangent."""
             if s == S - 1:
-                ce = head_loss(cfg, model, y, tgts[m], pad_scale)
+                ce = head(y, tgts[m])
                 return ce, ce * inv, None
             return None, y, grad[d][gslot]
 
@@ -663,7 +722,8 @@ def _fwd_tick_table(D: int, V: int, M: int):
 def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           n_stages: int, device="cuda",
                           axes: Optional[Dict[str, int]] = None,
-                          mesh: Optional[Mesh] = None
+                          mesh: Optional[Mesh] = None,
+                          tp_vocab_parallel: bool = False
                           ) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: the forward-only pipelined
     loss over ``n_stages`` (D) devices, the evaluation twin of
@@ -680,11 +740,12 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
     batch. With ``mesh`` the rank runs its row over the same transport as
     the training step, on the +1 forward channel only, and the loss is
     summed over the pipe group and averaged over the data group, so every
-    rank returns the global batch's loss. ``axes`` raise as
-    :func:`make_pipeline_grad_fn`'s do.
+    rank returns the global batch's loss. ``axes``, a model axis and
+    ``tp_vocab_parallel`` are as in :func:`make_pipeline_grad_fn`.
     """
     device = mesh_device(device, mesh, n_stages)
     _check_axes(axes)
+    tp = _tp_of(cfg, mesh, tp_vocab_parallel)
     D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
     S = D * V
     if cfg.n_layers % S != 0:
@@ -704,6 +765,7 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
 
     @torch.no_grad()
     def loss_fn(model: Transformer, tokens, targets) -> torch.Tensor:
+        _check_shard(model, tp, tp_vocab_parallel)
         tokens = torch.as_tensor(tokens, device=device).long()
         targets = torch.as_tensor(targets, device=device).long()
         b, seq = tokens.shape
@@ -729,9 +791,10 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     x = embed_apply(cfg, model, toks[m])
                 else:
                     x, act[d][src] = act[d][src], None  # read once
-                y = body_apply(cfg, stages[d][v], x, None, s * lps)
+                y = body_apply(cfg, stages[d][v], x, None, s * lps, tp)
                 if s == S - 1:
-                    loss += head_loss(cfg, model, y, tgts[m], pad_scale)
+                    loss += head_loss(cfg, model, y, tgts[m], pad_scale, tp,
+                                      tp_vocab_parallel)
                 else:
                     transport.send(t, d, 0, y)
             transport.end_tick(t)

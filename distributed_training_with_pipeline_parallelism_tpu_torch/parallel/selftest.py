@@ -12,8 +12,17 @@ the JAX mesh.
 JAX-layout pytree of numpy arrays per tie setting (``"trees"``:
 ``{False: untied, True: tied}``), a global batch (``"tokens"``,
 ``"targets"``), the output directory (``"out"``), the torch thread count
-(``"threads"``) and the cases. Each case is a dict with ``"name"``,
-``"kind"`` and its fields:
+(``"threads"``) and the cases. A case may name other config fields
+(``"cfgs"[case["cfg"]]``), its weights (``"trees"[case["tree"]]``) and
+its global batch (``"batches"[case["batch"]]``, a (tokens, targets)
+pair).
+Its mesh is (``"n_pipe"``, ``"n_data"``, ``"n_model"``, the last 1 by
+default); with a model axis each rank holds its Megatron shard
+(``tensor_parallel.shard_model``, the head split over the vocab with
+``"vocab_parallel"``), and a ``"grad"`` case also records the model-ring
+hops the step posted (``"hops"``) and, with ``"seed"``, runs dropout
+under that step seed. Each case is a dict with ``"name"``, ``"kind"`` and
+its fields:
 
 - ``"grad"``: one step of ``make_pipeline_grad_fn`` on a (``"n_data"`` x
   ``"n_pipe"``) mesh under ``"schedule"`` (``"n_virtual"``, ``"M"``,
@@ -29,6 +38,8 @@ JAX-layout pytree of numpy arrays per tie setting (``"trees"``:
   each update took; rank 0 also runs the lockstep step on the whole model
   and batch (``"M"`` times ``n_data`` microbatches, so the microbatches
   are the world's) and writes the same as ``{name}_lockstep.npz``.
+- ``"tp_grad_fn"``: ``tensor_parallel.make_tp_grad_fn`` (the mesh's
+  ``n_pipe`` is 1), the head split over the vocab.
 - ``"fit"``: ``fit`` with the anomaly guard and a checkpoint a step
   (under ``{out}/{name}/``); rank ``"poison_rank"`` alone poisons its
   gradients at step ``"poison_step"``.
@@ -97,6 +108,31 @@ def fail_on_rank(world: Mesh, rank: int) -> None:
     world.barrier()
 
 
+def ring_blocks(mesh: Mesh) -> dict:
+    """On a model axis of 2 or more: the ring's all-gather matmul against
+    the unfused all-gather then matmul (equal?), its reduce-scatter
+    against the unfused one (max abs error) and the hops the two rings
+    posted, on seeded [2, 4 T, 16] inputs."""
+    from ..ops import collectives as col
+    from .tensor_parallel import tp_all_gather_matmul, tp_matmul_reduce_scatter
+    torch.set_num_threads(1)
+    T, my = mesh.n_model, mesh.model
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4 * T, 16, generator=g)
+    w_up = torch.randn(8 * T, 16, generator=g)[my * 8:(my + 1) * 8]
+    z = torch.randn(2, 4 * T, 8, generator=g)
+    w_dn = torch.randn(16, 8 * T, generator=g)[:, my * 8:(my + 1) * 8]
+    x_loc = col.seq_scatter(x, mesh)
+    hops = mesh.hops
+    ring_up = tp_all_gather_matmul(x_loc, w_up, mesh, "ring")
+    ring_dn = tp_matmul_reduce_scatter(z, w_dn, mesh, "ring")
+    hops = mesh.hops - hops
+    up = tp_all_gather_matmul(x_loc, w_up, mesh, "none")
+    dn = tp_matmul_reduce_scatter(z, w_dn, mesh, "none")
+    return {"rank": mesh.rank, "gather_equal": torch.equal(ring_up, up),
+            "scatter_err": float((ring_dn - dn).abs().max()), "hops": hops}
+
+
 def run_cases(world: Mesh, spec: dict) -> dict:
     """Run ``spec``'s cases on this rank (see the module doc); returns
     ``{"rank": r, "seconds": {case: s}, "modules": [top-level modules
@@ -109,13 +145,14 @@ def run_cases(world: Mesh, spec: dict) -> dict:
     from ..utils.weights import from_jax_params
     from .pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
                            owned_layers)
+    from .tensor_parallel import TPShard, make_tp_grad_fn
 
     torch.set_num_threads(spec.get("threads", 1))
     device = world.device
     meshes = {}
 
     def mesh_of(case):
-        shape = (case["n_pipe"], case["n_data"])
+        shape = (case["n_pipe"], case["n_data"], case.get("n_model", 1))
         if shape not in meshes:
             meshes[shape] = make_mesh(*shape, backend=world.backend,
                                       device=device)
@@ -127,29 +164,45 @@ def run_cases(world: Mesh, spec: dict) -> dict:
         t0 = time.perf_counter()
         name, kind = case["name"], case["kind"]
         mesh = mesh_of(case)
-        cfg = ModelConfig(**spec["cfg"], tie_embeddings=case.get("tied",
-                                                                 False))
-        tree = spec["trees"][cfg.tie_embeddings]
+        if "cfg" in case:
+            cfg = ModelConfig(**spec["cfgs"][case["cfg"]])
+        else:
+            cfg = ModelConfig(**spec["cfg"],
+                              tie_embeddings=case.get("tied", False))
+        tree = spec["trees"][case.get("tree", cfg.tie_embeddings)]
         sched = ScheduleConfig(case["schedule"], case["M"],
                                case.get("n_virtual", 1))
+        vp = case.get("vocab_parallel", False)
+        tp = (TPShard(mesh.n_model, mesh.model, vp) if mesh.n_model > 1
+              else None)
+        seed = () if "seed" not in case else (case["seed"],)
         D = mesh.n_pipe
         own = owned_layers(cfg.n_layers, sched, D, mesh.pipe)
         shard = batch_sharding(mesh)
-        tokens, targets = (torch.from_numpy(spec[k]) for k in ("tokens",
-                                                               "targets"))
+        batch = (spec["batches"][case["batch"]] if "batch" in case
+                 else (spec["tokens"], spec["targets"]))
+        tokens, targets = (torch.from_numpy(x) for x in batch)
         local = shard((tokens, targets))
-        view = from_jax_params(cfg, tree, device=device, layers=own)
+        view = from_jax_params(cfg, tree, device=device, layers=own,
+                               shard=tp)
         if kind == "grad":
             fn = make_pipeline_grad_fn(cfg, sched, D, device=device,
                                        mesh=mesh,
-                                       comm_overlap=case["comm_overlap"])
-            loss = fn(view, *local)
-            _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, view)
+                                       comm_overlap=case["comm_overlap"],
+                                       tp_vocab_parallel=vp)
+            hops = mesh.hops
+            loss = fn(view, *local, *seed)
+            _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, view,
+                 extra={"hops": np.asarray(mesh.hops - hops)})
             if case.get("lockstep") and rank == 0:
                 whole = from_jax_params(cfg, tree, device=device)
                 ref = make_pipeline_grad_fn(cfg, sched, D, device=device)
-                loss = ref(whole, tokens, targets)
+                loss = ref(whole, tokens, targets, *seed)
                 _npz(os.path.join(out, f"{name}_lockstep.npz"), loss, whole)
+        elif kind == "tp_grad_fn":
+            whole = from_jax_params(cfg, tree, device=device, shard=tp)
+            loss = make_tp_grad_fn(cfg, mesh, device=device)(whole, *local)
+            _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, whole)
         elif kind == "eval":
             loss = make_pipeline_loss_fn(cfg, sched, D, device=device,
                                          mesh=mesh)(view, *local)
@@ -163,8 +216,9 @@ def run_cases(world: Mesh, spec: dict) -> dict:
         elif kind == "train":
             opt = ttrain.adamw(**case["opt"])
             step = ttrain.make_train_step(cfg, sched, D, opt, device=device,
-                                          mesh=mesh)
-            other = from_jax_params(cfg, tree, device=device, layers=own)
+                                          mesh=mesh, tp_vocab_parallel=vp)
+            other = from_jax_params(cfg, tree, device=device, layers=own,
+                                    shard=tp)
             extra = _train(step, view, ttrain.init_sharded_opt_state(
                 opt, view, mesh), case["steps"], local, "zero1")
             extra.update(_train(step, other, opt.init(other), case["steps"],

@@ -12,7 +12,9 @@ others, e.g. ``--schedules 1F1B ZBH1 ZBV`` for the zero-bubble rows; ZBV
 lifts M to 2D). Writes ``sweep.csv``
 (every row and column) and ``speedup.csv`` under ``--out`` with the
 stdlib ``csv`` module (the H100 host has no pandas), and prints both
-tables with the card's name.
+tables with the card's name. ``--backend gloo`` (or ``nccl``) runs each
+config as the reference does, one process per stage, one world per
+device count (``utils.sweep``'s world rows, with their ``transport``).
 """
 
 from __future__ import annotations
@@ -49,11 +51,17 @@ def main(argv=None) -> int:
                          "parallel.schedules.schedule_names()")
     ap.add_argument("--quick", action="store_true",
                     help="a 6-config smoke run at a small size")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="run each config as the reference does, one "
+                         "process per stage over torch.distributed with "
+                         "this backend, one world per device count "
+                         "(default: every stage in this process)")
     args = ap.parse_args(argv)
 
     import torch
     dim = args.dim or (64 if args.quick else 768)
-    kwargs = dict(dim=dim, dtype=args.dtype, device=args.device)
+    kwargs = dict(dim=dim, dtype=args.dtype, device=args.device,
+                  backend=args.backend)
     if args.schedules:
         kwargs["schedules"] = tuple(args.schedules)
     if args.quick:

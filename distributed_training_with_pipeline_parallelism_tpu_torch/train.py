@@ -25,17 +25,26 @@ counterpart of ``scripts/train.py``: the same flags and defaults, through
         --model gpt2-small --pipe 2 --data 2 --backend gloo --zero1 \\
         --batch 24 --seq 1024 --steps 20 --flash on --fused-xent
 
+    # Megatron tensor parallelism: pipe 2 x model 2, the head split over
+    # the vocab (a tiny run on the CPU)
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --layers 4 --dim 32 --heads 2 --vocab 96 \\
+        --seq 16 --batch 8 --steps 4 --pipe 2 --tp 2 --vocab-parallel \\
+        --backend gloo --device cpu
+
 Without ``--backend`` all D = ``--pipe`` stages run in one process on the
 one device, in lockstep over the schedule's tick table. ``--backend gloo``
-or ``nccl`` launches a world of ``--pipe`` x ``--data`` processes
-(``parallel.mesh.launch``): each runs its pipe coordinate's row of the
-table on its view of the model and its data replica's rows of each
-global batch (on CUDA, gloo stages every hand-off through host memory;
-nccl needs a card per process). ``--data`` above 1 needs a backend.
-Flags for parts of the JAX package not ported yet (``--tp``/``--sp``/
-``--ep`` above 1, ``--fsdp``, ``--moe-experts``, ``--vocab-parallel``,
-``--sp-attn ulysses``, ``--report-dir``, ``--dynamics``) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+or ``nccl`` launches a world of ``--pipe`` x ``--data`` x ``--tp``
+processes (``parallel.mesh.launch``): each runs its pipe coordinate's row
+of the table on its view of the model (with ``--tp`` above 1, its model
+coordinate's Megatron shard of it) and its data replica's rows of each
+global batch (on CUDA, gloo stages every hand-off and collective through
+host memory; nccl needs a card per process). ``--data`` or ``--tp``
+above 1 needs a backend; ``--vocab-parallel`` needs ``--tp`` above 1.
+Flags for parts of the JAX package not ported yet (``--sp``/``--ep``
+above 1, ``--fsdp``, ``--moe-experts``, ``--sp-attn ulysses``,
+``--report-dir``, ``--dynamics``) raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ import numpy as np
 
 from .parallel.schedules import schedule_names
 
-_ITEM = {11: "ROADMAP.md Queue 1, item 11 (other parallelism)",
+_ITEM = {11: "ROADMAP.md Queue 1, item 11 (sequence and expert "
+             "parallelism, FSDP, MoE)",
          12: "ROADMAP.md Queue 1, item 12 (observability)"}
 
 
@@ -64,12 +74,17 @@ def parser() -> argparse.ArgumentParser:
                          "parallel.schedules.register_schedule")
     ap.add_argument("--pipe", type=int, default=2)
     ap.add_argument("--data", type=int, default=1)
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel (model-axis) size: Megatron "
+                         "shards of each stage, one process each (needs "
+                         "--backend)")
     ap.add_argument("--sp", type=int, default=1)
     ap.add_argument("--sp-attn", default="ring", choices=["ring", "ulysses"])
     ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--fsdp", action="store_true")
-    ap.add_argument("--vocab-parallel", action="store_true")
+    ap.add_argument("--vocab-parallel", action="store_true",
+                    help="split the head and its cross entropy over the "
+                         "vocab across the --tp model axis")
     ap.add_argument("--backward", default="auto",
                     choices=["auto", "remat", "stored"],
                     help="pipeline backward: auto (plain autograd at --pipe "
@@ -182,11 +197,10 @@ def parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for a flag of an unported part."""
-    unported = [("--tp > 1", args.tp > 1, 11), ("--sp > 1", args.sp > 1, 11),
+    unported = [("--sp > 1", args.sp > 1, 11),
                 ("--ep > 1", args.ep > 1, 11),
                 ("--sp-attn ulysses", args.sp_attn != "ring", 11),
                 ("--fsdp", args.fsdp, 11),
-                ("--vocab-parallel", args.vocab_parallel, 11),
                 ("--moe-experts", args.moe_experts > 0, 11),
                 ("--report-dir", bool(args.report_dir), 12),
                 ("--dynamics", args.dynamics, 12)]
@@ -237,10 +251,14 @@ def build_config(args):
 
 def _load_weights(model, path: str, mesh=None) -> str:
     """Copy the model weights of a checkpoint of this package into
-    ``model`` (a rank's view takes its own entries, from a lockstep
-    ``state.pt`` or its pipe rank's file of a world's checkpoint); the
-    step dir read."""
-    from .utils.checkpoint import STATE_FILE, restore_checkpoint
+    ``model`` (a rank's view, or its Megatron shard, takes its own
+    entries: from its coordinates' file of a world's checkpoint, or cut
+    from the whole model; the lockstep process takes a world's files
+    merged, ``utils.checkpoint.restore_world_model``); the step dir
+    read."""
+    from .parallel.tensor_parallel import model_shard_of, shard_state
+    from .utils.checkpoint import restore_checkpoint, restore_world_model
+    from .utils.resilience import world_state_file
     from .utils.train import _latest_step_dir
     latest = _latest_step_dir(path)
     if latest is not None:
@@ -248,12 +266,16 @@ def _load_weights(model, path: str, mesh=None) -> str:
     if not os.path.basename(os.path.normpath(path)).startswith("step_"):
         raise SystemExit(f"--resume {path}: not a checkpoint of this package "
                          f"(a --ckpt dir or one of its step_N dirs)")
-    name = STATE_FILE
-    if mesh is not None and not os.path.exists(os.path.join(path, name)):
-        name = f"state_pipe{mesh.pipe}.pt"
-        if not os.path.exists(os.path.join(path, name)):
-            name = f"state_pipe{mesh.pipe}_data{mesh.data}.pt"
-    saved = restore_checkpoint(path, name)["model"]
+    own = [] if mesh is None else [
+        n for n in (world_state_file(mesh), world_state_file(mesh, True))
+        if os.path.exists(os.path.join(path, n))]
+    if own:
+        saved = restore_checkpoint(path, own[0])["model"]
+    else:
+        saved = restore_world_model(path, model.cfg)
+        shard = model_shard_of(model)
+        if shard is not None:
+            saved = shard_state(saved, model.cfg, shard)
     model.load_state_dict({k: saved[k] for k in model.state_dict()})
     return path
 
@@ -268,15 +290,18 @@ def main(argv=None) -> int:
                         ("--preemption-safe", args.preemption_safe)):
         if given and not args.ckpt:
             ap.error(f"{flag} requires --ckpt")
-    if args.data > 1 and args.backend is None:
-        ap.error("--data > 1 runs one process per (data, pipe) coordinate: "
-                 "pass --backend gloo or nccl")
+    for flag, n in (("--data", args.data), ("--tp", args.tp)):
+        if n > 1 and args.backend is None:
+            ap.error(f"{flag} > 1 runs one process per (data, pipe, model) "
+                     f"coordinate: pass --backend gloo or nccl")
+    if args.vocab_parallel and args.tp <= 1:
+        ap.error("--vocab-parallel requires --tp > 1")
     check_ported(args)
     if args.backend is None:
         return run(args)
     from .parallel.mesh import launch
     from .utils.config import MeshConfig
-    launch(_rank_main, MeshConfig(args.pipe, args.data), args,
+    launch(_rank_main, MeshConfig(args.pipe, args.data, args.tp), args,
            backend=args.backend, device=args.device)
     return 0
 
@@ -311,8 +336,8 @@ def run(args, mesh=None) -> int:
         f"{cfg.n_heads}H, pipe={args.pipe} on {device}, {args.schedule} "
         f"M={args.microbatches} V={sched.n_virtual}", flush=True)
     if mesh is not None:
-        say(f"world: {args.data} data x {args.pipe} pipe ranks, "
-            f"{mesh.describe()}", flush=True)
+        say(f"world: {args.data} data x {args.pipe} pipe x {args.tp} model "
+            f"ranks, {mesh.describe()}", flush=True)
     optimizer = train.adamw(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, max_grad_norm=args.max_grad_norm,
@@ -321,6 +346,10 @@ def run(args, mesh=None) -> int:
               owned_layers(cfg.n_layers, sched, args.pipe, mesh.pipe))
     model = init_params(cfg, torch.Generator().manual_seed(args.seed),
                         device=device, layers=layers)
+    if mesh is not None and mesh.n_model > 1:
+        from .parallel.tensor_parallel import shard_model
+        model = shard_model(model, cfg, mesh,
+                            vocab_parallel=args.vocab_parallel)
     if args.resume:
         say(f"loaded weights from {_load_weights(model, args.resume, mesh)}",
             flush=True)
@@ -381,7 +410,8 @@ def run(args, mesh=None) -> int:
                    if args.anomaly_guard else None),
             handle_preemption=args.preemption_safe,
             stall_timeout_s=args.stall_timeout or None, device=device,
-            zero1=args.zero1, mesh=mesh)
+            zero1=args.zero1, mesh=mesh,
+            tp_vocab_parallel=args.vocab_parallel)
     finally:
         if loader is not None:
             loader.close()

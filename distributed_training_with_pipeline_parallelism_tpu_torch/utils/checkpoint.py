@@ -10,7 +10,9 @@ world's checkpoint holds one file per writing rank instead
 directory counts as *committed* once its ``_COMMITTED.json`` marker (the
 JAX file name and keys) has been renamed into place, strictly after the
 data file was flushed and ``fsync``ed; :mod:`.resilience` builds the
-manager, retention and fallback restore on these primitives.
+manager, retention and fallback restore on these primitives. A world
+with a model axis writes one file per (pipe, model) coordinate;
+:func:`restore_world_model` merges a world's files into the whole model.
 
 Async saves and in-place updates: JAX arrays are immutable, so a JAX save
 may read the live state later. The port's optimizer updates the
@@ -27,6 +29,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 import shutil
 import threading
 from typing import Any, Dict, Optional
@@ -185,6 +188,36 @@ def save_checkpoint(path: str, state, wait: bool = True,
         _write(apath, host, event, filename)
         return None
     return PendingSave(apath, host, event, filename)
+
+
+_WORLD_FILE = re.compile(r"state_pipe(\d+)(?:_data(\d+))?(?:_model(\d+))?\.pt")
+
+
+def restore_world_model(path: str, cfg) -> Dict[str, torch.Tensor]:
+    """The whole model's state dict from step dir ``path``: ``state.pt``'s
+    model, or a world's files merged (data replica 0's; each pipe rank's
+    blocks, and its model ranks' Megatron shards concatenated by
+    ``parallel.tensor_parallel.gather_model``, a vocab-split head
+    recognised by its shape), so a world's checkpoint loads whole into
+    one process."""
+    from ..parallel.tensor_parallel import gather_model
+    if os.path.exists(os.path.join(path, STATE_FILE)):
+        return restore_checkpoint(path)["model"]
+    files = {}
+    for f in os.listdir(path):
+        m = _WORLD_FILE.fullmatch(f)
+        if m and int(m.group(2) or 0) == 0:
+            files[(int(m.group(1)), int(m.group(3) or 0))] = f
+    if not files:
+        raise FileNotFoundError(f"{path}: no model state to restore")
+    out: Dict[str, torch.Tensor] = {}
+    for d in sorted({d for d, _ in files}):
+        shards = [restore_checkpoint(path, files[(d, j)])["model"]
+                  for j in sorted(j for dd, j in files if dd == d)]
+        out_w = shards[0].get("out.weight")
+        vocab = out_w is not None and out_w.shape[0] != cfg.vocab_size
+        out.update(gather_model(shards, cfg, vocab))
+    return out
 
 
 def restore_checkpoint(path: str, filename: str = STATE_FILE):

@@ -78,6 +78,11 @@ class ModelConfig:
     head_dim_override: Optional[int] = None
     mlp_act: str = "silu"
     embed_scale: bool = False
+    # the MLP's tensor-parallel boundary (the JAX ``tp_overlap``): "none"
+    # (copy in, all-reduce out), "ring" (the collective-matmul ring over
+    # the model group), "auto" (resolves to "none": no cut-over measured
+    # on the H100; parallel.tensor_parallel.resolve_tp_overlap)
+    tp_overlap: str = "none"
 
     def __post_init__(self):
         if self.dim % self.n_heads != 0:
@@ -117,6 +122,9 @@ class ModelConfig:
             raise ValueError(
                 f"use_flash_attention={self.use_flash_attention!r} must be "
                 f"True, False, or 'auto'")
+        if self.tp_overlap not in ("none", "ring", "auto"):
+            raise ValueError(f"tp_overlap={self.tp_overlap!r} must be "
+                             f"'none', 'ring' or 'auto'")
         if self.dropout > 0.0 and self.use_flash_attention is True:
             raise ValueError(
                 "dropout composes with the dense attention path only: the "
@@ -178,14 +186,18 @@ def resolve_device(device="cuda") -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """The world's shape (the JAX ``MeshConfig``): one process per (data,
-    pipe) coordinate, axis order ('data', 'pipe')."""
+    pipe, model) coordinate, axis order ('data', 'pipe', 'model'), ranks
+    row-major with the model axis innermost. ``n_model`` above 1 splits
+    each stage's blocks Megatron-style over the model group
+    (``parallel.tensor_parallel``)."""
 
     n_pipe: int = 2
     n_data: int = 1
+    n_model: int = 1
 
     @property
     def n_devices(self) -> int:
-        return self.n_pipe * self.n_data
+        return self.n_pipe * self.n_data * self.n_model
 
 
 @dataclasses.dataclass(frozen=True)

@@ -276,6 +276,21 @@ def gc_checkpoints(checkpoint_dir: str, keep_last: int) -> List[str]:
     return removed
 
 
+def world_state_file(mesh, zero1: bool = False) -> str:
+    """The file a rank of ``mesh`` saves and restores in a step dir
+    (:class:`CheckpointManager`): ``state.pt`` without a mesh, else
+    ``state_pipe{d}[_data{k}][_model{m}].pt`` (the data coordinate with
+    ZeRO-1 over a data axis, the model coordinate with a model axis)."""
+    if mesh is None:
+        return STATE_FILE
+    name = f"state_pipe{mesh.pipe}"
+    if zero1 and mesh.n_data > 1:
+        name += f"_data{mesh.data}"
+    if mesh.n_model > 1:
+        name += f"_model{mesh.model}"
+    return name + ".pt"
+
+
 class CheckpointManager:
     """Crash-safe step-checkpoint lifecycle over one directory.
 
@@ -290,7 +305,9 @@ class CheckpointManager:
     each method at the same point. Global rank 0 prepares ``step_{n}/``;
     each pipe rank of data replica 0 writes its own part as
     ``state_pipe{d}.pt`` (with ``zero1`` every rank writes, as
-    ``state_pipe{d}_data{k}.pt``, since each holds other moment blocks);
+    ``state_pipe{d}_data{k}.pt``, since each holds other moment blocks;
+    with a model axis each name ends in ``_model{m}``, every model rank
+    writing its shard: :func:`world_state_file`);
     rank 0 places the commit marker only after a barrier that follows
     every rank's ``fsync``, and alone runs retention. The digest is the
     world's (every rank's structural digest, hashed in rank order), and
@@ -312,14 +329,9 @@ class CheckpointManager:
         self._pending: Optional[Tuple[Optional[PendingSave], Dict[str, Any],
                                       str]] = None
         self.lead = mesh is None or mesh.rank == 0
-        if mesh is None:
-            self.state_file, self.writes = STATE_FILE, True
-        elif zero1 and mesh.n_data > 1:
-            self.state_file = f"state_pipe{mesh.pipe}_data{mesh.data}.pt"
-            self.writes = True
-        else:
-            self.state_file = f"state_pipe{mesh.pipe}.pt"
-            self.writes = mesh.data == 0
+        self.state_file = world_state_file(mesh, zero1)
+        self.writes = mesh is None or (zero1 and mesh.n_data > 1) \
+            or mesh.data == 0
         if self.lead:
             os.makedirs(checkpoint_dir, exist_ok=True)
         self._barrier()

@@ -29,6 +29,20 @@ What the columns mean in the port:
 - ``rel_err_corrected`` is None: no calibration correction is fitted for
   the H100 yet (``ROADMAP.md`` Queue 1, item 12), and neither are the
   dynamics columns.
+
+A world row (``backend="gloo"`` or ``"nccl"``) runs the config as the
+reference does, one process per stage (``parallel.mesh.launch`` over a
+world of D ranks; ``LLMsDistributedTrainingHelper.py:168-178``): each
+rank builds only its view of the model and runs its row of the tick
+table, and rank 0's ``run_train_iterations(..., mesh=)`` is the row's
+timing; every other column is computed as for a lockstep row. It adds
+``transport`` (``Mesh.transport``: ``"gloo-staged"`` where gloo stages
+CUDA tensors through host memory, ``"gloo"``, ``"nccl"``) and
+``world_ranks``; its ``tick_executor`` is ``"dist"`` and
+``max_memory_allocated_bytes`` is the sum of the ranks' peaks. On one
+card its ranks share the card and every hop is staged: the row measures
+the transport, not the bubble. :func:`sweep_rows` runs the rows of one D
+in one world.
 """
 
 from __future__ import annotations
@@ -43,6 +57,8 @@ from .config import ModelConfig, ScheduleConfig, virtual_stages_for
 from .metrics import run_train_iterations
 
 SCHEDULES = ("GPipe", "1F1B", "Interleaved1F1B")
+# a world row's columns beyond a lockstep row's
+WORLD_COLUMNS = ("transport", "world_ranks")
 # beyond the JAX columns: the one card's model FLOP utilization (D * mfu:
 # all stages share it), the analytic bytes of that card, and the card's
 # measured torch.cuda.max_memory_allocated over the run (None on the CPU)
@@ -63,7 +79,8 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
                        report_dir: Optional[str] = None,
                        schedule_artifact: Optional[str] = None,
                        oom_preflight: bool = True, dynamics: bool = False,
-                       device="cuda") -> Dict[str, object]:
+                       device="cuda", backend: Optional[str] = None
+                       ) -> Dict[str, object]:
     """One experiment: ``num_iterations`` timed pipeline steps (loss and
     gradients, no optimizer) after 2 warm-ups, through the port's
     executor on ``device``, with random weights and tokens from ``seed``
@@ -78,16 +95,8 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
     ``n_microbatches`` to 2D where it is smaller (recorded in the row's
     ``n_microbatches``), as in JAX. ``report_dir``, ``dynamics=True``
     and ``schedule_artifact`` raise ``NotImplementedError``
-    (``ROADMAP.md`` item 12)."""
-    from ..analysis.cost_model import (backward_weights, cost_model_section,
-                                       detect_hardware,
-                                       resolve_backward_policy)
-    from ..analysis.memory_model import (memory_model_section,
-                                         oom_preflight as _preflight)
-    from ..models.transformer import init_params
-    from ..parallel.pipeline import make_pipeline_grad_fn
-    from ..parallel.schedules import (analytic_bubble_fraction,
-                                      compile_schedule, simulated_bubble)
+    (``ROADMAP.md`` item 12). ``backend`` (``"gloo"`` or ``"nccl"``)
+    makes it a world row (see the module doc)."""
     from .config import resolve_device
 
     if report_dir is not None or dynamics:
@@ -98,39 +107,80 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
         raise NotImplementedError(f"schedule artifacts are not ported yet: "
                                   f"{_ITEM_12_ARTIFACTS}")
     device = resolve_device(device)
-    try:
-        n_virtual = virtual_stages_for(schedule_type, n_layers, num_devices)
-        if schedule_type == "ZBV":
-            n_microbatches = max(n_microbatches, 2 * num_devices)
-        cfg = ModelConfig(dim=dim, n_layers=n_layers, n_heads=n_heads,
-                          vocab_size=vocab_size, arch=arch, dtype=dtype)
-        sched = ScheduleConfig(name=schedule_type,
-                               n_microbatches=n_microbatches,
-                               n_virtual=n_virtual)
-        cs = compile_schedule(schedule_type, num_devices, n_virtual,
-                              n_microbatches)
-        hw = detect_hardware(device)
-        mem = memory_model_section(cs, cfg, batch_size=batch_size,
-                                   seq_length=seq_length, hardware=hw,
-                                   remat_backward=remat_backward)
-        if oom_preflight:
-            pf = _preflight(mem, hw, per="card")
+    row = _Row(n_layers, n_heads, num_devices, schedule_type, batch_size,
+               seq_length, num_iterations, dim, vocab_size, n_microbatches,
+               seed, arch, dtype, remat_backward, oom_preflight)
+    if backend is not None:
+        return _world_rows([row], backend, device)[0]
+    return row.run(device)
+
+
+class _Row:
+    """One config of the sweep: its set-up, its timing (lockstep, or a
+    rank's share of a world's) and its columns."""
+
+    def __init__(self, n_layers, n_heads, num_devices, schedule_type,
+                 batch_size, seq_length, num_iterations, dim, vocab_size,
+                 n_microbatches, seed, arch, dtype, remat_backward,
+                 oom_preflight):
+        self.__dict__.update(locals())
+        del self.__dict__["self"]
+
+    def prepare(self, device):
+        """The config's objects and the OOM preflight: None to go on,
+        else the row to return (a skip)."""
+        from ..analysis.cost_model import detect_hardware
+        from ..analysis.memory_model import (memory_model_section,
+                                             oom_preflight as _preflight)
+        from ..parallel.schedules import compile_schedule
+        n_virtual = virtual_stages_for(self.schedule_type, self.n_layers,
+                                       self.num_devices)
+        if self.schedule_type == "ZBV":
+            self.n_microbatches = max(self.n_microbatches,
+                                      2 * self.num_devices)
+        self.n_virtual = n_virtual
+        self.cfg = ModelConfig(dim=self.dim, n_layers=self.n_layers,
+                               n_heads=self.n_heads,
+                               vocab_size=self.vocab_size, arch=self.arch,
+                               dtype=self.dtype)
+        self.sched = ScheduleConfig(name=self.schedule_type,
+                                    n_microbatches=self.n_microbatches,
+                                    n_virtual=n_virtual)
+        self.cs = compile_schedule(self.schedule_type, self.num_devices,
+                                   n_virtual, self.n_microbatches)
+        self.hw = detect_hardware(device)
+        self.mem = memory_model_section(
+            self.cs, self.cfg, batch_size=self.batch_size,
+            seq_length=self.seq_length, hardware=self.hw,
+            remat_backward=self.remat_backward)
+        if self.oom_preflight:
+            pf = _preflight(self.mem, self.hw, per="card")
             if not pf["ok"]:
                 return {
                     "skip_reason": "predicted_oom",
                     "predicted_peak_bytes": pf["predicted_peak_bytes"],
                     "hbm_bytes": pf["hbm_bytes"],
                     "n_virtual": n_virtual,
-                    "n_microbatches": n_microbatches,
+                    "n_microbatches": self.n_microbatches,
                 }
-        grad_fn = make_pipeline_grad_fn(cfg, sched, num_devices,
-                                        remat_backward=remat_backward,
-                                        device=device)
-        gen = torch.Generator().manual_seed(seed)
-        model = init_params(cfg, gen, device)
-        gen = torch.Generator().manual_seed(seed + 1)
-        tokens, targets = (torch.randint(0, vocab_size,
-                                         (batch_size, seq_length),
+        return None
+
+    def timed(self, device, mesh=None):
+        """The timed steps (with ``mesh``, this rank's share: its view,
+        its row of the table) and the device's peak allocation."""
+        from ..models.transformer import init_params
+        from ..parallel.pipeline import make_pipeline_grad_fn, owned_layers
+        grad_fn = make_pipeline_grad_fn(self.cfg, self.sched,
+                                        self.num_devices,
+                                        remat_backward=self.remat_backward,
+                                        device=device, mesh=mesh)
+        layers = None if mesh is None else owned_layers(
+            self.n_layers, self.sched, self.num_devices, mesh.pipe)
+        gen = torch.Generator().manual_seed(self.seed)
+        model = init_params(self.cfg, gen, device, layers=layers)
+        gen = torch.Generator().manual_seed(self.seed + 1)
+        tokens, targets = (torch.randint(0, self.vocab_size,
+                                         (self.batch_size, self.seq_length),
                                          generator=gen).to(device)
                            for _ in range(2))
 
@@ -142,44 +192,129 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         metrics = run_train_iterations(step, model, tokens, targets,
-                                       num_iterations=num_iterations)
-        peak_alloc = (float(torch.cuda.max_memory_allocated(device))
-                      if cuda else None)
-        policy = resolve_backward_policy(cs, remat_backward, num_devices)
+                                       num_iterations=self.num_iterations,
+                                       mesh=mesh)
+        metrics["peak"] = (float(torch.cuda.max_memory_allocated(device))
+                           if cuda else None)
+        return metrics
+
+    def run(self, device):
+        try:
+            skip = self.prepare(device)
+            if skip is not None:
+                return skip
+            metrics = self.timed(device)
+            return self.finish(metrics, metrics.pop("peak"))
+        except Exception as e:  # the reference worker's catch-all contract
+            traceback.print_exc()
+            return {"error": str(e)}
+
+    def finish(self, metrics, peak_alloc, world=None):
+        """The row: the timing's metrics and the analytic columns (a world
+        row: ``world`` = (transport, ranks))."""
+        from ..analysis.cost_model import (backward_weights,
+                                           cost_model_section,
+                                           resolve_backward_policy)
+        from ..parallel.schedules import (analytic_bubble_fraction,
+                                          simulated_bubble)
+        cs, D = self.cs, self.num_devices
+        policy = resolve_backward_policy(cs, self.remat_backward, D)
         w_b, w_w = backward_weights(policy)
         sim = simulated_bubble(cs, w_f=1.0, w_b=w_b, w_w=w_w)
         cost = cost_model_section(
-            cs, cfg, batch_size=batch_size, seq_length=seq_length,
-            hardware=hw, remat_backward=remat_backward,
-            measured_step_s=metrics["elapsed_time"] / num_iterations)
+            cs, self.cfg, batch_size=self.batch_size,
+            seq_length=self.seq_length, hardware=self.hw,
+            remat_backward=self.remat_backward,
+            measured_step_s=metrics["elapsed_time"] / self.num_iterations)
         mfu = cost.get("measured", {}).get("mfu")
         metrics.update({
-            "throughput_per_chip": metrics["throughput"] / num_devices,
-            "n_virtual": n_virtual,
-            "n_microbatches": n_microbatches,
+            "throughput_per_chip": metrics["throughput"] / D,
+            "n_virtual": self.n_virtual,
+            "n_microbatches": self.n_microbatches,
             "predicted_step_s": cost["predicted"]["step_s"],
             "rel_err": cost.get("measured", {}).get("rel_err"),
             "rel_err_corrected": None,
             "bubble_analytic": analytic_bubble_fraction(
-                schedule_type, num_devices, n_virtual, n_microbatches),
+                self.schedule_type, D, self.n_virtual, self.n_microbatches),
             "bubble_simulated": sim["bubble_fraction"],
             "bubble_sim_w_b": w_b,
             "bubble_table_exact": cost["predicted"]["bubble_table_exact"],
             "mfu": mfu,
             "backward_policy": policy,
-            "tick_executor": "lockstep",
+            "tick_executor": "lockstep" if world is None else "dist",
             "host_serialized": True,
             "grad_norm_final": None,
             "gns": None,
             "n_skipped_attributed": None,
-            "mfu_card": None if mfu is None else mfu * num_devices,
-            "predicted_card_bytes": mem["analytic"]["card_bytes"],
+            "mfu_card": None if mfu is None else mfu * D,
+            "predicted_card_bytes": self.mem["analytic"]["card_bytes"],
             "max_memory_allocated_bytes": peak_alloc,
         })
+        if world is not None:
+            metrics.update(zip(WORLD_COLUMNS, world))
         return metrics
-    except Exception as e:  # the reference worker's catch-all contract
+
+
+def _world_rank(mesh, rows: List[_Row]):
+    """One rank of a sweep world: its transport and every row's timing
+    (the prepared rows' skips and errors are the launcher's)."""
+    out = []
+    for row in rows:
+        try:
+            out.append(row.timed(mesh.device, mesh))
+        except Exception as e:  # the row's error, on every rank alike
+            traceback.print_exc()
+            out.append({"error": str(e)})
+        mesh.barrier()
+    return mesh.transport, out
+
+
+def _world_rows(rows: List[_Row], backend: str, device
+                ) -> List[Dict[str, object]]:
+    """Rows of one D as world rows: prepared here, timed in one world of D
+    processes (``parallel.mesh.launch``), finished here with rank 0's
+    timing."""
+    from ..parallel.mesh import launch
+    from .config import MeshConfig
+    results: List[Optional[Dict[str, object]]] = [None] * len(rows)
+    todo = []
+    for i, row in enumerate(rows):
+        try:
+            skip = row.prepare(device)
+        except Exception as e:  # the reference worker's catch-all contract
+            traceback.print_exc()
+            skip = {"error": str(e)}
+        if skip is not None:
+            results[i] = skip
+        else:
+            todo.append(i)
+    if not todo:
+        return results
+    D = rows[todo[0]].num_devices
+    try:
+        ranks = launch(_world_rank, MeshConfig(D, 1),
+                       [rows[i] for i in todo], backend=backend,
+                       device=device)
+    except Exception as e:  # the world failed: every row it held did
         traceback.print_exc()
-        return {"error": str(e)}
+        for i in todo:
+            results[i] = {"error": str(e)}
+        return results
+    transport = ranks[0][0]
+    for k, i in enumerate(todo):
+        timing = ranks[0][1][k]
+        if "error" in timing:
+            results[i] = timing
+            continue
+        peaks = [r[1][k]["peak"] for r in ranks]
+        timing.pop("peak")
+        peak = None if peaks[0] is None else float(sum(peaks))
+        try:
+            results[i] = rows[i].finish(timing, peak, (transport, D))
+        except Exception as e:
+            traceback.print_exc()
+            results[i] = {"error": str(e)}
+    return results
 
 
 def sweep_rows(layers: Sequence[int] = (4, 8, 12),
@@ -193,18 +328,26 @@ def sweep_rows(layers: Sequence[int] = (4, 8, 12),
     by default) as a list of row dicts: each config's ``n_layers``,
     ``n_heads``, ``num_processes`` and ``schedule`` before its
     :func:`run_one_experiment` columns. A failed config is reported and
-    left out; a priced-out one is a row with its ``skip_reason``."""
+    left out; a priced-out one is a row with its ``skip_reason``. With a
+    ``backend`` the rows of each D run in one world of D processes (world
+    rows, see the module doc), the worlds in the order of ``devices``."""
     configs = [(L, H, D, s) for L in layers for H in heads
                for D in devices for s in schedules]
+    backend = kwargs.pop("backend", None)
+    done = {}
+    if backend is not None:
+        done = _world_sweep(configs, backend, batch_size, seq_length,
+                            num_iterations, kwargs, verbose)
     rows = []
     for k, (L, H, D, s) in enumerate(configs, 1):
         if verbose:
-            print(f"[{k}/{len(configs)}] Running: layers={L} heads={H} "
-                  f"devices={D} schedule={s}", flush=True)
+            print(f"[{k}/{len(configs)}] {'Ran' if done else 'Running'}: "
+                  f"layers={L} heads={H} devices={D} schedule={s}",
+                  flush=True)
         t0 = time.perf_counter()
-        result = run_one_experiment(L, H, D, s, batch_size=batch_size,
-                                    seq_length=seq_length,
-                                    num_iterations=num_iterations, **kwargs)
+        result = done.get(k - 1) or run_one_experiment(
+            L, H, D, s, batch_size=batch_size, seq_length=seq_length,
+            num_iterations=num_iterations, **kwargs)
         if "error" in result:
             if verbose:
                 print(f"    ERROR: {result['error']}", flush=True)
@@ -216,11 +359,42 @@ def sweep_rows(layers: Sequence[int] = (4, 8, 12),
                   flush=True)
         elif verbose:
             print(f"    throughput: {result['throughput']:.2f} tokens/sec "
-                  f"({time.perf_counter() - t0:.1f} s with set-up)",
-                  flush=True)
+                  f"({time.perf_counter() - t0:.1f} s with set-up"
+                  f"{', in a world' if done else ''})", flush=True)
         rows.append({"n_layers": L, "n_heads": H, "num_processes": D,
                      "schedule": s, **result})
     return rows
+
+
+def _world_sweep(configs, backend, batch_size, seq_length, num_iterations,
+                 kwargs, verbose) -> Dict[int, Dict[str, object]]:
+    """Every config's world row, by index, one world per D."""
+    from .config import resolve_device
+    kw = dict(kwargs)
+    device = resolve_device(kw.pop("device", "cuda"))
+    for k in ("report_dir", "schedule_artifact", "dynamics"):
+        if kw.pop(k, None):
+            raise NotImplementedError(f"{k} is not ported yet: {_ITEM_12}")
+    defaults = dict(dim=768, vocab_size=10000, n_microbatches=4, seed=0,
+                    arch="ref_decoder", dtype="float32", remat_backward=None,
+                    oom_preflight=True)
+    defaults.update(kw)
+    out = {}
+    for D in dict.fromkeys(D for _, _, D, _ in configs):
+        idx = [i for i, c in enumerate(configs) if c[2] == D]
+        rows = [_Row(configs[i][0], configs[i][1], D, configs[i][3],
+                     batch_size, seq_length, num_iterations,
+                     defaults["dim"], defaults["vocab_size"],
+                     defaults["n_microbatches"], defaults["seed"],
+                     defaults["arch"], defaults["dtype"],
+                     defaults["remat_backward"], defaults["oom_preflight"])
+                for i in idx]
+        t0 = time.perf_counter()
+        out.update(zip(idx, _world_rows(rows, backend, device)))
+        if verbose:
+            print(f"world of {D} ({backend}): {len(idx)} rows in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def run_all_experiments(layers: Sequence[int] = (4, 8, 12),

@@ -80,11 +80,19 @@ def _global_order(model: nn.Module):
     return {n: i for i, (n, _) in enumerate(whole.named_parameters())}
 
 
-def _counted(name: str, mesh) -> bool:
+def _counted(name: str, mesh, sharded=()) -> bool:
     """Whether this rank's leaf ``name`` enters the world's clipping norm:
     a layer's leaf where its stage runs, a replicated leaf (embedding,
-    final norm, head) on pipe coordinate 0 only."""
-    return mesh.pipe == 0 or name.startswith("layers.")
+    final norm, head) on pipe coordinate 0 only; under a model axis a
+    leaf split over it (``sharded``) on every model rank, whose squares
+    sum to the whole leaf's, any other on model coordinate 0 only."""
+    return ((mesh.pipe == 0 or name.startswith("layers."))
+            and (mesh.model == 0 or name in sharded))
+
+
+def _sharded(model: nn.Module):
+    from ..parallel.tensor_parallel import sharded_names
+    return sharded_names(model)
 
 
 class AdamWState:
@@ -124,22 +132,30 @@ class AdamWState:
         norm of the per-leaf norms, in the whole model's leaf order; under
         ``mesh`` (the train step's) each leaf's norm comes from the rank
         that holds it (the replicated leaves from pipe coordinate 0),
-        summed over the pipe group, so the value is the lockstep one. The
+        summed over the pipe group, so the value is the lockstep one.
+        Under a model axis the leaves' squared norms sum over the pipe and
+        model groups, a split leaf's from every model rank, a replicated
+        one's from model coordinate 0, then the norm of their roots. The
         gradients are the data group's mean already."""
         norms = torch._foreach_norm(grads)
         if mesh is None:
             return torch.linalg.vector_norm(torch.stack(norms))
         if self._where is None:
             order = _global_order(self._model)
-            self._where = ([order[n] for n in self.names], len(order))
-        where, n_global = self._where
+            self._where = ([order[n] for n in self.names], len(order),
+                           _sharded(self._model))
+        where, n_global, sharded = self._where
         vec = torch.zeros(n_global, dtype=torch.float32,
                           device=grads[0].device)
         have = [i for i, p in enumerate(self.params) if p.grad is not None]
+        tp = mesh.n_model > 1
         for i, n in zip(have, norms):
-            if _counted(self.names[i], mesh):
-                vec[where[i]] = n.float()
+            if _counted(self.names[i], mesh, sharded):
+                vec[where[i]] = n.float().square() if tp else n.float()
         mesh.all_reduce([vec], "pipe")
+        if tp:
+            mesh.all_reduce([vec], "model")
+            vec = vec.sqrt()
         return torch.linalg.vector_norm(vec)
 
     def finish(self) -> None:
@@ -188,7 +204,8 @@ class ShardedAdamWState:
         order = _global_order(model)
         self._where = [order[nm] for nm, _ in named]
         self._n_global = len(order)
-        self._counted = [_counted(nm, mesh) for nm, _ in named]
+        sharded = _sharded(model)
+        self._counted = [_counted(nm, mesh, sharded) for nm, _ in named]
 
     def refresh(self) -> None:
         """Master blocks <- the parameters' values (at init, and after the
@@ -230,9 +247,10 @@ class ShardedAdamWState:
 
     def global_norm(self, grads, mesh=None) -> torch.Tensor:
         """The world's gradient norm from the blocks: each leaf's squared
-        norm sums over its data blocks (and, for the replicated leaves,
-        comes from pipe coordinate 0 only), then the norm of the leaf
-        norms. ``mesh`` must be the one the state was sharded over."""
+        norm sums over its data blocks and, for a leaf split over the model
+        axis, its model shards (a replicated leaf's comes from pipe, and
+        model, coordinate 0 only), then the norm of the leaf norms.
+        ``mesh`` must be the one the state was sharded over."""
         _check_mesh(self, mesh)
         sq = torch.zeros(self._n_global, dtype=torch.float32,
                          device=grads[0].device)
@@ -422,7 +440,8 @@ def _reduce_data(opt_state, mesh) -> bool:
 def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     optimizer, remat_backward=None, device="cuda",
                     guard=None, fault_plan=None, mesh=None,
-                    comm_overlap: str = "none") -> Callable:
+                    comm_overlap: str = "none",
+                    tp_vocab_parallel: bool = False) -> Callable:
     """``step(model, opt_state, tokens, targets[, step_seed]) -> loss``:
     the pipeline's gradients (:func:`..parallel.pipeline.make_pipeline_grad_fn`),
     then the optimizer's update of ``model`` in place. ``opt_state`` is
@@ -453,11 +472,15 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     from :func:`init_sharded_opt_state` over this ``mesh``), whose update
     reduce-scatters them; the clipping norm is the world's; the guard's
     verdict is the maximum over the world, so every rank skips the same
-    step."""
+    step. With a model axis ``model`` is the rank's shard
+    (``parallel.tensor_parallel.shard_model``, with
+    ``tp_vocab_parallel``'s head) and ZeRO-1 splits each of its leaves
+    over the data group only."""
     grad_fn = make_pipeline_grad_fn(cfg, sched, n_stages,
                                     remat_backward=remat_backward,
                                     device=device, mesh=mesh,
-                                    comm_overlap=comm_overlap)
+                                    comm_overlap=comm_overlap,
+                                    tp_vocab_parallel=tp_vocab_parallel)
 
     def gradients(model, opt_state, tokens, targets, step_seed):
         opt_state.zero_grad()
@@ -530,7 +553,8 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
 
 
 def make_eval_fn(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
-                 device="cuda", mesh=None) -> Callable:
+                 device="cuda", mesh=None,
+                 tp_vocab_parallel: bool = False) -> Callable:
     """The eval-mode loss ``(model, tokens, targets) -> loss``: the
     forward-only pipelined loss
     (:func:`..parallel.pipeline.make_pipeline_loss_fn`, over the
@@ -538,7 +562,8 @@ def make_eval_fn(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     eval_cfg = (dataclasses.replace(cfg, dropout=0.0)
                 if cfg.dropout else cfg)
     return make_pipeline_loss_fn(eval_cfg, sched, n_stages, device=device,
-                                 mesh=mesh)
+                                 mesh=mesh,
+                                 tp_vocab_parallel=tp_vocab_parallel)
 
 
 def evaluate(eval_fn, model: nn.Module, data: Iterator, num_batches: int
@@ -573,7 +598,6 @@ _FIT_NOT_PORTED = {
     "fsdp": "ROADMAP.md Queue 1, item 11 (FSDP)",
     "moe": "ROADMAP.md Queue 1, item 11 (expert parallelism and MoE)",
     "sp_attn_impl": "ROADMAP.md Queue 1, item 11 (sequence parallelism)",
-    "tp_vocab_parallel": "ROADMAP.md Queue 1, item 11 (tensor parallelism)",
     "report_dir": "ROADMAP.md Queue 1, item 12 (observability: RunReport)",
     "telemetry": "ROADMAP.md Queue 1, item 12 (observability: "
                  "PipelineTelemetry)",
@@ -610,7 +634,10 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     calls ``fit`` alike) ``model`` is the rank's view, ``data`` yields the
     rank's slice of each global batch (``utils.data.batch_sharding``),
     and the steps run over the distributed transport
-    (:func:`make_train_step`). ``zero1`` shards the optimizer's moments
+    (:func:`make_train_step`); with a model axis ``model`` is the rank's
+    shard (``parallel.tensor_parallel.shard_model``, its head split over
+    the vocab under ``tp_vocab_parallel``, which needs the model axis).
+    ``zero1`` shards the optimizer's moments
     over the data group (:func:`init_sharded_opt_state`; without a data
     axis above 1 it is plain AdamW, as in JAX). Log lines and metrics
     come from global rank 0 and count the global batch; checkpoints are
@@ -657,13 +684,12 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
 
     The dropout seed of step i is ``fold_seed(dropout_seed, i)``, so a
     resumed run draws the unbroken run's masks. ``moe``,
-    ``fsdp``, ``tp_vocab_parallel``, an ``sp_attn_impl`` other than
-    "ring", ``report_dir``, ``telemetry`` and ``dynamics`` raise
-    ``NotImplementedError`` naming their ``ROADMAP.md`` items.
+    ``fsdp``, an ``sp_attn_impl`` other than "ring", ``report_dir``,
+    ``telemetry`` and ``dynamics`` raise ``NotImplementedError`` naming
+    their ``ROADMAP.md`` items.
     """
     given = {"fsdp": fsdp, "moe": moe is not None,
              "sp_attn_impl": sp_attn_impl != "ring",
-             "tp_vocab_parallel": tp_vocab_parallel,
              "report_dir": report_dir is not None,
              "telemetry": telemetry is not None,
              "dynamics": bool(dynamics)}
@@ -686,7 +712,8 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         optimizer = MultiSteps(optimizer, grad_accum)
     step_fn = make_train_step(cfg, sched, n_stages, optimizer,
                               remat_backward=remat_backward, device=device,
-                              guard=guard, fault_plan=fault_plan, mesh=mesh)
+                              guard=guard, fault_plan=fault_plan, mesh=mesh,
+                              tp_vocab_parallel=tp_vocab_parallel)
     opt_state = (init_sharded_opt_state(optimizer, model, mesh) if zero1
                  else optimizer.init(model))
     guard_state = init_guard_state(0, device) if guard is not None else None
@@ -732,7 +759,7 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     eval_fn = None
     if eval_data is not None and eval_every:
         eval_fn = make_eval_fn(cfg, sched, n_stages, device=device,
-                               mesh=mesh)
+                               mesh=mesh, tp_vocab_parallel=tp_vocab_parallel)
     if profile_dir is not None and mesh is not None:
         profile_dir = os.path.join(profile_dir, f"rank{mesh.rank}")
     # under a mesh the preemption flag is the world's: one host read a

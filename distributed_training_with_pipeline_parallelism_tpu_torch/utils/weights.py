@@ -48,7 +48,8 @@ _BLOCK_NORMS = {"ref_decoder": ("ln1", "ln2", "ln3"), "gpt2": ("ln1", "ln2"),
 
 
 def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda",
-                    layers: Optional[Iterable[int]] = None) -> Transformer:
+                    layers: Optional[Iterable[int]] = None,
+                    shard=None) -> Transformer:
     """The port's model holding the weights of the JAX pytree with numpy
     leaves, in ``cfg.storage_dtype`` on ``device``. Reference:
     ``{"embed": {"tok"}, "layers": {"self_attn", "cross_attn", "ln1",
@@ -61,7 +62,10 @@ def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda",
     leaves stacked [L, ...]; no ``out`` when tied. ``layers`` (global
     indices): a pipe rank's view, holding only those blocks besides the
     embedding and the head (``models.transformer.Transformer``), so a
-    world of ranks can be held to the JAX mesh on the same weights."""
+    world of ranks can be held to the JAX mesh on the same weights.
+    ``shard`` (a ``parallel.tensor_parallel.TPShard``): the rank's
+    Megatron shard of that view, the blocks of the JAX ``shard_params``
+    layout at its model coordinate (``parallel.tensor_parallel.shard_model``)."""
     device = resolve_device(device)
     state = {"tok": tree["embed"]["tok"],
              "norm.weight": tree["head"]["norm"]["scale"]}
@@ -89,4 +93,8 @@ def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda",
     model = Transformer(cfg, device=device, dtype=dtype, layers=own)
     model.load_state_dict({k: _tensor(v).to(device=device, dtype=dtype)
                            for k, v in state.items()})
+    if shard is not None:
+        from ..parallel.tensor_parallel import shard_model
+        model = shard_model(model, cfg, n=shard.n, index=shard.index,
+                            vocab_parallel=shard.vocab_parallel)
     return model

@@ -458,9 +458,9 @@ def test_train_main_runs_on_cpu(tmp_path, data):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--tp", "2"], "item 11"), (["--sp", "2"], "item 11"),
+    (["--sp", "2"], "item 11"),
     (["--ep", "2"], "item 11"), (["--sp-attn", "ulysses"], "item 11"),
-    (["--fsdp"], "item 11"), (["--vocab-parallel"], "item 11"),
+    (["--fsdp"], "item 11"),
     (["--moe-experts", "4"], "item 11"), (["--report-dir", "r"], "item 12"),
     (["--dynamics"], "item 12"),
 ])
@@ -469,10 +469,29 @@ def test_unported_flags_raise(argv, item):
         tmain.main(TINY + argv)
 
 
+@pytest.mark.parametrize("argv,message", [
+    (["--tp", "2"], "pass --backend"),
+    (["--vocab-parallel"], "requires --tp > 1"),
+])
+def test_tp_flags_need_a_world(argv, message, capsys):
+    """``--tp`` runs one process per model coordinate, so it needs a
+    backend; ``--vocab-parallel`` needs ``--tp`` above 1 (the JAX
+    script's rule)."""
+    with pytest.raises(SystemExit):
+        tmain.main(TINY + argv)
+    assert message in capsys.readouterr().err
+
+
+def test_fit_vocab_parallel_needs_a_model_axis():
+    _, tcfg = _cfgs()
+    with pytest.raises(ValueError, match="'model' mesh axis"):
+        ttrain.fit(tcfg, port.ScheduleConfig("1F1B", M), 2, None, iter([]),
+                   1, device="cpu", tp_vocab_parallel=True)
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(fsdp=True), "item 11"),
     (dict(moe=object()), "item 11"), (dict(sp_attn_impl="ulysses"), "item 11"),
-    (dict(tp_vocab_parallel=True), "item 11"),
     (dict(report_dir="r"), "item 12"), (dict(telemetry=object()), "item 12"),
     (dict(dynamics=True), "item 12"),
 ])

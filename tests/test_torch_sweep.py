@@ -256,3 +256,29 @@ def test_sweep_imports_neither_pandas_nor_matplotlib():
             "bad = {'pandas', 'matplotlib'} & set(sys.modules)\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True)
+
+
+def test_world_rows_add_the_transport():
+    """``backend="gloo"`` runs a row of each D in one world of D processes
+    (``sweep_rows`` and ``run_one_experiment``): the lockstep row's keys
+    plus ``transport`` and ``world_ranks``, the same bubble, cost and
+    memory columns, and the JAX key set for the lockstep rows."""
+    kw = {k: v for k, v in MINI.items() if k != "verbose"}
+    lock = tsweep.run_one_experiment(4, 4, 2, "1F1B", device="cpu", **kw)
+    world = tsweep.run_one_experiment(4, 4, 2, "1F1B", device="cpu",
+                                      backend="gloo", **kw)
+    assert "error" not in world, world
+    assert set(world) == set(lock) | set(tsweep.WORLD_COLUMNS)
+    assert world["transport"] == "gloo" and world["world_ranks"] == 2
+    assert world["tick_executor"] == "dist"
+    assert lock["tick_executor"] == "lockstep"
+    for k in ("bubble_analytic", "bubble_simulated", "bubble_table_exact",
+              "bubble_sim_w_b", "predicted_step_s", "predicted_card_bytes",
+              "n_virtual", "n_microbatches", "tokens_processed"):
+        assert world[k] == lock[k], k
+    assert world["throughput"] > 0
+    rows = tsweep.sweep_rows(layers=(4,), heads=(4,), devices=(2,),
+                             schedules=("GPipe", "Interleaved1F1B"),
+                             device="cpu", backend="gloo", **MINI)
+    assert [r["schedule"] for r in rows] == ["GPipe", "Interleaved1F1B"]
+    assert all(r["transport"] == "gloo" for r in rows)

@@ -230,7 +230,7 @@ def test_transformer_loss_matches_jax(reference):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(axes={"data": 2}), "item 8"),
-    (dict(axes={"model": 2}), "item 11"),
+    (dict(axes={"model": 2}), "torch.distributed world"),
 ])
 def test_pipeline_not_ported_raises(kw, match):
     _, tcfg = _cfgs(False)
