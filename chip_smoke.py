@@ -38,7 +38,16 @@ JAX. Phases, each fatal on failure:
    through the kernels (bf16 attention on the tensor cores), must match the
    step on the plain versions in bf16 (loss within 1e-2 relative, each
    gradient leaf within 5e-2 of its norm plus 1e-3 of the global norm)
-   with the same launch counts. In bf16 ``make_train_step`` with
+   with the same launch counts. The bf16 step with a
+   ``PipelineTelemetry`` (CUDA events at the tick boundaries) must give
+   the unstamped step's loss and gradients bitwise and its launches, a
+   timeline of T ticks that covers the span between its start and end
+   events within 10%, a Perfetto trace of T·D unit or idle cells, and no
+   synchronising call (CUDA's sync debug mode) between its first and
+   last stamp; the critical path and the F/B/W split are printed, and
+   the recorder's overhead as tokens/s on against off over three
+   ``make_train_step`` pairs in alternating order. In bf16
+   ``make_train_step`` with
    ``adamw`` runs 2 warm-up and 5 timed steps under GPipe (D = 4), 1F1B
    (D = 4) and Interleaved1F1B (D = 2, V = 2): tokens/s, the analytic
    bubble and every step's loss, which must be finite and fall; one step
@@ -111,7 +120,11 @@ JAX. Phases, each fatal on failure:
    native C++ loader (built from the port's source) and
    ``prefetch_to_device`` (depth 2) give shifted crops, the prefetch the
    loader's batch unchanged. (b) f32, B = 8: 6 ``fit`` steps with a
-   checkpoint every 2; the same run killed in step 3's save (an
+   checkpoint every 2, a run report and a ``PipelineTelemetry``: the
+   ``report.json`` valid (``telemetry.validate_report``), ``events.jsonl``
+   written, the live watermarks available with a peak no lower than the
+   sampled bytes in use, the cost model's measured step and critical
+   path present; the same run killed in step 3's save (an
    uncommitted shell) and preempted at step 3, each resumed: the final
    parameters, both Adam moments and every step's loss bitwise equal to
    the unbroken run. (c) f32 guard: NaN gradients in stage 1 at step 2
@@ -176,9 +189,12 @@ JAX. Phases, each fatal on failure:
     noise, within the learning rate a step). (c) bf16 over f32 master
     weights, B = 24, 1F1B D = 4: the lockstep process, the world twice,
     the lockstep process again (1 warm-up and 3 timed steps each):
-    tokens/s, finite losses, one counted step's launches by rank, and one
+    tokens/s, finite losses, one counted step's launches by rank, one
     step profiled on ranks 0 and 3 (wall, the rank's device busy, idle
-    share, the host time of its hand-off waits and posts). (d) ``train.py
+    share, the host time of its hand-off waits and posts), and one step
+    stamped on every rank: rank 0's merged stamps give T ticks and each
+    rank's tick, busy-tick and arrival-wait seconds, printed beside the
+    profiled ranks' idle shares. (d) ``train.py
     --pipe 2 --data 2 --backend gloo --zero1`` at full depth (S = 1024, B
     = 8; 6 steps, an eval and a checkpoint every 3): its world starts
     beside the phase's world and is killed (its whole process group) once
@@ -214,7 +230,8 @@ JAX. Phases, each fatal on failure:
     lockstep process (D = 2), the world twice, the lockstep process again
     (1 warm-up and 2 timed ``make_train_step`` steps each): tokens/s,
     launches by rank, one step profiled on every rank (idle share, the
-    model-axis all-reduces' count and host time, the hand-offs'). (e)
+    model-axis all-reduces' count and host time, the hand-offs'), one
+    step stamped on every rank as in phase 10 (c). (e)
     ``train.py --pipe 2 --tp 2 --backend gloo`` at 4 layers, S = 256, 4
     steps: its world starts beside the phase's and is killed once step 1
     is committed; ``train.run`` runs over the phase's mesh unbroken and then
@@ -246,6 +263,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -887,6 +905,150 @@ def grad_errors(grads, ref, rtol=1e-4, atol=1e-6):
     return worst, leaf, worst_rel
 
 
+class LoopProbe:
+    """A ``PipelineTelemetry`` wrapper that counts the synchronising calls
+    CUDA's sync debug mode reports between its ``STEP_START`` and its
+    ``STEP_END`` stamp (``caught``: the list ``warnings`` records into),
+    that is inside the tick loop."""
+
+    def __init__(self, tel, caught):
+        self.tel, self.caught, self.in_loop = tel, caught, None
+
+    def __getattr__(self, name):
+        return getattr(self.tel, name)
+
+    def emit(self, kind, index, device=None):
+        from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+            telemetry as tm)
+        if kind == tm.STEP_END:
+            self.in_loop = sum("synchroniz" in str(w.message)
+                               for w in self.caught[self.n0:])
+        self.tel.emit(kind, index, device)
+        if kind == tm.STEP_START:
+            self.n0 = len(self.caught)
+
+
+def train_telemetry(cfg16, sched, model, tokens, targets, want, one_step,
+                    device):
+    """Phase 4's stamped step: the bf16 1F1B D = 4 step with a
+    ``PipelineTelemetry`` against the same step without one (loss and
+    every gradient leaf bitwise, the launches the table's), its timeline
+    and attribution, its Perfetto trace, no synchronising call inside the
+    tick loop, and the overhead in tokens/s over alternating pairs of
+    ``make_train_step`` runs. Returns the record."""
+    import tempfile
+    import warnings
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+        telemetry as tm)
+    kernels = all_kernels()
+    tel = tm.PipelineTelemetry()
+    stamped = port.make_pipeline_grad_fn(cfg16, sched, D, device=device,
+                                         telemetry=tel)
+    plain = port.make_pipeline_grad_fn(cfg16, sched, D, device=device)
+    one_step(stamped)  # warm-up
+    tel.reset()
+    runs = {}
+    for name, fn in (("stamped", stamped), ("plain", plain)):
+        for k in kernels:
+            k.launches = 0
+        loss, grads, wall = one_step(fn)
+        runs[name] = (loss, grads, wall, {k.name: k.launches
+                                          for k in kernels})
+    (loss_s, g_s, wall_s, l_s), (loss_p, g_p, _, l_p) = (runs["stamped"],
+                                                         runs["plain"])
+    check(loss_s == loss_p, f"stamped loss {loss_s} != unstamped {loss_p}")
+    differ = [n for n in g_p if not torch.equal(g_s[n], g_p[n])]
+    check(not differ, f"stamped gradients differ from the unstamped step's: "
+          f"{differ[:4]}")
+    check(l_s == l_p == want, f"stamped step launches {l_s}, unstamped "
+          f"{l_p}, table {want}")
+    del g_s, g_p
+    T = tel.table.shape[0]
+    timeline = tel.timeline()
+    check(len(timeline) == T, f"{len(timeline)} timeline records != T={T}")
+    spans = tel.spans()
+    step_span = spans[(tm.STEP_END, 0)][1] - spans[(tm.STEP_START, 0)][0]
+    ticks_s = sum(r["duration_s"] for r in timeline)
+    check(abs(ticks_s - step_span) <= 0.1 * step_span,
+          f"tick durations {ticks_s} s vs the stamped step {step_span} s")
+    cp = tm.critical_path(tel)
+    sb = tel.stage_breakdown()
+    print(f"  bf16 1F1B D={D} stamped step: loss and gradients bitwise the "
+          f"unstamped step's, launches {l_s}; {T} ticks summing to "
+          f"{ticks_s * 1e3:.2f} ms of the {step_span * 1e3:.2f} ms between "
+          f"its start and end events ({wall_s * 1e3:.1f} ms host wall); "
+          f"critical path compute {cp['compute_s'] * 1e3:.2f} ms, comm "
+          f"{cp['comm_s'] * 1e3:.2f} ms, bubble {cp['bubble_s'] * 1e3:.2f} "
+          f"ms, straggler device {cp['straggler_device']}; F/B/W "
+          f"{sb['f_frac']:.3f}/{sb['b_frac']:.3f}/{sb['w_frac']:.3f}, "
+          f"measured bubble {sb['bubble_measured_mean']:.3f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tm.write_perfetto_trace(tel, os.path.join(tmp, "trace.json"))
+        with open(path) as fh:
+            trace = json.load(fh)
+    cells = {(e["args"]["tick"], e["tid"]) for e in trace["traceEvents"]
+             if e["ph"] == "X" and e["pid"] == 0}
+    check(len(cells) == T * D, f"the Perfetto trace covers {len(cells)} "
+          f"(tick, device) cells, not T*D={T * D}")
+    mem = tel.memory_summary()
+    check(mem["available"], "no allocator watermark was sampled")
+
+    # no synchronising call between the step's first and last stamp
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        probe = LoopProbe(tm.PipelineTelemetry(), caught)
+        probed = port.make_pipeline_grad_fn(cfg16, sched, D, device=device,
+                                            telemetry=probe)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.zero_grad(set_to_none=True)
+            probed(model, tokens, targets)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    check(probe.in_loop == 0, f"{probe.in_loop} synchronising calls inside "
+          f"the stamped tick loop")
+    model.zero_grad(set_to_none=True)
+
+    # the overhead: make_train_step + adamw, three pairs in alternating
+    # order (off, on / on, off / off, on), so a drift between runs falls
+    # on both sides
+    init_state = {n: p.detach().clone() for n, p in model.state_dict().items()}
+    pairs = []
+    for i in range(3):
+        pair = {}
+        for label in (("off", "on"), ("on", "off"))[i % 2]:
+            model.load_state_dict(init_state)
+            opt = port.adamw(warmup_steps=2, total_steps=100)
+            opt_state = opt.init(model)
+            step = port.make_train_step(
+                cfg16, sched, D, opt, device=device,
+                telemetry=tm.PipelineTelemetry() if label == "on" else None)
+            metrics = port.run_train_iterations(
+                lambda m, t, y: step(m, opt_state, t, y), model, tokens,
+                targets, num_iterations=5, warmup_iterations=2)
+            pair[label] = metrics["throughput"]
+        pairs.append(pair)
+    model.load_state_dict(init_state)
+    ratios = [p["on"] / p["off"] for p in pairs]
+    print(f"  telemetry overhead, bf16 1F1B D={D} make_train_step, 2 warm-up "
+          f"and 5 timed steps a run, three pairs in alternating order, "
+          f"off/on: "
+          + ", ".join(f"{p['off']:.1f}/{p['on']:.1f}" for p in pairs)
+          + f" tokens/s (on / off {[round(r, 4) for r in ratios]})")
+    return dict(launches=l_s, n_ticks=T, ticks_s=ticks_s,
+                step_span_s=step_span, host_wall_s=wall_s,
+                critical_path={k: cp[k] for k in (
+                    "compute_s", "comm_s", "bubble_s", "total_s",
+                    "straggler_device", "straggler_s_per_device")},
+                stage_breakdown={k: sb[k] for k in (
+                    "f_frac", "b_frac", "w_frac", "bubble_measured_mean")},
+                trace_cells=len(cells), memory=mem,
+                sync_in_loop=probe.in_loop, overhead_pairs=pairs,
+                overhead_ratios=ratios)
+
+
 def phase_train(report, device="cuda"):
     """The training main path (see the module doc); returns the kernel
     launches of the counted bf16 step (the kernels the timed runs take;
@@ -1007,6 +1169,10 @@ def phase_train(report, device="cuda"):
         max_leaf_rel_err=worst_rel16, launches=launches16, step_s=wall_k16)
     del grads_k16, grads_p16
     model.zero_grad(set_to_none=True)
+    t_tel = time.perf_counter()
+    res["telemetry"] = train_telemetry(cfg16, sched, model, tokens, targets,
+                                       want, one_step, device)
+    res["telemetry"]["seconds"] = time.perf_counter() - t_tel
 
     # bf16 compute over f32 master weights: make_train_step + adamw
     init_state = {n: p.detach().clone() for n, p in model.state_dict().items()}
@@ -1970,6 +2136,45 @@ def trace_summary(path):
                 trace_bytes=Path(path).stat().st_size)
 
 
+def fit_report(out, tel):
+    """Phase 8's run report: ``report.json`` valid, ``events.jsonl``
+    written, the live watermarks available with a peak no lower than any
+    sampled ``bytes_in_use``, and the cost model's measured step and
+    attribution present. Returns its figures."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+        telemetry as tm)
+    manifest = json.loads((out / "report.json").read_text())
+    tm.validate_report(manifest)
+    check((out / "events.jsonl").exists(), "fit wrote no events.jsonl")
+    live = manifest["memory"].get("live", {})
+    sampled = max((s["bytes_in_use"] for s in tel.memory_samples), default=0)
+    check(live.get("available") is True and live["peak_bytes_in_use"]
+          >= sampled > 0, f"live watermarks {live} (sampled {sampled})")
+    cm = manifest["cost_model"]
+    check("step_s" in cm.get("measured", {}) and "attribution" in cm,
+          f"cost model without its measured part: {sorted(cm)}")
+    att = cm["attribution"]
+    rec = dict(compile_s=manifest["timers"]["compile_s"],
+               steps=manifest["counters"]["steps"],
+               measured_step_s=cm["measured"]["step_s"],
+               predicted_step_s=cm["predicted"]["step_s"],
+               mfu=cm["measured"]["mfu"],
+               bubble_measured_mean=cm["measured"]["bubble_measured_mean"],
+               attribution={k: att[k] for k in (
+                   "compute_s", "comm_s", "bubble_s", "straggler_device")},
+               live_peak_bytes=live.get("peak_bytes_in_use") or 0,
+               n_events=manifest["n_events"])
+    print(f"  (b) fit's run report: valid, {rec['n_events']} events, "
+          f"compile_s {rec['compile_s']:.2f} s, the last step's stamps "
+          f"{rec['measured_step_s'] * 1e3:.1f} ms (predicted "
+          f"{rec['predicted_step_s'] * 1e3:.1f} ms, MFU {rec['mfu']:.4f}, "
+          f"measured bubble {rec['bubble_measured_mean']:.3f}), critical "
+          f"path compute {att['compute_s'] * 1e3:.1f} / comm "
+          f"{att['comm_s'] * 1e3:.1f} / bubble {att['bubble_s'] * 1e3:.1f} "
+          f"ms, live peak {rec['live_peak_bytes'] / 2 ** 30:.2f} GiB")
+    return rec
+
+
 def phase_fit(report, device="cuda"):
     """``fit`` and the training entry point (see the module doc); returns
     the kernel launches of one fit step, of one eval and of the entry
@@ -1987,7 +2192,7 @@ def phase_fit(report, device="cuda"):
     from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.pipeline import (
         _fwd_tick_table)
     from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
-        resilience, train as ttrain)
+        resilience, telemetry as tm, train as ttrain)
     from distributed_training_with_pipeline_parallelism_tpu_torch.utils.checkpoint import (
         is_committed, restore_checkpoint)
     from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
@@ -2062,11 +2267,15 @@ def phase_fit(report, device="cuda"):
                     map(json.loads, Path(metrics).read_text().splitlines())
                     if "loss" in x]
 
-        # (b) the f32 resume gate: unbroken, killed in a save, preempted
+        # (b) the f32 resume gate: unbroken (with a run report and its
+        # stamps), killed in a save, preempted
         t0 = time.perf_counter()
-        run_fit(6, tmp / "ck_unbroken", tmp / "m_unbroken.jsonl")
+        tel = tm.PipelineTelemetry()
+        run_fit(6, tmp / "ck_unbroken", tmp / "m_unbroken.jsonl",
+                report_dir=str(tmp / "report"), telemetry=tel)
         want = restore_checkpoint(str(tmp / "ck_unbroken" / "step_5"))
         want_losses = dict(losses(tmp / "m_unbroken.jsonl"))
+        res["report"] = fit_report(tmp / "report", tel)
         shutil.rmtree(tmp / "ck_unbroken")
         check(sorted(want_losses) == list(range(6)) and all(
             math.isfinite(x) for x in want_losses.values()),
@@ -2753,6 +2962,46 @@ def dist_profile(step, mesh, profile_it):
                 handoff_post_ms=spans.get("handoff_post", 0.0))
 
 
+def stamped_world_step(make_step, model, opt_state, batch, mesh):
+    """One stamped train step of a world (``make_step(telemetry)`` gives
+    the step): every rank stamps its row of the table and global rank 0
+    merges the stamps. Rank 0 returns the timeline's length, the table's
+    and, per rank, the seconds of its own tick stamps, those of ticks
+    where its row runs a unit and its arrival waits; the other ranks
+    None."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+        telemetry as tm)
+    tel = tm.PipelineTelemetry()
+    step = make_step(tel)
+    mesh.barrier()  # a profiled rank may still be reading its trace
+    step(model, opt_state, *batch).item()
+    if mesh.rank != 0:
+        return None
+    return dict(n_ticks=len(tel.timeline()), table_ticks=tel.table.shape[0],
+                step_s=sum(r["duration_s"] for r in tel.timeline()),
+                ranks=tel.rank_summary())
+
+
+def print_world_stamps(stamps, profile, world):
+    """Rank 0's stamps of phases 10 and 11 beside each rank's CUPTI idle
+    share (where the rank was profiled); fails unless every rank stamped
+    every tick."""
+    check(stamps["n_ticks"] == stamps["table_ticks"]
+          and len(stamps["ranks"]) == world,
+          f"the stamped world step: {stamps['n_ticks']} of "
+          f"{stamps['table_ticks']} ticks, {len(stamps['ranks'])} of "
+          f"{world} ranks")
+    print(f"  stamped step: {stamps['n_ticks']} ticks, "
+          f"{stamps['step_s'] * 1e3:.1f} ms from rank 0's merged stamps")
+    for r in stamps["ranks"]:
+        p = profile.get(r["rank"])
+        print(f"    rank {r['rank']} (pipe {r['pipe']}): its ticks "
+              f"{r['tick_s'] * 1e3:.1f} ms, busy ticks "
+              f"{r['busy_tick_s'] * 1e3:.1f} ms, arrival waits "
+              f"{r['wait_s'] * 1e3:.1f} ms"
+              + (f"; CUPTI idle share {p['idle_share']:.3f}" if p else ""))
+
+
 def dist_worker(mesh, spec):
     """One rank of phase 10's world: the warm-up, (a) the f32 gates, (b)
     the clipped train steps against the lockstep one, then, once the
@@ -2960,6 +3209,10 @@ def dist_worker(mesh, spec):
           f"bf16 rank {mesh.rank}: launches {res['step_launches']}")
     res["profile"] = dist_profile(lambda: run(model, *batch), m,
                                   m.pipe in (0, 3))
+    res["stamps"] = stamped_world_step(
+        lambda tel: port.make_train_step(cfg16, sched, 4, opt, device=device,
+                                         mesh=m, telemetry=tel),
+        model, state, batch, m)
     del model, state
     torch.cuda.empty_cache()
 
@@ -3247,7 +3500,8 @@ def phase_dist(report, device="cuda"):
             ratio=sum(w[0] for w in world_tps) / sum(lock),
             losses=[r["losses"] for r in ranks],
             step_launches=[r["step_launches"] for r in ranks],
-            profile={r["rank"]: r["profile"] for r in ranks if r["profile"]})
+            profile={r["rank"]: r["profile"] for r in ranks if r["profile"]},
+            stamps=ranks[0]["stamps"])
         print(f"  bf16 1F1B D=4, B={DIST_TIME_B}, in turns: lockstep "
               f"{lock[0]:.1f}, world {world_tps[0][0]:.1f}, world "
               f"{world_tps[1][0]:.1f}, lockstep {lock[1]:.1f} tokens/s "
@@ -3259,6 +3513,8 @@ def phase_dist(report, device="cuda"):
                   f"{p['idle_share']:.3f}, hand-off wait "
                   f"{p['handoff_wait_ms']:.1f} ms, posts "
                   f"{p['handoff_post_ms']:.1f} ms")
+        print_world_stamps(ranks[0]["stamps"], res["bf16"]["profile"],
+                           len(ranks))
 
         # (d) the resume restored, and the ranks compared every file
         tm = ranks[0]["train_main"]
@@ -3585,6 +3841,11 @@ def tp_worker(mesh, spec):
           f"TP bf16 rank {mesh.rank}: launches {res['step_launches']} != "
           f"the pipe rank's {want}")
     res["profile"] = tp_profile(lambda: run(model, *batch), mesh)
+    res["stamps"] = stamped_world_step(
+        lambda tel: port.make_train_step(cfg16, sched, mesh.n_pipe, opt,
+                                         device=device, mesh=mesh,
+                                         telemetry=tel),
+        model, state, batch, mesh)
     del model, state, whole
     torch.cuda.empty_cache()
 
@@ -3763,7 +4024,8 @@ def phase_tp(report, device="cuda"):
             ratio=sum(w[0] for w in world_tps) / sum(lock),
             losses=[r["losses"] for r in ranks],
             step_launches=[r["step_launches"] for r in ranks],
-            profile={r["rank"]: r["profile"] for r in ranks})
+            profile={r["rank"]: r["profile"] for r in ranks},
+            stamps=ranks[0]["stamps"])
         print(f"  bf16 1F1B pipe 2 x model 2, B={TP_TIME_B}, S={TRAIN_S}, in "
               f"turns ({DIST_WARMUP} warm-up, {TP_TIMED} timed steps "
               f"each): lockstep (D=2) {lock[0]:.1f}, world "
@@ -3778,6 +4040,8 @@ def phase_tp(report, device="cuda"):
                   f"all-reduces {p['tp_all_reduce_ms']:.1f} ms, hand-off "
                   f"wait {p['handoff_wait_ms']:.1f} ms, posts "
                   f"{p['handoff_post_ms']:.1f} ms")
+        print_world_stamps(ranks[0]["stamps"], res["bf16"]["profile"],
+                           len(ranks))
         tm = ranks[0]["train_main"]
         check("resumed from" in tm["resumed"]["output"],
               f"the TP resume restored nothing:\n"

@@ -4,7 +4,10 @@ The port's own copy of the numpy parts of the JAX package's
 ``analysis/cost_model.py``: ``HardwareSpec`` (``:74``), ``dtype_bytes``,
 ``fwd_flops_per_token`` (``:156``), ``train_flops_per_token``,
 ``resolve_backward_policy`` (``:187``), ``backward_weights`` (``:204``),
-``predicted_step_time`` (``:230``) and ``cost_model_section`` (``:376``).
+``predicted_step_time`` (``:230``), ``comm_overlap_step_time`` (``:259``,
+without its calibration correction) and ``cost_model_section``
+(``:376``) with its measured attribution from a stamped
+``utils.telemetry.PipelineTelemetry``.
 Each F unit is priced at one microbatch's forward FLOPs through one stage,
 B and W (and their recomputes under remat and the split backward) in
 forward-unit equivalents, each ring
@@ -22,13 +25,13 @@ Differences from the JAX module:
   is the HBM figure. An unknown CUDA card raises instead of falling back
   to a TPU preset; ``cpu`` maps to the labelled :data:`CPU_PROXY`, as in
   JAX. No TPU figure is kept.
-- No calibration correction (``ROADMAP.md`` Queue 1, item 12), no
-  telemetry attribution and no ``table_report`` argument (item 12: the
-  hop count comes from the table itself, as the static verifier counts
-  it), and only ``comm_overlap="none"``: the prices of the
-  double-buffered ring (the JAX ``comm_overlap_step_time``, whose
-  executor is ``make_pipeline_grad_fn(comm_overlap="ring")``) are item
-  12's, so its ``step_s_comm_overlap`` keys are absent.
+- No calibration correction (``ROADMAP.md`` Queue 1, entry 5) and no
+  ``table_report`` argument (entry 3, the table verifier: the hop count
+  comes from the table itself, as the static verifier counts it). The
+  section prices the double-buffered ring (``step_s_comm_overlap``,
+  which prices the table, not the run, as in JAX), but records only
+  runs with ``comm_overlap="none"``: a ring run's record waits for its
+  calibration (entry 5).
 """
 
 from __future__ import annotations
@@ -38,12 +41,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from ..parallel.schedules import (CHANNELS, CompiledSchedule,
+from ..parallel.schedules import (BANK_BEFORE_F, CHANNELS, CompiledSchedule,
                                   analytic_bubble_fraction,
-                                  table_unit_activity)
+                                  overlap_bank_stages, table_unit_activity)
 
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
-_ITEM_12 = "ROADMAP.md Queue 1, item 12 (observability and calibration)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +191,49 @@ def predicted_step_time(table: np.ndarray, unit_s: Tuple[float, float, float],
     }
 
 
+def comm_overlap_step_time(table: np.ndarray,
+                           unit_s: Tuple[float, float, float],
+                           hop_s: float,
+                           bank_stages: Optional[np.ndarray] = None
+                           ) -> Dict[str, float]:
+    """The step time under the double-buffered ring
+    (``make_pipeline_grad_fn(comm_overlap="ring")``): a hop that lands at
+    tick u and banks before its first unit (stage 0 of
+    ``schedules.overlap_bank_stages``) is exposed, serialized as in the
+    lockstep; one banked later overlaps the tick's earlier units, so
+
+        time_u = exposed_hops_u * hop_s
+                 + max(compute_u, overlappable_hops_u * hop_s)
+
+    which lies between ``step_s_overlapped`` and ``step_s`` summed over
+    the ticks (the JAX function, without its calibration correction)."""
+    table = np.asarray(table)
+    if bank_stages is None:
+        bank_stages = overlap_bank_stages(table)
+    activity = table_unit_activity(table)
+    vec = np.array([unit_s[0], unit_s[1], unit_s[2], 0.0], dtype=np.float64)
+    compute_tick_s = (activity.astype(np.float64) @ vec).max(axis=1)  # [T]
+    T = table.shape[0]
+    exposed = np.zeros(T, dtype=np.int64)
+    deferred = np.zeros(T, dtype=np.int64)
+    for u in range(1, T):
+        for ci, (_, _, col) in enumerate(CHANNELS):
+            if (table[u, :, col] >= 0).any():
+                if bank_stages[u, ci] == BANK_BEFORE_F:
+                    exposed[u] += 1
+                else:
+                    deferred[u] += 1
+    tick_s = exposed * hop_s + np.maximum(compute_tick_s, deferred * hop_s)
+    return {
+        "step_s_comm_overlap": float(tick_s.sum()),
+        "exposed_hops": int(exposed.sum()),
+        "overlappable_hops": int(deferred.sum()),
+        "exposed_comm_s": float(exposed.sum() * hop_s),
+        "hidden_comm_s": float(
+            (np.minimum(deferred * hop_s, compute_tick_s)).sum()),
+    }
+
+
 def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
                        seq_length: int,
                        hardware: Optional[HardwareSpec] = None,
@@ -198,17 +243,24 @@ def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
                        comm_overlap: str = "none") -> Dict[str, Any]:
     """Price one compiled schedule on ``hardware`` (default: the CUDA
     card) and, given ``measured_step_s``, reconcile it: the JAX section's
-    keys but for the comm-overlap ones (see the module doc). ``mfu``
+    keys but for the calibration's (see the module doc). ``mfu``
     divides by D chips as in JAX; under the lockstep transport the D
-    stages share one card, whose own utilization is ``D * mfu``."""
-    if telemetry is not None or table_report is not None:
+    stages share one card, whose own utilization is ``D * mfu``.
+
+    ``telemetry``: a stamped ``utils.telemetry.PipelineTelemetry`` over
+    this table. It supplies ``measured_step_s`` (the sum of its timeline's
+    durations) when none is given, adds the critical-path ``attribution``
+    (compute, comm and bubble seconds, the straggler device) and
+    ``measured.bubble_measured_mean``."""
+    if table_report is not None:
         raise NotImplementedError(
-            f"telemetry attribution and a precomputed table report are not "
-            f"ported yet: {_ITEM_12}")
+            "a precomputed table report is not ported yet: ROADMAP.md "
+            "Queue 1, entry 3 (the table verifier, analysis/table_check.py)")
     if comm_overlap != "none":
         raise NotImplementedError(
-            f"comm_overlap={comm_overlap!r} prices are not ported yet: "
-            f"ROADMAP.md Queue 1, item 12 (the ring's comm_overlap_step_time)")
+            f"the record of a comm_overlap={comm_overlap!r} run is not "
+            f"ported yet: ROADMAP.md Queue 1, entry 5 (cost-model prices "
+            f"and calibration)")
     table = cs.table
     T, D = int(table.shape[0]), int(table.shape[1])
     hw = hardware if hardware is not None else detect_hardware()
@@ -232,6 +284,7 @@ def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
     unit_sec = (unit_f / hw.peak_flops, unit_b / hw.peak_flops,
                 unit_w / hw.peak_flops)
     tm = predicted_step_time(table, unit_sec, hop_s, hops_total)
+    ov = comm_overlap_step_time(table, unit_sec, hop_s)
     t_compute_s = tm["compute_s"]
     ideal_compute_s = hardware_per_step / (D * hw.peak_flops)
 
@@ -257,12 +310,17 @@ def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
             "bytes_per_hop": float(bytes_per_hop),
             "hops": hops_total,
             "bytes_total": float(bytes_per_hop) * hops_total,
+            "exposed_hops": ov["exposed_hops"],
+            "overlappable_hops": ov["overlappable_hops"],
         },
         "predicted": {
             "compute_s": t_compute_s,
             "comm_s": tm["comm_s"],
             "step_s": tm["step_s"],
             "step_s_overlapped": tm["step_s_overlapped"],
+            "step_s_comm_overlap": ov["step_s_comm_overlap"],
+            "exposed_comm_s": ov["exposed_comm_s"],
+            "hidden_comm_s": ov["hidden_comm_s"],
             "ideal_compute_s": ideal_compute_s,
             "bubble_table_exact": tm["bubble_table_exact"],
             "bubble_weighted": (1.0 - ideal_compute_s / t_compute_s
@@ -271,9 +329,20 @@ def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
                 cs.name, D, cs.n_virtual, cs.n_microbatches)),
         },
     }
+    stamped = telemetry is not None and bool(telemetry.events)
+    if stamped:
+        if measured_step_s is None:
+            measured_step_s = sum((rec.get("duration_s") or 0.0)
+                                  for rec in telemetry.timeline())
+        from ..utils.telemetry import critical_path
+        cp = critical_path(telemetry)
+        section["attribution"] = {
+            k: cp[k] for k in ("compute_s", "comm_s", "bubble_s", "total_s",
+                               "n_ticks", "straggler_device",
+                               "straggler_stage", "straggler_s_per_device")}
     if measured_step_s is not None and measured_step_s > 0:
         chip_s = measured_step_s * D * hw.peak_flops
-        section["measured"] = {
+        measured: Dict[str, Any] = {
             "step_s": float(measured_step_s),
             "tokens_per_sec": tokens_per_step / measured_step_s,
             "mfu": model_per_step / chip_s,
@@ -282,4 +351,8 @@ def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
             # signed: negative = the roofline is optimistic
             "rel_err": (tm["step_s"] - measured_step_s) / measured_step_s,
         }
+        if stamped:
+            sb = telemetry.stage_breakdown()
+            measured["bubble_measured_mean"] = sb["bubble_measured_mean"]
+        section["measured"] = measured
     return section

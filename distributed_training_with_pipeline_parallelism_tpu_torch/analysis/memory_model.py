@@ -3,8 +3,9 @@
 
 The port's own copy of the analytic parts of the JAX package's
 ``analysis/memory_model.py``: ``activation_slot_bytes``, ``params_bytes``,
-``stored_residual_bytes``, ``memory_model_section`` (``:202``) and
-``oom_preflight`` (``:464``). Per device: the peak number of live
+``stored_residual_bytes``, ``memory_model_section`` (``:202``) with its
+``live`` part (``_live_section``, ``:193``) and ``oom_preflight``
+(``:464``). Per device: the peak number of live
 activation and cotangent slots of the tick table times one slot (a
 microbatch's ``[mb, seq, dim]`` stage-boundary slab in the compute dtype),
 the parameters (layers split over the stages, embedding and head
@@ -16,11 +17,15 @@ the port's model on the ``meta`` device.
 
 Differences from the JAX module:
 
-- The JAX ``compiled=`` accounting is XLA's ahead-of-time memory
-  analysis; the port runs eagerly and has no compiled program, so the
-  section records it as ``"n/a"`` with that reason. The port's measured
-  figure is the card's ``torch.cuda.max_memory_allocated`` over a run,
-  the sweep's ``max_memory_allocated_bytes`` column, never XLA's key.
+- The JAX ``compiled=`` accounting (``aot_memory_analysis``) is XLA's
+  ahead-of-time memory analysis of a compiled step, and its
+  ``reconciliation`` holds the analytic argument bytes to it. The port
+  runs eagerly and has no compiled program, so the section has neither
+  key. Its measured figures are the card's allocator watermarks: the
+  ``live`` part, sampled by a stamped ``utils.telemetry.
+  PipelineTelemetry`` at the step boundaries (``memory_allocated`` and
+  ``max_memory_allocated``; ``available`` is False on the CPU), and the
+  sweep's ``max_memory_allocated_bytes`` column.
 - Under the lockstep transport all D stages share one card. The JAX
   per-device ``peak_bytes`` prices a chip per stage; ``card_bytes`` prices
   the one card: every device's activation and residual bytes, and the
@@ -39,11 +44,6 @@ from ..parallel.schedules import (CHANNELS, COL_BWD_M, COL_BWD_V,
                                   placement_stage_of)
 from .cost_model import (HardwareSpec, detect_hardware, dtype_bytes,
                          model_shapes, resolve_backward_policy)
-
-_NO_COMPILED = ("n/a: the JAX figure is XLA's ahead-of-time memory analysis "
-                "of a compiled step; the port runs eagerly, and its measured "
-                "figure is torch.cuda.max_memory_allocated")
-
 
 def activation_slot_bytes(cfg, batch_size: int, seq_length: int,
                           n_microbatches: int) -> int:
@@ -151,19 +151,30 @@ def slot_live_peaks(cs: CompiledSchedule) -> Tuple[List[int], List[int]]:
     return peaks["act"], peaks["grad"]
 
 
+def _live_section(telemetry) -> Optional[Dict[str, Any]]:
+    if telemetry is None:
+        return None
+    summary = getattr(telemetry, "memory_summary", None)
+    if summary is None:
+        return None
+    return summary()
+
+
 def memory_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
                          seq_length: int,
                          hardware: Optional[HardwareSpec] = None,
                          remat_backward=None, optimizer_slots: int = 0,
-                         table_report=None) -> Dict[str, Any]:
+                         table_report=None, telemetry=None) -> Dict[str, Any]:
     """Price one compiled schedule's per-device memory (the JAX section's
     ``analytic`` part, plus ``card_bytes``; see the module doc).
     ``optimizer_slots``: f32 moments per parameter (2 for AdamW, 0 for
-    the loss-and-gradients step the sweep times)."""
+    the loss-and-gradients step the sweep times). ``telemetry``: a
+    stamped ``PipelineTelemetry``; its watermark summary becomes the
+    ``live`` part."""
     if table_report is not None:
         raise NotImplementedError(
             "a precomputed table report is not ported yet: ROADMAP.md "
-            "Queue 1, item 12 (analysis/table_check.py)")
+            "Queue 1, entry 3 (the table verifier, analysis/table_check.py)")
     D = int(cs.table.shape[1])
     hw = hardware if hardware is not None else detect_hardware()
     policy = resolve_backward_policy(cs, remat_backward)
@@ -231,8 +242,10 @@ def memory_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
         "backward_policy": policy,
         "hardware": hw.summary(),
         "analytic": analytic,
-        "compiled": _NO_COMPILED,
     }
+    live = _live_section(telemetry)
+    if live is not None:
+        section["live"] = live
     return section
 
 

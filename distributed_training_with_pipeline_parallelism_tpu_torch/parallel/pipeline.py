@@ -41,6 +41,7 @@ stage's cross entropy over the vocab (the JAX ``_stage_ce_impl``).
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -193,9 +194,12 @@ class DistTransport:
     message tag. :meth:`arrival` waits for one receive. A tick's sends are
     waited for at the end of the next tick, which frees their buffers.
     The waits and the posts are ``torch.profiler`` spans
-    (``handoff_wait``, ``handoff_post``)."""
+    (``handoff_wait``, ``handoff_post``); with a ``telemetry`` recorder
+    (``utils.telemetry.PipelineTelemetry``) the host seconds of each wait
+    are also added to its ``wait_s``."""
 
-    def __init__(self, mesh: Mesh, table: np.ndarray, channels=CHANNELS):
+    def __init__(self, mesh: Mesh, table: np.ndarray, channels=CHANNELS,
+                 telemetry=None):
         # autograd imports this module (and sympy, seconds on a busy host)
         # at the first backward that is handed its output's gradient: in a
         # world that is each rank's first backward unit, which waits for
@@ -205,6 +209,7 @@ class DistTransport:
         self.mesh = mesh
         self.devices = [mesh.pipe]
         self.channels = channels
+        self.telemetry = telemetry
         d = mesh.pipe
         self._recv_plan = [[ci for ci, (_, _, col) in enumerate(channels)
                             if table[t, d, col] >= 0]
@@ -222,7 +227,12 @@ class DistTransport:
     def arrival(self, t: int, d: int, ci: int) -> torch.Tensor:
         work, buf = self._pending.pop((t, ci))
         with torch.profiler.record_function("handoff_wait"):
-            return self.mesh.landed(work, buf)
+            if self.telemetry is None:
+                return self.mesh.landed(work, buf)
+            t0 = time.perf_counter()
+            x = self.mesh.landed(work, buf)
+            self.telemetry.add_wait(time.perf_counter() - t0)
+            return x
 
     def end_tick(self, t: int) -> None:
         with torch.profiler.record_function("handoff_post"):
@@ -321,8 +331,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           device="cuda", axes: Optional[Dict[str, int]] = None,
                           mesh: Optional[Mesh] = None,
                           comm_overlap: str = "none",
-                          tp_vocab_parallel: bool = False
-                          ) -> Callable[..., torch.Tensor]:
+                          tp_vocab_parallel: bool = False,
+                          telemetry=None) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: one pipelined forward and
     backward over ``n_stages`` (D) devices under ``sched``, with the
     gradients accumulated into the parameters' ``.grad`` (zero them
@@ -411,6 +421,20 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     ``NotImplementedError`` pointing at ``mesh``; ``"seq"`` and
     ``"expert"`` above 1 raise it naming the ``ROADMAP.md`` item that
     ports them.
+
+    ``telemetry`` (a ``utils.telemetry.PipelineTelemetry``, default None)
+    records a measured timeline: the table is attached with the
+    ``"unrolled"`` executor, and each step stamps ``STEP_START`` before
+    tick 0, ``TICK t`` once tick t's hand-offs are posted and
+    ``STEP_END`` after the last tick (on the card, CUDA events on the
+    current stream: no synchronisation inside the step). The plain D = 1
+    step has no ticks and is one ``"scan"`` segment. With ``mesh`` the
+    transport adds its arrival waits to ``telemetry.wait_s`` and, after
+    the epilogue, every rank hands its stamps to global rank 0
+    (``PipelineTelemetry.merge_world``, one gather over the world).
+    Without it the step records nothing and makes no extra call. The
+    stamps change no value: a stamped step's loss and gradients are the
+    unstamped step's bit for bit.
     """
     device = mesh_device(device, mesh, n_stages)
     _check_axes(axes)
@@ -469,9 +493,12 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                      d, int(table[t, d, col_v]))),)
                  if ci is not None]
         _check_hops(table, CHANNELS, sends)
-        transport = DistTransport(mesh, table)
+        transport = DistTransport(mesh, table, telemetry=telemetry)
     elif not plain:
         transport = LockstepTransport(D)
+    if telemetry is not None:
+        from ..utils import telemetry as _tm
+        telemetry.attach(table, None, "scan" if plain else "unrolled")
 
     def grad_fn(model: Transformer, tokens, targets,
                 step_seed: Optional[int] = None, *,
@@ -506,6 +533,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                              tp_vocab_parallel)
 
         loss = torch.zeros((), dtype=torch.float32, device=device)
+        if telemetry is not None:
+            telemetry.emit(_tm.STEP_START, 0, device)
         if plain:
             with torch.enable_grad():
                 for m in range(M):
@@ -514,7 +543,10 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     ce = head(y, tgts[m])
                     (ce * inv).backward()
                     loss += ce.detach()
-            return _epilogue(model, loss * inv, mesh, reduce_data)
+            if telemetry is None:
+                return _epilogue(model, loss * inv, mesh, reduce_data)
+            telemetry.emit(_tm.STEP_END, 0, device)
+            return _stamped_epilogue(model, loss * inv, reduce_data)
 
         stages = stack_stage_layers(model.layers, D, V, placement)
 
@@ -653,8 +685,21 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     wgrad_unit(d, row)
                 bank(BANK_END)
             transport.end_tick(t)
+            if telemetry is not None:
+                telemetry.emit(_tm.TICK, t, device)
         transport.finish()
-        return _epilogue(model, loss * inv, mesh, reduce_data)
+        if telemetry is None:
+            return _epilogue(model, loss * inv, mesh, reduce_data)
+        telemetry.emit(_tm.STEP_END, 0, device)
+        return _stamped_epilogue(model, loss * inv, reduce_data)
+
+    def _stamped_epilogue(model, loss, reduce_data):
+        """The epilogue, then a world's rank hands its stamps to global
+        rank 0."""
+        loss = _epilogue(model, loss, mesh, reduce_data)
+        if mesh is not None:
+            telemetry.merge_world(mesh)
+        return loss
 
     return grad_fn
 

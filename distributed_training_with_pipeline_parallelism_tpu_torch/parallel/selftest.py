@@ -70,6 +70,17 @@ def _npz(path: str, loss, model=None, extra=None) -> None:
     np.savez(path, **arrays)
 
 
+def _stamps(tel) -> Dict[str, np.ndarray]:
+    """A stamped step's record: its spans as (kind, index, count) rows,
+    its timeline's ticks and, on global rank 0, each rank's wait."""
+    spans = tel.spans()
+    return {"tel/spans": np.asarray(sorted((k, i, n) for (k, i), (_, _, n)
+                                           in spans.items())),
+            "tel/ticks": np.asarray([r["tick"] for r in tel.timeline()]),
+            "tel/wait_s": np.asarray([r["wait_s"]
+                                      for r in tel.rank_summary()])}
+
+
 def _params(model) -> Dict[str, np.ndarray]:
     return {f"param/{n}": p.detach().cpu().numpy().copy()
             for n, p in model.named_parameters()}
@@ -142,6 +153,7 @@ def run_cases(world: Mesh, spec: dict) -> dict:
     from ..utils import train as ttrain
     from ..utils.data import batch_sharding, synthetic_batches
     from ..utils.resilience import FaultPlan
+    from ..utils.telemetry import PipelineTelemetry
     from ..utils.weights import from_jax_params
     from .pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
                            owned_layers)
@@ -186,14 +198,18 @@ def run_cases(world: Mesh, spec: dict) -> dict:
         view = from_jax_params(cfg, tree, device=device, layers=own,
                                shard=tp)
         if kind == "grad":
+            tel = PipelineTelemetry() if case.get("telemetry") else None
             fn = make_pipeline_grad_fn(cfg, sched, D, device=device,
                                        mesh=mesh,
                                        comm_overlap=case["comm_overlap"],
-                                       tp_vocab_parallel=vp)
+                                       tp_vocab_parallel=vp, telemetry=tel)
             hops = mesh.hops
             loss = fn(view, *local, *seed)
+            extra = {"hops": np.asarray(mesh.hops - hops)}
+            if tel is not None:
+                extra.update(_stamps(tel))
             _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, view,
-                 extra={"hops": np.asarray(mesh.hops - hops)})
+                 extra=extra)
             if case.get("lockstep") and rank == 0:
                 whole = from_jax_params(cfg, tree, device=device)
                 ref = make_pipeline_grad_fn(cfg, sched, D, device=device)

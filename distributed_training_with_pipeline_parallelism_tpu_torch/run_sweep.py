@@ -15,6 +15,8 @@ stdlib ``csv`` module (the H100 host has no pandas), and prints both
 tables with the card's name. ``--backend gloo`` (or ``nccl``) runs each
 config as the reference does, one process per stage, one world per
 device count (``utils.sweep``'s world rows, with their ``transport``).
+``--report-dir`` appends each row's validated run-report manifest to
+``sweep_reports.jsonl`` there.
 """
 
 from __future__ import annotations
@@ -56,12 +58,15 @@ def main(argv=None) -> int:
                          "process per stage over torch.distributed with "
                          "this backend, one world per device count "
                          "(default: every stage in this process)")
+    ap.add_argument("--report-dir", default=None,
+                    help="append one RunReport manifest per row to "
+                         "sweep_reports.jsonl in this dir")
     args = ap.parse_args(argv)
 
     import torch
     dim = args.dim or (64 if args.quick else 768)
     kwargs = dict(dim=dim, dtype=args.dtype, device=args.device,
-                  backend=args.backend)
+                  backend=args.backend, report_dir=args.report_dir)
     if args.schedules:
         kwargs["schedules"] = tuple(args.schedules)
     if args.quick:

@@ -8,8 +8,9 @@ both admission policies and reports the comparison as one row:
 ``continuous`` refills a slot the moment its request retires, ``static``
 admits a fresh batch only after every slot has drained. The program,
 weights and trace are identical, so every difference in tokens/s, ticks
-and TTFT is scheduling. The JAX row's RunReport, cost-model and memory
-attachments are not ported (``ROADMAP.md`` Queue 1, item 12).
+and TTFT is scheduling. The JAX row's ``report=`` (its RunReport with the
+serving cost-model and memory sections) is not ported (``ROADMAP.md``
+Queue 1, item 12, entry 6).
 """
 
 from __future__ import annotations

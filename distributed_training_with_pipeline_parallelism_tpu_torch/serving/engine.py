@@ -98,8 +98,8 @@ slot, positions and page row from static device buffers.
 
 One slot table on one card replaces the JAX stage-0 tables and their
 replication at the block end. ``ServeResult.host_syncs`` counts the
-blocking reads (one per block). Tensor parallelism and a ``RunReport``
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` items. A
+blocking reads (one per block). Tensor parallelism raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item. A
 ``utils.resilience.FaultPlan`` injects admission faults
 (``serve_poison_rids``) and straggler delays (``serve_delay``) as the JAX
 engine does. Admission refuses a prompt token outside the vocabulary (a failed
@@ -136,7 +136,6 @@ _NCOL = 12
 
 _NOT_PORTED = {
     "tp": "ROADMAP.md Queue 1, item 11 (tensor parallelism)",
-    "report": "ROADMAP.md Queue 1, item 12 (observability: RunReport)",
 }
 
 
@@ -978,15 +977,17 @@ class ServingEngine:
     one, or one whose admission fails, with a ``status="failed"``
     :class:`Completion` and keeps serving. A speculative program takes the
     draft as ``draft_params`` (a port :class:`Transformer`); a paged one
-    keeps a radix prefix cache unless ``prefix_cache=False``.
+    keeps a radix prefix cache unless ``prefix_cache=False``. ``report``
+    (a ``utils.telemetry.RunReport``) receives the JAX engine's events:
+    ``serve_admit`` and ``serve_finish`` for each request, ``serve_failed``
+    (and its counter) for each failed one, and one ``serve_run`` a run.
     """
 
     def __init__(self, program: ServingProgram, model: Transformer, *,
                  draft_params: Optional[Transformer] = None, report=None,
                  fault_plan=None, prefix_cache: bool = True) -> None:
-        if report is not None:
-            raise _not_ported("a RunReport", "report")
         self.program = program
+        self.report = report
         self.fault_plan = fault_plan
         self.prefix_cache = prefix_cache
         self.weights = program.prepare(model, draft_params)
@@ -1101,13 +1102,28 @@ class ServingEngine:
         self._dirty = True
         self._slot_req[slot] = req
         self._slot_admit[slot] = self._tick
+        if self.report is not None:
+            paged_kv = ({"matched_len": plan.matched_len,
+                         "n_pages": plan.n_pages}
+                        if plan is not None else {})
+            self.report.event("serve_admit", rid=req.rid, slot=slot,
+                              tick=self._tick, prompt_len=plen,
+                              budget=req.max_new_tokens,
+                              arrival=req.arrival,
+                              wait_ticks=self._tick - req.arrival,
+                              **paged_kv)
 
     def _fail_request(self, req: Request, reason: str) -> None:
-        """Retire ``req`` unserved with a ``failed`` completion."""
+        """Retire ``req`` unserved with a ``failed`` completion (and a
+        ``serve_failed`` report event)."""
         self.completions.append(Completion(
             rid=req.rid, prompt=list(map(int, req.prompt)), tokens=[],
             slot=-1, admit_tick=-1, first_token_tick=-1, finish_tick=-1,
             arrival=req.arrival, status="failed", reason=reason))
+        if self.report is not None:
+            self.report.event("serve_failed", rid=req.rid, tick=self._tick,
+                              reason=reason)
+            self.report.count("serve_failed")
 
     def _harvest(self) -> None:
         for slot, req in list(self._slot_req.items()):
@@ -1115,22 +1131,32 @@ class ServingEngine:
             if not row[_FINISHED]:
                 continue
             n = int(row[_EMITTED])
-            self.completions.append(Completion(
+            comp = Completion(
                 rid=req.rid, prompt=list(map(int, req.prompt)),
                 tokens=[int(t) for t in row[_NCOL:_NCOL + n]],
                 slot=slot, admit_tick=self._slot_admit[slot],
                 first_token_tick=int(row[_T_FIRST]),
-                finish_tick=int(row[_T_FINISH]), arrival=req.arrival))
+                finish_tick=int(row[_T_FINISH]), arrival=req.arrival)
+            self.completions.append(comp)
             self.state["live"][slot] = False
             if self.paging is not None:
                 # decref the slot's pages and cache its prompt-covered ones
                 self.paging.retire(slot, req.prompt)
                 self.page_tbl[slot] = 0
                 self._dirty = True
-            self._spec_visits += int(row[_SPEC_VISITS])
-            self._spec_accepted += int(row[_SPEC_ACC])
+            sv, sa = int(row[_SPEC_VISITS]), int(row[_SPEC_ACC])
+            self._spec_visits += sv
+            self._spec_accepted += sa
             del self._slot_req[slot]
             del self._slot_admit[slot]
+            if self.report is not None:
+                spec_kv = ({"spec_verify_visits": sv, "spec_accepted": sa,
+                            "accepted_len_mean": (round(1 + sa / sv, 4)
+                                                  if sv else None)}
+                           if self.program.speculative else {})
+                self.report.event("serve_finish", rid=req.rid, slot=slot,
+                                  tick=self._tick, n_tokens=n,
+                                  ttft_ticks=comp.ttft_ticks, **spec_kv)
 
     def _run_block(self) -> None:
         """Upload what admission wrote, run the queued copy-on-write
@@ -1316,10 +1342,27 @@ class ServingEngine:
                          spec_verify_visits=self._spec_visits,
                          spec_accepted_tokens=self._spec_accepted,
                          acceptance_series=self.acceptance_series)
-        return ServeResult(completions=self.completions,
-                           occupancy=self.occupancy, ticks=self._tick,
-                           wall_s=wall, n_slots=p.n_slots, policy=policy,
-                           queue_depth=self.queue_depth,
-                           busy_ticks=self._busy_ticks,
-                           n_blocks=self._n_blocks,
-                           host_syncs=self._host_syncs, **extra)
+        result = ServeResult(completions=self.completions,
+                             occupancy=self.occupancy, ticks=self._tick,
+                             wall_s=wall, n_slots=p.n_slots, policy=policy,
+                             queue_depth=self.queue_depth,
+                             busy_ticks=self._busy_ticks,
+                             n_blocks=self._n_blocks,
+                             host_syncs=self._host_syncs, **extra)
+        if self.report is not None:
+            # one event a run with the measured tick rate
+            self.report.event(
+                "serve_run", policy=policy, ticks=result.ticks,
+                busy_ticks=result.busy_ticks,
+                wall_s=round(wall, 4), tokens_out=result.tokens_out,
+                s_per_tick=(round(wall / result.ticks, 6)
+                            if result.ticks else None),
+                **({"prefix_hit_rate": result.prefix_hit_rate,
+                    "n_backpressure": result.n_backpressure,
+                    "n_cow": result.n_cow} if self.paging is not None
+                   else {}),
+                **({"gamma": p.gamma,
+                    "acceptance_rate": result.acceptance_rate,
+                    "accepted_len_mean": result.accepted_len_mean}
+                   if p.speculative else {}))
+        return result

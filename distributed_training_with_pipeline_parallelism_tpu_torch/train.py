@@ -25,6 +25,11 @@ counterpart of ``scripts/train.py``: the same flags and defaults, through
         --model gpt2-small --pipe 2 --data 2 --backend gloo --zero1 \\
         --batch 24 --seq 1024 --steps 20 --flash on --fused-xent
 
+    # a run report and a Perfetto trace of the last step's ticks
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --pipe 4 --batch 24 --seq 1024 --steps 20 \\
+        --flash on --fused-xent --report-dir /tmp/run
+
     # Megatron tensor parallelism: pipe 2 x model 2, the head split over
     # the vocab (a tiny run on the CPU)
     python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
@@ -41,10 +46,14 @@ coordinate's Megatron shard of it) and its data replica's rows of each
 global batch (on CUDA, gloo stages every hand-off and collective through
 host memory; nccl needs a card per process). ``--data`` or ``--tp``
 above 1 needs a backend; ``--vocab-parallel`` needs ``--tp`` above 1.
-Flags for parts of the JAX package not ported yet (``--sp``/``--ep``
-above 1, ``--fsdp``, ``--moe-experts``, ``--sp-attn ulysses``,
-``--report-dir``, ``--dynamics``) raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.
+``--report-dir`` stamps every step's ticks (``utils.telemetry.
+PipelineTelemetry``) and writes ``events.jsonl``, ``report.json`` (the
+``RunReport`` manifest of ``fit``) and ``trace.json`` (the newest step's
+ticks as a Perfetto trace: open it in ui.perfetto.dev) there; in a world
+global rank 0 writes them, from every rank's stamps. Flags for parts of
+the JAX package not ported yet (``--sp``/``--ep`` above 1, ``--fsdp``,
+``--moe-experts``, ``--sp-attn ulysses``, ``--dynamics``) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ from .parallel.schedules import schedule_names
 
 _ITEM = {11: "ROADMAP.md Queue 1, item 11 (sequence and expert "
              "parallelism, FSDP, MoE)",
-         12: "ROADMAP.md Queue 1, item 12 (observability)"}
+         12: "ROADMAP.md Queue 1, item 12, entry 4 (training dynamics)"}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -141,7 +150,10 @@ def parser() -> argparse.ArgumentParser:
                     help="log a stall when no step completes for this many "
                          "seconds (0 disables)")
     ap.add_argument("--dynamics", action="store_true")
-    ap.add_argument("--report-dir", default="")
+    ap.add_argument("--report-dir", default="",
+                    help="write the run report (events.jsonl, report.json) "
+                         "and a Perfetto trace of the last step's ticks "
+                         "(trace.json) into this dir")
     ap.add_argument("--metrics", default="",
                     help="append per-log-point JSON lines here")
     ap.add_argument("--profile", default="",
@@ -202,7 +214,6 @@ def check_ported(args) -> None:
                 ("--sp-attn ulysses", args.sp_attn != "ring", 11),
                 ("--fsdp", args.fsdp, 11),
                 ("--moe-experts", args.moe_experts > 0, 11),
-                ("--report-dir", bool(args.report_dir), 12),
                 ("--dynamics", args.dynamics, 12)]
     for flag, given, item in unported:
         if given:
@@ -323,6 +334,7 @@ def run(args, mesh=None) -> int:
     from .utils.data import (TokenFileDataset, batch_sharding,
                              prefetch_to_device, token_file_dtype)
     from .utils.resilience import AnomalyGuard
+    from .utils.telemetry import PipelineTelemetry, write_perfetto_trace
 
     device = resolve_device(args.device) if mesh is None else mesh.device
     lead = mesh is None or mesh.rank == 0
@@ -392,6 +404,7 @@ def run(args, mesh=None) -> int:
                 cfg.vocab_size, args.batch, args.seq, seed=123,
                 sharding=sharding)
 
+    telemetry = PipelineTelemetry() if args.report_dir else None
     try:
         _, history = train.fit(
             cfg, sched, args.pipe, model, data, args.steps,
@@ -411,10 +424,16 @@ def run(args, mesh=None) -> int:
             handle_preemption=args.preemption_safe,
             stall_timeout_s=args.stall_timeout or None, device=device,
             zero1=args.zero1, mesh=mesh,
-            tp_vocab_parallel=args.vocab_parallel)
+            tp_vocab_parallel=args.vocab_parallel,
+            report_dir=args.report_dir or None, telemetry=telemetry)
     finally:
         if loader is not None:
             loader.close()
+    if telemetry is not None and lead and telemetry.events:
+        trace = write_perfetto_trace(
+            telemetry, os.path.join(args.report_dir, "trace.json"))
+        say(f"run report in {args.report_dir}, Perfetto trace {trace}",
+            flush=True)
     if args.ckpt:
         say(f"checkpoints in {args.ckpt}", flush=True)
     if history:

@@ -32,14 +32,23 @@ def run_train_iterations(step: Callable, model, tokens, targets,
                          num_iterations: int = 10,
                          warmup_iterations: int = 2,
                          seed: Optional[int] = None,
-                         mesh=None) -> Dict[str, float]:
+                         mesh=None, report=None,
+                         telemetry=None) -> Dict[str, float]:
     """Time ``num_iterations`` calls of ``step(model, tokens, targets)``
     (returning the loss) after ``warmup_iterations`` untimed ones. With a
     ``seed`` (a step that runs train-mode dropout) the i-th call, warm-ups
     included, also takes ``seed + i`` as its step seed, so each step
     draws new masks. With ``mesh`` (this rank's ``parallel.mesh.Mesh``;
     every rank calls it) ``tokens`` is the rank's slice and the tokens
-    count the global batch; global rank 0's numbers are the run's."""
+    count the global batch; global rank 0's numbers are the run's.
+
+    ``report`` (a ``utils.telemetry.RunReport``) records the warm-up
+    (first launches and kernel builds included) and the timed loop as
+    the ``warmup_s`` and ``timed_loop_s`` timers, the ``timed_iterations``
+    counter and the returned metrics as gauges. ``telemetry`` (a
+    ``PipelineTelemetry`` already wired into ``step``) is reset after the
+    warm-up, so its stamps cover exactly the timed steps, and is attached
+    to ``report`` at the end."""
     n_data = 1 if mesh is None else mesh.n_data
     total_toks = tokens.shape[0] * tokens.shape[1] * num_iterations * n_data
     barrier = mesh.barrier if mesh is not None else (lambda: None)
@@ -49,16 +58,29 @@ def run_train_iterations(step: Callable, model, tokens, targets,
             return step(model, tokens, targets)
         return step(model, tokens, targets, seed + i)
 
+    warm0 = time.perf_counter()
     out = None
     for i in range(warmup_iterations):
         out = call(i)
     force_completion(out)
     barrier()
+    if report is not None:
+        report.timers["warmup_s"] = time.perf_counter() - warm0
+    if telemetry is not None:
+        telemetry.reset()  # the timeline covers the timed loop only
     start = time.perf_counter()
     for i in range(warmup_iterations, warmup_iterations + num_iterations):
         out = call(i)
     force_completion(out)
     barrier()
     elapsed = time.perf_counter() - start
-    return {"elapsed_time": elapsed, "throughput": total_toks / elapsed,
-            "tokens_processed": total_toks}
+    metrics = {"elapsed_time": elapsed, "throughput": total_toks / elapsed,
+               "tokens_processed": total_toks}
+    if report is not None:
+        report.timers["timed_loop_s"] = elapsed
+        report.count("timed_iterations", num_iterations)
+        for k, v in metrics.items():
+            report.gauge(k, v)
+        if telemetry is not None:
+            report.attach_telemetry(telemetry)
+    return metrics

@@ -27,8 +27,15 @@ What the columns mean in the port:
 - ``mfu`` and ``predicted_step_s`` price D chips of the run's
   ``HardwareSpec`` (the H100 preset on the card), as in JAX.
 - ``rel_err_corrected`` is None: no calibration correction is fitted for
-  the H100 yet (``ROADMAP.md`` Queue 1, item 12), and neither are the
-  dynamics columns.
+  the H100 yet (``ROADMAP.md`` Queue 1, entry 5), and neither are the
+  dynamics columns (entry 4).
+
+``report_dir`` adds one validated ``RunReport`` manifest per row to
+``{report_dir}/sweep_reports.jsonl`` (JAX ``:246-282``): the timers and
+counter of ``run_train_iterations``, the row's columns as gauges, the
+``cost_model`` and ``memory`` sections, and no calibration (entry 5).
+A world row's manifest carries rank 0's timing and is written once, by
+the process that launched the world.
 
 A world row (``backend="gloo"`` or ``"nccl"``) runs the config as the
 reference does, one process per stage (``parallel.mesh.launch`` over a
@@ -64,9 +71,12 @@ WORLD_COLUMNS = ("transport", "world_ranks")
 # measured torch.cuda.max_memory_allocated over the run (None on the CPU)
 PORT_COLUMNS = ("mfu_card", "predicted_card_bytes",
                 "max_memory_allocated_bytes")
-_ITEM_12 = "ROADMAP.md Queue 1, item 12 (observability)"
-_ITEM_12_ARTIFACTS = ("ROADMAP.md Queue 1, item 12 (schedule artifacts and "
-                      "the search, behind analysis/table_check.py)")
+_NOT_PORTED = {
+    "dynamics": "ROADMAP.md Queue 1, item 12, entry 4 (training dynamics)",
+    "schedule_artifact": "ROADMAP.md Queue 1, item 12, entry 3 (schedule "
+                         "artifacts and the search, behind "
+                         "analysis/table_check.py)",
+}
 
 
 def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
@@ -93,26 +103,29 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
 
     ZBV's steady state needs M >= 2D, so its row lifts
     ``n_microbatches`` to 2D where it is smaller (recorded in the row's
-    ``n_microbatches``), as in JAX. ``report_dir``, ``dynamics=True``
-    and ``schedule_artifact`` raise ``NotImplementedError``
-    (``ROADMAP.md`` item 12). ``backend`` (``"gloo"`` or ``"nccl"``)
-    makes it a world row (see the module doc)."""
+    ``n_microbatches``), as in JAX. ``report_dir`` appends the row's
+    manifest to ``sweep_reports.jsonl`` there (see the module doc).
+    ``dynamics=True`` and ``schedule_artifact`` raise
+    ``NotImplementedError`` naming their ``ROADMAP.md`` entries.
+    ``backend`` (``"gloo"`` or ``"nccl"``) makes it a world row (see the
+    module doc)."""
     from .config import resolve_device
 
-    if report_dir is not None or dynamics:
-        raise NotImplementedError(
-            f"run reports and the dynamics pass are not ported yet: "
-            f"{_ITEM_12}")
-    if schedule_artifact is not None:
-        raise NotImplementedError(f"schedule artifacts are not ported yet: "
-                                  f"{_ITEM_12_ARTIFACTS}")
+    _check_ported(dynamics=dynamics, schedule_artifact=schedule_artifact)
     device = resolve_device(device)
     row = _Row(n_layers, n_heads, num_devices, schedule_type, batch_size,
                seq_length, num_iterations, dim, vocab_size, n_microbatches,
-               seed, arch, dtype, remat_backward, oom_preflight)
+               seed, arch, dtype, remat_backward, oom_preflight, report_dir)
     if backend is not None:
         return _world_rows([row], backend, device)[0]
     return row.run(device)
+
+
+def _check_ported(**given) -> None:
+    for name, value in given.items():
+        if value:
+            raise NotImplementedError(f"{name} is not ported yet: "
+                                      f"{_NOT_PORTED[name]}")
 
 
 class _Row:
@@ -122,7 +135,7 @@ class _Row:
     def __init__(self, n_layers, n_heads, num_devices, schedule_type,
                  batch_size, seq_length, num_iterations, dim, vocab_size,
                  n_microbatches, seed, arch, dtype, remat_backward,
-                 oom_preflight):
+                 oom_preflight, report_dir=None):
         self.__dict__.update(locals())
         del self.__dict__["self"]
 
@@ -167,7 +180,10 @@ class _Row:
 
     def timed(self, device, mesh=None):
         """The timed steps (with ``mesh``, this rank's share: its view,
-        its row of the table) and the device's peak allocation."""
+        its row of the table) and the device's peak allocation; with a
+        ``report_dir`` also the timing's ``RunReport`` timers and
+        counters (``"report"``)."""
+        from .telemetry import RunReport
         from ..models.transformer import init_params
         from ..parallel.pipeline import make_pipeline_grad_fn, owned_layers
         grad_fn = make_pipeline_grad_fn(self.cfg, self.sched,
@@ -191,11 +207,15 @@ class _Row:
         cuda = device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
+        report = RunReport() if self.report_dir is not None else None
         metrics = run_train_iterations(step, model, tokens, targets,
                                        num_iterations=self.num_iterations,
-                                       mesh=mesh)
+                                       mesh=mesh, report=report)
         metrics["peak"] = (float(torch.cuda.max_memory_allocated(device))
                            if cuda else None)
+        if report is not None:
+            metrics["report"] = {"timers": report.timers,
+                                 "counters": report.counters}
         return metrics
 
     def run(self, device):
@@ -204,7 +224,10 @@ class _Row:
             if skip is not None:
                 return skip
             metrics = self.timed(device)
-            return self.finish(metrics, metrics.pop("peak"))
+            timing = metrics.pop("report", None)
+            row = self.finish(metrics, metrics.pop("peak"))
+            self.write_report(row, timing, device)
+            return row
         except Exception as e:  # the reference worker's catch-all contract
             traceback.print_exc()
             return {"error": str(e)}
@@ -252,7 +275,39 @@ class _Row:
         })
         if world is not None:
             metrics.update(zip(WORLD_COLUMNS, world))
+        self.cost = cost
         return metrics
+
+    def write_report(self, row, timing, device, world=None) -> None:
+        """With a ``report_dir``: the row's manifest (``timing``: the
+        timed steps' timers and counters), validated and appended to
+        ``sweep_reports.jsonl``."""
+        if self.report_dir is None:
+            return
+        import json
+        import os
+
+        from .telemetry import RunReport, validate_report
+        D = self.num_devices
+        report = RunReport(name=f"sweep_L{self.n_layers}_H{self.n_heads}_"
+                                f"D{D}_{self.schedule_type}")
+        report.set_meta(config=self.cfg, schedule=self.sched,
+                        mesh_shape={"data": 1, "pipe": D},
+                        batch_size=self.batch_size,
+                        seq_length=self.seq_length, backend=device.type,
+                        **({} if world is None else {"transport": world[0]}))
+        report.timers.update(timing["timers"])
+        report.counters.update(timing["counters"])
+        for k, v in row.items():
+            report.gauge(k, v)
+        report.attach_cost_model(self.cost)
+        report.attach_memory(self.mem)
+        manifest = report.manifest()
+        validate_report(manifest)
+        os.makedirs(self.report_dir, exist_ok=True)
+        with open(os.path.join(self.report_dir, "sweep_reports.jsonl"),
+                  "a") as fh:
+            fh.write(json.dumps(manifest) + "\n")
 
 
 def _world_rank(mesh, rows: List[_Row]):
@@ -310,7 +365,10 @@ def _world_rows(rows: List[_Row], backend: str, device
         timing.pop("peak")
         peak = None if peaks[0] is None else float(sum(peaks))
         try:
+            report = timing.pop("report", None)
             results[i] = rows[i].finish(timing, peak, (transport, D))
+            rows[i].write_report(results[i], report, device,
+                                 (transport, D))
         except Exception as e:
             traceback.print_exc()
             results[i] = {"error": str(e)}
@@ -372,12 +430,11 @@ def _world_sweep(configs, backend, batch_size, seq_length, num_iterations,
     from .config import resolve_device
     kw = dict(kwargs)
     device = resolve_device(kw.pop("device", "cuda"))
-    for k in ("report_dir", "schedule_artifact", "dynamics"):
-        if kw.pop(k, None):
-            raise NotImplementedError(f"{k} is not ported yet: {_ITEM_12}")
+    _check_ported(dynamics=kw.pop("dynamics", False),
+                  schedule_artifact=kw.pop("schedule_artifact", None))
     defaults = dict(dim=768, vocab_size=10000, n_microbatches=4, seed=0,
                     arch="ref_decoder", dtype="float32", remat_backward=None,
-                    oom_preflight=True)
+                    oom_preflight=True, report_dir=None)
     defaults.update(kw)
     out = {}
     for D in dict.fromkeys(D for _, _, D, _ in configs):
@@ -387,7 +444,8 @@ def _world_sweep(configs, backend, batch_size, seq_length, num_iterations,
                      defaults["dim"], defaults["vocab_size"],
                      defaults["n_microbatches"], defaults["seed"],
                      defaults["arch"], defaults["dtype"],
-                     defaults["remat_backward"], defaults["oom_preflight"])
+                     defaults["remat_backward"], defaults["oom_preflight"],
+                     defaults["report_dir"])
                 for i in idx]
         t0 = time.perf_counter()
         out.update(zip(idx, _world_rows(rows, backend, device)))

@@ -40,6 +40,7 @@ from ..parallel.pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
 from . import profiling
 from .config import ModelConfig, ScheduleConfig
 from .dynamics import nonfinite_per_stage
+from .metrics import force_completion
 from .resilience import (AnomalyBudgetExceeded, AnomalyGuard,
                          CheckpointManager, PreemptionHandler, SimulatedKill,
                          StepWatchdog, config_fingerprint, init_guard_state,
@@ -441,7 +442,8 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     optimizer, remat_backward=None, device="cuda",
                     guard=None, fault_plan=None, mesh=None,
                     comm_overlap: str = "none",
-                    tp_vocab_parallel: bool = False) -> Callable:
+                    tp_vocab_parallel: bool = False,
+                    telemetry=None) -> Callable:
     """``step(model, opt_state, tokens, targets[, step_seed]) -> loss``:
     the pipeline's gradients (:func:`..parallel.pipeline.make_pipeline_grad_fn`),
     then the optimizer's update of ``model`` in place. ``opt_state`` is
@@ -475,12 +477,16 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     step. With a model axis ``model`` is the rank's shard
     (``parallel.tensor_parallel.shard_model``, with
     ``tp_vocab_parallel``'s head) and ZeRO-1 splits each of its leaves
-    over the data group only."""
+    over the data group only. ``telemetry`` (a
+    ``utils.telemetry.PipelineTelemetry``) stamps the pipeline's ticks
+    (:func:`..parallel.pipeline.make_pipeline_grad_fn`); the update
+    after them is not stamped."""
     grad_fn = make_pipeline_grad_fn(cfg, sched, n_stages,
                                     remat_backward=remat_backward,
                                     device=device, mesh=mesh,
                                     comm_overlap=comm_overlap,
-                                    tp_vocab_parallel=tp_vocab_parallel)
+                                    tp_vocab_parallel=tp_vocab_parallel,
+                                    telemetry=telemetry)
 
     def gradients(model, opt_state, tokens, targets, step_seed):
         opt_state.zero_grad()
@@ -598,10 +604,7 @@ _FIT_NOT_PORTED = {
     "fsdp": "ROADMAP.md Queue 1, item 11 (FSDP)",
     "moe": "ROADMAP.md Queue 1, item 11 (expert parallelism and MoE)",
     "sp_attn_impl": "ROADMAP.md Queue 1, item 11 (sequence parallelism)",
-    "report_dir": "ROADMAP.md Queue 1, item 12 (observability: RunReport)",
-    "telemetry": "ROADMAP.md Queue 1, item 12 (observability: "
-                 "PipelineTelemetry)",
-    "dynamics": "ROADMAP.md Queue 1, item 12 (training dynamics)",
+    "dynamics": "ROADMAP.md Queue 1, item 12, entry 4 (training dynamics)",
 }
 
 
@@ -681,17 +684,34 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
       stall. Any other crash banks the last completed step before it
       propagates. ``fault_plan`` injects the ``resilience.FaultPlan``
       faults.
+    - ``report_dir``: a ``utils.telemetry.RunReport`` (global rank 0's
+      under a mesh): ``events.jsonl`` streamed as the run goes (every log
+      point, eval, resume, stall, guard skip, preemption and crash, with
+      JAX's kinds and fields) and a final ``report.json`` that
+      ``telemetry.validate_report`` accepts. Its manifest holds the
+      config, schedule, mesh shape, steps, ``grad_accum`` and backend,
+      the ``steps`` counter and ``final_loss`` gauge, the ``compile_s``
+      timer, the telemetry section, the cost model with its measured
+      attribution, the memory model with its ``live`` watermarks, and the
+      resilience section. ``compile_s`` is the first executed step's
+      wall, forced to completion, as in JAX; in the port it holds the
+      kernels' lazy build and autograd's first use, not a compile. No
+      calibration section: the corrections are ``ROADMAP.md`` Queue 1,
+      entry 5.
+    - ``telemetry``: a ``utils.telemetry.PipelineTelemetry`` the steps
+      stamp (:func:`make_train_step`), reset before each step, so it
+      holds the newest step's timeline (JAX's ``fit`` lets the steps'
+      stamps pile up, and its timeline then spans the run); embedded in
+      the report when ``report_dir`` is set. Under a mesh every rank
+      passes its own, and global rank 0's holds the world's stamps.
 
     The dropout seed of step i is ``fold_seed(dropout_seed, i)``, so a
     resumed run draws the unbroken run's masks. ``moe``,
-    ``fsdp``, an ``sp_attn_impl`` other than "ring", ``report_dir``,
-    ``telemetry`` and ``dynamics`` raise ``NotImplementedError`` naming
-    their ``ROADMAP.md`` items.
+    ``fsdp``, an ``sp_attn_impl`` other than "ring" and ``dynamics``
+    raise ``NotImplementedError`` naming their ``ROADMAP.md`` items.
     """
     given = {"fsdp": fsdp, "moe": moe is not None,
              "sp_attn_impl": sp_attn_impl != "ring",
-             "report_dir": report_dir is not None,
-             "telemetry": telemetry is not None,
              "dynamics": bool(dynamics)}
     for name, on in given.items():
         if on:
@@ -713,7 +733,18 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     step_fn = make_train_step(cfg, sched, n_stages, optimizer,
                               remat_backward=remat_backward, device=device,
                               guard=guard, fault_plan=fault_plan, mesh=mesh,
-                              tp_vocab_parallel=tp_vocab_parallel)
+                              tp_vocab_parallel=tp_vocab_parallel,
+                              telemetry=telemetry)
+    report = None
+    if report_dir is not None and rank0:
+        from .telemetry import RunReport
+        report = RunReport(out_dir=report_dir, name="fit")
+        report.set_meta(config=dataclasses.asdict(cfg),
+                        schedule=dataclasses.asdict(sched),
+                        mesh_shape=({"data": 1, "pipe": n_stages}
+                                    if mesh is None else dict(mesh.shape)),
+                        num_steps=num_steps, grad_accum=grad_accum,
+                        backend=device.type)
     opt_state = (init_sharded_opt_state(optimizer, model, mesh) if zero1
                  else optimizer.init(model))
     guard_state = init_guard_state(0, device) if guard is not None else None
@@ -752,6 +783,8 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     next(data)
             if verbose:
                 print(f"resumed from {path} (step {n})", flush=True)
+            if report is not None:
+                report.event("resumed", step=n, path=path)
 
     def _save(i, wait=True):
         mgr.save(i, _state(i), wait=wait)
@@ -776,6 +809,8 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         if metrics_path:
             with open(metrics_path, "a") as f:
                 f.write(json.dumps({"step": i, **m}) + "\n")
+        if report is not None:
+            report.event("eval", step=i, **m)
         return m
 
     preempt = PreemptionHandler(enabled=handle_preemption)
@@ -786,6 +821,9 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                 "fit: no step completed in %.1fs (last completed step %s) "
                 "— stalled card or dead input pipeline?",
                 info["stalled_s"], info["step"])
+            if report is not None:
+                report.count("stalls")
+                report.event("stall", **info)
         watchdog = StepWatchdog(stall_timeout_s, _on_stall)
 
     history = []
@@ -798,6 +836,65 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     # profile_steps counts from the first step THIS run executes
     prof_start = start_step + profile_steps[0]
     prof_stop = start_step + max(profile_steps[1], profile_steps[0] + 1)
+    data_shape = None  # (global batch, seq) of the first batch
+
+    def _finalize_report():
+        if report is None:
+            return
+        report.count("steps", max(last_done - start_step + 1, 0))
+        if history:
+            report.gauge("final_loss", history[-1][1])
+        cs = None
+        if data_shape is not None:
+            from ..analysis.cost_model import detect_hardware
+            from ..parallel.schedules import compile_schedule
+            cs = compile_schedule(sched.name, n_stages, sched.n_virtual,
+                                  sched.n_microbatches)
+            hw = detect_hardware(device)
+        if telemetry is not None:
+            report.attach_telemetry(telemetry)
+            # the predicted and measured step over the table the stamps
+            # were taken on; an accounting error is recorded, it does not
+            # take the run's report down
+            if telemetry.events and cs is not None:
+                try:
+                    from ..analysis.cost_model import cost_model_section
+                    if (telemetry.table is not None
+                            and cs.table.shape == telemetry.table.shape):
+                        report.attach_cost_model(cost_model_section(
+                            cs, cfg, batch_size=data_shape[0],
+                            seq_length=data_shape[1], hardware=hw,
+                            remat_backward=remat_backward,
+                            telemetry=telemetry))
+                except Exception as e:
+                    report.event("cost_model_error", error=str(e))
+        if cs is not None:
+            # the bytes-domain twin: the analytic model (AdamW's two f32
+            # moments) and the stamps' live watermarks
+            try:
+                from ..analysis.memory_model import memory_model_section
+                report.attach_memory(memory_model_section(
+                    cs, cfg, batch_size=data_shape[0],
+                    seq_length=data_shape[1], hardware=hw,
+                    remat_backward=remat_backward, optimizer_slots=2,
+                    telemetry=telemetry))
+            except Exception as e:
+                report.event("memory_model_error", error=str(e))
+        res = {}
+        if mgr is not None:
+            res.update(mgr.stats())
+        if guard is not None:
+            res["anomaly_budget"] = guard.max_consecutive
+            res["anomalies"] = guard_seen
+        if handle_preemption or (fault_plan is not None
+                                 and fault_plan.preempt_at_step is not None):
+            res["preempted"] = preempted
+        if watchdog is not None:
+            res["stalls"] = watchdog.stalls
+        if res:
+            report.attach_resilience(res)
+        report.write()
+
     try:
         with preempt:
             for i in range(start_step, num_steps):
@@ -814,13 +911,28 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                             print(f"profile trace written to {profile_dir}",
                                   flush=True)
                 tokens, targets = next(data)
+                if data_shape is None:
+                    data_shape = (int(tokens.shape[0]) * n_data,
+                                  int(tokens.shape[1]))
                 seed = (fold_seed(dropout_seed, i) if cfg.dropout > 0.0
                         else None)
-                if guard_state is not None:
-                    loss, guard_state = step_fn(model, opt_state, tokens,
-                                                targets, guard_state, seed)
-                else:
-                    loss = step_fn(model, opt_state, tokens, targets, seed)
+                # the first executed step: kernel builds, first launches,
+                # autograd's first use; the compile_s timer brackets it,
+                # forced to completion
+                first = report is not None and i == start_step
+                if telemetry is not None:
+                    telemetry.reset()  # the stamps hold the newest step
+                with (report.timer("compile_s") if first
+                      else contextlib.nullcontext()):
+                    if guard_state is not None:
+                        loss, guard_state = step_fn(model, opt_state, tokens,
+                                                    targets, guard_state,
+                                                    seed)
+                    else:
+                        loss = step_fn(model, opt_state, tokens, targets,
+                                       seed)
+                    if first:
+                        force_completion(loss)
                 last_done = i
                 if watchdog is not None:
                     watchdog.beat(i)
@@ -844,6 +956,11 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                                 "tokens_per_sec": round(
                                     window_tokens / elapsed, 2),
                                 "elapsed_s": round(elapsed, 4)}) + "\n")
+                    if report is not None:
+                        report.event("train_log", step=i, loss=loss_f,
+                                     tokens_per_sec=round(
+                                         window_tokens / elapsed, 2),
+                                     elapsed_s=round(elapsed, 4))
                     if guard_state is not None:
                         gs = {k: int(v) for k, v in zip(guard_state,
                                                         counters)}
@@ -859,11 +976,24 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                                       f"last at step "
                                       f"{gs['last_anomaly_step']}{where})",
                                       flush=True)
+                            if report is not None:
+                                report.count("anomalies", delta)
+                                report.event(
+                                    "anomaly", step=i, total=gs["total"],
+                                    consec=gs["consec"],
+                                    last_anomaly_step=gs["last_anomaly_step"],
+                                    last_bad_stage=bad)
                         if gs["consec"] >= guard.max_consecutive:
                             # the model and optimizer hold the last GOOD
                             # state: every anomalous update was skipped
+                            if report is not None:
+                                report.count("anomaly_aborts")
+                                report.event("anomaly_abort", step=i,
+                                             consec=gs["consec"],
+                                             budget=guard.max_consecutive)
                             if mgr is not None:
                                 _save(i, wait=True)
+                            _finalize_report()
                             raise AnomalyBudgetExceeded(
                                 f"{gs['consec']} consecutive anomalous steps "
                                 f"at step {i} (budget {guard.max_consecutive})"
@@ -882,10 +1012,16 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     # the in-flight step already finished: bank it
                     # synchronously and exit resumable
                     preempted = True
+                    sig = preempt.signum
                     if verbose:
-                        print(f"step {i}: preemption ({preempt.signum}) — "
+                        print(f"step {i}: preemption ({sig}) — "
                               "checkpointing and exiting resumable",
                               flush=True)
+                    if report is not None:
+                        report.count("preemptions")
+                        report.event("preempted", step=i,
+                                     signal=int(sig) if sig is not None
+                                     else None)
                     if mgr is not None:
                         _save(i, wait=True)
                     break
@@ -895,7 +1031,7 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     _save(i, wait=False)  # written in the background
     except (SimulatedKill, AnomalyBudgetExceeded):
         raise  # injected death / already-handled abort: no crash save
-    except BaseException:
+    except BaseException as e:
         # crash-safe exit: the model holds step last_done's outputs — bank
         # them committed so the run resumes instead of restarting
         if mgr is not None and mesh is None and last_done >= start_step:
@@ -907,6 +1043,10 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
             except Exception:
                 logging.getLogger(__name__).exception(
                     "fit: crash checkpoint at step %d failed", last_done)
+        if report is not None:
+            report.event("crash", step=last_done, error=repr(e))
+            with contextlib.suppress(Exception):
+                _finalize_report()
         raise
     finally:
         if watchdog is not None:
@@ -919,6 +1059,7 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         _save(num_steps - 1)
     if mgr is not None:
         mgr.commit_pending()
+    _finalize_report()
     return model, history
 
 

@@ -17,6 +17,10 @@ with a seed), with both kernel routes on (their plain versions here).
   largest element).
 - ``comm_overlap="ring"`` bitwise equal to ``"none"`` (world and
   lockstep); ``overlap_bank_stages`` bit-identical to JAX's.
+- A stamped step (1F1B, D = 2 x 2): bitwise the unstamped step on every
+  rank; global rank 0 merges every rank's stamps (each (kind, index)
+  stamped by the four ranks, a timeline of T ticks) and each rank's
+  arrival wait.
 - The eval over the transport. The world's train step, plain AdamW and
   ZeRO-1 with clipping active, against the lockstep train step on the
   whole model and batch: the clipping norm within 1e-5 relative, every
@@ -77,7 +81,9 @@ def _cases():
                    lockstep=co == "none")
               for s in PP for tied in (False, True) for co in OVERLAP]
     common = dict(schedule="1F1B", M=DP_M, n_pipe=2, n_data=2)
-    cases += [dict(name="eval", kind="eval", **common),
+    cases += [dict(name="stamped", kind="grad", comm_overlap="none",
+                   telemetry=True, **common),
+              dict(name="eval", kind="eval", **common),
               dict(name="train", kind="train", steps=TRAIN["train"][0],
                    opt=TRAIN["train"][1], tied=True, **common),
               dict(name="zero1", kind="train", steps=TRAIN["zero1"][0],
@@ -206,6 +212,21 @@ def test_world_matches_jax_mesh_and_lockstep(tmp_path):
                     else:
                         np.testing.assert_array_equal(
                             g, want, err_msg=f"{name} {tied} {co}: {n}")
+
+    # the stamped step: every rank's loss and leaves bitwise the unstamped
+    # step's; rank 0 holds one span per (kind, index), stamped by all four
+    # ranks, a timeline of T ticks and each rank's wait
+    T = tsched.compile_schedule("1F1B", 2, 1, DP_M).table.shape[0]
+    for r in range(4):
+        got, want = world.rank("stamped", r), world.rank("dp_1F1B_none", r)
+        for k in (k for k in want if k != "hops"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    rank0 = world.rank("stamped", 0)
+    assert rank0["tel/spans"].tolist() == sorted(
+        [[0, 0, 4], [4, 0, 4]] + [[3, t, 4] for t in range(T)])
+    assert rank0["tel/ticks"].tolist() == list(range(T))
+    assert len(rank0["tel/wait_s"]) == 4 and (rank0["tel/wait_s"] >= 0).all()
+    assert len(world.rank("stamped", 1)["tel/wait_s"]) == 0
 
     # the eval: every rank holds the global batch's loss
     lock = float(world.rank("eval", 0)["lockstep"])

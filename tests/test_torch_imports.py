@@ -37,7 +37,7 @@ def test_port_and_chip_smoke_import_no_jax():
             "run_sweep.py", "utils/sweep.py", "utils/plotting.py",
             "train.py", "utils/resilience.py", "utils/checkpoint.py",
             "utils/data.py", "utils/data_native.py", "utils/dynamics.py",
-            "utils/profiling.py", "parallel/mesh.py",
+            "utils/profiling.py", "utils/telemetry.py", "parallel/mesh.py",
             "parallel/selftest.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}

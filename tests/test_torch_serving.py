@@ -29,6 +29,8 @@ from distributed_training_with_pipeline_parallelism_tpu.serving.bench import (
     synth_trace as jsynth_trace)
 from distributed_training_with_pipeline_parallelism_tpu.utils import (
     resilience as jresilience)
+from distributed_training_with_pipeline_parallelism_tpu.utils import (
+    telemetry as jtelemetry)
 from distributed_training_with_pipeline_parallelism_tpu.utils.telemetry import (
     serving_summary as jserving_summary)
 import distributed_training_with_pipeline_parallelism_tpu_torch as port
@@ -37,6 +39,8 @@ from distributed_training_with_pipeline_parallelism_tpu_torch.serving import (
     loadgen as tload, slo as tslo)
 from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
     resilience as tresilience)
+from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+    telemetry as ttelemetry)
 from distributed_training_with_pipeline_parallelism_tpu_torch.utils.telemetry import (
     serving_summary)
 
@@ -319,18 +323,15 @@ def test_submit_errors_match_jax(engines, prompt, budget):
 
 
 def test_modes_not_ported_raise(models):
-    """A tensor-parallel axis and a RunReport raise
-    ``NotImplementedError`` naming their ROADMAP item (paged KV and
-    speculative decoding are ported: ``test_torch_paging.py``,
-    ``test_torch_spec.py``; the FaultPlan:
-    ``test_fault_plan_matches_jax_engine``)."""
+    """A tensor-parallel axis raises ``NotImplementedError`` naming its
+    ROADMAP item (paged KV and speculative decoding are ported:
+    ``test_torch_paging.py``, ``test_torch_spec.py``; the FaultPlan:
+    ``test_fault_plan_matches_jax_engine``; the RunReport:
+    ``test_report_events_match_jax_engine``)."""
     _, _, tcfg, model = models["gpt2"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port.make_serving_step_fn(tcfg, D, device="cpu", tp_size=2,
                                   **PROGRAM)
-    program = port.make_serving_step_fn(tcfg, D, device="cpu", **PROGRAM)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.ServingEngine(program, model, report=object())
 
 
 @pytest.mark.parametrize("policy", ["continuous", "static"])
@@ -361,6 +362,46 @@ def test_fault_plan_matches_jax_engine(engines, policy):
     assert failed >= {2, 5}
     assert all(c.status == "ok" for c in got.completions
                if c.rid not in failed)
+
+
+@pytest.mark.parametrize("policy", ["continuous", "static"])
+def test_report_events_match_jax_engine(engines, policy):
+    """A ``RunReport`` on both engines over one trace with two poisoned
+    admissions (and a request that overflows its slot): the same event
+    stream (``serve_admit``, ``serve_failed``,
+    ``serve_finish``, ``serve_run``) with the same fields, but for the
+    wall clock (``t``, ``wall_s``, ``s_per_tick``), the same
+    ``serve_failed`` counter, and a manifest with the serving summary
+    that the port's validator accepts."""
+    jengine, tengine, trace, _ = engines
+    kw = dict(serve_poison_rids=(2, 5))
+    jtrace = [jeng.Request(r.rid, r.prompt, r.max_new_tokens, r.arrival)
+              for r in trace]
+    jreport, treport = jtelemetry.RunReport(), ttelemetry.RunReport()
+    jengine.report, jengine.fault_plan = jreport, jresilience.FaultPlan(**kw)
+    try:
+        jengine.run(jtrace, policy=policy)
+    finally:
+        jengine.report, jengine.fault_plan = None, None
+    tengine.report, tengine.fault_plan = treport, tresilience.FaultPlan(**kw)
+    try:
+        got = tengine.run(trace, policy=policy)
+    finally:
+        tengine.report, tengine.fault_plan = None, None
+
+    def stream(report):
+        return [{k: v for k, v in row.items()
+                 if k not in ("t", "wall_s", "s_per_tick")}
+                for row in report.events]
+
+    assert stream(treport) == stream(jreport)
+    kinds = {row["kind"] for row in treport.events}
+    assert kinds == {"serve_admit", "serve_failed", "serve_finish",
+                     "serve_run"}
+    assert treport.counters == jreport.counters
+    assert treport.counters["serve_failed"] >= 2
+    treport.attach_serving(serving_summary(got))
+    ttelemetry.validate_report(treport.manifest())
 
 
 def _as_tuples(trace):

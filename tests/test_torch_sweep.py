@@ -14,6 +14,7 @@ column set."""
 import csv
 import dataclasses
 import itertools
+import json
 import subprocess
 import sys
 
@@ -36,7 +37,7 @@ from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
 from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
     schedules as tsched)
 from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
-    plotting, sweep as tsweep)
+    plotting, sweep as tsweep, telemetry as ttelemetry)
 from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
     virtual_stages_for)
 
@@ -106,10 +107,12 @@ def test_cost_and_memory_sections_match_jax(L, D, name):
                                **kw)
     assert t["flops"] == j["flops"]
     for key in ("compute_s", "comm_s", "step_s", "step_s_overlapped",
+                "step_s_comm_overlap", "exposed_comm_s", "hidden_comm_s",
                 "ideal_compute_s", "bubble_table_exact", "bubble_weighted",
                 "bubble_closed_form"):
         assert t["predicted"][key] == j["predicted"][key], key
-    assert t["comm"]["hops"] == j["comm"]["hops"]
+    for key in ("hops", "exposed_hops", "overlappable_hops"):
+        assert t["comm"][key] == j["comm"][key], key
     assert t["measured"] == {k: j["measured"][k] for k in t["measured"]}
     jm = jmm.memory_model_section(jcs, jcfg, hardware=jhw, **kw)
     tm = tmm.memory_model_section(tcs, tcfg, hardware=thw, **kw)
@@ -209,8 +212,7 @@ def test_error_and_skip_contracts():
     assert skip["skip_reason"] == jskip["skip_reason"] == "predicted_oom"
     assert set(skip) == set(jskip)
     assert skip["predicted_peak_bytes"] > skip["hbm_bytes"] == 16e9
-    for kw, match in ((dict(report_dir="x"), "item 12"),
-                      (dict(dynamics=True), "item 12"),
+    for kw, match in ((dict(dynamics=True), "item 12"),
                       (dict(schedule_artifact="x"), "item 12")):
         with pytest.raises(NotImplementedError, match=match):
             tsweep.run_one_experiment(4, 4, 2, "GPipe", device="cpu", **kw)
@@ -258,15 +260,25 @@ def test_sweep_imports_neither_pandas_nor_matplotlib():
     subprocess.run([sys.executable, "-c", code], check=True)
 
 
-def test_world_rows_add_the_transport():
+def test_world_rows_add_the_transport(tmp_path):
     """``backend="gloo"`` runs a row of each D in one world of D processes
     (``sweep_rows`` and ``run_one_experiment``): the lockstep row's keys
     plus ``transport`` and ``world_ranks``, the same bubble, cost and
-    memory columns, and the JAX key set for the lockstep rows."""
+    memory columns, and the JAX key set for the lockstep rows. With a
+    ``report_dir`` the world row's manifest is written once, valid, with
+    rank 0's timing and the row as gauges."""
     kw = {k: v for k, v in MINI.items() if k != "verbose"}
     lock = tsweep.run_one_experiment(4, 4, 2, "1F1B", device="cpu", **kw)
     world = tsweep.run_one_experiment(4, 4, 2, "1F1B", device="cpu",
-                                      backend="gloo", **kw)
+                                      backend="gloo", report_dir=tmp_path,
+                                      **kw)
+    with open(tmp_path / "sweep_reports.jsonl") as fh:
+        manifests = [json.loads(line) for line in fh]
+    assert len(manifests) == 1
+    ttelemetry.validate_report(manifests[0])
+    assert manifests[0]["gauges"]["transport"] == "gloo"
+    assert manifests[0]["counters"] == {"timed_iterations":
+                                        MINI["num_iterations"]}
     assert "error" not in world, world
     assert set(world) == set(lock) | set(tsweep.WORLD_COLUMNS)
     assert world["transport"] == "gloo" and world["world_ranks"] == 2
