@@ -195,8 +195,8 @@ JAX. Phases, each fatal on failure:
     stamped on every rank: rank 0's merged stamps give T ticks and each
     rank's tick, busy-tick and arrival-wait seconds, printed beside the
     profiled ranks' idle shares. (d) ``train.py
-    --pipe 2 --data 2 --backend gloo --zero1`` at full depth (S = 1024, B
-    = 8; 6 steps, an eval and a checkpoint every 3): its world starts
+    --pipe 2 --data 2 --backend gloo --zero1`` at 4 of its 12 layers (S =
+    1024, B = 8; 6 steps, an eval and a checkpoint every 3): its world starts
     beside the phase's world and is killed (its whole process group) once
     step 2 is committed, while the phase's world runs (a) and (b); (c)
     starts only once it is gone. ``train.run``, the function each rank
@@ -239,6 +239,35 @@ JAX. Phases, each fatal on failure:
     share of step 3's files to the unbroken run's, bitwise. The phase
     prints its seconds.
 
+12. The static table verifier, a certified searched schedule and
+    training dynamics: every table phases 3-11 built passed the static
+    verifier at build (``DTPP_VERIFY_TABLES=1`` for the whole script, the
+    reports counted through a wrap of ``check_table_cached``);
+    untied GPT-2-small (the JAX default) at full width, random weights
+    from a seed, D = 4, M = 4, S = 1024, both kernels routed on. (a) A
+    seeded search at D = 4, M = 4 (600 iterations) writes an artifact
+    that reloads through the certifying loader and registers as a
+    schedule. (b) f32, B = 8, on the searched table (a split backward) and
+    on 1F1B: the ``dynamics=True`` step's loss and every gradient bitwise
+    the plain step's, its ``sq_mb`` within 1e-4 relative of M
+    single-device autograd passes on the plain versions, one per
+    microbatch, ``stage_stats`` within 1e-4 of the same statistics of
+    those passes' mean gradient, each kernel's launches the count the
+    table predicts; then one 1F1B ``make_train_step(dynamics=True)``
+    step, its statistics within 1e-4 of plain f64 norms of its
+    gradients, parameters and update. (c) bf16 over f32 masters, B = 24, ``fit(dynamics=
+    True)`` for 8 steps logging every 2, prefetched batches with their
+    host digests (a seeded token file of 1 M uint16 tokens, a 1/rank
+    unigram), the guard and NaN gradients in stage 1 at step 3, a run
+    report: the ``dynamics`` section valid with a gradient-noise scale
+    over at least 3 updates, one ``anomaly_attributed`` event naming
+    stage 1, one valid forensic bundle, no synchronising call between log
+    points (CUDA's sync debug mode); then tokens/s with dynamics on and
+    off, in turns (on, off, off, on). (d) The sweep's L8/H8 rows at D = 2
+    with ``dynamics=True`` and one L8/H8 row at D = 4 on the searched
+    artifact, carrying its digest. The phase prints its seconds, the
+    script its whole time.
+
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
@@ -251,7 +280,8 @@ launches beside each flash kernel's; phase 11's attention shapes at a
 model rank's H/T heads, bf16, beside each flash kernel's; phase 8's fit
 step, one eval and the entry point's whole run; phase 9's counted bf16 ZBH1 and ZBV steps;
 phase 10's counted bf16 world step by rank and summed; phase 11's
-counted bf16 TP world step by rank and summed),
+counted bf16 TP world step by rank and summed; phase 12's counted f32
+dynamics steps and its guarded bf16 ``fit`` run),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -264,6 +294,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import threading
@@ -2102,6 +2133,55 @@ def patched(obj, name, wrap):
         setattr(obj, name, real)
 
 
+class SyncCounter:
+    """The synchronising calls CUDA's sync debug mode reports inside each
+    call of a train step (:meth:`make` wraps ``make_train_step``) and each
+    batch fetch (:meth:`data` wraps the iterator), while :meth:`watch` is
+    open."""
+
+    def __init__(self):
+        self.in_step, self.in_data, self.caught = [], [], []
+
+    def since(self, k: int) -> int:
+        return sum("synchroniz" in str(w.message) for w in self.caught[k:])
+
+    def make(self, make):
+        def make_counted(*a, **kw):
+            step = make(*a, **kw)
+
+            def counted(*sa, **skw):
+                k = len(self.caught)
+                out = step(*sa, **skw)
+                self.in_step.append(self.since(k))
+                return out
+            return counted
+        return make_counted
+
+    def data(self, it):
+        while True:
+            k = len(self.caught)
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.in_data.append(self.since(k))
+            yield batch
+
+    @contextlib.contextmanager
+    def watch(self):
+        import warnings
+        import torch
+        with warnings.catch_warnings(record=True) as caught:
+            self.caught = caught
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield self
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+
 def same_state(a, b, what):
     """Two restored checkpoints hold bitwise equal model tensors, Adam
     moments and step counts; the number of tensors compared."""
@@ -2182,7 +2262,6 @@ def phase_fit(report, device="cuda"):
     import os
     import shutil
     import tempfile
-    import warnings
     import torch
     import distributed_training_with_pipeline_parallelism_tpu_torch as port
     from distributed_training_with_pipeline_parallelism_tpu_torch import (
@@ -2347,47 +2426,14 @@ def phase_fit(report, device="cuda"):
 
         # no synchronising call inside the steps or the data between the
         # log points (steps 0 and 5 log): guard and prefetch on
-        in_step, in_data = [], []
-        probe = {"caught": []}
-
-        def syncs_since(k):
-            return sum("synchroniz" in str(w.message)
-                       for w in probe["caught"][k:])
-
-        def counted_make(make):
-            def make_counted(*a, **kw):
-                step = make(*a, **kw)
-
-                def counted(*sa, **skw):
-                    k = len(probe["caught"])
-                    out = step(*sa, **skw)
-                    in_step.append(syncs_since(k))
-                    return out
-                return counted
-            return make_counted
-
-        def counted_data(it):
-            while True:
-                k = len(probe["caught"])
-                try:
-                    batch = next(it)
-                finally:
-                    in_data.append(syncs_since(k))
-                yield batch
-
-        data = counted_data(prefetch_to_device(TokenFileDataset(
+        probe = SyncCounter()
+        data = probe.data(prefetch_to_device(TokenFileDataset(
             path, FIT_S, seed=SEED).batches(FIT_B32), 2, device))
-        with patched(ttrain, "make_train_step", counted_make), \
-                warnings.catch_warnings(record=True) as caught:
-            probe["caught"] = caught
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                run_fit(6, data=data, log_every=5,
-                        guard=resilience.AnomalyGuard(), fault_plan=guard_plan)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        n_sync = syncs_since(0)
+        with patched(ttrain, "make_train_step", probe.make), probe.watch():
+            run_fit(6, data=data, log_every=5,
+                    guard=resilience.AnomalyGuard(), fault_plan=guard_plan)
+        in_step, in_data = probe.in_step, probe.in_data
+        n_sync = probe.since(0)
         res["guard"] = dict(counters=counters, tensors_equal=n,
                             sync_debug=dict(in_step=in_step, in_data=in_data,
                                             warnings=n_sync),
@@ -2842,9 +2888,11 @@ DIST_WARMUP, DIST_TIMED = 1, 3
 # each clipped (the gradient's norm at these weights is far above 0.1)
 DIST_OPT = dict(warmup_steps=0, max_grad_norm=0.1)
 DIST_STEPS = 2
-# (d): train.py's world, GPT-2-small tied at full depth, S = 1024, ZeRO-1
-DIST_TRAIN_ARGS = ["--model", "gpt2-small", "--tie-embeddings", "--pipe",
-                   "2", "--data", "2", "--backend", "gloo", "--zero1",
+# (d): train.py's world, GPT-2-small tied at full width and 4 of its 12
+# layers (cut for the script's time limit), S = 1024, ZeRO-1
+DIST_TRAIN_ARGS = ["--model", "gpt2-small", "--tie-embeddings", "--layers",
+                   "4", "--pipe", "2", "--data", "2", "--backend", "gloo",
+                   "--zero1",
                    "--batch", "8", "--seq", "1024", "--microbatches", "2",
                    "--steps", "6", "--ckpt-every", "3", "--eval-every", "3",
                    "--eval-batches", "1", "--flash", "on", "--fused-xent",
@@ -3538,8 +3586,8 @@ def phase_dist(report, device="cuda"):
             "warm_s", "refs_wait_s", "gates_s", "killed_wait_s", "seconds")}
             for r in ranks]
         kw = res["killed_world"]
-        print(f"  train.py --pipe 2 --data 2 --backend gloo --zero1 (12 "
-              f"layers, S={TRAIN_S}): its world killed after step 2's "
+        print(f"  train.py --pipe 2 --data 2 --backend gloo --zero1 (4 of "
+              f"12 layers, S={TRAIN_S}): its world killed after step 2's "
               f"commit at {kw['killed_s']:.1f} s (beside this world's "
               f"gates), train.run resumed in this world in "
               f"{tm['resumed']['seconds']:.1f} s, unbroken in "
@@ -4074,6 +4122,379 @@ def phase_tp(report, device="cuda"):
     return {r["rank"]: r["step_launches"] for r in ranks}
 
 
+# training dynamics and the certified search (phase 12): untied GPT-2-small
+# (the JAX default), D = 4, M = 4, S = TRAIN_S; the f32 gates at B = 8, the
+# bf16 fit at B = 24 over f32 masters
+DYN_D, DYN_M, DYN_GATE_B, DYN_TIME_B = 4, 4, 8, 24
+DYN_STEPS, DYN_LOG = 8, 2
+DYN_TOKENS = 1 << 20  # (c)'s seeded token file
+DYN_SEARCH = dict(n_devices=DYN_D, n_microbatches=DYN_M, iterations=600,
+                  seed=0)
+
+
+def dyn_config():
+    """Untied GPT-2-small with both kernels routed on, f32."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import gpt2_config
+    return gpt2_config("small", use_flash_attention=True, use_fused_xent=True)
+
+
+def stats_rel_err(got, want):
+    """The largest relative error over the float stats both dicts hold
+    (the nonfinite counts must be equal)."""
+    worst = 0.0
+    for k, w in want.items():
+        if k == "nonfinite_per_stage":
+            check(got[k].tolist() == w.tolist(), f"{k}: {got[k]} != {w}")
+            continue
+        g, w = got[k].double().cpu(), w.double().cpu()
+        worst = max(worst, ((g - w).abs() / w.abs().clamp_min(1e-30))
+                    .max().item())
+    return worst
+
+
+def recording(reports):
+    """A ``patched`` wrap of ``table_check.check_table_cached`` that also
+    appends each report it returns to ``reports``."""
+    def wrap(real):
+        def check_table_cached(cs):
+            reports.append(real(cs))
+            return reports[-1]
+        return check_table_cached
+    return wrap
+
+
+def plain_stats(n_layers, n_stages, grads, params, updates):
+    """The step statistics of ``dynamics.stage_stats`` computed apart from
+    it: per-tensor sums in f64 on the card, one read, the stage sums on
+    the host (layer i in stage i // (L/S), the embedding in stage 0, the
+    rest in stage S - 1)."""
+    import torch
+    names = list(grads)
+    lps = n_layers // n_stages
+
+    def stage(n):
+        if n.startswith("layers."):
+            return int(n.split(".")[1]) // lps
+        return 0 if n in ("tok", "pos") else n_stages - 1
+
+    def sq(t):
+        return t.double().square().sum()
+
+    cols = torch.stack([torch.stack([
+        sq(grads[n]), grads[n].double().abs().max(),
+        (~torch.isfinite(grads[n]).all()).double(), sq(params[n]),
+        sq(updates[n])]) for n in names]).cpu()
+    g_sq, g_max, bad, p_sq, u_sq, numel = (
+        [0.0] * n_stages for _ in range(6))
+    l_sq = [0.0] * n_layers
+    for n, (g2, gm, b, p2, u2) in zip(names, cols.tolist()):
+        s = stage(n)
+        g_sq[s] += g2
+        g_max[s] = max(g_max[s], gm)
+        bad[s] += b
+        p_sq[s] += p2
+        u_sq[s] += u2
+        numel[s] += params[n].numel()
+        if n.startswith("layers."):
+            l_sq[int(n.split(".")[1])] += g2
+    t = torch.tensor
+    return {
+        "grad_norm": t(sum(g_sq)).sqrt(),
+        "grad_norm_per_stage": t(g_sq).sqrt(),
+        "grad_max_per_stage": t(g_max),
+        "nonfinite_per_stage": t(bad).int(),
+        "grad_norm_per_layer": t(l_sq).sqrt(),
+        "param_rms_per_stage": (t(p_sq) / t(numel)).sqrt(),
+        "update_ratio_per_stage": t(u_sq).sqrt() / t(p_sq).sqrt()}
+
+
+def phase_dynamics(report, tables, device="cuda"):
+    """The static verifier, a certified searched schedule and training
+    dynamics (see the module doc); ``tables`` holds the reports the
+    verifier gave the earlier phases' tables. Returns the kernel launches
+    of the counted f32 dynamics steps (on the searched table and on 1F1B)
+    and of the guarded bf16 ``fit`` run."""
+    import shutil
+    import tempfile
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
+        schedule_search, table_check, verify_tables_enabled)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        transformer_loss)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+        schedules)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+        dynamics, resilience, telemetry as tm, train as ttrain)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
+        TokenFileDataset, prefetch_to_device, write_token_file)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.sweep import (
+        SCHEDULES, run_one_experiment, summarize_dynamics, sweep_rows)
+    kernels = all_kernels()
+    res = {}
+    launches = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dyn_"))
+    try:
+        # (a) host: every table the earlier phases built was checked at
+        # build; a seeded search's artifact reloads, certifies, registers
+        t0 = time.perf_counter()
+        check(verify_tables_enabled(), "DTPP_VERIFY_TABLES is not set")
+        seen = list({id(r): r for r in tables}.values())  # a hit's is shared
+        check(len(seen) >= 8 and all(r.ok for r in seen),
+              f"{len(seen)} tables checked, "
+              f"{sum(not r.ok for r in seen)} with hazards")
+        t = time.perf_counter()
+        found = schedule_search.search_schedule(
+            schedule_search.SearchSpec(**DYN_SEARCH))
+        search_s = time.perf_counter() - t
+        art = tmp / "searched_schedule.json"
+        schedules.save_schedule_artifact(found.artifact, art)
+        cs = schedules.load_schedule_artifact(str(art))
+        digest = found.artifact["table_digest"]
+        check(schedules.table_digest(cs.table) == digest,
+              "the reloaded artifact's table differs")
+        searched = port.ScheduleConfig.from_artifact(str(art))
+        check(schedules.registered_artifact_info(searched.name)
+              ["table_digest"] == digest, "the registered pin differs")
+        base = found.baselines["1F1B"]
+        res["host"] = dict(
+            tables_checked=len(seen), search_s=search_s,
+            evaluated=found.stats["evaluated"], makespan=cs.makespan,
+            bubble=found.predicted["bubble_table_exact"],
+            bubble_1f1b=base["bubble_table_exact"], digest=digest,
+            split_backward=cs.split_backward,
+            seconds=time.perf_counter() - t0)
+        print(f"  (a) {len(seen)} tables the phases built, each checked "
+              f"clean at build; search D={DYN_D} M={DYN_M} in "
+              f"{search_s:.2f} s ({found.stats['evaluated']} candidates): "
+              f"makespan {cs.makespan}, bubble "
+              f"{found.predicted['bubble_table_exact']:.4f} (1F1B "
+              f"{base['bubble_table_exact']:.4f}), artifact reloaded, "
+              f"certified and registered as {searched.name!r}")
+
+        # (b) the f32 gates: the dynamics step against the plain step and
+        # against M single-device autograd passes on the plain versions
+        t0 = time.perf_counter()
+        cfg = dyn_config()
+        plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                    use_fused_xent=False)
+        g = torch.Generator().manual_seed(SEED)
+        model = port.init_params(cfg, g, device)
+        init_state = {n: p.detach().clone()
+                      for n, p in model.state_dict().items()}
+        tokens = torch.randint(0, cfg.vocab_size, (DYN_TIME_B, TRAIN_S),
+                               generator=g).to(device)
+        targets = torch.randint(0, cfg.vocab_size, (DYN_TIME_B, TRAIN_S),
+                                generator=g).to(device)
+        x, y = tokens[:DYN_GATE_B], targets[:DYN_GATE_B]
+        named = dict(model.named_parameters())
+        mb = DYN_GATE_B // DYN_M
+        sq_ref = []
+        full = {n: torch.zeros_like(p) for n, p in named.items()}
+        for m in range(DYN_M):
+            model.zero_grad(set_to_none=True)
+            transformer_loss(plain, model, x[m * mb:(m + 1) * mb],
+                             y[m * mb:(m + 1) * mb]).backward()
+            sq_ref.append(sum(p.grad.double().square().sum()
+                              for p in named.values()).item())
+            for n, p in named.items():
+                full[n].add_(p.grad, alpha=1.0 / DYN_M)
+        params = {n: p.detach() for n, p in named.items()}
+        st_ref = dynamics.stage_stats(cfg.n_layers, DYN_D, full,
+                                      params=params)
+        del full
+        gates = {}
+        for label, sched in (("searched", searched),
+                             ("1F1B", port.ScheduleConfig("1F1B", DYN_M))):
+            off = port.make_pipeline_grad_fn(cfg, sched, DYN_D, device=device)
+            on = port.make_pipeline_grad_fn(cfg, sched, DYN_D, device=device,
+                                            dynamics=True)
+            model.zero_grad(set_to_none=True)
+            loss_off = off(model, x, y)
+            grads_off = {n: p.grad.clone() for n, p in named.items()}
+            model.zero_grad(set_to_none=True)
+            on(model, x, y)  # warm-up
+            model.zero_grad(set_to_none=True)
+            for k in kernels:
+                k.launches = 0
+            loss_on, sq_mb = on(model, x, y)
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in kernels}
+            check(torch.equal(loss_on, loss_off) and all(
+                torch.equal(p.grad, grads_off[n]) for n, p in named.items()),
+                f"{label}: the dynamics step's loss or gradients differ "
+                f"from the plain step's")
+            want = (zb_launches(cfg.n_layers, DYN_D, 1, DYN_M)
+                    if sched.name != "1F1B" else
+                    {k: sum(rank_launches(cfg, sched, DYN_D, d)[k]
+                            for d in range(DYN_D)) for k in counts})
+            check(counts == want and all(v > 0 for v in counts.values()),
+                  f"{label}: launches {counts} != {want}")
+            sq = sq_mb.double().cpu()
+            ref = torch.tensor(sq_ref, dtype=torch.float64)
+            sq_err = ((sq - ref).abs() / ref).max().item()
+            st = dynamics.stage_stats(
+                cfg.n_layers, DYN_D, {n: p.grad for n, p in named.items()},
+                params=params)
+            st_err = stats_rel_err(st, st_ref)
+            print(f"  (b) f32 {label} ({sched.name}) B={DYN_GATE_B}: loss "
+                  f"and {len(named)} leaves bitwise the plain step's; sq_mb "
+                  f"{[round(v, 4) for v in sq.tolist()]} within "
+                  f"{sq_err:.2e} of {DYN_M} single-device passes, "
+                  f"stage_stats within {st_err:.2e}; launches {counts}")
+            check(sq_err <= 1e-4, f"{label}: sq_mb rel err {sq_err}")
+            check(st_err <= 1e-4, f"{label}: stage_stats rel err {st_err}")
+            gates[label] = dict(loss=loss_on.item(), sq_mb=sq.tolist(),
+                                sq_ref=sq_ref, sq_rel_err=sq_err,
+                                stats_rel_err=st_err, launches=counts)
+            launches[f"dynamics_{label.lower()}_step"] = counts
+        # the train step's statistics (its cached StageIndex, the update
+        # from its parameter copy, the norm-based non-finite count) against
+        # plain norms of the 1F1B gradients (the step's bitwise, as above),
+        # the parameters before the step and their move
+        step = ttrain.make_train_step(cfg, sched, DYN_D, port.adamw(),
+                                      device=device, dynamics=True)
+        before = {n: p.detach().clone() for n, p in named.items()}
+        _, st = step(model, port.adamw().init(model), x, y)
+        want = plain_stats(cfg.n_layers, DYN_D, grads_off, before, {
+            n: before[n] - p.detach() for n, p in named.items()})
+        want["sq_mb"] = torch.tensor(sq_ref, dtype=torch.float64)
+        check(set(st) == set(want), f"train step stats {sorted(st)}")
+        step_err = stats_rel_err(st, want)
+        print(f"  (b) f32 1F1B make_train_step(dynamics=True): its "
+              f"{len(st)} statistics within {step_err:.2e} of plain norms "
+              f"of its gradients, parameters and update (sq_mb of the "
+              f"single-device passes)")
+        check(step_err <= 1e-4, f"train step stats rel err {step_err}")
+        gates["train_step_stats_rel_err"] = step_err
+        res["f32"] = dict(gates, seconds=time.perf_counter() - t0)
+        del grads_off, st, st_ref, before, want
+
+        # (c) bf16 fit with dynamics on a learnable token file (a 1/rank
+        # unigram: on uniform tokens the noise drowns the mean gradient
+        # and the noise scale has no positive |G|^2): the guarded run (NaN
+        # gradients in stage 1 at step 3) with a report and the sync
+        # probe, then tokens/s with dynamics on and off in turns
+        t0 = time.perf_counter()
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16",
+                                    param_dtype="float32")
+        sched = port.ScheduleConfig("1F1B", DYN_M)
+        path = str(tmp / "tokens.bin")
+        write_token_file(path, zipf_tokens(DYN_TOKENS, cfg.vocab_size, SEED))
+
+        def batches():
+            return prefetch_to_device(TokenFileDataset(
+                path, TRAIN_S, seed=SEED).batches(DYN_TIME_B), 2, device,
+                digest=True)
+
+        def run(dyn, data=None, **kw):
+            model.load_state_dict(init_state)
+            if data is None:
+                data = batches()
+            ttrain.fit(cfg16, sched, DYN_D, model, data, DYN_STEPS,
+                       optimizer=port.adamw(warmup_steps=2, total_steps=20),
+                       log_every=DYN_LOG, verbose=False, device=device,
+                       dynamics=dyn, **kw)
+
+        out = tmp / "report"
+        probe = SyncCounter()
+        data = probe.data(batches())
+        for k in kernels:
+            k.launches = 0
+        with patched(ttrain, "make_train_step", probe.make), probe.watch():
+            run(True, data=data, report_dir=str(out),
+                guard=resilience.AnomalyGuard(),
+                fault_plan=resilience.FaultPlan(nan_grad_steps=(3,),
+                                                nan_grad_stage=1))
+        launches["dynamics_fit"] = {k.name: k.launches for k in kernels}
+        manifest = json.loads((out / "report.json").read_text())
+        tm.validate_report(manifest)
+        sec = manifest["dynamics"]
+        events = [json.loads(ln) for ln in
+                  (out / "events.jsonl").read_text().splitlines()]
+        attributed = [e for e in events if e["kind"] == "anomaly_attributed"]
+        bundles = sorted(out.glob("forensics_*.json"))
+        for b in bundles:
+            dynamics.validate_forensic_bundle(json.loads(b.read_text()))
+        print(f"  (c) bf16 fit, {DYN_STEPS} steps, log every {DYN_LOG}: "
+              f"gns {sec['gns']} over {sec['gns_updates']} updates, final "
+              f"grad norm {sec['grad_norm_final']:.4f}, attributed "
+              f"{[(e['step'], e['stage'], e['statistic']) for e in attributed]}"
+              f", bundles {[b.name for b in bundles]}; sync debug: "
+              f"{probe.in_step} in the steps, {probe.in_data} in the data")
+        check(sec["gns"] is not None and sec["gns_updates"] >= 3,
+              f"dynamics section: gns {sec['gns']}, {sec['gns_updates']} "
+              f"updates")
+        check(len(attributed) == 1 and attributed[0]["stage"] == 1,
+              f"anomaly_attributed events {attributed}")
+        check(len(bundles) == 1 and "anomaly" in bundles[0].name,
+              f"forensic bundles {bundles}")
+        check(sum(probe.in_step[1:]) == 0 and sum(probe.in_data[1:]) == 0,
+              f"a synchronising call between log points: steps "
+              f"{probe.in_step}, data {probe.in_data}")
+        rates = {True: [], False: []}
+        for dyn in (True, False, False, True):
+            metrics = tmp / f"m_{len(rates[True]) + len(rates[False])}.jsonl"
+            run(dyn, metrics_path=str(metrics))
+            windows = [x["tokens_per_sec"] for x in
+                       map(json.loads, metrics.read_text().splitlines())]
+            rates[dyn].append(windows[1:])
+        on = statistics.median(v for w in rates[True] for v in w)
+        off = statistics.median(v for w in rates[False] for v in w)
+        print(f"  (c) bf16 fit tokens/s (windows after the first, median): "
+              f"dynamics on {on:.1f}, off {off:.1f}, on / off {on / off:.4f}"
+              f" (runs in turns: on, off, off, on)")
+        res["bf16_fit"] = dict(
+            section={k: sec[k] for k in ("gns", "gns_updates",
+                                         "grad_norm_final",
+                                         "n_skipped_attributed")},
+            attributed=attributed, bundles=[b.name for b in bundles],
+            sync_debug=dict(in_step=probe.in_step, in_data=probe.in_data),
+            tokens_per_s_on=rates[True], tokens_per_s_off=rates[False],
+            on_over_off=on / off, seconds=time.perf_counter() - t0)
+        del model
+        torch.cuda.empty_cache()
+
+        # (d) the sweep: the L8/H8 rows at D = 2 with the dynamics pass,
+        # and one row on the searched artifact
+        t0 = time.perf_counter()
+        rows = sweep_rows(layers=(8,), heads=(8,), devices=(2,),
+                          schedules=SCHEDULES, dynamics=True, device=device,
+                          verbose=False)
+        art_row = run_one_experiment(8, 8, DYN_D, "GPipe", device=device,
+                                     schedule_artifact=str(art),
+                                     dynamics=True)
+        # the rows' uniform random tokens give no positive |G|^2, so their
+        # noise scale may be None (the JAX estimator's contract)
+        check(len(rows) == 3 and all(
+            r.get("grad_norm_final", 0) > 0 and "gns" in r for r in rows),
+            f"sweep rows {rows}")
+        check("error" not in art_row
+              and art_row.get("schedule_artifact_digest") == digest
+              and art_row["n_microbatches"] == DYN_M,
+              f"the artifact's row {art_row}")
+        health = summarize_dynamics(rows + [dict(art_row,
+                                                 schedule=searched.name)])
+        for r in rows + [art_row]:
+            print(f"  (d) sweep row L8/H8 D={r.get('num_processes', DYN_D)} "
+                  f"{r.get('schedule', searched.name)}: "
+                  f"{r['throughput']:.1f} tokens/s, grad_norm_final "
+                  f"{r['grad_norm_final']:.4f}, gns {r['gns']}"
+                  + (f", artifact {r['schedule_artifact_digest'][:12]}"
+                     if "schedule_artifact_digest" in r else ""))
+        res["sweep"] = dict(rows=[{k: r.get(k) for k in (
+            "schedule", "throughput", "grad_norm_final", "gns",
+            "n_skipped_attributed")} for r in rows],
+            artifact_row={k: art_row[k] for k in (
+                "throughput", "grad_norm_final", "gns",
+                "schedule_artifact_digest", "n_microbatches")},
+            health=health, seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["dynamics"] = res
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4088,41 +4509,56 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every table a phase builds passes the static verifier at build
+    # (phase 12 (a) counts the reports); the worlds' ranks inherit it
+    os.environ["DTPP_VERIFY_TABLES"] = "1"
     report = {}
     t0 = time.perf_counter()
     print("[1] device and toolchain")
     phase_toolchain(report)
     print("[2] kernels against their plain versions")
     main_shapes = phase_kernels(report)
-    print("[3] decode path: GPT-2-small, 4 lockstep stages")
-    decode_launches = phase_main_path(report)
-    print("[4] training path: tied GPT-2-small, pipelined steps")
-    launches = phase_train(report)
-    print("[5] llama path: Llama-3.2-1B, 4 lockstep stages, decode and "
-          "continuous-batching serving")
-    llama_launches, serve_launches = phase_llama(report)
-    print("[6] paged KV and speculative serving: Llama-3.2-1B, 4 lockstep "
-          "stages")
-    paged_spec_launches = phase_paged_spec(report)
-    print("[7] the reference's job: ref_decoder, pipelined steps, dropout, "
-          "the sweep")
-    ref_launches = phase_ref(report)
-    print("[8] fit: tied GPT-2-small through utils.train.fit and the "
-          "training entry point")
-    fit_launches, eval_launches, fit_main_launches = phase_fit(report)
-    print("[9] zero-bubble training: tied GPT-2-small under ZBH1 and ZBV")
-    t9 = time.perf_counter()
-    zb_step_launches = phase_zero_bubble(report)
-    report["zero_bubble"]["seconds"] = time.perf_counter() - t9
-    torch.cuda.empty_cache()
-    print("[10] the torch.distributed transport: a gloo world of 4 "
-          "processes on the card, tied GPT-2-small")
-    dist_launches = phase_dist(report)
-    torch.cuda.empty_cache()
-    print("[11] Megatron tensor parallelism: a gloo world of pipe 2 x model "
-          "2 on the card, GPT-2-small, Llama-3.2-1B, ref_decoder")
-    tp_launches = phase_tp(report)
+    tables = []  # the verifier's reports of the tables phases 3-11 build
+    from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
+        table_check)
+    with patched(table_check, "check_table_cached", recording(tables)):
+        print("[3] decode path: GPT-2-small, 4 lockstep stages")
+        decode_launches = phase_main_path(report)
+        print("[4] training path: tied GPT-2-small, pipelined steps")
+        launches = phase_train(report)
+        print("[5] llama path: Llama-3.2-1B, 4 lockstep stages, decode and "
+              "continuous-batching serving")
+        llama_launches, serve_launches = phase_llama(report)
+        print("[6] paged KV and speculative serving: Llama-3.2-1B, 4 lockstep "
+              "stages")
+        paged_spec_launches = phase_paged_spec(report)
+        print("[7] the reference's job: ref_decoder, pipelined steps, dropout, "
+              "the sweep")
+        ref_launches = phase_ref(report)
+        print("[8] fit: tied GPT-2-small through utils.train.fit and the "
+              "training entry point")
+        fit_launches, eval_launches, fit_main_launches = phase_fit(report)
+        print("[9] zero-bubble training: tied GPT-2-small under ZBH1 and ZBV")
+        t9 = time.perf_counter()
+        zb_step_launches = phase_zero_bubble(report)
+        report["zero_bubble"]["seconds"] = time.perf_counter() - t9
+        torch.cuda.empty_cache()
+        print("[10] the torch.distributed transport: a gloo world of 4 "
+              "processes on the card, tied GPT-2-small")
+        dist_launches = phase_dist(report)
+        torch.cuda.empty_cache()
+        print("[11] Megatron tensor parallelism: a gloo world of pipe 2 x model "
+              "2 on the card, GPT-2-small, Llama-3.2-1B, ref_decoder")
+        tp_launches = phase_tp(report)
+        torch.cuda.empty_cache()
+    print("[12] the static verifier, a certified searched schedule and "
+          "training dynamics: untied GPT-2-small")
+    t12 = time.perf_counter()
+    dyn_launches = phase_dynamics(report, tables)
+    report["dynamics"]["seconds"] = time.perf_counter() - t12
+    print(f"  phase 12 took {report['dynamics']['seconds']:.1f} s")
     report["seconds"] = time.perf_counter() - t0
+    print(f"chip_smoke: {report['seconds']:.1f} s in all")
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -4172,7 +4608,9 @@ def main() -> int:
                                  for r in dist_launches),
                 "tp_step_by_rank": [tp_launches[r][name]
                                     for r in sorted(tp_launches)],
-                "tp_step": sum(tp_launches[r][name] for r in tp_launches)}))
+                "tp_step": sum(tp_launches[r][name] for r in tp_launches),
+                **{path: counts[name]
+                   for path, counts in dyn_launches.items()}}))
         if name.startswith("flash"):
             kernels[-1]["ref_shapes"] = [
                 {k: main_shapes[(f"{name}_ref{dh}", "bfloat16")][k]

@@ -25,10 +25,10 @@ Differences from the JAX module:
   is the HBM figure. An unknown CUDA card raises instead of falling back
   to a TPU preset; ``cpu`` maps to the labelled :data:`CPU_PROXY`, as in
   JAX. No TPU figure is kept.
-- No calibration correction (``ROADMAP.md`` Queue 1, entry 5) and no
-  ``table_report`` argument (entry 3, the table verifier: the hop count
-  comes from the table itself, as the static verifier counts it). The
-  section prices the double-buffered ring (``step_s_comm_overlap``,
+- No calibration correction (``ROADMAP.md`` Queue 1, entry 5). The hop
+  count is the static verifier's (``table_report``, a
+  ``table_check.TableReport``; checked afresh when none is given), as in
+  JAX. The section prices the double-buffered ring (``step_s_comm_overlap``,
   which prices the table, not the run, as in JAX), but records only
   runs with ``comm_overlap="none"``: a ring run's record waits for its
   calibration (entry 5).
@@ -44,6 +44,7 @@ import numpy as np
 from ..parallel.schedules import (BANK_BEFORE_F, CHANNELS, CompiledSchedule,
                                   analytic_bubble_fraction,
                                   overlap_bank_stages, table_unit_activity)
+from .table_check import check_table, hops_per_tick
 
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
 
@@ -155,19 +156,6 @@ def backward_weights(policy: str) -> Tuple[float, float]:
             "split": (2.0, 2.0)}[policy]
 
 
-def _hops_per_tick(table: np.ndarray) -> np.ndarray:
-    """Ring hops launched at the end of each tick: hops[t-1] counts the
-    ring channels (+1 and -1 in each direction) with a store at tick t
-    (one hop serves every device). Summed, the static verifier's
-    ``predicted_ppermutes``."""
-    T = table.shape[0]
-    hops = np.zeros(T, dtype=np.int64)
-    for t in range(1, T):
-        hops[t - 1] = sum(int((table[t, :, col] >= 0).any())
-                          for _, _, col in CHANNELS)
-    return hops
-
-
 def predicted_step_time(table: np.ndarray, unit_s: Tuple[float, float, float],
                         hop_s: float, hops_total: int) -> Dict[str, float]:
     """The lockstep time model: each tick lasts its slowest device's units
@@ -186,7 +174,7 @@ def predicted_step_time(table: np.ndarray, unit_s: Tuple[float, float, float],
         "comm_s": t_comm_s,
         "step_s": t_compute_s + t_comm_s,
         "step_s_overlapped": float(np.maximum(
-            compute_tick_s, _hops_per_tick(table) * hop_s).sum()),
+            compute_tick_s, hops_per_tick(table) * hop_s).sum()),
         "bubble_table_exact": idle_cells / float(T * D),
     }
 
@@ -252,10 +240,6 @@ def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
     durations) when none is given, adds the critical-path ``attribution``
     (compute, comm and bubble seconds, the straggler device) and
     ``measured.bubble_measured_mean``."""
-    if table_report is not None:
-        raise NotImplementedError(
-            "a precomputed table report is not ported yet: ROADMAP.md "
-            "Queue 1, entry 3 (the table verifier, analysis/table_check.py)")
     if comm_overlap != "none":
         raise NotImplementedError(
             f"the record of a comm_overlap={comm_overlap!r} run is not "
@@ -279,7 +263,9 @@ def cost_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
                          + float(counts[2]) * unit_w)
 
     bytes_per_hop = tokens_per_mb * cfg.dim * dtype_bytes(cfg.dtype)
-    hops_total = int(_hops_per_tick(table).sum())
+    if table_report is None:
+        table_report = check_table(cs)
+    hops_total = int(table_report.predicted_ppermutes)
     hop_s = bytes_per_hop / hw.ici_bytes_per_s
     unit_sec = (unit_f / hw.peak_flops, unit_b / hw.peak_flops,
                 unit_w / hw.peak_flops)

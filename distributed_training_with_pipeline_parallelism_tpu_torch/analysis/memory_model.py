@@ -11,9 +11,10 @@ microbatch's ``[mb, seq, dim]`` stage-boundary slab in the compute dtype),
 the parameters (layers split over the stages, embedding and head
 replicated), the gradients, optimizer moments, and under the stored
 backward a first-order estimate of the residuals autograd keeps per
-in-flight microbatch. The live slot peaks come from the table itself
-(:func:`slot_live_peaks`, the static verifier's count); shapes come from
-the port's model on the ``meta`` device.
+in-flight microbatch. The live slot peaks are the static verifier's
+(``table_report``, a ``table_check.TableReport``: ``act_live_peak`` and
+``grad_live_peak``; checked afresh when none is given), as in JAX;
+shapes come from the port's model on the ``meta`` device.
 
 Differences from the JAX module:
 
@@ -36,14 +37,12 @@ Differences from the JAX module:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional
 
-from ..parallel.schedules import (CHANNELS, COL_BWD_M, COL_BWD_V,
-                                  COL_FWD_M, COL_FWD_V, COL_W_M, COL_W_V,
-                                  CompiledSchedule, bwd_route, fwd_route,
-                                  placement_stage_of)
+from ..parallel.schedules import CompiledSchedule
 from .cost_model import (HardwareSpec, detect_hardware, dtype_bytes,
                          model_shapes, resolve_backward_policy)
+from .table_check import check_table
 
 def activation_slot_bytes(cfg, batch_size: int, seq_length: int,
                           n_microbatches: int) -> int:
@@ -80,77 +79,6 @@ def stored_residual_bytes(cfg, n_stages: int, tokens_per_mb: float) -> float:
     return layers_per_stage * per_layer * dtype_bytes(cfg.dtype)
 
 
-def slot_live_peaks(cs: CompiledSchedule) -> Tuple[List[int], List[int]]:
-    """Per device, the peak number of activation and of cotangent values
-    live at once under the executor's contract: a value is live from its
-    store (a ring arrival, a same-device hop, or stage 0's embedding at
-    its forward) until its last read (its backward unit, or its W unit
-    under a split schedule); within a tick, arrivals land first (on the
-    four channels), then the forward unit and its local hop, the backward
-    unit and its local hop, then the W unit, and a peak is taken at each
-    store (the JAX static verifier's ``act_live_peak`` and
-    ``grad_live_peak``)."""
-    table = cs.table
-    T, D = table.shape[0], cs.n_devices
-    S, pl = cs.n_stages, cs.placement
-    last_read = {}  # (device, stage, mb) -> tick of the last read
-    for t in range(T):
-        for d in range(D):
-            row = table[t, d]
-            for vcol, mcol in ((COL_BWD_V, COL_BWD_M), (COL_W_V, COL_W_M)):
-                if row[mcol] >= 0:
-                    s = placement_stage_of(pl, d, int(row[vcol]), D)
-                    last_read[(d, s, int(row[mcol]))] = t
-    peaks = {"act": [0] * D, "grad": [0] * D}
-    live = {"act": [set() for _ in range(D)],
-            "grad": [set() for _ in range(D)]}
-    regs = {(buf, off): [None] * D for buf, off, _ in CHANNELS}  # last hops
-
-    def store(d, kind, key):
-        live[kind][d].add(key)
-        peaks[kind][d] = max(peaks[kind][d], len(live[kind][d]))
-
-    def retire(d, t, s, m):
-        if last_read.get((d, s, m)) == t:
-            live["act"][d].discard((s, m))
-            live["grad"][d].discard((s, m))
-
-    for t in range(T):
-        sends = {key: [None] * D for key in regs}
-        for d in range(D):
-            row = table[t, d]
-            for buf, off, col in CHANNELS:
-                if row[col] >= 0:
-                    store(d, buf, regs[(buf, off)][d])
-            if row[COL_FWD_M] >= 0:
-                s = placement_stage_of(pl, d, int(row[COL_FWD_V]), D)
-                m = int(row[COL_FWD_M])
-                if s == 0:
-                    store(d, "act", (s, m))
-                if s < S - 1:
-                    route = fwd_route(pl, s, D)
-                    if route == "local":
-                        store(d, "act", (s + 1, m))
-                    else:
-                        sends[("act", int(route))][d] = (s + 1, m)
-            if row[COL_BWD_M] >= 0:
-                s = placement_stage_of(pl, d, int(row[COL_BWD_V]), D)
-                m = int(row[COL_BWD_M])
-                retire(d, t, s, m)
-                if s > 0:
-                    route = bwd_route(pl, s, D)
-                    if route == "local":
-                        store(d, "grad", (s - 1, m))
-                    else:
-                        sends[("grad", int(route))][d] = (s - 1, m)
-            if row[COL_W_M] >= 0:
-                retire(d, t, placement_stage_of(pl, d, int(row[COL_W_V]), D),
-                       int(row[COL_W_M]))
-        regs = {(buf, off): [sends[(buf, off)][(d - off) % D]
-                             for d in range(D)] for buf, off in regs}
-    return peaks["act"], peaks["grad"]
-
-
 def _live_section(telemetry) -> Optional[Dict[str, Any]]:
     if telemetry is None:
         return None
@@ -168,13 +96,10 @@ def memory_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
     """Price one compiled schedule's per-device memory (the JAX section's
     ``analytic`` part, plus ``card_bytes``; see the module doc).
     ``optimizer_slots``: f32 moments per parameter (2 for AdamW, 0 for
-    the loss-and-gradients step the sweep times). ``telemetry``: a
-    stamped ``PipelineTelemetry``; its watermark summary becomes the
-    ``live`` part."""
-    if table_report is not None:
-        raise NotImplementedError(
-            "a precomputed table report is not ported yet: ROADMAP.md "
-            "Queue 1, entry 3 (the table verifier, analysis/table_check.py)")
+    the loss-and-gradients step the sweep times). ``table_report``: the
+    table's ``table_check.TableReport`` (checked here when None).
+    ``telemetry``: a stamped ``PipelineTelemetry``; its watermark summary
+    becomes the ``live`` part."""
     D = int(cs.table.shape[1])
     hw = hardware if hardware is not None else detect_hardware()
     policy = resolve_backward_policy(cs, remat_backward)
@@ -189,7 +114,10 @@ def memory_model_section(cs: CompiledSchedule, cfg, *, batch_size: int,
                  if optimizer_slots else 0.0)
     input_b = 2.0 * batch_size * seq_length * 4.0  # tokens and targets
 
-    act_peaks, grad_peaks = slot_live_peaks(cs)
+    if table_report is None:
+        table_report = check_table(cs)
+    act_peaks = table_report.act_live_peak
+    grad_peaks = table_report.grad_live_peak
     per_device = []
     for d in range(D):
         act_b = act_peaks[d] * slot_b

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..analysis import maybe_verify_forward_table, maybe_verify_schedule
 from ..models.transformer import (Transformer, body_apply, embed_apply,
                                   head_loss)
 from ..ops.layers import fold_seed, global_pad_scale
@@ -332,7 +333,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           mesh: Optional[Mesh] = None,
                           comm_overlap: str = "none",
                           tp_vocab_parallel: bool = False,
-                          telemetry=None) -> Callable[..., torch.Tensor]:
+                          telemetry=None, dynamics=None
+                          ) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: one pipelined forward and
     backward over ``n_stages`` (D) devices under ``sched``, with the
     gradients accumulated into the parameters' ``.grad`` (zero them
@@ -435,6 +437,24 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     Without it the step records nothing and makes no extra call. The
     stamps change no value: a stamped step's loss and gradients are the
     unstamped step's bit for bit.
+
+    ``dynamics`` (truthy, default None; the JAX ``dynamics``) makes the
+    function return ``(loss, sq_mb)``: ``sq_mb[m]`` (an [M] f32 tensor on
+    the device) is microbatch m's squared gradient norm, the gradient of
+    its own loss (the units back-propagate loss / M, so their squares are
+    scaled by M^2). Each unit that produces parameter gradients (the full
+    backward; under a split schedule the W unit, with the embedding's on
+    stage 0 and the head's on the last stage) adds the squared norms of
+    the gradients it produced, read by hooks on the parameters before
+    autograd adds them into ``.grad`` (one fused reduction a unit), so the
+    loss and every ``.grad`` are the dynamics-off step's bit for bit. The
+    stages partition an untied model's parameters, so the sum over them
+    is the microbatch's whole norm; with ``mesh`` it is summed over the
+    pipe group and averaged over the data group (each data replica holds
+    other microbatches). As in JAX it raises ``ValueError`` for tied
+    embeddings, a model axis, the 1-stage plain path and the stored
+    backward where JAX runs it as its phase-stored program
+    (``remat_backward=False`` with GPipe, BFS or D = 1).
     """
     device = mesh_device(device, mesh, n_stages)
     _check_axes(axes)
@@ -444,6 +464,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                          f"{COMM_OVERLAP}")
     D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
     cs = compile_schedule(sched.name, D, V, M)  # raises on a bad (D, V, M)
+    maybe_verify_schedule(cs)
     S = D * V
     if cfg.n_layers % S != 0:
         raise ValueError(f"n_layers={cfg.n_layers} must divide evenly into "
@@ -458,6 +479,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             f"fills the bubble ticks)")
     plain = D == 1 and remat_backward is None and not split
     remat = remat_backward is None or bool(remat_backward)
+    if dynamics:
+        _check_dynamics(cfg, tp, plain, remat_backward, split, placement,
+                        sched.name, D)
     table = cs.table
     inv = 1.0 / M
     lps = cfg.n_layers // S
@@ -502,7 +526,24 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
 
     def grad_fn(model: Transformer, tokens, targets,
                 step_seed: Optional[int] = None, *,
-                reduce_data: bool = True) -> torch.Tensor:
+                reduce_data: bool = True):
+        if not dynamics:
+            return step(model, tokens, targets, step_seed, reduce_data, None)
+        with _UnitGrads(model, M) as units:
+            loss = step(model, tokens, targets, step_seed, reduce_data,
+                        units)
+            sq_mb = units.sq_mb(loss.device) * float(M * M)
+        if mesh is not None:
+            mesh.all_reduce([sq_mb], PIPE_AXIS)
+            if mesh.n_data > 1:
+                sq_mb.mul_(1.0 / mesh.n_data)
+                mesh.all_reduce([sq_mb], DATA_AXIS)
+        return loss, sq_mb
+
+    def step(model: Transformer, tokens, targets, step_seed, reduce_data,
+             units: Optional["_UnitGrads"]) -> torch.Tensor:
+        """One step; ``units`` (dynamics) banks each backward and W
+        unit's parameter gradients."""
         if use_dropout and step_seed is None:
             raise ValueError(f"dropout={cfg.dropout} > 0: pass the step's "
                              f"seed as the fourth argument")
@@ -674,7 +715,11 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                         act[d][row[COL_FWD_LOCAL_SLOT]] = y
                 bank(BANK_BEFORE_B)
                 if row[COL_BWD_M] >= 0:
+                    if units is not None:
+                        units.begin()
                     s, gx = backward_unit(d, row)
+                    if units is not None:
+                        units.bank(int(row[COL_BWD_M]))
                     ci = send_channel("grad", s)
                     if ci is not None:
                         transport.send(t, d, ci, gx)
@@ -682,7 +727,11 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                         grad[d][row[COL_BWD_LOCAL_SLOT]] = gx
                 bank(BANK_BEFORE_W)
                 if row[COL_W_M] >= 0:
+                    if units is not None:
+                        units.begin()
                     wgrad_unit(d, row)
+                    if units is not None:
+                        units.bank(int(row[COL_W_M]))
                 bank(BANK_END)
             transport.end_tick(t)
             if telemetry is not None:
@@ -702,6 +751,73 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
         return loss
 
     return grad_fn
+
+
+def _check_dynamics(cfg: ModelConfig, tp, plain: bool, remat_backward,
+                    split: bool, placement: str, name: str, D: int) -> None:
+    """``dynamics``' refusals, the JAX ``make_pipeline_grad_fn``'s."""
+    blockers = []
+    if tp is not None:
+        blockers.append("a 'model' mesh axis")
+    if cfg.tie_embeddings:
+        # the tied table takes gradients on the first stage and the last,
+        # so the per-stage squared norms no longer sum to |g_m|^2
+        blockers.append("tie_embeddings")
+    if blockers:
+        raise ValueError(
+            "dynamics per-microbatch accumulation needs stages to "
+            "partition the parameters (dense untied pipe x data "
+            "mesh); unsupported here: " + ", ".join(blockers))
+    if plain:
+        raise ValueError(
+            "dynamics=True needs the tick executor's per-microbatch "
+            "gradients; the degenerate 1-stage fast path computes one "
+            "fused full-batch gradient — pass remat_backward=True")
+    if (remat_backward is False and not split and placement == "wrap"
+            and (D == 1 or name in ("GPipe", "BFS"))):
+        raise ValueError(
+            "dynamics=True needs per-microbatch gradients; the "
+            "phase-stored program differentiates through its forward "
+            "tick scan and never materializes them — pass "
+            "remat_backward=True for the tick executor")
+
+
+class _UnitGrads:
+    """``dynamics``' hooks: while open, every parameter gradient autograd
+    computes lands in :attr:`sink` before it is added into ``.grad``;
+    :meth:`bank` takes the squared norms of one unit's (one fused
+    reduction), kept per microbatch on the device."""
+
+    def __init__(self, model: nn.Module, n_microbatches: int):
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.norms: List[List[torch.Tensor]] = [
+            [] for _ in range(n_microbatches)]
+        self.sink: List[torch.Tensor] = []
+
+    def __enter__(self) -> "_UnitGrads":
+        self.handles = [p.register_hook(self.sink.append)
+                        for p in self.params]
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for h in self.handles:
+            h.remove()
+
+    def begin(self) -> None:
+        self.sink.clear()
+
+    def bank(self, m: int) -> None:
+        if self.sink:
+            self.norms[m].append(torch.stack(torch._foreach_norm(
+                self.sink, 2, dtype=torch.float32)))
+        self.sink.clear()
+
+    def sq_mb(self, device) -> torch.Tensor:
+        """[M] f32: each microbatch's banked squared norms, summed."""
+        return torch.stack([
+            torch.cat(n).square().sum() if n
+            else torch.zeros((), dtype=torch.float32, device=device)
+            for n in self.norms])
 
 
 def _epilogue(model: nn.Module, loss: torch.Tensor, mesh: Optional[Mesh],
@@ -761,7 +877,9 @@ def _fwd_tick_table(D: int, V: int, M: int):
     for d in range(D):
         for arrive, _, key in events[d]:
             table[arrive, d, 0] = slot_of[key]
-    return table, max(n_slots, 1)
+    n_slots = max(n_slots, 1)
+    maybe_verify_forward_table(table, D, V, M, n_slots)
+    return table, n_slots
 
 
 def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,

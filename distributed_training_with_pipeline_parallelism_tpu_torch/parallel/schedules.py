@@ -13,11 +13,12 @@ split backward), the placements (``:427-455``), ``schedule_ticks``
 classifier ``overlap_bank_stages`` (``:1523-1617``), and the
 bubble and time models (``:1636-1826``). The tables are bit-identical to
 the JAX package's (``tests/test_torch_schedules.py``,
-``tests/test_torch_zero_bubble.py``). Not ported: the schedule artifacts
-and their pins (``:975-1340``), which stand on ``analysis/table_check.py``
-(``ROADMAP.md`` Queue 1, item 12), and the phase compression
-(``:1348-1540``), XLA compile economics whose counterpart here is CUDA
-graphs over the tick executor (Queue 2).
+``tests/test_torch_zero_bubble.py``). Also here: the certified schedule
+artifacts with their loader and pins (``:975-1340``; the artifacts are
+JAX's byte for byte) and the phase compression (``:1348-1540``), which no
+executor runs (the port's executor walks the ticks; the phases' JAX use
+is XLA's compile economics) and which the static verifier holds to its
+round trip (``tests/test_torch_table_check.py``).
 
 1. **Action orders**: for each device an ordered list of
    ``Action(stage, op, microbatch)``; ``op`` is F, B (the full backward,
@@ -33,8 +34,10 @@ graphs over the tick executor (Queue 2).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import heapq
-from typing import Dict, List, Optional, Tuple
+import json
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -70,6 +73,7 @@ def register_schedule(name: str, order_fn, split_backward: bool = False,
 
 def unregister_schedule(name: str) -> None:
     _CUSTOM_SCHEDULES.pop(name, None)
+    _ARTIFACT_PINS.pop(name, None)
 
 
 def is_split_backward(name: str) -> bool:
@@ -653,9 +657,11 @@ def compile_schedule(name: str, n_devices: int, n_virtual: int,
                      n_microbatches: int) -> CompiledSchedule:
     """Generate, validate and lower a schedule to its verified tick table."""
     orders = build_order(name, n_devices, n_virtual, n_microbatches)
-    return compile_order(name, orders, n_devices, n_virtual, n_microbatches,
-                         split_backward=is_split_backward(name),
-                         placement=schedule_placement(name))
+    cs = compile_order(name, orders, n_devices, n_virtual, n_microbatches,
+                       split_backward=is_split_backward(name),
+                       placement=schedule_placement(name))
+    verify_artifact_pin(cs)
+    return cs
 
 
 def compile_order(name: str, orders: List[List[Action]], n_devices: int,
@@ -882,6 +888,501 @@ def table_unit_activity(table: np.ndarray) -> np.ndarray:
     w = (table[:, :, COL_W_M] >= 0 if n_cols > COL_W_M
          else np.zeros(table.shape[:2], bool))
     return np.stack([f, b, w, ~(f | b | w)], axis=-1).astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Schedule artifacts: certified, versioned JSON for searched (or otherwise
+# externally produced) schedules. An artifact carries the per-device
+# orders, the compiled table, a fingerprint over its metadata and, from the
+# search, the embedded TableReport summary and predicted cost. Loading
+# recompiles the orders and certifies the stored table cell by cell.
+# ---------------------------------------------------------------------------
+
+SCHEDULE_ARTIFACT_VERSION = 1
+SCHEDULE_ARTIFACT_KIND = "schedule_artifact"
+
+# artifact-backed registered schedules: name -> pin; every compile
+# re-checks it (:func:`verify_artifact_pin`), so a re-registered order
+# function cannot swap a certified table
+_ARTIFACT_PINS: Dict[str, Dict[str, str]] = {}
+
+
+def table_digest(table: np.ndarray) -> str:
+    """Content digest of a tick table (shape + little-endian int32
+    cells)."""
+    arr = np.ascontiguousarray(np.asarray(table, dtype="<i4"))
+    h = hashlib.sha256()
+    h.update(repr(arr.shape).encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+_FINGERPRINT_FIELDS = (
+    "artifact_version", "kind", "name", "n_devices", "n_virtual",
+    "n_microbatches", "placement", "split_backward", "n_act_slots",
+    "n_grad_slots", "makespan", "verifier_version", "table_digest")
+
+
+def _artifact_fingerprint(art: Dict[str, object]) -> str:
+    payload = {k: art.get(k) for k in _FINGERPRINT_FIELDS}
+    blob = json.dumps(payload, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def _orders_from_ticks(cs: CompiledSchedule) -> List[List[Action]]:
+    """The per-device orders behind a compiled schedule, from its tick
+    map (one unit per device per tick)."""
+    if not cs.ticks:
+        raise ScheduleError(
+            f"schedule {cs.name!r} has no tick map; cannot recover "
+            "per-device orders for an artifact")
+    orders: List[List[Action]] = [[] for _ in range(cs.n_devices)]
+    key = lambda kv: (kv[1], kv[0].stage, kv[0].op, kv[0].microbatch)
+    for a, _t in sorted(cs.ticks.items(), key=key):
+        orders[placement_device_of(cs.placement, a.stage,
+                                   cs.n_devices)].append(a)
+    return orders
+
+
+def schedule_artifact(cs: CompiledSchedule, *,
+                      orders: Optional[List[List[Action]]] = None,
+                      seed: Optional[int] = None,
+                      table_report: Optional[Dict[str, object]] = None,
+                      predicted: Optional[Dict[str, object]] = None,
+                      baselines: Optional[Dict[str, object]] = None,
+                      search: Optional[Dict[str, object]] = None
+                      ) -> Dict[str, object]:
+    """The versioned JSON-serialisable artifact of ``cs``.
+    ``table_report`` (a ``TableReport.summary()``) and ``predicted`` (the
+    cost model's dict) are embedded as they are. ``config_fingerprint``
+    signs the metadata fields; the cells are covered by ``table_digest``
+    and by the loader's recompile-and-diff."""
+    if orders is None:
+        orders = _orders_from_ticks(cs)
+    art: Dict[str, object] = {
+        "artifact_version": SCHEDULE_ARTIFACT_VERSION,
+        "kind": SCHEDULE_ARTIFACT_KIND,
+        "name": cs.name,
+        "n_devices": int(cs.n_devices),
+        "n_virtual": int(cs.n_virtual),
+        "n_microbatches": int(cs.n_microbatches),
+        "placement": cs.placement,
+        "split_backward": bool(cs.split_backward),
+        "n_act_slots": int(cs.n_act_slots),
+        "n_grad_slots": int(cs.n_grad_slots),
+        "makespan": int(cs.makespan),
+        "orders": [[[int(a.stage), a.op, int(a.microbatch)] for a in order]
+                   for order in orders],
+        "table": np.asarray(cs.table, dtype=np.int32).tolist(),
+        "table_digest": table_digest(cs.table),
+    }
+    from ..analysis import VERIFIER_VERSION  # analysis imports this module
+    art["verifier_version"] = VERIFIER_VERSION
+    if seed is not None:
+        art["seed"] = int(seed)
+    if table_report is not None:
+        art["table_report"] = table_report
+    if predicted is not None:
+        art["predicted"] = predicted
+    if baselines is not None:
+        art["baselines"] = baselines
+    if search is not None:
+        art["search"] = search
+    art["config_fingerprint"] = _artifact_fingerprint(art)
+    return art
+
+
+def schedule_artifact_bytes(art: Dict[str, object]) -> bytes:
+    """The canonical (byte-deterministic) JSON encoding of an artifact."""
+    return (json.dumps(art, sort_keys=True) + "\n").encode()
+
+
+def save_schedule_artifact(art: Dict[str, object], path) -> None:
+    with open(path, "wb") as fh:
+        fh.write(schedule_artifact_bytes(art))
+
+
+def _art_err(label: str, field: str, msg: str) -> ScheduleError:
+    return ScheduleError(f"schedule artifact {label}: field {field!r}: {msg}")
+
+
+def _load_artifact_dict(source) -> Tuple[Dict[str, object], str]:
+    if isinstance(source, dict):
+        return source, "<dict>"
+    label = str(source)
+    try:
+        with open(source, "r", encoding="utf-8") as fh:
+            art = json.load(fh)
+    except OSError as e:
+        raise ScheduleError(f"schedule artifact {label}: unreadable: {e}")
+    except json.JSONDecodeError as e:
+        raise ScheduleError(f"schedule artifact {label}: invalid JSON: {e}")
+    if not isinstance(art, dict):
+        raise ScheduleError(
+            f"schedule artifact {label}: top level must be a JSON object, "
+            f"got {type(art).__name__}")
+    return art, label
+
+
+def _validated_int(art: Dict[str, object], label: str, key: str,
+                   minimum: int) -> int:
+    v = art.get(key)
+    if not isinstance(v, int) or isinstance(v, bool) or v < minimum:
+        raise _art_err(label, key, f"must be an int >= {minimum}, got {v!r}")
+    return v
+
+
+def _artifact_table(art: Dict[str, object], label: str, D: int,
+                    makespan: int) -> np.ndarray:
+    """The stored table, its structure checked: a located error for a
+    ragged, float, mis-shaped or sub -1 table."""
+    raw = art.get("table")
+    if not isinstance(raw, list) or not raw:
+        raise _art_err(label, "table",
+                       f"must be a non-empty [T][D][{N_COLS}] nested list")
+    try:
+        arr = np.asarray(raw)
+    except ValueError as e:  # ragged nesting
+        raise _art_err(label, "table", f"not a rectangular array: {e}")
+    if arr.dtype == object or arr.ndim != 3:
+        raise _art_err(label, "table",
+                       f"must be rank-3 [T, D, {N_COLS}], got shape "
+                       f"{arr.shape} ({arr.dtype})")
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise _art_err(label, "table",
+                       f"dtype mismatch: cells must be integers, got {arr.dtype}")
+    if arr.shape[2] != N_COLS:
+        raise _art_err(label, "table",
+                       f"column-count mismatch: {arr.shape[2]} columns != "
+                       f"N_COLS {N_COLS}")
+    if arr.shape[1] != D:
+        raise _art_err(label, "table",
+                       f"shape mismatch: {arr.shape[1]} device rows != "
+                       f"n_devices {D}")
+    if arr.shape[0] != makespan:
+        raise _art_err(label, "table",
+                       f"shape mismatch: {arr.shape[0]} ticks != makespan "
+                       f"{makespan}")
+    if (arr < -1).any():
+        t, d, c = (int(x) for x in np.argwhere(arr < -1)[0])
+        raise _art_err(label, "table",
+                       f"cell (device {d}, tick {t}, col {c}) = "
+                       f"{int(arr[t, d, c])} is below -1")
+    return arr.astype(np.int32)
+
+
+def _artifact_orders(art: Dict[str, object], label: str,
+                     D: int) -> List[List[Action]]:
+    raw_orders = art.get("orders")
+    if not isinstance(raw_orders, list) or len(raw_orders) != D:
+        raise _art_err(label, "orders",
+                       f"must be a list of {D} per-device action lists, got "
+                       f"{type(raw_orders).__name__} of length "
+                       f"{len(raw_orders) if isinstance(raw_orders, list) else '?'}")
+    orders: List[List[Action]] = []
+    for d, dev in enumerate(raw_orders):
+        if not isinstance(dev, list):
+            raise _art_err(label, f"orders[{d}]", "must be a list")
+        out: List[Action] = []
+        for i, item in enumerate(dev):
+            if (not isinstance(item, (list, tuple)) or len(item) != 3
+                    or not isinstance(item[0], int) or isinstance(item[0], bool)
+                    or item[1] not in (F, B, W)
+                    or not isinstance(item[2], int) or isinstance(item[2], bool)):
+                raise _art_err(label, f"orders[{d}][{i}]",
+                               f"must be [stage:int, op in 'FBW', mb:int], "
+                               f"got {item!r}")
+            out.append(Action(int(item[0]), str(item[1]), int(item[2])))
+        orders.append(out)
+    return orders
+
+
+def _load_schedule_artifact_impl(source, verify: bool
+                                 ) -> Tuple[CompiledSchedule, Dict[str, object],
+                                            List[List[Action]], str]:
+    art, label = _load_artifact_dict(source)
+    # schema first: every mismatch is a located ScheduleError
+    ver = art.get("artifact_version")
+    if ver != SCHEDULE_ARTIFACT_VERSION:
+        raise _art_err(label, "artifact_version",
+                       f"unsupported version {ver!r} "
+                       f"(this build reads {SCHEDULE_ARTIFACT_VERSION})")
+    if art.get("kind") != SCHEDULE_ARTIFACT_KIND:
+        raise _art_err(label, "kind",
+                       f"expected {SCHEDULE_ARTIFACT_KIND!r}, got "
+                       f"{art.get('kind')!r}")
+    name = art.get("name")
+    if not isinstance(name, str) or not name:
+        raise _art_err(label, "name", f"must be a non-empty string, got {name!r}")
+    D = _validated_int(art, label, "n_devices", 1)
+    V = _validated_int(art, label, "n_virtual", 1)
+    M = _validated_int(art, label, "n_microbatches", 1)
+    n_act = _validated_int(art, label, "n_act_slots", 1)
+    n_grad = _validated_int(art, label, "n_grad_slots", 1)
+    makespan = _validated_int(art, label, "makespan", 1)
+    placement = art.get("placement")
+    if placement not in ("wrap", "vshape"):
+        raise _art_err(label, "placement",
+                       f"must be 'wrap' or 'vshape', got {placement!r}")
+    split = art.get("split_backward")
+    if not isinstance(split, bool):
+        raise _art_err(label, "split_backward", f"must be a bool, got {split!r}")
+    if not isinstance(art.get("table_digest"), str):
+        raise _art_err(label, "table_digest", "must be a hex string")
+    # an edited metadata field fails here, before any numpy work
+    fp = art.get("config_fingerprint")
+    want_fp = _artifact_fingerprint(art)
+    if fp != want_fp:
+        raise _art_err(
+            label, "config_fingerprint",
+            "stale fingerprint: metadata was edited after the artifact was "
+            f"signed (stored {str(fp)[:12]!r}, recomputed {want_fp[:12]!r})")
+    table = _artifact_table(art, label, D, makespan)
+    orders = _artifact_orders(art, label, D)
+    # the orders are the authority: recompile them and certify the stored
+    # table against the result, cell by cell
+    try:
+        cs = compile_order(name, orders, D, V, M, split_backward=split,
+                           placement=placement)
+    except ScheduleError as e:
+        raise ScheduleError(
+            f"schedule artifact {label}: orders do not compile: {e}")
+    if cs.n_act_slots != n_act:
+        raise _art_err(label, "n_act_slots",
+                       f"{n_act} != recompiled {cs.n_act_slots}")
+    if cs.n_grad_slots != n_grad:
+        raise _art_err(label, "n_grad_slots",
+                       f"{n_grad} != recompiled {cs.n_grad_slots}")
+    if cs.table.shape != table.shape or not np.array_equal(cs.table, table):
+        k = min(cs.table.shape[0], table.shape[0])
+        diff = np.argwhere(cs.table[:k] != table[:k])
+        if diff.size:
+            t, d, c = (int(x) for x in diff[0])
+            from ..analysis.table_check import COLUMN_NAMES
+            raise ScheduleError(
+                f"schedule artifact {label}: certification failed at "
+                f"(device {d}, tick {t}, {COLUMN_NAMES.get(c, f'col {c}')}): "
+                f"stored cell {int(table[t, d, c])} != certified value "
+                f"{int(cs.table[t, d, c])} (table tampered or stale)")
+        raise _art_err(label, "table",
+                       f"tick count {table.shape[0]} != recompiled "
+                       f"{cs.table.shape[0]}")
+    if art["table_digest"] != table_digest(table):
+        raise _art_err(label, "table_digest",
+                       "digest does not match the stored table")
+    if verify:  # the full static certification, and the embedded report
+        from ..analysis.table_check import check_table
+        report = check_table(cs)
+        if report.hazards:
+            raise ScheduleError(
+                f"schedule artifact {label}: certification failed: "
+                f"{report.hazards[0]}")
+        emb = art.get("table_report")
+        if emb is not None:
+            if not isinstance(emb, dict):
+                raise _art_err(label, "table_report", "must be an object")
+            if emb.get("ok") is False or emb.get("n_hazards", 0):
+                raise _art_err(label, "table_report",
+                               "embeds a non-clean TableReport; refusing to "
+                               "load an uncertified artifact")
+            summary = report.summary()
+            for key in ("makespan", "predicted_ppermutes"):
+                if key in emb and emb[key] != summary[key]:
+                    raise _art_err(label, f"table_report.{key}",
+                                   f"{emb[key]!r} != recomputed "
+                                   f"{summary[key]!r}")
+    else:
+        from ..analysis import maybe_verify_schedule
+        maybe_verify_schedule(cs)
+    return cs, art, orders, label
+
+
+def load_schedule_artifact(source, *, verify: bool = True) -> CompiledSchedule:
+    """Load a schedule artifact (a path or a dict) into a
+    :class:`CompiledSchedule`. In order: the JSON schema (shape, dtype,
+    column count), the metadata's ``config_fingerprint``, the recompiled
+    orders against every stored cell (a changed cell fails with its
+    device, tick and column), then ``check_table``. Each failure is a
+    :class:`ScheduleError` naming the artifact and the field. With
+    ``verify=False`` ``check_table`` is left to ``DTPP_VERIFY_TABLES``."""
+    return _load_schedule_artifact_impl(source, verify)[0]
+
+
+def register_schedule_artifact(source, *, name: Optional[str] = None,
+                               overwrite: bool = True) -> CompiledSchedule:
+    """Load, certify and register an artifact as a named schedule:
+    ``compile_schedule(name, D, V, M)`` (and so ``ScheduleConfig``,
+    ``fit`` and the sweep) then resolves it like a built-in, pinned to
+    the certified table's digest."""
+    cs, art, orders, label = _load_schedule_artifact_impl(source, True)
+    reg_name = name if name is not None else cs.name
+    if cs.placement != "wrap":
+        raise ScheduleError(
+            f"schedule artifact {label}: only wrap-placement artifacts can "
+            "be registered (vshape placement is reserved for the ZBV builtin)")
+
+    def order_fn(D: int, V: int, M: int) -> List[List[Action]]:
+        want = (cs.n_devices, cs.n_virtual, cs.n_microbatches)
+        if (D, V, M) != want:
+            raise ScheduleError(
+                f"schedule {reg_name!r} was certified for n_devices={want[0]}, "
+                f"n_virtual={want[1]}, n_microbatches={want[2]}; requested "
+                f"({D}, {V}, {M}) — re-run the search for this config")
+        return [list(order) for order in orders]
+
+    register_schedule(reg_name, order_fn, split_backward=cs.split_backward,
+                      overwrite=overwrite)
+    _ARTIFACT_PINS[reg_name] = {
+        "table_digest": str(art["table_digest"]),
+        "config_fingerprint": str(art["config_fingerprint"]),
+        "source": label,
+    }
+    if reg_name != cs.name:
+        cs = dataclasses.replace(cs, name=reg_name)
+    return cs
+
+
+def registered_artifact_info(name: str) -> Optional[Dict[str, str]]:
+    """The pin (table digest, fingerprint, source) of an artifact-backed
+    schedule name, or None."""
+    info = _ARTIFACT_PINS.get(name)
+    return dict(info) if info is not None else None
+
+
+def verify_artifact_pin(cs: CompiledSchedule) -> None:
+    """For an artifact-backed name, the compiled table's digest against
+    the certified pin; raises :class:`ScheduleError` when they part."""
+    pin = _ARTIFACT_PINS.get(cs.name)
+    if pin is None:
+        return
+    got = table_digest(cs.table)
+    if got != pin["table_digest"]:
+        raise ScheduleError(
+            f"schedule {cs.name!r}: compiled table digest {got[:12]}... does "
+            f"not match the certified artifact pin "
+            f"{pin['table_digest'][:12]}... (source {pin['source']}) — the "
+            "registered orders no longer produce the certified table")
+
+
+# ---------------------------------------------------------------------------
+# Phase compression: the periodic steady state of a tick table. No
+# executor runs phases (the port's executor walks the ticks); the static
+# verifier holds the compress -> replay round trip.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Phase:
+    """One maximal periodic run of table rows ``[start, start + period *
+    reps)``: repetition k is ``base + k * stride`` (``base`` the first
+    repetition's ``[period, D, n_cols]`` rows, ``stride`` 0 on inactive
+    entries), so the active/idle pattern ``base >= 0`` is the same in
+    every repetition."""
+
+    start: int
+    period: int
+    reps: int
+    base: np.ndarray    # [period, D, n_cols] int32
+    stride: np.ndarray  # [period, D, n_cols] int32; 0 on inactive entries
+
+    @property
+    def length(self) -> int:
+        return self.period * self.reps
+
+    def pattern_key(self) -> Tuple[int, bytes]:
+        """The identity of the active/idle pattern."""
+        return (self.period, (self.base >= 0).tobytes())
+
+
+def rows_of(phase: Phase) -> np.ndarray:
+    """One phase's rows ``[length, D, n_cols]`` from its descriptor."""
+    ks = np.arange(phase.reps, dtype=phase.base.dtype)
+    blocks = phase.base[None] + ks[:, None, None, None] * phase.stride[None]
+    return blocks.reshape(phase.reps * phase.period, *phase.base.shape[1:])
+
+
+def replay_phases(phases: Sequence[Phase]) -> np.ndarray:
+    """The whole table from its phases (:func:`compress_schedule`'s
+    inverse, bit for bit)."""
+    return np.concatenate([rows_of(p) for p in phases], axis=0)
+
+
+def compress_schedule(table: np.ndarray,
+                      max_period: Optional[int] = None) -> Tuple[Phase, ...]:
+    """Segment a tick table into maximal periodic runs (the JAX function,
+    bit-identical). A run of period p from row t needs every repetition's
+    active/idle mask equal to the first's and its active entries advancing
+    affinely (``base + k * stride``). Greedy: at each row the (period,
+    reps) that covers most rows, the smallest period on ties; a row that
+    starts no run of two repetitions is a ``period=1, reps=1`` phase. The
+    result is checked against :func:`replay_phases` before it is
+    returned."""
+    table = np.asarray(table)
+    T = table.shape[0]
+    if max_period is None:
+        max_period = min(T // 2, 64)
+    phases: List[Phase] = []
+    t = 0
+    while t < T:
+        best = None  # (coverage, -period, period, reps, stride)
+        rem = T - t
+        for p in range(1, min(max_period, rem // 2) + 1):
+            base = table[t:t + p]
+            mask = base >= 0
+            nxt = table[t + p:t + 2 * p]
+            if ((nxt >= 0) != mask).any():
+                continue
+            stride = np.where(mask, nxt - base, 0).astype(table.dtype)
+            if not np.array_equal(base + stride, nxt):
+                continue  # an inactive entry is not -1
+            reps = 2
+            while t + (reps + 1) * p <= T:
+                blk = table[t + reps * p:t + (reps + 1) * p]
+                # the mask is compared on its own: an active entry walking
+                # onto -1 by arithmetic must not count as a match
+                if (((blk >= 0) == mask).all()
+                        and np.array_equal(blk, base + reps * stride)):
+                    reps += 1
+                else:
+                    break
+            cand = (p * reps, -p, p, reps, stride)
+            if best is None or cand[:2] > best[:2]:
+                best = cand
+        if best is not None:
+            _, _, p, reps, stride = best
+            phases.append(Phase(t, p, reps, table[t:t + p].copy(), stride))
+            t += p * reps
+        else:
+            phases.append(Phase(t, 1, 1, table[t:t + 1].copy(),
+                                np.zeros((1,) + table.shape[1:],
+                                         dtype=table.dtype)))
+            t += 1
+    out = tuple(phases)
+    if not np.array_equal(replay_phases(out), table):  # pragma: no cover
+        raise ScheduleError("phase compression self-check failed: replay "
+                            "does not reconstruct the tick table")
+    return out
+
+
+def phase_stats(phases: Sequence[Phase]) -> Dict[str, int]:
+    """Rows, phases and distinct active/idle patterns."""
+    return {
+        "n_rows": sum(p.length for p in phases),
+        "n_phases": len(phases),
+        "n_unique_patterns": len({p.pattern_key() for p in phases}),
+    }
+
+
+def phase_spans(phases: Sequence[Phase]) -> List[Tuple[int, int]]:
+    """``[(start_tick, n_ticks)]`` per phase; they tile ``[0, makespan)``."""
+    return [(p.start, p.length) for p in phases]
+
+
+def phase_unit_activity(phases: Sequence[Phase]) -> np.ndarray:
+    """Per phase and device, the ticks in (F, B, W, idle): ``[n_phases,
+    D, 4]``."""
+    return np.stack([table_unit_activity(rows_of(p)).sum(axis=0)
+                     for p in phases])
 
 
 # ---------------------------------------------------------------------------

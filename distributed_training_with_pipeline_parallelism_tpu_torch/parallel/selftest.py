@@ -29,7 +29,10 @@ its fields:
   ``"comm_overlap"``, ``"tied"``): ``{name}_r{rank}.npz`` holds the loss
   and the rank's gradients by parameter name; with ``"lockstep": True``
   rank 0 also runs the same step over the lockstep transport on the whole
-  model and batch (``{name}_lockstep.npz``).
+  model and batch (``{name}_lockstep.npz``). With ``"dynamics": True``
+  the step returns ``sq_mb`` and the file also holds it and the world's
+  ``dynamics.stage_stats`` (``"dyn/..."``); the lockstep step then runs
+  ``"M"`` times ``n_data`` microbatches, the world's.
 - ``"eval"``: ``make_pipeline_loss_fn`` on the mesh and, on rank 0, over
   the lockstep transport.
 - ``"train"``: ``"steps"`` steps of ``make_train_step`` (``adamw`` with
@@ -144,6 +147,18 @@ def ring_blocks(mesh: Mesh) -> dict:
             "scatter_err": float((ring_dn - dn).abs().max()), "hops": hops}
 
 
+def _dynamics(cfg, sched, D, model, sq_mb, mesh) -> Dict[str, np.ndarray]:
+    """``sq_mb`` and the stage statistics of the model's gradients (over
+    a world: the replicated leaves counted on pipe coordinate 0)."""
+    from ..utils.dynamics import stage_stats
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None
+             and (mesh is None or mesh.pipe == 0 or n.startswith("layers."))}
+    st = stage_stats(cfg.n_layers, D * sched.n_virtual, grads, mesh=mesh)
+    st["sq_mb"] = sq_mb
+    return {f"dyn/{k}": v.detach().cpu().numpy() for k, v in st.items()}
+
+
 def run_cases(world: Mesh, spec: dict) -> dict:
     """Run ``spec``'s cases on this rank (see the module doc); returns
     ``{"rank": r, "seconds": {case: s}, "modules": [top-level modules
@@ -199,22 +214,36 @@ def run_cases(world: Mesh, spec: dict) -> dict:
                                shard=tp)
         if kind == "grad":
             tel = PipelineTelemetry() if case.get("telemetry") else None
+            dyn = case.get("dynamics", False)
             fn = make_pipeline_grad_fn(cfg, sched, D, device=device,
                                        mesh=mesh,
                                        comm_overlap=case["comm_overlap"],
-                                       tp_vocab_parallel=vp, telemetry=tel)
+                                       tp_vocab_parallel=vp, telemetry=tel,
+                                       dynamics=dyn)
             hops = mesh.hops
             loss = fn(view, *local, *seed)
             extra = {"hops": np.asarray(mesh.hops - hops)}
+            if dyn:
+                loss, sq_mb = loss
+                extra.update(_dynamics(cfg, sched, D, view, sq_mb, mesh))
             if tel is not None:
                 extra.update(_stamps(tel))
             _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, view,
                  extra=extra)
             if case.get("lockstep") and rank == 0:
                 whole = from_jax_params(cfg, tree, device=device)
-                ref = make_pipeline_grad_fn(cfg, sched, D, device=device)
+                lsched = sched if not dyn else ScheduleConfig(
+                    sched.name, sched.n_microbatches * mesh.n_data,
+                    sched.n_virtual)
+                ref = make_pipeline_grad_fn(cfg, lsched, D, device=device,
+                                            dynamics=dyn)
                 loss = ref(whole, tokens, targets, *seed)
-                _npz(os.path.join(out, f"{name}_lockstep.npz"), loss, whole)
+                extra = {}
+                if dyn:
+                    loss, sq_mb = loss
+                    extra = _dynamics(cfg, lsched, D, whole, sq_mb, None)
+                _npz(os.path.join(out, f"{name}_lockstep.npz"), loss, whole,
+                     extra=extra)
         elif kind == "tp_grad_fn":
             whole = from_jax_params(cfg, tree, device=device, shard=tp)
             loss = make_tp_grad_fn(cfg, mesh, device=device)(whole, *local)

@@ -16,7 +16,12 @@ tables with the card's name. ``--backend gloo`` (or ``nccl``) runs each
 config as the reference does, one process per stage, one world per
 device count (``utils.sweep``'s world rows, with their ``transport``).
 ``--report-dir`` appends each row's validated run-report manifest to
-``sweep_reports.jsonl`` there.
+``sweep_reports.jsonl`` there. ``--dynamics`` adds one instrumented
+gradient pass a row, off the clock (the ``grad_norm_final``, ``gns`` and
+``n_skipped_attributed`` columns; ``dynamics.csv`` holds their median by
+schedule); ``--schedule-artifact`` runs every row on a certified
+searched schedule (``search_schedule``'s artifact: its schedule, M and V
+replace the row's, and its table digest is recorded).
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import csv
 import os
 import sys
 
-from .utils.sweep import compute_speedup_and_efficiency, sweep_rows
+from .utils.sweep import (compute_speedup_and_efficiency,
+                          summarize_dynamics, sweep_rows)
 
 
 def write_csv(path: str, rows) -> None:
@@ -61,12 +67,20 @@ def main(argv=None) -> int:
     ap.add_argument("--report-dir", default=None,
                     help="append one RunReport manifest per row to "
                          "sweep_reports.jsonl in this dir")
+    ap.add_argument("--dynamics", action="store_true",
+                    help="one instrumented gradient pass a row, off the "
+                         "clock: the model-health columns")
+    ap.add_argument("--schedule-artifact", default=None,
+                    help="a certified schedule artifact (search_schedule's "
+                         "JSON) every row runs")
     args = ap.parse_args(argv)
 
     import torch
     dim = args.dim or (64 if args.quick else 768)
     kwargs = dict(dim=dim, dtype=args.dtype, device=args.device,
-                  backend=args.backend, report_dir=args.report_dir)
+                  backend=args.backend, report_dir=args.report_dir,
+                  dynamics=args.dynamics,
+                  schedule_artifact=args.schedule_artifact)
     if args.schedules:
         kwargs["schedules"] = tuple(args.schedules)
     if args.quick:
@@ -100,6 +114,14 @@ def main(argv=None) -> int:
         print(f"L{r['n_layers']} H{r['n_heads']} D{r['num_processes']} "
               f"{r['schedule']:<16} {r['speedup']:.4f}  "
               f"{r['efficiency']:.2f}")
+    if args.dynamics:
+        health = summarize_dynamics(rows)
+        write_csv(os.path.join(args.out, "dynamics.csv"), health)
+        print("\n== model health by schedule (median) ==")
+        for r in health:
+            print(f"{r['schedule']:<16} n={r['n']:<3} grad_norm_final "
+                  f"{r['grad_norm_final_median']:.6g}  gns {r['gns_median']}"
+                  f"  skipped {r['n_skipped_attributed']}")
     print(f"\nwrote {args.out}/sweep.csv and {args.out}/speedup.csv "
           f"({len(rows)} rows)")
     return 0 if rows else 1

@@ -937,6 +937,9 @@ def make_serving_step_fn(cfg: ModelConfig, n_stages: int, *, n_slots: int,
                 f"max_len + prefill_chunk - 1 ({max_len + C - 1}) exceeds "
                 f"the gpt2 draft position table "
                 f"(max_seq_len={draft_cfg.max_seq_len})")
+    from ..analysis import maybe_verify_serving
+    maybe_verify_serving(D, M, gamma=gamma if speculative else None,
+                         prefill_chunk=C)
     if prompt_max < 1 or out_max < 1:
         raise ValueError("prompt_max and out_max must be >= 1")
     if prompt_max + 1 > max_len:
@@ -1076,6 +1079,14 @@ class ServingEngine:
         plen = len(prompt)
         start = 0
         if plan is not None:
+            from ..analysis import maybe_verify_page_table
+            p = self.program
+            maybe_verify_page_table(
+                plan.pages, refcount=self.paging.pool.refcount,
+                n_pages=p.n_pages, page_size=p.page_size,
+                write_lo=plan.matched_len,
+                write_hi=plen + req.max_new_tokens + p.prefill_chunk - 1,
+                cow_dst=plan.cow_dst)
             start = plan.matched_len
             self.page_tbl[slot] = 0
             self.page_tbl[slot, :plan.n_pages] = plan.pages

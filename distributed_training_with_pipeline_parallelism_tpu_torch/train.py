@@ -50,9 +50,13 @@ above 1 needs a backend; ``--vocab-parallel`` needs ``--tp`` above 1.
 PipelineTelemetry``) and writes ``events.jsonl``, ``report.json`` (the
 ``RunReport`` manifest of ``fit``) and ``trace.json`` (the newest step's
 ticks as a Perfetto trace: open it in ui.perfetto.dev) there; in a world
-global rank 0 writes them, from every rank's stamps. Flags for parts of
-the JAX package not ported yet (``--sp``/``--ep`` above 1, ``--fsdp``,
-``--moe-experts``, ``--sp-attn ulysses``, ``--dynamics``) raise
+global rank 0 writes them, from every rank's stamps. ``--dynamics`` adds
+the per-stage gradient statistics, the gradient-noise scale and the
+loss-spike forensics (``utils.dynamics``, read at the log points with the
+loss; the bundles need ``--report-dir``); with ``--prefetch`` the batch
+digests are taken from the host arrays before their copy. Flags for parts
+of the JAX package not ported yet (``--sp``/``--ep`` above 1,
+``--fsdp``, ``--moe-experts``, ``--sp-attn ulysses``) raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
@@ -66,8 +70,7 @@ import numpy as np
 from .parallel.schedules import schedule_names
 
 _ITEM = {11: "ROADMAP.md Queue 1, item 11 (sequence and expert "
-             "parallelism, FSDP, MoE)",
-         12: "ROADMAP.md Queue 1, item 12, entry 4 (training dynamics)"}
+             "parallelism, FSDP, MoE)"}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -149,7 +152,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--stall-timeout", type=float, default=0.0,
                     help="log a stall when no step completes for this many "
                          "seconds (0 disables)")
-    ap.add_argument("--dynamics", action="store_true")
+    ap.add_argument("--dynamics", action="store_true",
+                    help="per-stage gradient statistics, the gradient-noise "
+                         "scale and loss-spike forensics (bundles need "
+                         "--report-dir), read at the log points")
     ap.add_argument("--report-dir", default="",
                     help="write the run report (events.jsonl, report.json) "
                          "and a Perfetto trace of the last step's ticks "
@@ -213,8 +219,7 @@ def check_ported(args) -> None:
                 ("--ep > 1", args.ep > 1, 11),
                 ("--sp-attn ulysses", args.sp_attn != "ring", 11),
                 ("--fsdp", args.fsdp, 11),
-                ("--moe-experts", args.moe_experts > 0, 11),
-                ("--dynamics", args.dynamics, 12)]
+                ("--moe-experts", args.moe_experts > 0, 11)]
     for flag, given, item in unported:
         if given:
             raise NotImplementedError(f"{flag} is not ported yet: "
@@ -388,7 +393,8 @@ def run(args, mesh=None) -> int:
         data = synthetic_batches(cfg.vocab_size, args.batch, args.seq,
                                  seed=args.seed, sharding=sharding)
     if args.prefetch > 0:
-        data = prefetch_to_device(data, depth=args.prefetch, device=device)
+        data = prefetch_to_device(data, depth=args.prefetch, device=device,
+                                  digest=args.dynamics)
 
     eval_data = None
     if args.eval_every:
@@ -425,7 +431,8 @@ def run(args, mesh=None) -> int:
             stall_timeout_s=args.stall_timeout or None, device=device,
             zero1=args.zero1, mesh=mesh,
             tp_vocab_parallel=args.vocab_parallel,
-            report_dir=args.report_dir or None, telemetry=telemetry)
+            report_dir=args.report_dir or None, telemetry=telemetry,
+            dynamics=args.dynamics or None)
     finally:
         if loader is not None:
             loader.close()

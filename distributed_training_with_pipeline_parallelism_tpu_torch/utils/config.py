@@ -218,6 +218,18 @@ class ScheduleConfig:
     def __post_init__(self):
         check_schedule_name(self.name)
 
+    @classmethod
+    def from_artifact(cls, source, *, name: Optional[str] = None
+                      ) -> "ScheduleConfig":
+        """Register a certified schedule artifact (a path or a parsed
+        dict, from ``analysis.schedule_search``) and return the config that
+        selects it: ``fit`` and the sweep then run exactly the certified
+        table (``parallel.schedules.register_schedule_artifact``)."""
+        from ..parallel.schedules import register_schedule_artifact
+        cs = register_schedule_artifact(source, name=name)
+        return cls(name=cs.name, n_microbatches=cs.n_microbatches,
+                   n_virtual=cs.n_virtual)
+
 
 def virtual_stages_for(schedule_name: str, n_layers: int, n_pipe: int) -> int:
     """The reference's stages-per-worker rule: 2 for Interleaved1F1B (and

@@ -177,21 +177,43 @@ def encode_text_file_hf(text_path: str, out_path: str, tokenizer="gpt2",
         "(models/hf.py from local files only)")
 
 
+class DigestedBatch(tuple):
+    """A batch on the device with its host arrays' content digest
+    (``dynamics.batch_digest``), taken before the copy."""
+
+    digest: str
+
+    def __new__(cls, tensors, digest: str):
+        out = super().__new__(cls, tensors)
+        out.digest = digest
+        return out
+
+
 def prefetch_to_device(it: Iterator, depth: int = 2,
                        device="cuda",
-                       sharding: Optional[BatchSharding] = None
-                       ) -> Iterator[Batch]:
+                       sharding: Optional[BatchSharding] = None,
+                       digest: bool = False) -> Iterator[Batch]:
     """Keep ``depth`` batches of ``it`` (tuples of numpy arrays or host
     tensors) in flight to ``device`` and yield them there as tensors (see
     the module doc); ``sharding`` first keeps the rank's rows of each. On
-    the CPU the batches are only converted."""
+    the CPU the batches are only converted. ``digest``: yield
+    :class:`DigestedBatch` es, each with its host arrays' digest (for
+    ``fit``'s forensics: hashing the device tensors would wait for the
+    copy)."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     device = resolve_device(device)
     it = _sharded(it, sharding)
+
+    def digested(host, dev):
+        if not digest:
+            return dev
+        from .dynamics import batch_digest
+        return DigestedBatch(dev, batch_digest(*host))
+
     if device.type != "cuda":
         for batch in it:
-            yield tuple(torch.as_tensor(x) for x in batch)
+            yield digested(batch, tuple(torch.as_tensor(x) for x in batch))
         return
     stream = torch.cuda.Stream(device)
     queue: collections.deque = collections.deque()
@@ -203,7 +225,7 @@ def prefetch_to_device(it: Iterator, depth: int = 2,
             dev = tuple(h.to(device, non_blocking=True) for h in host)
             done = torch.cuda.Event()
             done.record(stream)
-        return dev, done
+        return digested(batch, dev), done
 
     def take():
         dev, done = queue.popleft()

@@ -2,8 +2,8 @@
 devices, schedule), the speedup and scaling efficiency over GPipe, and the
 throughput pivot (the port's own copy of the JAX package's
 ``utils/sweep.py``: ``run_one_experiment`` ``:36``, ``run_all_experiments``
-``:289``, ``compute_speedup_and_efficiency`` ``:342``, ``pivot_throughput``
-``:394``).
+``:289``, ``compute_speedup_and_efficiency`` ``:342``,
+``summarize_dynamics`` ``:365``, ``pivot_throughput`` ``:394``).
 
 Rows are plain dicts with the JAX columns (``:176-216``) plus
 :data:`PORT_COLUMNS`; pandas is imported only by the two functions that
@@ -27,8 +27,15 @@ What the columns mean in the port:
 - ``mfu`` and ``predicted_step_s`` price D chips of the run's
   ``HardwareSpec`` (the H100 preset on the card), as in JAX.
 - ``rel_err_corrected`` is None: no calibration correction is fitted for
-  the H100 yet (``ROADMAP.md`` Queue 1, entry 5), and neither are the
-  dynamics columns (entry 4).
+  the H100 yet (``ROADMAP.md`` Queue 1, entry 5).
+- ``grad_norm_final``, ``gns`` and ``n_skipped_attributed`` are filled by
+  ``dynamics=True``: one instrumented gradient pass after the timed steps
+  (off the clock) through ``make_pipeline_grad_fn(..., dynamics=True)``
+  with the rematerialising backward, as in JAX; None otherwise.
+- ``schedule_artifact`` (a certified artifact, a path or a dict) is
+  registered and certified (``parallel.schedules.
+  register_schedule_artifact``) and overrides the row's schedule, M and
+  V with its own; the row records the pinned ``schedule_artifact_digest``.
 
 ``report_dir`` adds one validated ``RunReport`` manifest per row to
 ``{report_dir}/sweep_reports.jsonl`` (JAX ``:246-282``): the timers and
@@ -54,6 +61,7 @@ in one world.
 
 from __future__ import annotations
 
+import math
 import time
 import traceback
 from typing import Dict, Iterable, List, Optional, Sequence
@@ -71,12 +79,6 @@ WORLD_COLUMNS = ("transport", "world_ranks")
 # measured torch.cuda.max_memory_allocated over the run (None on the CPU)
 PORT_COLUMNS = ("mfu_card", "predicted_card_bytes",
                 "max_memory_allocated_bytes")
-_NOT_PORTED = {
-    "dynamics": "ROADMAP.md Queue 1, item 12, entry 4 (training dynamics)",
-    "schedule_artifact": "ROADMAP.md Queue 1, item 12, entry 3 (schedule "
-                         "artifacts and the search, behind "
-                         "analysis/table_check.py)",
-}
 
 
 def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
@@ -87,7 +89,7 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
                        arch: str = "ref_decoder", dtype: str = "float32",
                        remat_backward=None,
                        report_dir: Optional[str] = None,
-                       schedule_artifact: Optional[str] = None,
+                       schedule_artifact=None,
                        oom_preflight: bool = True, dynamics: bool = False,
                        device="cuda", backend: Optional[str] = None
                        ) -> Dict[str, object]:
@@ -104,28 +106,19 @@ def run_one_experiment(n_layers: int, n_heads: int, num_devices: int,
     ZBV's steady state needs M >= 2D, so its row lifts
     ``n_microbatches`` to 2D where it is smaller (recorded in the row's
     ``n_microbatches``), as in JAX. ``report_dir`` appends the row's
-    manifest to ``sweep_reports.jsonl`` there (see the module doc).
-    ``dynamics=True`` and ``schedule_artifact`` raise
-    ``NotImplementedError`` naming their ``ROADMAP.md`` entries.
-    ``backend`` (``"gloo"`` or ``"nccl"``) makes it a world row (see the
-    module doc)."""
+    manifest to ``sweep_reports.jsonl`` there; ``schedule_artifact`` and
+    ``dynamics`` are as in the module doc. ``backend`` (``"gloo"`` or
+    ``"nccl"``) makes it a world row (see the module doc)."""
     from .config import resolve_device
 
-    _check_ported(dynamics=dynamics, schedule_artifact=schedule_artifact)
     device = resolve_device(device)
     row = _Row(n_layers, n_heads, num_devices, schedule_type, batch_size,
                seq_length, num_iterations, dim, vocab_size, n_microbatches,
-               seed, arch, dtype, remat_backward, oom_preflight, report_dir)
+               seed, arch, dtype, remat_backward, oom_preflight, report_dir,
+               schedule_artifact, dynamics)
     if backend is not None:
         return _world_rows([row], backend, device)[0]
     return row.run(device)
-
-
-def _check_ported(**given) -> None:
-    for name, value in given.items():
-        if value:
-            raise NotImplementedError(f"{name} is not ported yet: "
-                                      f"{_NOT_PORTED[name]}")
 
 
 class _Row:
@@ -135,7 +128,8 @@ class _Row:
     def __init__(self, n_layers, n_heads, num_devices, schedule_type,
                  batch_size, seq_length, num_iterations, dim, vocab_size,
                  n_microbatches, seed, arch, dtype, remat_backward,
-                 oom_preflight, report_dir=None):
+                 oom_preflight, report_dir=None, schedule_artifact=None,
+                 dynamics=False):
         self.__dict__.update(locals())
         del self.__dict__["self"]
 
@@ -146,8 +140,15 @@ class _Row:
         from ..analysis.memory_model import (memory_model_section,
                                              oom_preflight as _preflight)
         from ..parallel.schedules import compile_schedule
-        n_virtual = virtual_stages_for(self.schedule_type, self.n_layers,
-                                       self.num_devices)
+        self.artifact_info = None
+        if self.schedule_artifact is not None:
+            cs_art = self.register_artifact()
+            self.schedule_type = cs_art.name
+            self.n_microbatches = cs_art.n_microbatches
+            n_virtual = cs_art.n_virtual
+        else:
+            n_virtual = virtual_stages_for(self.schedule_type,
+                                           self.n_layers, self.num_devices)
         if self.schedule_type == "ZBV":
             self.n_microbatches = max(self.n_microbatches,
                                       2 * self.num_devices)
@@ -178,6 +179,15 @@ class _Row:
                 }
         return None
 
+    def register_artifact(self):
+        """Register and certify the row's artifact (in this process: a
+        world's ranks register it again) and keep its pin."""
+        from ..parallel.schedules import (register_schedule_artifact,
+                                          registered_artifact_info)
+        cs = register_schedule_artifact(self.schedule_artifact)
+        self.artifact_info = registered_artifact_info(cs.name)
+        return cs
+
     def timed(self, device, mesh=None):
         """The timed steps (with ``mesh``, this rank's share: its view,
         its row of the table) and the device's peak allocation; with a
@@ -186,6 +196,8 @@ class _Row:
         from .telemetry import RunReport
         from ..models.transformer import init_params
         from ..parallel.pipeline import make_pipeline_grad_fn, owned_layers
+        if mesh is not None and self.schedule_artifact is not None:
+            self.register_artifact()
         grad_fn = make_pipeline_grad_fn(self.cfg, self.sched,
                                         self.num_devices,
                                         remat_backward=self.remat_backward,
@@ -216,7 +228,30 @@ class _Row:
         if report is not None:
             metrics["report"] = {"timers": report.timers,
                                  "counters": report.counters}
+        if self.dynamics:
+            metrics["dynamics"] = self.dynamics_pass(model, tokens, targets,
+                                                     device, mesh)
         return metrics
+
+    def dynamics_pass(self, model, tokens, targets, device, mesh):
+        """One instrumented gradient pass, off the clock (the JAX row's):
+        the stage statistics and ``sq_mb`` on the host."""
+        from ..parallel.pipeline import make_pipeline_grad_fn
+        from .dynamics import stage_stats
+        S = self.num_devices * self.n_virtual
+        grad_fn = make_pipeline_grad_fn(self.cfg, self.sched,
+                                        self.num_devices, remat_backward=True,
+                                        device=device, mesh=mesh,
+                                        dynamics=True)
+        model.zero_grad(set_to_none=True)
+        _, sq_mb = grad_fn(model, tokens, targets)
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None
+                 and (mesh is None or mesh.pipe == 0
+                      or n.startswith("layers."))}
+        st = stage_stats(self.n_layers, S, grads, mesh=mesh)
+        st["sq_mb"] = sq_mb
+        return {k: v.detach().cpu().numpy() for k, v in st.items()}
 
     def run(self, device):
         try:
@@ -266,17 +301,37 @@ class _Row:
             "backward_policy": policy,
             "tick_executor": "lockstep" if world is None else "dist",
             "host_serialized": True,
-            "grad_norm_final": None,
-            "gns": None,
-            "n_skipped_attributed": None,
+            **self.dynamics_columns(metrics.pop("dynamics", None)),
             "mfu_card": None if mfu is None else mfu * D,
             "predicted_card_bytes": self.mem["analytic"]["card_bytes"],
             "max_memory_allocated_bytes": peak_alloc,
         })
         if world is not None:
             metrics.update(zip(WORLD_COLUMNS, world))
+        if self.artifact_info is not None:
+            metrics["schedule_artifact_digest"] = \
+                self.artifact_info["table_digest"]
         self.cost = cost
         return metrics
+
+    def dynamics_columns(self, st) -> Dict[str, object]:
+        """The model-health columns: None without the dynamics pass."""
+        from .dynamics import GNSEstimator
+        cols: Dict[str, object] = {"grad_norm_final": None, "gns": None,
+                                   "n_skipped_attributed": None}
+        self.dyn_stats = st
+        if st is None:
+            return cols
+        cols["grad_norm_final"] = float(st["grad_norm"])
+        cols["n_skipped_attributed"] = 0  # no guard in a sweep row
+        if self.n_microbatches > 1:
+            toks = self.batch_size * self.seq_length
+            est = GNSEstimator(batch_small=toks / self.n_microbatches,
+                               batch_big=toks)
+            est.update(float(st["sq_mb"].mean()),
+                       float(st["grad_norm"]) ** 2)
+            cols["gns"] = est.value()
+        return cols
 
     def write_report(self, row, timing, device, world=None) -> None:
         """With a ``report_dir``: the row's manifest (``timing``: the
@@ -302,6 +357,11 @@ class _Row:
             report.gauge(k, v)
         report.attach_cost_model(self.cost)
         report.attach_memory(self.mem)
+        if self.dyn_stats is not None:
+            from .dynamics import dynamics_section
+            report.attach_dynamics(dynamics_section(
+                D * self.n_virtual, last_stats=self.dyn_stats,
+                gns=row["gns"], gns_updates=0 if row["gns"] is None else 1))
         manifest = report.manifest()
         validate_report(manifest)
         os.makedirs(self.report_dir, exist_ok=True)
@@ -430,11 +490,10 @@ def _world_sweep(configs, backend, batch_size, seq_length, num_iterations,
     from .config import resolve_device
     kw = dict(kwargs)
     device = resolve_device(kw.pop("device", "cuda"))
-    _check_ported(dynamics=kw.pop("dynamics", False),
-                  schedule_artifact=kw.pop("schedule_artifact", None))
     defaults = dict(dim=768, vocab_size=10000, n_microbatches=4, seed=0,
                     arch="ref_decoder", dtype="float32", remat_backward=None,
-                    oom_preflight=True, report_dir=None)
+                    oom_preflight=True, report_dir=None,
+                    schedule_artifact=None, dynamics=False)
     defaults.update(kw)
     out = {}
     for D in dict.fromkeys(D for _, _, D, _ in configs):
@@ -445,7 +504,8 @@ def _world_sweep(configs, backend, batch_size, seq_length, num_iterations,
                      defaults["n_microbatches"], defaults["seed"],
                      defaults["arch"], defaults["dtype"],
                      defaults["remat_backward"], defaults["oom_preflight"],
-                     defaults["report_dir"])
+                     defaults["report_dir"], defaults["schedule_artifact"],
+                     defaults["dynamics"])
                 for i in idx]
         t0 = time.perf_counter()
         out.update(zip(idx, _world_rows(rows, backend, device)))
@@ -504,6 +564,38 @@ def compute_speedup_and_efficiency(rows: Iterable) -> List[Dict[str, object]]:
             out.append({"n_layers": L, "n_heads": H, "num_processes": D,
                         "schedule": schedule, "speedup": speedup,
                         "efficiency": speedup / D * 100.0})
+    return out
+
+
+def summarize_dynamics(rows: Iterable) -> List[Dict[str, object]]:
+    """Per schedule, in sorted order, the model health of a
+    ``dynamics=True`` sweep (the JAX ``summarize_dynamics``): the rows,
+    the median ``grad_norm_final`` and ``gns`` (None without a finite
+    one) and the attributed skips. Rows without the dynamics pass are
+    left out. Takes row dicts or a DataFrame; returns row dicts."""
+    import statistics
+
+    def given(r, key):
+        v = r.get(key)
+        return v is not None and not (isinstance(v, float) and math.isnan(v))
+
+    groups: Dict[str, List[Dict[str, object]]] = {}
+    for r in _records(rows):
+        if given(r, "grad_norm_final"):
+            groups.setdefault(r["schedule"], []).append(r)
+    out = []
+    for schedule, g in sorted(groups.items()):
+        gns = [r["gns"] for r in g if given(r, "gns")]
+        out.append({
+            "schedule": schedule,
+            "n": len(g),
+            "grad_norm_final_median": float(statistics.median(
+                r["grad_norm_final"] for r in g)),
+            "gns_median": float(statistics.median(gns)) if gns else None,
+            "n_skipped_attributed": int(sum(
+                r["n_skipped_attributed"] for r in g
+                if given(r, "n_skipped_attributed"))),
+        })
     return out
 
 

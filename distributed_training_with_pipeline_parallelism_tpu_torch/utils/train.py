@@ -31,6 +31,7 @@ import os
 import time
 from typing import Callable, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -39,7 +40,8 @@ from ..parallel.pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
                                  mesh_device)
 from . import profiling
 from .config import ModelConfig, ScheduleConfig
-from .dynamics import nonfinite_per_stage
+from .dynamics import (StageIndex, StatSums, as_dynamics_config,
+                       nonfinite_per_stage)
 from .metrics import force_completion
 from .resilience import (AnomalyBudgetExceeded, AnomalyGuard,
                          CheckpointManager, PreemptionHandler, SimulatedKill,
@@ -443,7 +445,7 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     guard=None, fault_plan=None, mesh=None,
                     comm_overlap: str = "none",
                     tp_vocab_parallel: bool = False,
-                    telemetry=None) -> Callable:
+                    telemetry=None, dynamics=None) -> Callable:
     """``step(model, opt_state, tokens, targets[, step_seed]) -> loss``:
     the pipeline's gradients (:func:`..parallel.pipeline.make_pipeline_grad_fn`),
     then the optimizer's update of ``model`` in place. ``opt_state`` is
@@ -480,19 +482,79 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     over the data group only. ``telemetry`` (a
     ``utils.telemetry.PipelineTelemetry``) stamps the pipeline's ticks
     (:func:`..parallel.pipeline.make_pipeline_grad_fn`); the update
-    after them is not stamped."""
+    after them is not stamped.
+
+    ``dynamics`` (True or a ``dynamics.DynamicsConfig``; the JAX
+    ``dynamics``) adds a dict of device tensors to the step's outputs,
+    ``(loss, stats)`` or ``(loss, guard_state, stats)``:
+    ``dynamics.stage_stats`` of the step's gradients (before clipping;
+    under the guard after the fault plan's poison), its parameters
+    before the update and the update (the parameters' move, 0 on a step
+    the guard skips), plus, with ``DynamicsConfig.gns``, the pipeline's
+    ``sq_mb``. Nothing is read back. The loss and the update are the
+    dynamics-off step's bit for bit. A model axis and ZeRO-1 (whose
+    gradients are not the data group's mean until the update) raise
+    ``ValueError``."""
+    dcfg = as_dynamics_config(dynamics)
+    want_gns = dcfg is not None and dcfg.gns
+    if dcfg is not None and mesh is not None and mesh.n_model > 1:
+        raise ValueError("dynamics statistics need stages that partition "
+                         "the parameters: unsupported on a 'model' mesh "
+                         "axis")
     grad_fn = make_pipeline_grad_fn(cfg, sched, n_stages,
                                     remat_backward=remat_backward,
                                     device=device, mesh=mesh,
                                     comm_overlap=comm_overlap,
                                     tp_vocab_parallel=tp_vocab_parallel,
-                                    telemetry=telemetry)
+                                    telemetry=telemetry, dynamics=want_gns)
+    S = n_stages * sched.n_virtual
+    indices: dict = {}  # a StageIndex by the tensor names it covers
+
+    def index_of(named):
+        """The :class:`StageIndex` over ``named``'s names, built once."""
+        key = tuple(named)
+        if key not in indices:
+            indices[key] = StageIndex(named, cfg.n_layers, S,
+                                      next(iter(named.values())).device)
+        return indices[key]
 
     def gradients(model, opt_state, tokens, targets, step_seed):
+        """(loss, sq_mb or None); the gradients land in ``.grad``."""
         opt_state.zero_grad()
-        return grad_fn(model, tokens, targets, step_seed,
-                       reduce_data=_reduce_data(opt_state, mesh))
-    S = n_stages * sched.n_virtual
+        reduce_data = _reduce_data(opt_state, mesh)
+        if dcfg is not None and not reduce_data:
+            raise ValueError("dynamics statistics need the data group's "
+                             "mean gradient: unsupported under ZeRO-1")
+        out = grad_fn(model, tokens, targets, step_seed,
+                      reduce_data=reduce_data)
+        return out if want_gns else (out, None)
+
+    def stat_sums(model, nonfinite):
+        """Before the update: the gradients' and parameters' sums and a
+        copy of the parameters (a world's replicated leaves count on pipe
+        coordinate 0), or None without dynamics."""
+        if dcfg is None:
+            return None
+        own = [(n, p) for n, p in model.named_parameters()
+               if p.grad is not None
+               and (mesh is None or mesh.pipe == 0
+                    or n.startswith("layers."))]
+        named = {n: p.detach() for n, p in own}
+        sums = StatSums(index_of(named), {n: p.grad for n, p in own}, named,
+                        nonfinite, mesh)
+        return sums, named, torch._foreach_mul(list(named.values()), 1.0)
+
+    def stats_of(pre, sq_mb):
+        """After the update: its move (before minus after), then the
+        stats dict."""
+        sums, named, before = pre
+        torch._foreach_sub_(before, list(named.values()))
+        sums.add_updates(dict(zip(named, before)))
+        out = sums.stats()
+        if sq_mb is not None:
+            out["sq_mb"] = sq_mb
+        return out
+
     nan_steps = tuple(getattr(fault_plan, "nan_grad_steps", ()) or ())
     nan_stage = getattr(fault_plan, "nan_grad_stage", None)
     if nan_steps and guard is None:
@@ -505,16 +567,20 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
 
     if guard is None:
         def step(model: nn.Module, opt_state, tokens, targets,
-                 step_seed: Optional[int] = None) -> torch.Tensor:
-            loss = gradients(model, opt_state, tokens, targets, step_seed)
+                 step_seed: Optional[int] = None):
+            loss, sq_mb = gradients(model, opt_state, tokens, targets,
+                                    step_seed)
+            pre = stat_sums(model, None)
             optimizer.update(opt_state, mesh=mesh)
-            return loss
+            if pre is None:
+                return loss
+            return loss, stats_of(pre, sq_mb)
 
         return step
 
     def guarded_step(model: nn.Module, opt_state, tokens, targets,
                      guard_state, step_seed: Optional[int] = None):
-        loss = gradients(model, opt_state, tokens, targets, step_seed)
+        loss, sq_mb = gradients(model, opt_state, tokens, targets, step_seed)
         step = guard_state["step"]
         if nan_steps:
             bad = functools.reduce(torch.logical_or,
@@ -531,7 +597,9 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                 stage = model.layers[nan_stage * lps:(nan_stage + 1) * lps]
                 torch._foreach_mul_([p.grad for p in stage.parameters()
                                      if p.grad is not None], poison)
-        nf = nonfinite_per_stage(cfg.n_layers, S, model)
+        nf = nonfinite_per_stage(cfg.n_layers, S, model, index_of(
+            {n: p for n, p in model.named_parameters()
+             if p.grad is not None}))
         loss_ok = torch.isfinite(loss)
         if mesh is not None:  # one verdict for the world
             flags = torch.cat([nf, (~loss_ok).to(torch.int32).reshape(1)])
@@ -543,6 +611,7 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         first_bad = torch.where(
             grads_ok, torch.where(loss_ok, -1, -2),
             (~stage_ok).to(torch.int32).argmax()).to(torch.int32)
+        pre = stat_sums(model, nf)
         optimizer.update(opt_state, ok, mesh)
         guard_state = {
             "step": step + 1,
@@ -553,7 +622,9 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
             "last_bad_stage": torch.where(
                 ok, guard_state["last_bad_stage"], first_bad),
         }
-        return loss, guard_state
+        if pre is None:
+            return loss, guard_state
+        return loss, guard_state, stats_of(pre, sq_mb)
 
     return guarded_step
 
@@ -604,7 +675,6 @@ _FIT_NOT_PORTED = {
     "fsdp": "ROADMAP.md Queue 1, item 11 (FSDP)",
     "moe": "ROADMAP.md Queue 1, item 11 (expert parallelism and MoE)",
     "sp_attn_impl": "ROADMAP.md Queue 1, item 11 (sequence parallelism)",
-    "dynamics": "ROADMAP.md Queue 1, item 12, entry 4 (training dynamics)",
 }
 
 
@@ -705,14 +775,27 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
       the report when ``report_dir`` is set. Under a mesh every rank
       passes its own, and global rank 0's holds the world's stamps.
 
+    - ``dynamics`` (True or a ``dynamics.DynamicsConfig``; the JAX
+      ``dynamics``): the step's statistics (:func:`make_train_step`),
+      read at the log points in the loss's one read-back; the
+      gradient-noise scale from the microbatches' squared norms
+      (``dynamics.GNSEstimator``); a ring of recent log points and batch
+      digests (``dynamics.ForensicRecorder``; a batch that
+      ``data.prefetch_to_device(..., digest=True)`` yields carries the
+      digest of its host arrays, any other batch is hashed here, a card
+      tensor after a read-back); on a guard skip or a z-score loss spike
+      a forensic bundle next to the manifest (with ``report_dir``); under
+      the guard an ``anomaly_attributed`` event naming the first
+      non-finite stage; ``dynamics`` events at the log points and the
+      report's ``dynamics`` section.
+
     The dropout seed of step i is ``fold_seed(dropout_seed, i)``, so a
     resumed run draws the unbroken run's masks. ``moe``,
-    ``fsdp``, an ``sp_attn_impl`` other than "ring" and ``dynamics``
-    raise ``NotImplementedError`` naming their ``ROADMAP.md`` items.
+    ``fsdp`` and an ``sp_attn_impl`` other than "ring" raise
+    ``NotImplementedError`` naming their ``ROADMAP.md`` items.
     """
     given = {"fsdp": fsdp, "moe": moe is not None,
-             "sp_attn_impl": sp_attn_impl != "ring",
-             "dynamics": bool(dynamics)}
+             "sp_attn_impl": sp_attn_impl != "ring"}
     for name, on in given.items():
         if on:
             raise NotImplementedError(f"fit's {name} is not ported yet: "
@@ -730,11 +813,12 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         optimizer = adamw(total_steps=max(1, num_steps // grad_accum))
     if grad_accum > 1:
         optimizer = MultiSteps(optimizer, grad_accum)
+    dcfg = as_dynamics_config(dynamics)
     step_fn = make_train_step(cfg, sched, n_stages, optimizer,
                               remat_backward=remat_backward, device=device,
                               guard=guard, fault_plan=fault_plan, mesh=mesh,
                               tp_vocab_parallel=tp_vocab_parallel,
-                              telemetry=telemetry)
+                              telemetry=telemetry, dynamics=dcfg)
     report = None
     if report_dir is not None and rank0:
         from .telemetry import RunReport
@@ -788,6 +872,26 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
 
     def _save(i, wait=True):
         mgr.save(i, _state(i), wait=wait)
+
+    # the dynamics' host state: the GNS estimator over the microbatches'
+    # squared norms, the ring and spike detector, the stats last read
+    gns_est = None
+    recorder = None
+    dyn_host = None
+    n_skipped_attributed = 0
+    if dcfg is not None:
+        from .dynamics import (ForensicRecorder, GNSEstimator, batch_digest,
+                               dynamics_section)
+        recorder = ForensicRecorder(out_dir=report_dir if rank0 else None,
+                                    ring=dcfg.ring, spike_z=dcfg.spike_z,
+                                    warmup=dcfg.spike_warmup)
+
+    def _checkpoint_pointer():
+        """The last committed checkpoint's step, for a bundle."""
+        if mgr is None:
+            return None
+        st = mgr.stats()
+        return {k: st[k] for k in ("last_committed_step",) if k in st}
 
     eval_fn = None
     if eval_data is not None and eval_every:
@@ -880,6 +984,13 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     telemetry=telemetry))
             except Exception as e:
                 report.event("memory_model_error", error=str(e))
+        if dcfg is not None:
+            report.attach_dynamics(dynamics_section(
+                n_stages * sched.n_virtual, last_stats=dyn_host,
+                gns=gns_est.value() if gns_est is not None else None,
+                gns_updates=gns_est.n_updates if gns_est is not None else 0,
+                n_skipped_attributed=n_skipped_attributed,
+                forensic_bundles=recorder.bundles))
         res = {}
         if mgr is not None:
             res.update(mgr.stats())
@@ -910,10 +1021,15 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                         if verbose:
                             print(f"profile trace written to {profile_dir}",
                                   flush=True)
-                tokens, targets = next(data)
+                batch = next(data)
+                tokens, targets = batch
                 if data_shape is None:
                     data_shape = (int(tokens.shape[0]) * n_data,
                                   int(tokens.shape[1]))
+                if recorder is not None:
+                    digest = getattr(batch, "digest", None)
+                    recorder.note_batch(i, digest if digest is not None
+                                        else batch_digest(tokens, targets))
                 seed = (fold_seed(dropout_seed, i) if cfg.dropout > 0.0
                         else None)
                 # the first executed step: kernel builds, first launches,
@@ -925,12 +1041,15 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                 with (report.timer("compile_s") if first
                       else contextlib.nullcontext()):
                     if guard_state is not None:
-                        loss, guard_state = step_fn(model, opt_state, tokens,
-                                                    targets, guard_state,
-                                                    seed)
+                        out = step_fn(model, opt_state, tokens, targets,
+                                      guard_state, seed)
+                        loss, guard_state = out[:2]
                     else:
-                        loss = step_fn(model, opt_state, tokens, targets,
-                                       seed)
+                        out = step_fn(model, opt_state, tokens, targets,
+                                      seed)
+                        loss = out[0] if dcfg is not None else out
+                    if dcfg is not None:
+                        dyn_latest = out[-1]
                     if first:
                         force_completion(loss)
                 last_done = i
@@ -944,7 +1063,14 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     if guard_state is not None:
                         read.append(torch.stack(
                             list(guard_state.values())).double())
-                    loss_f, *counters = torch.cat(read).tolist()
+                    n_read = sum(int(r.numel()) for r in read)
+                    if dcfg is not None:  # the same read-back
+                        read += [v.detach().double().reshape(-1)
+                                 for v in dyn_latest.values()]
+                    values = torch.cat(read).tolist()
+                    loss_f, *counters = values[:n_read]
+                    if dcfg is not None:
+                        dyn_host = _unflatten(dyn_latest, values[n_read:])
                     elapsed = time.perf_counter() - window_start
                     history.append((i, loss_f))
                     if verbose:
@@ -961,6 +1087,50 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                                      tokens_per_sec=round(
                                          window_tokens / elapsed, 2),
                                      elapsed_s=round(elapsed, 4))
+                    if dcfg is not None:
+                        if "sq_mb" in dyn_host:
+                            if gns_est is None:
+                                toks = data_shape[0] * data_shape[1]
+                                small = toks / (n_data * sched.n_microbatches)
+                                if small < toks:  # M * data == 1: no pair
+                                    gns_est = GNSEstimator(
+                                        batch_small=small, batch_big=toks,
+                                        ema=dcfg.ema)
+                            if gns_est is not None:
+                                gns_est.update(
+                                    float(dyn_host["sq_mb"].mean()),
+                                    float(dyn_host["grad_norm"]) ** 2)
+                        gns_val = (gns_est.value() if gns_est is not None
+                                   else None)
+                        if report is not None:
+                            report.event(
+                                "dynamics", step=i,
+                                grad_norm=float(dyn_host["grad_norm"]),
+                                grad_norm_per_stage=[
+                                    float(x) for x in
+                                    dyn_host["grad_norm_per_stage"]],
+                                nonfinite_per_stage=[
+                                    int(x) for x in
+                                    dyn_host["nonfinite_per_stage"]],
+                                gns=gns_val)
+                        spike_z = recorder.observe(i, loss_f, stats=dyn_host,
+                                                   gns=gns_val)
+                        if spike_z is not None:
+                            path = recorder.dump(
+                                i, "loss_spike", loss=loss_f, z=spike_z,
+                                stats={k: v for k, v in dyn_host.items()
+                                       if k != "sq_mb"},
+                                checkpoint=_checkpoint_pointer())
+                            if verbose:
+                                print(f"step {i}: loss spike (z={spike_z:.1f})"
+                                      + (f" — forensics at {path}"
+                                         if path else ""), flush=True)
+                            if report is not None:
+                                report.count("loss_spikes")
+                                report.event("loss_spike", step=i,
+                                             loss=loss_f,
+                                             z=round(float(spike_z), 2),
+                                             bundle=path)
                     if guard_state is not None:
                         gs = {k: int(v) for k, v in zip(guard_state,
                                                         counters)}
@@ -983,6 +1153,32 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                                     consec=gs["consec"],
                                     last_anomaly_step=gs["last_anomaly_step"],
                                     last_bad_stage=bad)
+                            if dcfg is not None:
+                                # which stage first went non-finite, and
+                                # on what statistic
+                                n_skipped_attributed += delta
+                                attribution = {
+                                    "stage": bad,
+                                    "statistic": ("nonfinite_grad" if bad >= 0
+                                                  else "nonfinite_loss"),
+                                    "last_anomaly_step":
+                                        gs["last_anomaly_step"],
+                                    "nonfinite_per_stage": [
+                                        int(x) for x in
+                                        dyn_host["nonfinite_per_stage"]]}
+                                if report is not None:
+                                    report.event("anomaly_attributed", step=i,
+                                                 **attribution)
+                                path = recorder.dump(
+                                    i, "anomaly", loss=loss_f,
+                                    stats={k: v for k, v in dyn_host.items()
+                                           if k != "sq_mb"},
+                                    attribution=attribution,
+                                    checkpoint=_checkpoint_pointer())
+                                if report is not None and path is not None:
+                                    report.event("forensic_bundle", step=i,
+                                                 trigger="anomaly",
+                                                 bundle=path)
                         if gs["consec"] >= guard.max_consecutive:
                             # the model and optimizer hold the last GOOD
                             # state: every anomalous update was skipped
@@ -1061,6 +1257,19 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         mgr.commit_pending()
     _finalize_report()
     return model, history
+
+
+def _unflatten(like, values):
+    """The stats dict ``like`` (device tensors) from its flattened
+    read-back ``values``: numpy arrays of the tensors' shapes (int32
+    counts as integers)."""
+    out, k = {}, 0
+    for name, t in like.items():
+        n = int(t.numel())
+        a = np.asarray(values[k:k + n], dtype=np.float64).reshape(t.shape)
+        out[name] = a.astype(np.int64) if not t.is_floating_point() else a
+        k += n
+    return out
 
 
 def synthetic_data(cfg: ModelConfig, batch_size: int, seq_length: int,

@@ -83,6 +83,8 @@ def _cases():
     common = dict(schedule="1F1B", M=DP_M, n_pipe=2, n_data=2)
     cases += [dict(name="stamped", kind="grad", comm_overlap="none",
                    telemetry=True, **common),
+              dict(name="dynamics", kind="grad", comm_overlap="none",
+                   dynamics=True, lockstep=True, **common),
               dict(name="eval", kind="eval", **common),
               dict(name="train", kind="train", steps=TRAIN["train"][0],
                    opt=TRAIN["train"][1], tied=True, **common),
@@ -227,6 +229,22 @@ def test_world_matches_jax_mesh_and_lockstep(tmp_path):
     assert rank0["tel/ticks"].tolist() == list(range(T))
     assert len(rank0["tel/wait_s"]) == 4 and (rank0["tel/wait_s"] >= 0).all()
     assert len(world.rank("stamped", 1)["tel/wait_s"]) == 0
+
+    # dynamics: every rank's sq_mb is the pipe sum and data mean of its
+    # microbatches' squared norms, the lockstep step's over the world's
+    # 2 x 2 microbatches; the stage statistics are the lockstep's; the
+    # loss and leaves are the plain step's bitwise
+    ref = dict(np.load(tmp_path / "dynamics_lockstep.npz"))
+    want = (ref["dyn/sq_mb"][:DP_M] + ref["dyn/sq_mb"][DP_M:]) / 2
+    for r in range(4):
+        got, plain = world.rank("dynamics", r), world.rank("dp_1F1B_none", r)
+        np.testing.assert_allclose(got["dyn/sq_mb"], want, rtol=1e-5)
+        for k in (k for k in ref if k.startswith("dyn/") and k != "dyn/sq_mb"):
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=1e-7,
+                                       err_msg=k)
+        for k in (k for k in plain if k != "hops"):
+            np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
+        assert got["dyn/nonfinite_per_stage"].tolist() == [0, 0]
 
     # the eval: every rank holds the global batch's loss
     lock = float(world.rank("eval", 0)["lockstep"])

@@ -461,7 +461,7 @@ def test_train_main_runs_on_cpu(tmp_path, data):
     (["--sp", "2"], "item 11"),
     (["--ep", "2"], "item 11"), (["--sp-attn", "ulysses"], "item 11"),
     (["--fsdp"], "item 11"),
-    (["--moe-experts", "4"], "item 11"), (["--dynamics"], "item 12"),
+    (["--moe-experts", "4"], "item 11"),
 ])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -491,7 +491,6 @@ def test_fit_vocab_parallel_needs_a_model_axis():
 @pytest.mark.parametrize("kw,item", [
     (dict(fsdp=True), "item 11"),
     (dict(moe=object()), "item 11"), (dict(sp_attn_impl="ulysses"), "item 11"),
-    (dict(dynamics=True), "item 12"),
 ])
 def test_fit_unported_arguments_raise(kw, item):
     _, tcfg = _cfgs()

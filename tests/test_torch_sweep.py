@@ -198,7 +198,7 @@ def test_error_and_skip_contracts():
     """A failing config returns ``{"error": ...}`` and the sweep leaves it
     out; a config priced over the capacity returns a
     ``skip_reason="predicted_oom"`` row with the JAX keys before anything
-    is built; the JAX features not ported raise."""
+    is built."""
     bad = tsweep.run_one_experiment(3, 4, 2, "GPipe", device="cpu", **{
         k: v for k, v in MINI.items() if k != "verbose"})
     assert set(bad) == {"error"} and "divide" in bad["error"]
@@ -212,10 +212,6 @@ def test_error_and_skip_contracts():
     assert skip["skip_reason"] == jskip["skip_reason"] == "predicted_oom"
     assert set(skip) == set(jskip)
     assert skip["predicted_peak_bytes"] > skip["hbm_bytes"] == 16e9
-    for kw, match in ((dict(dynamics=True), "item 12"),
-                      (dict(schedule_artifact="x"), "item 12")):
-        with pytest.raises(NotImplementedError, match=match):
-            tsweep.run_one_experiment(4, 4, 2, "GPipe", device="cpu", **kw)
 
 
 def test_run_sweep_writes_csv(tmp_path, capsys):

@@ -315,13 +315,6 @@ def test_manifest_keys_match_jax(jax_manifests, tmp_path):
     assert rows[0]["gauges"]["throughput"] == row["throughput"]
 
 
-def test_sweep_rejects_unported_options():
-    for kw, match in ((dict(dynamics=True), "entry 4"),
-                      (dict(schedule_artifact="x"), "entry 3")):
-        with pytest.raises(NotImplementedError, match=match):
-            tsweep.run_one_experiment(2, 2, 2, "GPipe", device="cpu", **kw)
-
-
 # ---------------------------------------------------------------------------
 # (d) the executor's stamps
 # ---------------------------------------------------------------------------
