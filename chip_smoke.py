@@ -119,12 +119,14 @@ JAX. Phases, each fatal on failure:
    unigram) written by ``write_token_file``; ``TokenFileDataset``, the
    native C++ loader (built from the port's source) and
    ``prefetch_to_device`` (depth 2) give shifted crops, the prefetch the
-   loader's batch unchanged. (b) f32, B = 8: 6 ``fit`` steps with a
+   loader's batch unchanged. (b) f32, B = 8, at 4 of the 12 layers (full
+   width): 6 ``fit`` steps with a
    checkpoint every 2, a run report and a ``PipelineTelemetry``: the
    ``report.json`` valid (``telemetry.validate_report``), ``events.jsonl``
    written, the live watermarks available with a peak no lower than the
    sampled bytes in use, the cost model's measured step and critical
-   path present; the same run killed in step 3's save (an
+   path present, the cost model corrected by phase 13's sweep fit and a
+   calibration section; the same run killed in step 3's save (an
    uncommitted shell) and preempted at step 3, each resumed: the final
    parameters, both Adam moments and every step's loss bitwise equal to
    the unbroken run. (c) f32 guard: NaN gradients in stage 1 at step 2
@@ -265,8 +267,38 @@ JAX. Phases, each fatal on failure:
     points (CUDA's sync debug mode); then tokens/s with dynamics on and
     off, in turns (on, off, off, on). (d) The sweep's L8/H8 rows at D = 2
     with ``dynamics=True`` and one L8/H8 row at D = 4 on the searched
-    artifact, carrying its digest. The phase prints its seconds, the
-    script its whole time.
+    artifact, carrying its digest. (c)'s guarded run is stamped, so its
+    report carries the cost model under phase 13's correction.
+
+13. The cost model's calibration and serving's cost and memory
+    instruments. Its first part runs right after phase 7: (a) the JAX
+    ``smoke`` probe grid, seed 0 (9 probes of the JAX probe model, 4 of
+    them ``comm_overlap="ring"``), measured on the card through
+    ``analysis.calibration.run_probe``; an ``h100`` correction fitted
+    from them; every ledger row valid and read back verbatim, a second
+    fit over the ledger's rows giving the artifact's bytes, a tampered
+    artifact refused, the corrected median |relative error| below the
+    raw one, and under the correction comm_overlap <= serial for every
+    row and overlapped <= comm_overlap <= serial on the JAX calibration
+    pass's three tables (the lower half can part on a probe's table: the
+    two prices attribute a hop to ticks one apart; printed). (b) Phase 7 (d)'s 18 f32 sweep rows (from
+    their run reports' cost models) as ledger rows, an ``h100``
+    correction fitted on them, loaded back by the raising
+    ``load_correction_artifact`` and named by
+    ``$DTPP_CALIBRATION_CORRECTIONS`` for phases 8-12. The second part
+    runs last: phase 8 (b)'s and phase 12 (c)'s ``fit`` reports carry
+    ``cost_model.predicted.corrected`` and a ``calibration`` section
+    with that correction (both validated by their phases); raw and
+    corrected errors of the probes, the sweep rows and both runs are
+    printed (under the probe fit too). (c) ``run_paged_bench`` and
+    ``run_spec_bench`` on Llama-3.2-1B, f32, with the phase 5-6 program
+    (D = 4, 8 slots, chunk 32, pages of 16, gamma 3) and mixes, 8
+    requests each: ``outputs_match`` in both, reports that
+    ``validate_report`` accepts with the serving cost and memory
+    sections, a numeric ``predicted_s_per_tick``, predicted beside
+    measured s_per_tick per engine. The phase prints its seconds against
+    the 45 it is held to; the script prints every phase's and its
+    whole time.
 
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
@@ -281,7 +313,8 @@ model rank's H/T heads, bf16, beside each flash kernel's; phase 8's fit
 step, one eval and the entry point's whole run; phase 9's counted bf16 ZBH1 and ZBV steps;
 phase 10's counted bf16 world step by rank and summed; phase 11's
 counted bf16 TP world step by rank and summed; phase 12's counted f32
-dynamics steps and its guarded bf16 ``fit`` run),
+dynamics steps and its guarded bf16 ``fit`` run; phase 13's probes and
+serving benches, 0 where no kernel serves them),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -2019,10 +2052,15 @@ def phase_ref(report, device="cuda"):
     del model, g_a, g_b, out
     torch.cuda.empty_cache()
 
-    # (d) the sweep code itself: 18 rows of the reference's sweep
+    # (d) the sweep code itself: 18 rows of the reference's sweep, their
+    # run reports kept for phase 13 (b)
     t0 = time.perf_counter()
+    if SWEEP_REPORTS.exists():
+        import shutil
+        shutil.rmtree(SWEEP_REPORTS)
     rows = sweep_rows(layers=(8,), heads=(4, 8, 12), devices=(2, 4),
-                      verbose=False, device=device)
+                      verbose=False, device=device,
+                      report_dir=str(SWEEP_REPORTS))
     check(len(rows) == 18 and all("throughput" in r for r in rows),
           f"sweep: {len(rows)} rows, not 18 timed ones")
     speedup = {(r["n_heads"], r["num_processes"], r["schedule"]): r
@@ -2101,6 +2139,7 @@ def phase_ref(report, device="cuda"):
 FIT_S, FIT_M, FIT_B32, FIT_B16 = 1024, 4, 8, 24
 FIT_TOKENS = 4 << 20  # the seeded token file: 4 M uint16 tokens
 FIT_TIMED, FIT_WARM = 10, 2
+FIT_RESUME_LAYERS = 4  # (b)'s resume runs: 4 of GPT-2-small's 12 layers
 FIT_MODEL_ARGS = ["--model", "gpt2-small", "--tie-embeddings"]  # fit_config's
 
 
@@ -2243,7 +2282,8 @@ def fit_report(out, tel):
                attribution={k: att[k] for k in (
                    "compute_s", "comm_s", "bubble_s", "straggler_device")},
                live_peak_bytes=live.get("peak_bytes_in_use") or 0,
-               n_events=manifest["n_events"])
+               n_events=manifest["n_events"],
+               calibration=calibrated_record(manifest))
     print(f"  (b) fit's run report: valid, {rec['n_events']} events, "
           f"compile_s {rec['compile_s']:.2f} s, the last step's stamps "
           f"{rec['measured_step_s'] * 1e3:.1f} ms (predicted "
@@ -2253,6 +2293,23 @@ def fit_report(out, tel):
           f"{att['comm_s'] * 1e3:.1f} / bubble {att['bubble_s'] * 1e3:.1f} "
           f"ms, live peak {rec['live_peak_bytes'] / 2 ** 30:.2f} GiB")
     return rec
+
+
+def calibrated_record(manifest):
+    """A run report's cost model and calibration parts for phase 13 (b):
+    the raw and corrected predicted step, the measured one, both errors,
+    the correction and the calibration section (None where missing; the
+    phase checks them)."""
+    cm = manifest.get("cost_model") or {}
+    pred, meas = cm.get("predicted") or {}, cm.get("measured") or {}
+    corr = pred.get("corrected") or {}
+    return dict(
+        name=manifest["meta"].get("name"), predicted_step_s=pred.get("step_s"),
+        compute_s=pred.get("compute_s"), comm_s=pred.get("comm_s"),
+        corrected=corr or None, measured_step_s=meas.get("step_s"),
+        rel_err=meas.get("rel_err"),
+        rel_err_corrected=meas.get("rel_err_corrected"),
+        calibration=manifest.get("calibration"))
 
 
 def phase_fit(report, device="cuda"):
@@ -2317,22 +2374,28 @@ def phase_fit(report, device="cuda"):
         print(f"  (a) data: {FIT_TOKENS} tokens, native loader built in "
               f"{build_s:.1f} s, both loaders and the prefetch agree")
 
-        g = torch.Generator().manual_seed(SEED)
-        init_state = {k: v.detach().clone() for k, v in
-                      port.init_params(cfg, g, device).state_dict().items()}
+        def seeded_state(c):
+            g = torch.Generator().manual_seed(SEED)
+            return {k: v.detach().clone() for k, v in
+                    port.init_params(c, g, device).state_dict().items()}
 
-        def fresh():
-            model = Transformer(cfg, device=device)
-            model.load_state_dict(init_state)
+        init_state = seeded_state(cfg)
+        # (b)'s five resume runs: 4 of the 12 layers at full width
+        cfg_b = dataclasses.replace(cfg, n_layers=FIT_RESUME_LAYERS)
+        init_b = seeded_state(cfg_b)
+
+        def fresh(c=cfg, state=None):
+            model = Transformer(c, device=device)
+            model.load_state_dict(init_state if state is None else state)
             return model
 
         def run_fit(n_steps, ckpt=None, metrics=None, batch=FIT_B32,
-                    data=None, **kw):
+                    data=None, c=cfg, **kw):
             if data is None:
                 data = prefetch_to_device(TokenFileDataset(
                     path, FIT_S, seed=SEED).batches(batch), 2, device)
-            model = fresh()
-            ttrain.fit(cfg, sched, D, model, data, n_steps,
+            model = fresh(c, init_b if c is cfg_b else None)
+            ttrain.fit(c, sched, D, model, data, n_steps,
                        optimizer=port.adamw(warmup_steps=2, total_steps=20),
                        log_every=kw.pop("log_every", 1), verbose=False,
                        checkpoint_dir=None if ckpt is None else str(ckpt),
@@ -2346,12 +2409,12 @@ def phase_fit(report, device="cuda"):
                     map(json.loads, Path(metrics).read_text().splitlines())
                     if "loss" in x]
 
-        # (b) the f32 resume gate: unbroken (with a run report and its
-        # stamps), killed in a save, preempted
+        # (b) the f32 resume gate at 4 of the 12 layers: unbroken (with a
+        # run report and its stamps), killed in a save, preempted
         t0 = time.perf_counter()
         tel = tm.PipelineTelemetry()
         run_fit(6, tmp / "ck_unbroken", tmp / "m_unbroken.jsonl",
-                report_dir=str(tmp / "report"), telemetry=tel)
+                report_dir=str(tmp / "report"), telemetry=tel, c=cfg_b)
         want = restore_checkpoint(str(tmp / "ck_unbroken" / "step_5"))
         want_losses = dict(losses(tmp / "m_unbroken.jsonl"))
         res["report"] = fit_report(tmp / "report", tel)
@@ -2364,7 +2427,7 @@ def phase_fit(report, device="cuda"):
             ck, m = tmp / f"ck_{fault}", tmp / f"m_{fault}.jsonl"
             plan = resilience.FaultPlan(**{fault: 3})
             try:
-                run_fit(6, ck, m, fault_plan=plan)
+                run_fit(6, ck, m, fault_plan=plan, c=cfg_b)
                 killed = False
             except resilience.SimulatedKill:
                 killed = True
@@ -2375,7 +2438,7 @@ def phase_fit(report, device="cuda"):
                   and is_committed(shell) == (not killed),
                   f"{fault}: step_3 committed {is_committed(shell)}")
             first = len(losses(m))
-            run_fit(6, ck, m, resume=True)
+            run_fit(6, ck, m, resume=True, c=cfg_b)
             got_losses = losses(m)
             resumed_at = got_losses[first][0]
             check(resumed_at == (2 if killed else 4),
@@ -2387,9 +2450,10 @@ def phase_fit(report, device="cuda"):
             shutil.rmtree(ck)
             resume[fault] = dict(resumed_at=resumed_at, tensors_equal=n,
                                  losses=got_losses)
-            print(f"  (b) f32 {fault}=3: resumed at step {resumed_at}, "
-                  f"{n} tensors and {len(got_losses)} losses bitwise equal "
-                  f"to the unbroken run")
+            print(f"  (b) f32 {fault}=3 ({FIT_RESUME_LAYERS} layers): "
+                  f"resumed at step {resumed_at}, {n} tensors and "
+                  f"{len(got_losses)} losses bitwise equal to the unbroken "
+                  f"run")
         res["resume"] = dict(resume, unbroken_losses=want_losses,
                              seconds=time.perf_counter() - t0)
         del want
@@ -2527,7 +2591,7 @@ def phase_fit(report, device="cuda"):
             eval_launches=eval_launches, eval_peak_bytes=eval_peak,
             train_step_peak_bytes=train_peak,
             seconds=time.perf_counter() - t0)
-        del big, big_state, init_state
+        del big, big_state, init_state, init_b
         torch.cuda.empty_cache()
 
         # (e) bf16 through the entry point: timing, eval, saves, profile
@@ -4402,10 +4466,13 @@ def phase_dynamics(report, tables, device="cuda"):
         for k in kernels:
             k.launches = 0
         with patched(ttrain, "make_train_step", probe.make), probe.watch():
+            # stamped, so the report carries the cost model, corrected
+            # by phase 13 (b)'s artifact, and its calibration section
             run(True, data=data, report_dir=str(out),
                 guard=resilience.AnomalyGuard(),
                 fault_plan=resilience.FaultPlan(nan_grad_steps=(3,),
-                                                nan_grad_stage=1))
+                                                nan_grad_stage=1),
+                telemetry=tm.PipelineTelemetry())
         launches["dynamics_fit"] = {k.name: k.launches for k in kernels}
         manifest = json.loads((out / "report.json").read_text())
         tm.validate_report(manifest)
@@ -4445,6 +4512,7 @@ def phase_dynamics(report, tables, device="cuda"):
               f"dynamics on {on:.1f}, off {off:.1f}, on / off {on / off:.4f}"
               f" (runs in turns: on, off, off, on)")
         res["bf16_fit"] = dict(
+            calibration=calibrated_record(manifest),
             section={k: sec[k] for k in ("gns", "gns_updates",
                                          "grad_norm_final",
                                          "n_skipped_attributed")},
@@ -4495,6 +4563,301 @@ def phase_dynamics(report, tables, device="cuda"):
     return launches
 
 
+# phase 13: the cost model's calibration on the card, and serving's cost
+# and memory instruments at full width
+CAL_OUT = Path("chip_smoke_out") / "calibration"
+SWEEP_REPORTS = Path("chip_smoke_out") / "sweep_reports"  # phase 7 (d)'s
+BENCH_N = 8  # (c)'s requests a bench (the phase-6 mixes' lengths)
+CAL_BUDGET_S = 45.0  # phase 13 is held to this, both parts together
+
+
+def derated_rel_err(rec, cf):
+    """The signed error of a row's step priced ``compute_s / e_flops +
+    comm_s / e_bw`` (the fit's model: the roofline's compute sum and hop
+    sum scale exactly by the two efficiencies)."""
+    c, k, m = rec["compute_s"], rec["comm_s"] or 0.0, rec["measured_step_s"]
+    return (c / cf.flops_efficiency + k / cf.bandwidth_efficiency - m) / m
+
+
+def phase_calibration(report, device="cuda"):
+    """Phase 13 (a) and the fit of (b) (see the module doc): run after
+    phase 7, whose sweep rows (b) fits, and before phases 8 and 12, whose
+    ``fit`` reports then carry that correction. Returns the probes'
+    kernel launches."""
+    import shutil
+    import torch
+    from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
+        calibration as cal)
+    from distributed_training_with_pipeline_parallelism_tpu_torch import (
+        ModelConfig)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.analysis.cost_model import (
+        cost_model_section, detect_hardware)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.schedules import (
+        compile_schedule)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+        telemetry as tm)
+    card = report["card"]
+    hw = detect_hardware(device).name
+    check(hw == "h100", f"probe hardware {hw} on {device}, not the cpu")
+    kernels = all_kernels()
+    t0 = time.perf_counter()
+    if CAL_OUT.exists():
+        shutil.rmtree(CAL_OUT)
+    CAL_OUT.mkdir(parents=True)
+    res = {}
+
+    # (a) the smoke grid on the card, its ledger and its correction
+    specs = cal.probe_grid("smoke", seed=SEED)
+    check(len(specs) == 9 and sum(s.comm_overlap == "ring"
+                                  for s in specs) == 4,
+          f"the smoke grid: {[s.label for s in specs]}")
+    for k in kernels:
+        k.launches = 0
+    measured = [(spec, cal.run_probe(spec, seed=SEED, device=device))
+                for spec in specs]
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    fit = cal.fit_corrections([row for _, row in measured])
+    check(set(fit) == {hw}, f"probe fit for {sorted(fit)}")
+    rows = [cal.reprice_row(row, spec, fit) for spec, row in measured]
+    ledger = CAL_OUT / "probe_ledger.jsonl"
+    cal.append_ledger_rows(str(ledger), rows)
+    reread, _ = cal.load_ledger(str(ledger), strict=True)
+    check([cal.canonical_row_line(r) for r in reread] ==
+          [cal.canonical_row_line(r) for r in rows],
+          "the probe ledger did not read back verbatim")
+    art = CAL_OUT / "probe_corrections.json"
+    cal.save_correction_artifact(cal.correction_artifact(fit), str(art))
+    refit = cal.fit_corrections(list(reversed(reread)))
+    check(cal.correction_artifact_bytes(cal.correction_artifact(refit))
+          == art.read_bytes(), "a second fit over the ledger's rows gave "
+          "other artifact bytes")
+    tampered = json.loads(art.read_text())
+    tampered["corrections"][hw]["flops_efficiency"] *= 0.5
+    try:
+        cal.load_correction_artifact(tampered)
+        refused = False
+    except cal.CalibrationError:
+        refused = True
+    check(refused, "a tampered correction artifact loaded")
+    section = cal.calibration_section(rows, correction=fit,
+                                      ledger_path=str(ledger))
+    probe_report = tm.RunReport(name="calibration_probe")
+    probe_report.attach_calibration(section)
+    tm.validate_report(probe_report.manifest())
+    summary = section["summary"]
+    raw_med = summary["median_abs_rel_err_raw"]
+    cor_med = summary["median_abs_rel_err_corrected"]
+    check(raw_med is not None and cor_med is not None and cor_med < raw_med,
+          f"probes: corrected median |rel err| {cor_med} not below the raw "
+          f"{raw_med}")
+    # the corrected sandwich: comm_overlap <= serial on every row (it
+    # holds tick by tick); overlapped <= comm_overlap on the JAX
+    # calibration pass's tables under this fit (the two attributions
+    # differ by a tick, so a row may break it: printed, not gated)
+    cf = fit[hw]
+    unordered = []
+    for spec, row in zip(specs, rows):
+        c = row["corrected"]
+        check(row["backend"] == "cuda" and row["hardware"] == hw
+              and row["measured"].get("peak_bytes", 0) > 0,
+              f"probe {spec.label}: {row['backend']} {row['hardware']} "
+              f"{row['measured']}")
+        check(c["step_s_comm_overlap"] <= c["step_s"] * (1 + 1e-12),
+              f"probe {spec.label}: corrected comm_overlap above serial {c}")
+        if c["step_s_overlapped"] > c["step_s_comm_overlap"] * (1 + 1e-12):
+            unordered.append((spec.label, c["step_s_overlapped"]
+                              / c["step_s_comm_overlap"]))
+    pcfg = ModelConfig(**cal._PROBE_MODEL)
+    for name, d, v, m in (("GPipe", 2, 1, 4), ("1F1B", 4, 1, 8),
+                          ("ZBH1", 4, 1, 8)):
+        c = cost_model_section(compile_schedule(name, d, v, m), pcfg,
+                               batch_size=8, seq_length=16,
+                               hardware=detect_hardware(device),
+                               correction=cf)["predicted"]["corrected"]
+        check(c["step_s_overlapped"] <= c["step_s_comm_overlap"] + 1e-12
+              <= c["step_s"] + 1e-12,
+              f"the corrected sandwich on {name} D={d} M={m}: {c}")
+    print(f"  (a) {len(rows)} probes (smoke grid, seed {SEED}, 4 ring), "
+          f"launches {launches}; fitted {hw} e_flops "
+          f"{cf.flops_efficiency:.6g}, e_bw {cf.bandwidth_efficiency:.6g} "
+          f"(residual rms {cf.residual_rms:.3e} s); the refit gives the "
+          f"artifact's bytes, a tampered artifact is refused; median "
+          f"|rel err| raw {raw_med:.6f}, corrected {cor_med:.6f}; the "
+          f"corrected sandwich holds on the calibration pass's tables, "
+          f"overlapped above comm_overlap on {unordered} [{card}]")
+    for spec, row in zip(specs, rows):
+        print(f"    {spec.label:<42} measured "
+              f"{row['measured']['step_s'] * 1e3:8.3f} ms, predicted "
+              f"{row['predicted']['step_s'] * 1e3:.6f} ms raw, "
+              f"{row['corrected']['step_s'] * 1e3:8.3f} ms corrected; "
+              f"rel_err {row['rel_err']['step_s']:+.6f} raw, "
+              f"{row['corrected']['rel_err_step_s']:+.6f} corrected; peak "
+              f"{row['measured'].get('peak_bytes', 0) / 2 ** 20:.1f} MiB "
+              f"(predicted {row['predicted']['peak_bytes'] / 2 ** 20:.3f})")
+    res["probes"] = dict(
+        rows=rows, launches=launches, correction=cf.summary(),
+        overlapped_above_comm_overlap=unordered,
+        median_abs_rel_err_raw=raw_med,
+        median_abs_rel_err_corrected=cor_med, groups=summary["groups"])
+
+    # (b) the f32 sweep rows of phase 7 as ledger rows, their correction
+    # loaded through the raising loader and put where fit and the sweep
+    # look for one
+    manifests = [json.loads(line) for line in
+                 (SWEEP_REPORTS / "sweep_reports.jsonl").read_text()
+                 .splitlines()]
+    check(len(manifests) == 18, f"{len(manifests)} sweep manifests, not 18")
+    srows = [cal.row_from_cost_model(m["cost_model"], source="sweep",
+                                     name=m["meta"]["name"],
+                                     backend=torch.device(device).type)
+             for m in manifests]
+    sfit = cal.fit_corrections(srows)
+    check(set(sfit) == {hw}, f"sweep fit for {sorted(sfit)}")
+    spath = CAL_OUT / "sweep_corrections.json"
+    cal.save_correction_artifact(cal.correction_artifact(sfit), str(spath))
+    loaded = cal.load_correction_artifact(str(spath))
+    check(loaded == sfit, "the sweep correction did not load back")
+    os.environ[cal.CORRECTIONS_ENV] = str(spath.resolve())
+    scf = loaded[hw]
+    sweep_errs = []
+    for m, r in zip(manifests, srows):
+        rec = dict(compute_s=r["predicted"]["compute_s"],
+                   comm_s=r["predicted"]["comm_s"],
+                   measured_step_s=r["measured"]["step_s"])
+        sweep_errs.append(dict(
+            name=m["meta"]["name"], rel_err=r["rel_err"]["step_s"],
+            rel_err_sweep_fit=derated_rel_err(rec, scf),
+            rel_err_probe_fit=derated_rel_err(rec, cf)))
+    med = {k: statistics.median(abs(e[k]) for e in sweep_errs)
+           for k in ("rel_err", "rel_err_sweep_fit", "rel_err_probe_fit")}
+    print(f"  (b) 18 f32 sweep rows of phase 7 as ledger rows: fitted {hw} "
+          f"e_flops {scf.flops_efficiency:.6g}, e_bw "
+          f"{scf.bandwidth_efficiency:.6g} (residual rms "
+          f"{scf.residual_rms:.3e} s), loaded by load_correction_artifact "
+          f"and set as {cal.CORRECTIONS_ENV} for phases 8-12; median "
+          f"|rel err| raw {med['rel_err']:.6f}, under the sweep fit "
+          f"{med['rel_err_sweep_fit']:.6f}, under the probe fit "
+          f"{med['rel_err_probe_fit']:.6f}")
+    res["hardware"] = hw
+    res["sweep"] = dict(rows=sweep_errs, correction=scf.summary(),
+                        median_abs=med)
+    res["seconds_fit"] = time.perf_counter() - t0
+    report["calibration"] = res
+    return launches
+
+
+def phase_calibration_serving(report, device="cuda"):
+    """Phase 13 (b)'s checks of the corrected ``fit`` reports and (c), the
+    serving benches (see the module doc); returns the benches' kernel
+    launches."""
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch import (
+        serving)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
+        calibration as cal)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
+        telemetry as tm)
+    card = report["card"]
+    res = report["calibration"]
+    t0 = time.perf_counter()
+    pcf = cal.CorrectionFactors(**res["probes"]["correction"])
+    scf = cal.CorrectionFactors(**res["sweep"]["correction"])
+
+    # (b) the fit runs that ran under the sweep's correction
+    runs = {}
+    for label, rec in (
+            ("phase 8 (b) f32 fit, 4 layers, B=8",
+             report["fit"]["report"]["calibration"]),
+            ("phase 12 (c) bf16 fit, untied, B=24",
+             report["dynamics"]["bf16_fit"]["calibration"])):
+        cal_sec = rec["calibration"] or {}
+        check(rec["corrected"] is not None and cal_sec.get("correction")
+              and res["hardware"] in cal_sec["correction"],
+              f"{label}: the report has no corrected cost model or "
+              f"calibration section ({rec})")
+        check(cal_sec["correction"][res["hardware"]] == scf.summary(),
+              f"{label}: a correction other than the sweep's")
+        check(cal_sec["rows"][0]["rel_err_corrected"]
+              == rec["rel_err_corrected"] is not None,
+              f"{label}: the calibration row's error is not the cost "
+              f"model's")
+        runs[label] = dict(rec, rel_err_probe_fit=derated_rel_err(rec, pcf))
+        print(f"  (b) {label}: measured {rec['measured_step_s'] * 1e3:.2f} "
+              f"ms a step, predicted {rec['predicted_step_s'] * 1e3:.3f} ms "
+              f"raw (rel_err {rec['rel_err']:+.6f}), "
+              f"{rec['corrected']['step_s'] * 1e3:.2f} ms under the sweep "
+              f"fit (rel_err {rec['rel_err_corrected']:+.6f}), rel_err "
+              f"{runs[label]['rel_err_probe_fit']:+.6f} under the probe "
+              f"fit; report valid with its calibration section [{card}]")
+    res["fit_runs"] = runs
+
+    # (c) the paged and speculative benches, Llama-3.2-1B, f32, on the
+    # phase 5-6 geometry and mixes
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    cfg = llama_main_config()
+    model = port.init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(SEED), device)
+    common = dict(cfg=cfg, model=model, n_stages=D, n_requests=BENCH_N,
+                  seed=SEED, mixes=PREFIX_MIXES, load=SERVE_LOAD,
+                  device=device, **SERVE)
+    rows, reports = {}, {}
+    for name, fn, kw in (
+            ("paged", serving.run_paged_bench,
+             dict(page_size=PAGE_SIZE, mix="prefix")),
+            ("speculative", serving.run_spec_bench,
+             dict(gamma=SPEC_GAMMA, mix="serve", reps=1))):
+        rep = tm.RunReport(name=f"{name}_bench")
+        t = time.perf_counter()
+        row = fn(report=rep, **kw, **common)
+        wall = time.perf_counter() - t
+        manifest = rep.manifest()
+        tm.validate_report(manifest)
+        check(row["outputs_match"], f"{name} bench: outputs differ")
+        check({"cost_model", "memory"} <= set(manifest)
+              and {"cost_model", "memory"} <= set(row),
+              f"{name} bench: a serving section is missing "
+              f"({sorted(manifest)}, {sorted(row)})")
+        check(isinstance(row["predicted_s_per_tick"], float)
+              and row["predicted_s_per_tick"] > 0,
+              f"{name} bench: predicted_s_per_tick "
+              f"{row['predicted_s_per_tick']}")
+        for eng in row["cost_model"]:
+            summ = row[eng]
+            pred = row["cost_model"][eng]["predicted"]["step_s"]
+            alloc = row["memory"][eng].get("allocator") or {}
+            analytic = row["memory"][eng]["analytic"]
+            print(f"  (c) f32 {name} bench, {eng}: {summ['n_requests']} "
+                  f"requests, {summ['ticks']} ticks, s_per_tick measured "
+                  f"{summ['s_per_tick']:.6f}, predicted {pred:.9f} "
+                  f"(predicted / measured {pred / summ['s_per_tick']:.6f}); "
+                  f"memory analytic {analytic['peak_bytes'] / 2 ** 30:.3f} "
+                  f"GiB a stage, allocator peak "
+                  f"{alloc.get('max_memory_allocated_bytes', 0) / 2 ** 30:.3f}"
+                  f" GiB on the card [{card}]")
+        rows[name] = {k: v for k, v in row.items()
+                      if k not in ("serving_load",)}
+        reports[name] = dict(wall_s=wall, sections=sorted(manifest))
+        print(f"  (c) {name} bench: outputs_match, the report valid with "
+              f"{sorted(manifest)}, {wall:.1f} s")
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    print(f"  (c) kernel launches in the benches: {launches} (the engine "
+          f"attends its caches densely)")
+    res["benches"] = dict(rows=rows, reports=reports, launches=launches)
+    del model
+    torch.cuda.empty_cache()
+    res["seconds_serving"] = time.perf_counter() - t0
+    res["seconds"] = res["seconds_fit"] + res["seconds_serving"]
+    print(f"  phase 13 took {res['seconds']:.1f} s "
+          f"({res['seconds_fit']:.1f} after phase 7, "
+          f"{res['seconds_serving']:.1f} here; held to {CAL_BUDGET_S:.0f})")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4514,50 +4877,69 @@ def main() -> int:
     os.environ["DTPP_VERIFY_TABLES"] = "1"
     report = {}
     t0 = time.perf_counter()
-    print("[1] device and toolchain")
-    phase_toolchain(report)
-    print("[2] kernels against their plain versions")
-    main_shapes = phase_kernels(report)
+    seconds = report["phase_seconds"] = {}
+
+    def phase(n, title, fn, *args):
+        print(f"[{n}] {title}")
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[str(n)] = time.perf_counter() - t
+        print(f"  phase {n} took {seconds[str(n)]:.1f} s")
+        return out
+
+    phase(1, "device and toolchain", phase_toolchain, report)
+    main_shapes = phase(2, "kernels against their plain versions",
+                        phase_kernels, report)
     tables = []  # the verifier's reports of the tables phases 3-11 build
     from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
         table_check)
     with patched(table_check, "check_table_cached", recording(tables)):
-        print("[3] decode path: GPT-2-small, 4 lockstep stages")
-        decode_launches = phase_main_path(report)
-        print("[4] training path: tied GPT-2-small, pipelined steps")
-        launches = phase_train(report)
-        print("[5] llama path: Llama-3.2-1B, 4 lockstep stages, decode and "
-              "continuous-batching serving")
-        llama_launches, serve_launches = phase_llama(report)
-        print("[6] paged KV and speculative serving: Llama-3.2-1B, 4 lockstep "
-              "stages")
-        paged_spec_launches = phase_paged_spec(report)
-        print("[7] the reference's job: ref_decoder, pipelined steps, dropout, "
-              "the sweep")
-        ref_launches = phase_ref(report)
-        print("[8] fit: tied GPT-2-small through utils.train.fit and the "
-              "training entry point")
-        fit_launches, eval_launches, fit_main_launches = phase_fit(report)
-        print("[9] zero-bubble training: tied GPT-2-small under ZBH1 and ZBV")
-        t9 = time.perf_counter()
-        zb_step_launches = phase_zero_bubble(report)
-        report["zero_bubble"]["seconds"] = time.perf_counter() - t9
+        decode_launches = phase(
+            3, "decode path: GPT-2-small, 4 lockstep stages",
+            phase_main_path, report)
+        launches = phase(4, "training path: tied GPT-2-small, pipelined "
+                         "steps", phase_train, report)
+        llama_launches, serve_launches = phase(
+            5, "llama path: Llama-3.2-1B, 4 lockstep stages, decode and "
+            "continuous-batching serving", phase_llama, report)
+        paged_spec_launches = phase(
+            6, "paged KV and speculative serving: Llama-3.2-1B, 4 lockstep "
+            "stages", phase_paged_spec, report)
+        ref_launches = phase(7, "the reference's job: ref_decoder, "
+                             "pipelined steps, dropout, the sweep",
+                             phase_ref, report)
+        probe_launches = phase(
+            "13a", "calibration: the probe grid on the card, and a "
+            "correction fitted on phase 7's sweep rows for phases 8-12",
+            phase_calibration, report)
+        fit_launches, eval_launches, fit_main_launches = phase(
+            8, "fit: tied GPT-2-small through utils.train.fit and the "
+            "training entry point", phase_fit, report)
+        zb_step_launches = phase(9, "zero-bubble training: tied "
+                                 "GPT-2-small under ZBH1 and ZBV",
+                                 phase_zero_bubble, report)
+        report["zero_bubble"]["seconds"] = seconds["9"]
         torch.cuda.empty_cache()
-        print("[10] the torch.distributed transport: a gloo world of 4 "
-              "processes on the card, tied GPT-2-small")
-        dist_launches = phase_dist(report)
+        dist_launches = phase(
+            10, "the torch.distributed transport: a gloo world of 4 "
+            "processes on the card, tied GPT-2-small", phase_dist, report)
         torch.cuda.empty_cache()
-        print("[11] Megatron tensor parallelism: a gloo world of pipe 2 x model "
-              "2 on the card, GPT-2-small, Llama-3.2-1B, ref_decoder")
-        tp_launches = phase_tp(report)
+        tp_launches = phase(
+            11, "Megatron tensor parallelism: a gloo world of pipe 2 x "
+            "model 2 on the card, GPT-2-small, Llama-3.2-1B, ref_decoder",
+            phase_tp, report)
         torch.cuda.empty_cache()
-    print("[12] the static verifier, a certified searched schedule and "
-          "training dynamics: untied GPT-2-small")
-    t12 = time.perf_counter()
-    dyn_launches = phase_dynamics(report, tables)
-    report["dynamics"]["seconds"] = time.perf_counter() - t12
-    print(f"  phase 12 took {report['dynamics']['seconds']:.1f} s")
+    dyn_launches = phase(12, "the static verifier, a certified searched "
+                         "schedule and training dynamics: untied "
+                         "GPT-2-small", phase_dynamics, report, tables)
+    report["dynamics"]["seconds"] = seconds["12"]
+    bench_launches = phase(
+        "13", "calibration: the corrected fit reports; paged and "
+        "speculative serving benches, Llama-3.2-1B",
+        phase_calibration_serving, report)
     report["seconds"] = time.perf_counter() - t0
+    print("chip_smoke: phase seconds " + ", ".join(
+        f"{k}: {v:.1f}" for k, v in seconds.items()))
     print(f"chip_smoke: {report['seconds']:.1f} s in all")
     out = Path("chip_smoke_out")
     out.mkdir(exist_ok=True)
@@ -4610,7 +4992,9 @@ def main() -> int:
                                     for r in sorted(tp_launches)],
                 "tp_step": sum(tp_launches[r][name] for r in tp_launches),
                 **{path: counts[name]
-                   for path, counts in dyn_launches.items()}}))
+                   for path, counts in dyn_launches.items()},
+                "calibration_probes": probe_launches[name],
+                "serving_benches": bench_launches[name]}))
         if name.startswith("flash"):
             kernels[-1]["ref_shapes"] = [
                 {k: main_shapes[(f"{name}_ref{dh}", "bfloat16")][k]

@@ -47,7 +47,17 @@ package's. Ported so far:
   ``ops.collectives``: the conjugate collectives, the vocab-parallel
   cross entropy and the collective-matmul ring) inside the pipeline,
   through ``fit`` and ``train.py --tp``, and the reference's sweep run as
-  a world of D processes (``run_one_experiment(backend=)``).
+  a world of D processes (``run_one_experiment(backend=)``);
+- run reports and pipeline telemetry, the static table verifier,
+  certified schedule search and training dynamics;
+- the cost model's calibration (``analysis.calibration``: measured probes,
+  the ledger, fitted per-hardware corrections that ``fit`` and the sweep
+  apply; ``python -m
+  distributed_training_with_pipeline_parallelism_tpu_torch.probe``), the
+  serving cost and memory models with the paged and speculative serving
+  benches (``serving.run_paged_bench``, ``serving.run_spec_bench``), and
+  the analysis passes (``python -m
+  distributed_training_with_pipeline_parallelism_tpu_torch.analysis``).
 
 Hand-written CUDA kernels (``csrc/``): flash-attention forward and
 backward (``flash_fwd.cu``, ``flash_bwd.cu``) and the fused cross-entropy

@@ -20,7 +20,7 @@ EOS: stage 0 keeps the ``done`` table; a live-row mask rides the channel
 with the hidden state, every stage masks the cache writes of frozen rows,
 and a stream whose rows have all finished skips its stage compute.
 ``return_logprobs`` rides home with the token. Tensor parallelism (the
-JAX ``model`` mesh axis) is not ported.
+JAX ``model`` mesh axis) is not ported (``ROADMAP.md`` Queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -131,8 +131,9 @@ def make_pipeline_generate_fn(cfg: ModelConfig, n_stages: int,
     """
     check_decodable(cfg)
     if tp_size != 1:
-        raise NotImplementedError("tensor parallelism inside the pipelined "
-                                  "decoder is not ported")
+        raise NotImplementedError(
+            "tensor parallelism inside the pipelined decoder is not ported "
+            "yet: ROADMAP.md Queue 1, item 7 (item 11's TP in the decoder)")
     D = n_stages
     if D < 1 or cfg.n_layers % D:
         raise ValueError(f"n_layers={cfg.n_layers} must divide over {D} "

@@ -412,6 +412,7 @@ class ServingProgram:
         self.gamma = gamma
         self.draft_cfg = draft_cfg
         self.cuda_graphs = device.type == "cuda"
+        self.n_captures = 0  # graph captures by prepare (one per weights)
         self._buf: Optional[Dict[str, Any]] = None
 
     @property
@@ -585,6 +586,7 @@ class ServingProgram:
         if not self.cuda_graphs:
             return w
         b, dev = self._buffers(), self.device
+        self.n_captures += 1
         graphs: Dict[str, Any] = {"stages": []}
         x = b["tok_in"]
         for d in range(self.n_stages):  # stage d reads stage d-1's output

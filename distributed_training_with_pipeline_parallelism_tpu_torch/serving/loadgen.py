@@ -12,8 +12,9 @@ goodput-under-SLO, and the measured ``s_per_tick``.
 Every point of a ramp reuses the same workload seed, so prompt and output
 lengths are identical across points and the exponential gaps scale
 exactly by ``1/load``: p99 TTFT is monotone in offered load by
-construction. ``predicted_s_per_tick`` stays ``None`` until the cost model
-(``analysis/cost_model.py``) is ported (``ROADMAP.md`` Queue 1, item 12).
+construction. Each row's ``predicted_s_per_tick`` is the serving cost
+model's per-tick roofline (``analysis.cost_model.
+serving_cost_model_section``) beside the measured ``s_per_tick``.
 """
 
 from __future__ import annotations
@@ -169,7 +170,9 @@ def _point_row(load: float, summary: Dict[str, Any],
 def sweep_offered_load(engine: ServingEngine, loads: Sequence[float], *,
                        mix: str = "mixed", n_requests: int = 24,
                        seed: int = 0, policy: str = "continuous",
-                       slo=None, reference_load: Optional[float] = None
+                       slo=None, hardware=None,
+                       reference_load: Optional[float] = None,
+                       mixes: Optional[Dict[str, Dict[str, Any]]] = None
                        ) -> Dict[str, Any]:
     """Replay a ramp of offered loads through ``engine`` and return the
     ``serving_load`` section (:mod:`.slo` assembles it): one curve row per
@@ -178,10 +181,13 @@ def sweep_offered_load(engine: ServingEngine, loads: Sequence[float], *,
 
     ``loads`` must be strictly increasing. ``slo`` is an
     :class:`.slo.SLOSpec` (the program's default when omitted);
+    ``hardware`` an ``analysis.cost_model.HardwareSpec`` for the
+    predicted per-tick roofline column (default: the program's device's);
     ``reference_load`` names the curve point whose p99 TTFT becomes the
-    tracked reference (default: the lowest load). Each row's
-    ``predicted_s_per_tick`` is ``None`` (no cost model yet; the JAX
-    function's ``hardware`` argument goes with it)."""
+    tracked reference (default: the lowest load); ``mixes`` replaces
+    :data:`WORKLOAD_MIXES` (as in :func:`make_workload`)."""
+    from ..analysis.cost_model import (detect_hardware,
+                                       serving_cost_model_section)
     from ..utils.telemetry import serving_summary
     from .slo import SLOSpec, find_knee, serving_load_section, slo_attainment
 
@@ -194,14 +200,23 @@ def sweep_offered_load(engine: ServingEngine, loads: Sequence[float], *,
     if slo is None:
         slo = SLOSpec.default_for(engine.program)
     program = engine.program
+    if hardware is None:
+        hardware = detect_hardware(program.device)
     rows: List[Dict[str, Any]] = []
     for load in loads:
         trace = make_workload(n_requests, mix,
                               prefill_chunk=program.prefill_chunk,
                               load=load, vocab_size=program.cfg.vocab_size,
-                              seed=seed)
+                              seed=seed, mixes=mixes)
         result = engine.run(trace, policy=policy)
-        rows.append(_point_row(load, serving_summary(result), None,
+        summary = serving_summary(result)
+        # the per-tick roofline does not depend on the load (the ring
+        # rolls every tick); each point's row holds it beside its
+        # measured s_per_tick
+        cm = serving_cost_model_section(
+            program.cfg, program.n_stages, program.n_slots, summary,
+            hardware=hardware, draft_cfg=program.draft_cfg)
+        rows.append(_point_row(load, summary, cm["predicted"]["step_s"],
                                slo_attainment(result, slo)))
     knee = find_knee(rows, slo)
     return serving_load_section(rows, knee, slo, mix=mix,

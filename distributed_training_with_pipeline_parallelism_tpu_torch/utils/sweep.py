@@ -26,8 +26,12 @@ What the columns mean in the port:
   executor (``parallel/pipeline.py``), a Python loop over the ticks.
 - ``mfu`` and ``predicted_step_s`` price D chips of the run's
   ``HardwareSpec`` (the H100 preset on the card), as in JAX.
-- ``rel_err_corrected`` is None: no calibration correction is fitted for
-  the H100 yet (``ROADMAP.md`` Queue 1, entry 5).
+- ``predicted_step_s``, ``rel_err`` and ``rel_err_corrected`` come from
+  the row's cost model, which carries the corrections
+  ``analysis.calibration.maybe_load_default_corrections`` finds
+  (``$DTPP_CALIBRATION_CORRECTIONS``, else the default artifact), as in
+  JAX: ``rel_err_corrected`` is None when none matches the row's
+  hardware.
 - ``grad_norm_final``, ``gns`` and ``n_skipped_attributed`` are filled by
   ``dynamics=True``: one instrumented gradient pass after the timed steps
   (off the clock) through ``make_pipeline_grad_fn(..., dynamics=True)``
@@ -40,7 +44,8 @@ What the columns mean in the port:
 ``report_dir`` adds one validated ``RunReport`` manifest per row to
 ``{report_dir}/sweep_reports.jsonl`` (JAX ``:246-282``): the timers and
 counter of ``run_train_iterations``, the row's columns as gauges, the
-``cost_model`` and ``memory`` sections, and no calibration (entry 5).
+``cost_model``, ``calibration`` (the row's own predicted-against-measured
+point) and ``memory`` sections.
 A world row's manifest carries rank 0's timing and is written once, by
 the process that launched the world.
 
@@ -270,12 +275,14 @@ class _Row:
     def finish(self, metrics, peak_alloc, world=None):
         """The row: the timing's metrics and the analytic columns (a world
         row: ``world`` = (transport, ranks))."""
+        from ..analysis.calibration import maybe_load_default_corrections
         from ..analysis.cost_model import (backward_weights,
                                            cost_model_section,
                                            resolve_backward_policy)
         from ..parallel.schedules import (analytic_bubble_fraction,
                                           simulated_bubble)
         cs, D = self.cs, self.num_devices
+        self.corrections = maybe_load_default_corrections()
         policy = resolve_backward_policy(cs, self.remat_backward, D)
         w_b, w_w = backward_weights(policy)
         sim = simulated_bubble(cs, w_f=1.0, w_b=w_b, w_w=w_w)
@@ -283,7 +290,8 @@ class _Row:
             cs, self.cfg, batch_size=self.batch_size,
             seq_length=self.seq_length, hardware=self.hw,
             remat_backward=self.remat_backward,
-            measured_step_s=metrics["elapsed_time"] / self.num_iterations)
+            measured_step_s=metrics["elapsed_time"] / self.num_iterations,
+            correction=self.corrections)
         mfu = cost.get("measured", {}).get("mfu")
         metrics.update({
             "throughput_per_chip": metrics["throughput"] / D,
@@ -291,9 +299,11 @@ class _Row:
             "n_microbatches": self.n_microbatches,
             "predicted_step_s": cost["predicted"]["step_s"],
             "rel_err": cost.get("measured", {}).get("rel_err"),
-            "rel_err_corrected": None,
+            "rel_err_corrected": cost.get("measured", {}).get(
+                "rel_err_corrected"),
             "bubble_analytic": analytic_bubble_fraction(
-                self.schedule_type, D, self.n_virtual, self.n_microbatches),
+                self.schedule_type, D, self.n_virtual, self.n_microbatches,
+                cs=cs),
             "bubble_simulated": sim["bubble_fraction"],
             "bubble_sim_w_b": w_b,
             "bubble_table_exact": cost["predicted"]["bubble_table_exact"],
@@ -356,6 +366,13 @@ class _Row:
         for k, v in row.items():
             report.gauge(k, v)
         report.attach_cost_model(self.cost)
+        from ..analysis.calibration import (
+            calibration_section_from_cost_model)
+        cal = calibration_section_from_cost_model(
+            self.cost, backend=device.type,
+            name=f"sweep_{self.schedule_type}", correction=self.corrections)
+        if cal is not None:
+            report.attach_calibration(cal)
         report.attach_memory(self.mem)
         if self.dyn_stats is not None:
             from .dynamics import dynamics_section

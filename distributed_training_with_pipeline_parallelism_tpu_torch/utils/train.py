@@ -762,12 +762,15 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
       config, schedule, mesh shape, steps, ``grad_accum`` and backend,
       the ``steps`` counter and ``final_loss`` gauge, the ``compile_s``
       timer, the telemetry section, the cost model with its measured
-      attribution, the memory model with its ``live`` watermarks, and the
-      resilience section. ``compile_s`` is the first executed step's
-      wall, forced to completion, as in JAX; in the port it holds the
-      kernels' lazy build and autograd's first use, not a compile. No
-      calibration section: the corrections are ``ROADMAP.md`` Queue 1,
-      entry 5.
+      attribution, the run's one-row ``calibration`` section, the memory
+      model with its ``live`` watermarks, and the resilience section.
+      The cost model and the calibration section carry the corrections
+      ``analysis.calibration.maybe_load_default_corrections`` finds
+      (``$DTPP_CALIBRATION_CORRECTIONS``, else the default artifact; an
+      artifact that fails its check is skipped), as in JAX.
+      ``compile_s`` is the first executed step's wall, forced to
+      completion, as in JAX; in the port it holds the kernels' lazy
+      build and autograd's first use, not a compile.
     - ``telemetry``: a ``utils.telemetry.PipelineTelemetry`` the steps
       stamp (:func:`make_train_step`), reset before each step, so it
       holds the newest step's timeline (JAX's ``fit`` lets the steps'
@@ -962,14 +965,26 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
             # take the run's report down
             if telemetry.events and cs is not None:
                 try:
+                    from ..analysis.calibration import (
+                        calibration_section_from_cost_model,
+                        maybe_load_default_corrections)
                     from ..analysis.cost_model import cost_model_section
                     if (telemetry.table is not None
                             and cs.table.shape == telemetry.table.shape):
-                        report.attach_cost_model(cost_model_section(
+                        corrections = maybe_load_default_corrections()
+                        cm = cost_model_section(
                             cs, cfg, batch_size=data_shape[0],
                             seq_length=data_shape[1], hardware=hw,
                             remat_backward=remat_backward,
-                            telemetry=telemetry))
+                            telemetry=telemetry, correction=corrections)
+                        report.attach_cost_model(cm)
+                        # the run's own predicted-against-measured point
+                        cal = calibration_section_from_cost_model(
+                            cm, backend=device.type,
+                            name=f"train_{sched.name}",
+                            correction=corrections)
+                        if cal is not None:
+                            report.attach_calibration(cal)
                 except Exception as e:
                     report.event("cost_model_error", error=str(e))
         if cs is not None:

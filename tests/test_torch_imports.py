@@ -9,6 +9,11 @@ import pytest
 import torch
 
 import distributed_training_with_pipeline_parallelism_tpu_torch as port
+from distributed_training_with_pipeline_parallelism_tpu_torch import serving
+from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
+    calibration)
+from distributed_training_with_pipeline_parallelism_tpu_torch.probe import (
+    main as probe_main)
 from distributed_training_with_pipeline_parallelism_tpu_torch.train import (
     main as train_main)
 from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
@@ -39,7 +44,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "utils/data.py", "utils/data_native.py", "utils/dynamics.py",
             "utils/profiling.py", "utils/telemetry.py", "parallel/mesh.py",
             "parallel/selftest.py", "analysis/table_check.py",
-            "analysis/schedule_search.py", "search_schedule.py"} <= names
+            "analysis/schedule_search.py", "search_schedule.py",
+            "analysis/calibration.py", "analysis/cli.py",
+            "analysis/__main__.py", "probe.py", "serving/bench.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}, bad
@@ -56,7 +63,9 @@ _SERVING = dict(n_slots=2, max_len=8, prompt_max=4, out_max=4)
                                    "serving_engine", "serve_bench",
                                    "sweep_experiment", "loss_fn", "fit",
                                    "prefetch", "train_main", "launch",
-                                   "train_world"])
+                                   "train_world", "run_probe",
+                                   "paged_bench", "spec_bench",
+                                   "probe_main"])
 def test_entry_points_default_to_cuda(entry):
     """Without ``device=`` an entry point asks for CUDA: on a host without
     it the call raises instead of running on the CPU."""
@@ -93,6 +102,11 @@ def test_entry_points_default_to_cuda(entry):
         "train_world": lambda: train_main(["--model", "gpt2-small",
                                            "--steps", "1", "--backend",
                                            "gloo"]),
+        "run_probe": lambda: calibration.run_probe(
+            calibration.probe_grid()[0]),
+        "paged_bench": lambda: serving.run_paged_bench(n_requests=2),
+        "spec_bench": lambda: serving.run_spec_bench(n_requests=2),
+        "probe_main": lambda: probe_main([]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -35,6 +35,8 @@ from distributed_training_with_pipeline_parallelism_tpu.utils.telemetry import (
     serving_summary as jserving_summary)
 import distributed_training_with_pipeline_parallelism_tpu_torch as port
 from distributed_training_with_pipeline_parallelism_tpu_torch import serving
+from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
+    cost_model as tcm)
 from distributed_training_with_pipeline_parallelism_tpu_torch.serving import (
     loadgen as tload, slo as tslo)
 from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
@@ -500,7 +502,8 @@ def test_bench_row_and_load_sweep(models):
     """``run_serve_bench`` on the port's default small model: both
     policies emit the same tokens and static takes no fewer ticks;
     ``sweep_offered_load`` over two loads returns the section with its
-    knee and no predicted tick time (no cost model yet)."""
+    knee and each point's predicted tick time, the serving cost model's
+    on the CPU proxy."""
     row = serving.run_serve_bench(n_requests=6, reps=1, device="cpu")
     assert row["outputs_match"] and row["tick_gain"] >= 1.0
     assert row["continuous"]["n_requests"] == 6
@@ -511,6 +514,10 @@ def test_bench_row_and_load_sweep(models):
     sec = tload.sweep_offered_load(engine, [0.5, 1.5], n_requests=6)
     assert sec["offered_loads"] == [0.5, 1.5] and "knee" in sec
     assert [r["n_requests"] + r["n_failed"] for r in sec["curve"]] == [6, 6]
-    assert all(r["predicted_s_per_tick"] is None for r in sec["curve"])
+    want = tcm.serving_cost_model_section(
+        tcfg, D, engine.program.n_slots, sec["curve"][0]["summary"],
+        hardware=tcm.CPU_PROXY)["predicted"]["step_s"]
+    assert want > 0
+    assert all(r["predicted_s_per_tick"] == want for r in sec["curve"])
     with pytest.raises(ValueError, match="strictly increasing"):
         tload.sweep_offered_load(engine, [1.0, 0.5])

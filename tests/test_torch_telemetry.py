@@ -63,10 +63,6 @@ KEY_EXCEPTIONS = {
     "meta.jaxlib_version": "as meta.jax_version",
     "meta.torch_version": "as meta.jax_version",
     "meta.cuda_version": "as meta.jax_version",
-    "calibration": "the calibration corrections are ROADMAP.md Queue 1, "
-                   "entry 5; JAX attaches its cpu_proxy corrections",
-    "cost_model.predicted.corrected": "as calibration",
-    "cost_model.measured.rel_err_corrected": "as calibration",
     "memory.compiled": "XLA's ahead-of-time memory analysis: the port runs "
                        "eagerly and has no compiled program",
     "memory.reconciliation": "the analytic bytes held to memory.compiled",
@@ -258,10 +254,28 @@ def _sweep_kw(tmp):
 
 
 @pytest.fixture(scope="module")
-def jax_manifests(tmp_path_factory):
+def corrections_env(tmp_path_factory):
+    """Both packages' ``fit`` and sweep read one correction artifact for
+    the CPU proxy, through ``$DTPP_CALIBRATION_CORRECTIONS``, for the whole
+    module: their manifests then carry the corrected cost model and the
+    calibration section alike."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
+        calibration as tcal)
+    path = tmp_path_factory.mktemp("corr") / "corrections.json"
+    tcal.save_correction_artifact(tcal.correction_artifact({
+        "cpu_proxy": tcal.CorrectionFactors("cpu_proxy", 0.02, 0.5, 4,
+                                            1e-3)}), str(path))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(tcal.CORRECTIONS_ENV, str(path))
+        yield str(path)
+
+
+@pytest.fixture(scope="module")
+def jax_manifests(tmp_path_factory, corrections_env):
     """One JAX ``fit`` (1F1B, D = 2, one step, stamped, watched) and
     one JAX sweep row (GPipe, D = 2; the scan executor compiles fastest
-    and a sweep row carries no timeline)."""
+    and a sweep row carries no timeline), both under
+    :func:`corrections_env`."""
     tmp = tmp_path_factory.mktemp("jax")
     jcfg = dtpp.ModelConfig(**SIZE)
     jtrain.fit(jcfg, make_mesh(n_pipe=2), dtpp.ScheduleConfig("1F1B", M),
@@ -282,7 +296,8 @@ def jax_manifests(tmp_path_factory):
 def test_manifest_keys_match_jax(jax_manifests, tmp_path):
     """The same tiny ``fit`` and sweep row through the port: manifests the
     port's validator accepts, with JAX's key sets but for the listed
-    exceptions; the fit's has the measured attribution, a timeline of T
+    exceptions (the corrected cost model and the calibration section
+    included); the fit's has the measured attribution, a timeline of T
     ticks and the resilience section."""
     jfit, jrow = jax_manifests
     tcfg = port.ModelConfig(**SIZE)
@@ -302,6 +317,7 @@ def test_manifest_keys_match_jax(jax_manifests, tmp_path):
     assert fit["cost_model"]["measured"]["step_s"] > 0
     assert fit["memory"]["live"]["available"] is False  # no CPU allocator
     assert fit["resilience"] == {"stalls": 0}
+    _same_corrected(fit, jfit)
 
     row = tsweep.run_one_experiment(SIZE["n_layers"], SIZE["n_heads"], 2,
                                     "GPipe", device="cpu",
@@ -313,6 +329,55 @@ def test_manifest_keys_match_jax(jax_manifests, tmp_path):
     ttm.validate_report(rows[0])
     assert _paths(rows[0]) == _paths(jrow)
     assert rows[0]["gauges"]["throughput"] == row["throughput"]
+    _same_corrected(rows[0], jrow)
+    assert row["rel_err_corrected"] == \
+        rows[0]["cost_model"]["measured"]["rel_err_corrected"]
+
+
+def _same_corrected(got, want):
+    """The corrected cost model and the calibration section of a port
+    manifest against a JAX one of the same run (one artifact, the CPU
+    proxy on both sides): the correction and every predicted number
+    equal; the measured error each side's own, from its own step."""
+    cm, jcm = got["cost_model"], want["cost_model"]
+    assert cm["predicted"] == jcm["predicted"]
+    corrected = cm["predicted"]["corrected"]["step_s"]
+    step = cm["measured"]["step_s"]
+    assert cm["measured"]["rel_err_corrected"] == (corrected - step) / step
+    cal, jcal = got["calibration"], want["calibration"]
+    assert cal["correction"] == jcal["correction"] is not None
+    for key in ("schedule", "schedule_family", "backward_policy",
+                "comm_overlap", "n_devices", "n_microbatches",
+                "predicted_step_s", "predicted_step_s_corrected"):
+        assert cal["rows"][0][key] == jcal["rows"][0][key], key
+    assert cal["rows"][0]["rel_err_corrected"] == \
+        cm["measured"]["rel_err_corrected"]
+
+
+def test_fit_uncorrected_when_the_artifact_is_missing(tmp_path, monkeypatch):
+    """``$DTPP_CALIBRATION_CORRECTIONS`` naming a missing file: neither
+    package loads a correction, and the port's ``fit`` report carries the
+    calibration section without one and no corrected cost model."""
+    from distributed_training_with_pipeline_parallelism_tpu.analysis import (
+        calibration as jcal_mod)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
+        calibration as tcal_mod)
+    monkeypatch.setenv(tcal_mod.CORRECTIONS_ENV, str(tmp_path / "none.json"))
+    assert jcal_mod.maybe_load_default_corrections() is None
+    assert tcal_mod.maybe_load_default_corrections() is None
+    tcfg = port.ModelConfig(**SIZE)
+    model = port.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    ttrain.fit(tcfg, port.ScheduleConfig("1F1B", M), 2, model,
+               tdata.synthetic_batches(SIZE["vocab_size"], B, S, seed=1), 1,
+               device="cpu", **_fit_kw(tmp_path, ttm.PipelineTelemetry()))
+    with open(tmp_path / "report.json") as fh:
+        fit = json.load(fh)
+    ttm.validate_report(fit)
+    assert "corrected" not in fit["cost_model"]["predicted"]
+    assert "rel_err_corrected" not in fit["cost_model"]["measured"]
+    assert fit["calibration"]["correction"] is None
+    assert fit["calibration"]["rows"][0]["predicted_step_s"] == \
+        fit["cost_model"]["predicted"]["step_s"]
 
 
 # ---------------------------------------------------------------------------
