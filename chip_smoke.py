@@ -300,6 +300,34 @@ JAX. Phases, each fatal on failure:
     the 45 it is held to; the script prints every phase's and its
     whole time.
 
+14. FSDP and sequence parallelism: one world of 4 processes on the card
+    (gloo, staged) that makes two meshes over its ranks, pipe 2 x data 2
+    and pipe 2 x seq 2; tied GPT-2-small at full width and 4 of its 12
+    layers, random weights from a seed, B = 8, S = 1024, 1F1B, M = 2,
+    both kernels routed on (phase 2 holds them at this phase's shapes,
+    [2, 1024, 12, 64] and 2048 rows of the vocab). (a) f32 FSDP: each
+    rank's view cut to its data coordinate's shards
+    (``parallel.fsdp.fsdp_shard_params``); the loss within 1e-5 relative
+    and every leaf, a shard's error and norm summed over the data group,
+    within phase 4's bound of the lockstep process's D = 2 step on the
+    same weights and batch; each rank's layer matrices and their
+    gradients hold exactly half its stage's bytes; its launches its row
+    of the table's (``rank_launches``). (b) The same gate on the seq
+    mesh, ring then Ulysses (12 heads over 2), 512 tokens a rank: only
+    the cross-entropy kernels launch (the sequence-parallel attention is
+    plain torch, as in JAX). (c) ``train.py --pipe 2 --data 2 --fsdp``
+    and ``--pipe 2 --sp 2 --sp-attn ulysses`` (3 steps each, B = 8, S =
+    1024), both at once beside the world's gates: exit 0 and a finite
+    final loss.
+    (d) bf16 over f32 masters, once they are done: the plain pipe 2 x
+    data 2 world, FSDP, ring and Ulysses (1 warm-up and 2 timed
+    ``make_train_step`` steps each): tokens/s, one counted step's
+    launches by rank, one step profiled on every rank (idle share, the
+    port's kernels among the device kernels, which must hold all four
+    under FSDP, and the count and host time of the FSDP gathers and
+    reduce-scatters, the seq ring's hops and all-to-alls and the
+    hand-offs). The phase prints its seconds.
+
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
@@ -314,7 +342,9 @@ step, one eval and the entry point's whole run; phase 9's counted bf16 ZBH1 and 
 phase 10's counted bf16 world step by rank and summed; phase 11's
 counted bf16 TP world step by rank and summed; phase 12's counted f32
 dynamics steps and its guarded bf16 ``fit`` run; phase 13's probes and
-serving benches, 0 where no kernel serves them),
+serving benches; phase 14's counted f32 FSDP, ring and Ulysses steps by
+rank and summed, 0 where no kernel serves them; phase 14's shapes' bf16
+times beside each kernel's),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -718,10 +748,20 @@ def phase_kernels(report):
             *shape, "bfloat16", causal, None, "packed", tol["bfloat16"])
         main[(f"flash_bwd_tp_{name}", "bfloat16")] = flash_bwd_case(
             *shape, "bfloat16", causal, None, "packed", 1e-2)
+    # phase 14's FSDP attention: a data rank's microbatch (bf16: phase
+    # 14's f32 gate holds the f32 kernels there)
+    main[("flash_fwd_par", "bfloat16")] = flash_case(
+        *PAR_SHAPE, "bfloat16", True, None, "packed", tol["bfloat16"])
+    main[("flash_bwd_par", "bfloat16")] = flash_bwd_case(
+        *PAR_SHAPE, "bfloat16", True, None, "packed", 1e-2)
     for dtype, rtol in (("bfloat16", 1e-3), ("float32", 1e-5)):
         # the training path's loss: one microbatch's rows of the vocab
         main[("xent_fwd", dtype)] = xent_case(TRAIN_B // TRAIN_M * TRAIN_S,
                                               50257, dtype, rtol)
+        # phase 14's loss: an FSDP rank's [2, 1024] and a seq rank's
+        # [4, 512] microbatch, 2048 rows either way
+        main[("xent_fwd_par", dtype)] = xent_case(PAR_XENT_ROWS, 50257,
+                                                  dtype, rtol)
         # the decode path's head: B/M rows per stage call
         xent_case(B // M, 50257, dtype, rtol)
         xent_case(7, 50257, dtype, rtol)
@@ -747,6 +787,8 @@ def phase_kernels(report):
         # the training path's head: one microbatch's rows of the vocab
         main[("xent_bwd", dtype)] = xent_bwd_case(
             TRAIN_B // TRAIN_M * TRAIN_S, 50257, dtype, bwd_tol[dtype])
+        main[("xent_bwd_par", dtype)] = xent_bwd_case(
+            PAR_XENT_ROWS, 50257, dtype, bwd_tol[dtype])
         xent_bwd_case(7, 50257, dtype, bwd_tol[dtype], pad_row=3)
     for r in rows:
         print(f"  {r['kernel']} {r['shape']} {r['dtype']}"
@@ -4186,6 +4228,367 @@ def phase_tp(report, device="cuda"):
     return {r["rank"]: r["step_launches"] for r in ranks}
 
 
+# FSDP and sequence parallelism (phase 14): one gloo world of 4 processes
+# on the card, which makes two meshes over the same ranks: pipe 2 x data 2
+# with FSDP (the launch's) and pipe 2 x seq 2. Tied GPT-2-small at full
+# width and 4 of its 12 layers (cut for the script's time limit), B = 8
+# sequences of 1024 tokens, 1F1B, M = 2: an FSDP rank's microbatch is
+# [2, 1024] and a seq rank's [4, 512], so both heads take 2048 rows
+PAR_LAYERS, PAR_B, PAR_M = 4, 8, 2
+PAR_TIMED = 2  # (d)'s timed steps a world, after DIST_WARMUP
+PAR_SHAPE = [PAR_B // 2 // PAR_M, TRAIN_S, 12, 64]  # an FSDP rank's q/k/v
+PAR_XENT_ROWS = PAR_B // 2 // PAR_M * TRAIN_S  # the head's rows, both worlds
+# (c): train.py's worlds, 3 steps each at the layers above
+PAR_TRAIN_ARGS = {
+    "fsdp": ["--pipe", "2", "--data", "2", "--fsdp"],
+    "sp": ["--pipe", "2", "--sp", "2", "--sp-attn", "ulysses"]}
+PAR_TRAIN_COMMON = ["--model", "gpt2-small", "--tie-embeddings", "--layers",
+                    str(PAR_LAYERS), "--backend", "gloo", "--batch",
+                    str(PAR_B), "--seq", str(TRAIN_S), "--microbatches",
+                    str(PAR_M), "--steps", "3", "--flash", "on",
+                    "--fused-xent"]
+
+
+def par_config(bf16=False):
+    """Phase 14's model: ``dist_config`` at ``PAR_LAYERS`` layers."""
+    return dataclasses.replace(dist_config(bf16), n_layers=PAR_LAYERS)
+
+
+def par_compare(mesh, model, ref, fsdp):
+    """(loss-free) worst leaf ratio and its leaf of this rank's gradients
+    against the lockstep ``ref`` (phase 4's bound): an FSDP rank's shard
+    against the reference's block, each leaf's squared error and norm
+    summed over the data group (a replicated leaf's from data coordinate
+    0), so the ratio is the gathered leaf's."""
+    import torch
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+        fsdp as tfsdp, tensor_parallel as ttp)
+    dims = tfsdp.fsdp_shard_of(model).dims if fsdp else {}
+    names, sq = [], []
+    for n, p in model.named_parameters():
+        d = dims.get(n)
+        r = ttp.shard_tensor(ref["grads"][n], d, mesh.n_data,
+                             mesh.data).to(p.device)
+        w = 1.0 if d is not None or mesh.data == 0 or not fsdp else 0.0
+        sq.append(torch.stack([(p.grad.double() - r.double()).square().sum(),
+                               r.double().square().sum()]) * w)
+        names.append(n)
+    sq = torch.stack(sq)
+    if fsdp:
+        mesh.all_reduce([sq], "data")
+    ratios = (sq[:, 0].sqrt() / (1e-4 * sq[:, 1].sqrt()
+                                 + 1e-6 * ref["g_norm"])).tolist()
+    worst = max(range(len(names)), key=lambda i: ratios[i])
+    return ratios[worst], names[worst]
+
+
+def par_profile(step, mesh):
+    """One step under the profiler: wall, this rank's device busy, its
+    idle share, the port's kernels among the device kernels, and the host
+    time and count of the collectives' spans (FSDP's gathers and
+    reduce-scatters, the seq ring's hops and all-to-alls, the hand-offs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    mesh.barrier()
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    spans = {}
+    for e in avg:
+        if e.key in ("fsdp_gather", "fsdp_reduce_scatter", "sp_shift",
+                     "sp_all_to_all", "handoff_wait", "handoff_post"):
+            spans[e.key] = dict(ms=max(spans.get(e.key, {}).get("ms", 0.0),
+                                       e.cpu_time_total / 1e3),
+                                count=max(spans.get(e.key, {}).get("count",
+                                                                   0),
+                                          e.count))
+    kernels = sorted({k for e in avg if e.self_device_time_total > 0
+                      for k in ("flash_fwd", "flash_bwd", "xent_fwd",
+                                "xent_bwd") if k in e.key})
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                idle_share=1 - busy / (wall * 1e3), spans=spans,
+                port_kernels=kernels)
+
+
+def par_worker(mesh, spec):
+    """One rank of phase 14's world: (a) the FSDP f32 gate, (b) the ring
+    and Ulysses f32 gates on the pipe 2 x seq 2 mesh over the same ranks,
+    then, once ``train.py``'s worlds are done, (d) the bf16 timing of the
+    plain, FSDP, ring and Ulysses worlds, one counted and one profiled
+    step each. Returns this rank's numbers; raises (failing the world) at
+    a gate."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+        fsdp as tfsdp)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
+        torch_dtype)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
+        batch_sharding)
+    device = mesh.device
+    kernels = all_kernels()
+    cfg, cfg16 = par_config(), par_config(bf16=True)
+    sched = port.ScheduleConfig("1F1B", PAR_M)
+    t_phase = time.perf_counter()
+    sp = port.make_mesh(2, 1, 1, 2, backend=mesh.backend, device=device)
+    worlds = {"plain": (mesh, False, "ring"), "fsdp": (mesh, True, "ring"),
+              "ring": (sp, False, "ring"), "ulysses": (sp, False, "ulysses")}
+    res = dict(rank=mesh.rank, describe=mesh.describe(),
+               sp_describe=sp.describe(), gates={})
+    res["warm_s"] = dist_warm((cfg, cfg16), device,
+                              (PAR_B // 2 // PAR_M, TRAIN_S))
+    res["refs_wait_s"] = wait_for(spec["ready"], "phase 14's references")
+    whole = torch.load(spec["whole"], mmap=True, weights_only=True)
+    ref = torch.load(spec["ref"], mmap=True, weights_only=True)
+    batch = tuple(t.to(device) for t in torch.load(spec["batch"],
+                                                   weights_only=True))
+
+    def model_of(c, w):
+        m, fsdp, _ = worlds[w]
+        own = port.owned_layers(c.n_layers, sched, m.n_pipe, m.pipe)
+        v = Transformer(c, device=device, dtype=torch_dtype(c.storage_dtype),
+                        layers=own)
+        v.load_state_dict({k: whole[k] for k in v.state_dict()})
+        return tfsdp.fsdp_shard_params(v, c, m) if fsdp else v
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.name: k.launches for k in kernels}
+
+    # (a)-(b): the f32 gates against the lockstep process's step
+    for w in ("fsdp", "ring", "ulysses"):
+        m, fsdp, impl = worlds[w]
+        model = model_of(cfg, w)
+        local = batch_sharding(m)(batch)
+        fn = port.make_pipeline_grad_fn(cfg, sched, m.n_pipe, device=device,
+                                        mesh=m, fsdp=fsdp, sp_attn_impl=impl)
+        t = time.perf_counter()
+        loss, launches = counted(lambda: fn(model, *local).item())
+        wall = time.perf_counter() - t
+        rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        worst, leaf = par_compare(m, model, ref, fsdp)
+        want = rank_launches(cfg, sched, m.n_pipe, m.pipe)
+        if not fsdp:  # the seq worlds' attention calls no kernel
+            want.update(flash_fwd=0, flash_bwd=0)
+        g = dict(loss=loss, loss_rel_err=rel, worst_bound_ratio=worst,
+                 worst_leaf=leaf, launches=launches, step_s=wall)
+        if fsdp:  # the rank's layer matrices against its stage's
+            mats = [(n, p) for n, p in model.named_parameters()
+                    if n.startswith("layers.") and p.dim() == 2]
+            g["held_bytes"] = sum(p.numel() * p.element_size()
+                                  for _, p in mats)
+            g["stage_bytes"] = sum(whole[n].numel() * whole[n].element_size()
+                                   for n, _ in mats)
+            g["grad_bytes"] = sum(p.grad.numel() * p.grad.element_size()
+                                  for _, p in mats)
+            check(2 * g["held_bytes"] == g["stage_bytes"] == 2 * g[
+                "grad_bytes"], f"FSDP rank {mesh.rank}: its layer matrices "
+                  f"hold {g['held_bytes']} B (gradients {g['grad_bytes']} B) "
+                  f"of its stage's {g['stage_bytes']} B, not a half")
+        res["gates"][w] = g
+        check(rel <= 1e-5, f"{w} rank {mesh.rank}: loss rel err {rel} > 1e-5")
+        check(worst <= 1.0, f"{w} rank {mesh.rank}: leaf {leaf} over its "
+              f"bound ({worst})")
+        check(launches == want, f"{w} rank {mesh.rank}: launches {launches} "
+              f"!= the table's {want}")
+        del model
+        torch.cuda.empty_cache()
+    res["gates_s"] = time.perf_counter() - t_phase
+    res["train_wait_s"] = wait_for(spec["train_done"],
+                                   "the train.py worlds' end")
+    mesh.barrier()
+
+    # (d) bf16 timing, then one counted and one profiled step a world
+    res["bf16"] = {}
+    for w in ("plain", "fsdp", "ring", "ulysses"):
+        m, fsdp, impl = worlds[w]
+        model = model_of(cfg16, w)
+        opt = port.adamw(warmup_steps=2, total_steps=100)
+        state = opt.init(model)
+        step = port.make_train_step(cfg16, sched, m.n_pipe, opt,
+                                    device=device, mesh=m, fsdp=fsdp,
+                                    sp_attn_impl=impl)
+        local = batch_sharding(m)(batch)
+
+        def run(mdl, t, y):
+            return step(mdl, state, t, y)
+
+        timed = port.run_train_iterations(
+            run, model, *local, num_iterations=PAR_TIMED,
+            warmup_iterations=DIST_WARMUP, mesh=m)
+        loss, launches = counted(lambda: run(model, *local).item())
+        check(math.isfinite(loss), f"{w} bf16 rank {mesh.rank}: loss {loss}")
+        prof = par_profile(lambda: run(model, *local), m)
+        res["bf16"][w] = dict(tokens_per_s=timed["throughput"], loss=loss,
+                              launches=launches, profile=prof)
+        del model, state
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def phase_par(report, device="cuda"):
+    """FSDP and sequence parallelism (see the module doc): the references
+    and ``train.py``'s two worlds here, beside the world of 4 processes
+    that runs the gates and the timing. Returns each world's launches of
+    its counted f32 and bf16 steps, by rank."""
+    import shutil
+    import tempfile
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-par-")
+    spec = {k: str(Path(tmp) / k) for k in ("whole", "ref", "batch", "ready",
+                                            "train_done")}
+    res, box, world, trainer = {}, {}, None, None
+
+    def run_world():
+        try:
+            box["ranks"] = port.launch(par_worker, port.MeshConfig(2, 2),
+                                       spec, backend="gloo", device=device,
+                                       timeout_s=300)
+        except BaseException as e:  # re-raised by the phase
+            box["error"] = e
+
+    def train_worlds():
+        """``train.py``'s FSDP world and its Ulysses world, at once."""
+        t = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.train", *PAR_TRAIN_COMMON, *args],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True) for name, args in PAR_TRAIN_ARGS.items()}
+        status = "ok"
+        res["train_main"] = {}
+        for name, proc in procs.items():
+            try:
+                out, _ = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            final = [ln for ln in out.splitlines()
+                     if ln.startswith("final loss:")]
+            loss = float(final[-1].split(":")[1]) if final else math.nan
+            res["train_main"][name] = dict(
+                rc=proc.returncode, final_loss=loss,
+                seconds=time.perf_counter() - t, output=out[-2000:])
+            if status == "ok" and (proc.returncode != 0
+                                   or not math.isfinite(loss)):
+                status = f"train.py {name}: rc {proc.returncode}, {out[-3000:]}"
+        signal_file(spec["train_done"], status)
+
+    try:
+        cfg = par_config()
+        g = torch.Generator().manual_seed(SEED + 2)
+        batch = tuple(torch.randint(0, cfg.vocab_size, (PAR_B, TRAIN_S),
+                                    generator=g) for _ in range(2))
+        torch.save(batch, spec["batch"])
+        model = port.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 device)
+        torch.save({n: t.cpu() for n, t in model.state_dict().items()},
+                   spec["whole"])
+        world = threading.Thread(target=run_world)
+        world.start()
+        trainer = threading.Thread(target=train_worlds)
+        trainer.start()
+        t = time.perf_counter()
+        try:
+            fn = port.make_pipeline_grad_fn(
+                cfg, port.ScheduleConfig("1F1B", PAR_M), 2, device=device)
+            loss = fn(model, *(x.to(device) for x in batch)).item()
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters()}
+            g_norm = math.sqrt(sum((x.double() ** 2).sum().item()
+                                   for x in grads.values()))
+            torch.save({"grads": grads, "loss": loss, "g_norm": g_norm},
+                       spec["ref"])
+            res["lockstep_loss"] = loss
+            del model, grads, fn
+            torch.cuda.empty_cache()
+            signal_file(spec["ready"], "ok")
+        except BaseException as e:
+            signal_file(spec["ready"], f"the launcher failed: {e!r}")
+            raise
+        res["refs_s"] = time.perf_counter() - t
+        trainer.join()
+        world.join()
+        if "error" in box:
+            raise box["error"]
+        check(Path(spec["train_done"]).read_text() == "ok",
+              Path(spec["train_done"]).read_text())
+        ranks = box["ranks"]
+        res["world_s"] = time.perf_counter() - t0
+        for r in ranks:
+            check(r["describe"]["transport"] == "gloo-staged",
+                  f"rank {r['rank']}: {r['describe']}")
+        print(f"  rank 0: {ranks[0]['describe']}; its seq mesh "
+              f"{ranks[0]['sp_describe']['shape']}")
+        for w in ("fsdp", "ring", "ulysses"):
+            gs = [r["gates"][w] for r in ranks]
+            total = {k: sum(x["launches"][k] for x in gs)
+                     for k in gs[0]["launches"]}
+            need = (("flash_fwd", "flash_bwd", "xent_fwd", "xent_bwd")
+                    if w == "fsdp" else ("xent_fwd", "xent_bwd"))
+            check(all(total[k] > 0 for k in need),
+                  f"{w}: a kernel of its path was never launched: {total}")
+            print(f"  f32 {w} (1F1B, B={PAR_B}, S={TRAIN_S}, "
+                  f"{PAR_LAYERS} layers): loss {gs[0]['loss']:.6f} (rel err "
+                  f"{max(x['loss_rel_err'] for x in gs):.2e} vs lockstep "
+                  f"{res['lockstep_loss']:.6f}), worst leaf at "
+                  f"{max(x['worst_bound_ratio'] for x in gs):.3f} of its "
+                  f"bound, launches by rank {[x['launches'] for x in gs]}"
+                  + (f", layer matrices {gs[0]['held_bytes']} of "
+                     f"{gs[0]['stage_bytes']} B a rank" if w == "fsdp"
+                     else ""))
+            res[f"f32_{w}"] = gs
+        res["bf16"] = {}
+        for w in ("plain", "fsdp", "ring", "ulysses"):
+            rows = [r["bf16"][w] for r in ranks]
+            tps = [x["tokens_per_s"] for x in rows]
+            res["bf16"][w] = dict(tokens_per_s=tps[0], by_rank=tps,
+                                  launches=[x["launches"] for x in rows],
+                                  profile=[x["profile"] for x in rows])
+            p = rows[0]["profile"]
+            spans = ", ".join(f"{k} {v['count']} x {v['ms']:.1f} ms"
+                              for k, v in sorted(p["spans"].items()))
+            print(f"  bf16 {w}: {tps[0]:.1f} tokens/s; rank 0 profiled: wall "
+                  f"{p['wall_ms']:.1f} ms, idle share {p['idle_share']:.3f}, "
+                  f"port kernels {p['port_kernels']}; {spans}")
+        kern = sorted({k for r in ranks for k in
+                       r["bf16"]["fsdp"]["profile"]["port_kernels"]})
+        check(kern == ["flash_bwd", "flash_fwd", "xent_bwd", "xent_fwd"],
+              f"FSDP bf16: the profiler saw the port's kernels {kern}")
+        for name, t in res["train_main"].items():
+            print(f"  train.py {' '.join(PAR_TRAIN_ARGS[name])}: rc "
+                  f"{t['rc']}, final loss {t['final_loss']:.4f}, "
+                  f"{t['seconds']:.1f} s")
+        res["world_ranks_s"] = [{k: r[k] for k in (
+            "warm_s", "refs_wait_s", "gates_s", "train_wait_s", "seconds")}
+            for r in ranks]
+    finally:
+        for th in (world, trainer):
+            if th is not None:
+                th.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 14: {res['seconds']:.1f} s")
+    report["par"] = res
+    return {w: {r["rank"]: r["gates"][w]["launches"] for r in ranks}
+            for w in ("fsdp", "ring", "ulysses")}
+
+
 # training dynamics and the certified search (phase 12): untied GPT-2-small
 # (the JAX default), D = 4, M = 4, S = TRAIN_S; the f32 gates at B = 8, the
 # bf16 fit at B = 24 over f32 masters
@@ -4929,6 +5332,11 @@ def main() -> int:
             "model 2 on the card, GPT-2-small, Llama-3.2-1B, ref_decoder",
             phase_tp, report)
         torch.cuda.empty_cache()
+        par_launches = phase(
+            14, "FSDP and sequence parallelism: a gloo world of 4 on the "
+            "card, pipe 2 x data 2 and pipe 2 x seq 2 (ring, Ulysses), "
+            "GPT-2-small", phase_par, report)
+        torch.cuda.empty_cache()
     dyn_launches = phase(12, "the static verifier, a certified searched "
                          "schedule and training dynamics: untied "
                          "GPT-2-small", phase_dynamics, report, tables)
@@ -4994,7 +5402,16 @@ def main() -> int:
                 **{path: counts[name]
                    for path, counts in dyn_launches.items()},
                 "calibration_probes": probe_launches[name],
-                "serving_benches": bench_launches[name]}))
+                "serving_benches": bench_launches[name],
+                **{f"{w}_step_by_rank": [counts[r][name]
+                                         for r in sorted(counts)]
+                   for w, counts in par_launches.items()},
+                **{f"{w}_step": sum(counts[r][name] for r in counts)
+                   for w, counts in par_launches.items()}}))
+        kernels[-1]["par_shape"] = {
+            k: main_shapes[(f"{name}_par", "bfloat16")][k]
+            for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                      "bound_ms", "bound_by", "library_ms")}
         if name.startswith("flash"):
             kernels[-1]["ref_shapes"] = [
                 {k: main_shapes[(f"{name}_ref{dh}", "bfloat16")][k]

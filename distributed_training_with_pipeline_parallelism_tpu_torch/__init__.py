@@ -41,6 +41,14 @@ package's. Ported so far:
   the hand-offs as sends and receives, ``comm_overlap="ring"``, the
   data-parallel all-reduce and ZeRO-1 (``init_sharded_opt_state``),
   through ``make_train_step``, ``fit`` and ``train.py --backend``;
+- FSDP (ZeRO-3) on the world's data axis (``parallel.fsdp``:
+  ``fsdp_shard_params``, ``make_fsdp_grad_fn``; the blocks' matrices
+  gathered just in time and their gradients reduce-scattered per unit)
+  and sequence parallelism on a seq axis (``MeshConfig(n_seq=)``;
+  ``parallel.ring_attention``, ``parallel.ulysses``,
+  ``parallel.seq_parallel``), both inside the pipeline, through ``fit``
+  and ``train.py --fsdp`` / ``--sp N --sp-attn {ring,ulysses}``; the
+  world's axes are data x pipe x model x seq, as the JAX mesh's;
 - Megatron tensor parallelism on the world's model axis
   (``MeshConfig(n_model=T)``, ``parallel.tensor_parallel``:
   ``shard_model``, ``gather_model``, ``make_tp_grad_fn``;
@@ -71,6 +79,8 @@ from .models.generate import generate
 from .models.gpt2 import gpt2_config
 from .models.llama import llama_config
 from .models.transformer import init_params
+from .parallel.fsdp import (fsdp_shard_params, make_fsdp_grad_fn,
+                            shard_params_fsdp)
 from .parallel.mesh import init_multihost, launch, make_mesh
 from .parallel.pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
                                 owned_layers)
@@ -82,12 +92,16 @@ from .serving import (Request, ServingEngine, make_serving_step_fn,
 from .utils.config import MeshConfig, ModelConfig, RunConfig, ScheduleConfig
 from .utils.metrics import run_train_iterations
 from .utils.sweep import run_one_experiment, sweep_rows
-from .utils.train import adamw, fit, init_sharded_opt_state, make_train_step
+from .parallel.seq_parallel import make_sp_loss_fn
+from .utils.train import (adamw, fit, init_sharded_opt_state, make_train_step,
+                          sgd)
 from .utils.weights import from_jax_params
 
 __all__ = ["ModelConfig", "ScheduleConfig", "RunConfig", "MeshConfig",
            "make_mesh", "launch", "init_multihost", "owned_layers",
            "init_sharded_opt_state", "shard_model", "gather_model",
+           "fsdp_shard_params", "shard_params_fsdp", "make_fsdp_grad_fn",
+           "make_sp_loss_fn", "sgd",
            "gpt2_config",
            "llama_config", "generate", "make_pipeline_generate_fn",
            "init_params", "from_jax_params", "compile_schedule",

@@ -1,5 +1,7 @@
-"""Megatron tensor parallelism's collectives over a world's model group
-(the counterpart of the JAX package's ``ops/collectives.py``).
+"""The collectives of a world's model, seq and data groups with their
+autograd transposes (the counterpart of the JAX package's
+``ops/collectives.py``, and of the transposes ``shard_map`` gives
+``ppermute``, ``all_to_all``, ``psum`` and ``all_gather``).
 
 A rank's ``mesh`` (``parallel.mesh.Mesh`` with ``n_model`` above 1) holds
 one shard of each Megatron-split leaf; the ranks of one (data, pipe)
@@ -26,16 +28,37 @@ hop posted before the chunk matmul it overlaps, on the model group under
 its own tag, so no hop can match a pipe hand-off pending beside it. Their
 backwards are the conjugate rings (a gather's is a reduce-scatter and the
 reverse), written out in each ``Function``'s ``backward``.
+
+Sequence parallelism's (``parallel.seq_parallel``), over the seq group:
+
+- :func:`seq_shift`: one hop of the seq ring forward (``Mesh.seq_shift``,
+  to the next seq rank), the hop back backward (the transpose of JAX's
+  ``ppermute``: the cotangent goes to the rank the value came from);
+- :func:`seq_all_to_all`: the tiled all-to-all that scatters one dim and
+  gathers another (Ulysses' head scatter); its backward is the inverse
+  exchange, the dims swapped (JAX ``all_to_all``'s transpose);
+- :func:`seq_sum`: the sum over the seq group forward, the identity
+  backward (the loss's ``psum``: each rank's cotangent reaches its own
+  share, and the replicated parameters' gradients are summed later).
+
+FSDP's (``parallel.fsdp``), over the data group: :func:`fsdp_gather`
+all-gathers a list of shards, each along its own dim, in one message,
+and reduce-scatters their gradients back in one message (JAX
+``all_gather``'s transpose, ``psum_scatter``). Its spans are
+``fsdp_gather`` and ``fsdp_reduce_scatter``; the seq ring's hops are
+``sp_shift`` and the all-to-alls ``sp_all_to_all``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import DATA_AXIS as DATA
 from ..parallel.mesh import MODEL_AXIS as MODEL
+from ..parallel.mesh import SEQ_AXIS as SEQ
 
 
 def tp_active(mesh) -> bool:
@@ -344,3 +367,158 @@ def reduce_scatter_seq(y: torch.Tensor, mesh) -> torch.Tensor:
     """One reduce-scatter over the model group along the sequence (dim
     1); all-gather backward."""
     return _ReduceScatterSeqFn.apply(y, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism: the seq ring, the all-to-all and the loss sum
+# ---------------------------------------------------------------------------
+
+
+def _shift(x: torch.Tensor, mesh, offset: int) -> torch.Tensor:
+    with torch.profiler.record_function("sp_shift"):
+        return mesh.seq_shift(x.detach().contiguous(), offset)
+
+
+class _SeqShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, offset):
+        ctx.mesh, ctx.offset = mesh, offset
+        return _shift(x, mesh, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.mesh, -ctx.offset), None, None
+
+
+def seq_shift(x: torch.Tensor, mesh, offset: int = 1) -> torch.Tensor:
+    """``x`` to seq coordinate ``seq + offset``, and what ``seq - offset``
+    sent, returned (the JAX ``ppermute`` of ring attention); backward the
+    hop back."""
+    return _SeqShift.apply(x, mesh, offset)
+
+
+def _all_to_all(x: torch.Tensor, mesh, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    """Block j of ``x`` along ``split_dim`` to seq rank j; the blocks
+    received, in seq order, concatenated along ``concat_dim``."""
+    parts = torch.stack(x.detach().chunk(mesh.n_seq, dim=split_dim))
+    out = torch.empty_like(parts)
+    with torch.profiler.record_function("sp_all_to_all"):
+        mesh.all_to_all(out, parts, SEQ)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _SeqAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, split_dim, concat_dim):
+        ctx.mesh, ctx.dims = mesh, (split_dim, concat_dim)
+        return _all_to_all(x, mesh, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, ctx.mesh, concat_dim, split_dim), None, None, \
+            None
+
+
+def seq_all_to_all(x: torch.Tensor, mesh, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all over the seq group (the JAX ``all_to_all(...,
+    tiled=True)``): ``x``'s ``split_dim`` is cut into ``n_seq`` blocks,
+    block j goes to seq rank j, and the blocks this rank receives are
+    concatenated along ``concat_dim`` in seq order. Its backward is the
+    inverse exchange."""
+    return _SeqAllToAll.apply(x, mesh, split_dim, concat_dim)
+
+
+class _SeqSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        out = x.detach().clone()
+        mesh.all_reduce([out], SEQ)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def seq_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the seq group forward, the identity backward
+    (the JAX loss ``psum`` under ``shard_map``)."""
+    return _SeqSum.apply(x, mesh)
+
+
+# ---------------------------------------------------------------------------
+# FSDP: the just-in-time gather and its reduce-scatter
+# ---------------------------------------------------------------------------
+
+
+def _blocks(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """[n, numel / n]: ``t``'s n blocks along ``dim``, each flattened."""
+    return torch.stack(t.chunk(n, dim=dim)).reshape(n, -1)
+
+
+def _gather(shards: Sequence[torch.Tensor], dims: Sequence[int],
+            mesh) -> List[torch.Tensor]:
+    n = mesh.n_data
+    flat = torch.cat([s.detach().reshape(-1) for s in shards])
+    out = torch.empty((n, flat.numel()), dtype=flat.dtype, device=flat.device)
+    with torch.profiler.record_function("fsdp_gather"):
+        mesh.all_gather(out.view(-1), flat, DATA)
+    fulls, offset = [], 0
+    for s, dim in zip(shards, dims):
+        k = s.numel()
+        parts = out[:, offset:offset + k].reshape((n,) + tuple(s.shape))
+        fulls.append(torch.cat(parts.unbind(0), dim=dim))
+        offset += k
+    return fulls
+
+
+def _reduce_scatter(grads: Sequence[torch.Tensor], dims: Sequence[int],
+                    mesh) -> List[torch.Tensor]:
+    n = mesh.n_data
+    flat = torch.cat([_blocks(g, dim, n) for g, dim in zip(grads, dims)],
+                     dim=1)
+    out = torch.empty(flat.shape[1], dtype=flat.dtype, device=flat.device)
+    with torch.profiler.record_function("fsdp_reduce_scatter"):
+        mesh.reduce_scatter(out, flat.reshape(-1), DATA)
+    parts, offset = [], 0
+    for g in grads:
+        k = g.numel() // n
+        parts.append(out[offset:offset + k])
+        offset += k
+    return parts
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, dims, *shards):
+        ctx.mesh, ctx.dims = mesh, dims
+        ctx.shapes = [s.shape for s in shards]
+        ctx.like = shards[0].new_empty(())
+        return tuple(_gather(shards, dims, mesh))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.mesh.n_data
+        grads = [ctx.like.new_zeros([d * (n if i == dim else 1)
+                                     for i, d in enumerate(shape)])
+                 if g is None else g.contiguous()
+                 for g, shape, dim in zip(grads, ctx.shapes, ctx.dims)]
+        parts = _reduce_scatter(grads, ctx.dims, ctx.mesh)
+        return (None, None) + tuple(p.view(shape) for p, shape in
+                                    zip(parts, ctx.shapes))
+
+
+def fsdp_gather(shards: Sequence[torch.Tensor], dims: Sequence[int],
+                mesh) -> List[torch.Tensor]:
+    """The whole tensors of this data rank's ``shards`` (shard k of each
+    is data rank k's block along its ``dims`` entry), all-gathered over
+    the data group in one message (the JAX ``all_gather(..., tiled=True)``
+    of each leaf). Backward, the gradients of the whole tensors are summed
+    over the data group and each rank keeps its blocks, in one
+    reduce-scatter (the JAX ``psum_scatter``)."""
+    if not shards:
+        return []
+    return list(_FSDPGather.apply(mesh, tuple(dims), *shards))

@@ -100,15 +100,28 @@ def sharded_dropout_apply(x: torch.Tensor, rate: float,
     shard's mask is the unsharded mask restricted to its slice, and every
     shard advances the generator alike. At one shard it is
     :func:`dropout_apply`."""
-    if generator is None or rate == 0.0:
-        return x
     if n_shards == 1:
         return dropout_apply(x, rate, generator)
-    dim = shard_dim % x.ndim
+    return block_dropout(x, rate, generator,
+                         ((shard_dim % x.ndim, n_shards, index),))
+
+
+def block_dropout(x: torch.Tensor, rate: float,
+                  generator: Optional[torch.Generator], shards
+                  ) -> torch.Tensor:
+    """Inverted dropout on a block of a larger tensor: ``shards`` lists
+    ``(dim, n, index)``, x being block ``index`` of ``n`` along each
+    ``dim`` (a sequence chunk, and a tensor-parallel block of columns
+    too). The mask is drawn at the whole tensor's shape and this block
+    kept, so it is the unsharded mask's block."""
+    if generator is None or rate == 0.0:
+        return x
     full = list(x.shape)
-    full[dim] *= n_shards
+    for dim, n, _ in shards:
+        full[dim] *= n
     keep = torch.rand(full, generator=generator, device=x.device) >= rate
-    keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
+    for dim, n, index in shards:
+        keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 

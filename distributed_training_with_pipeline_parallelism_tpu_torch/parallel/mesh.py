@@ -1,5 +1,5 @@
-"""The world of processes: one per (data, pipe, model) coordinate (the
-counterpart of the JAX package's ``parallel/mesh.py``).
+"""The world of processes: one per (data, pipe, model, seq) coordinate
+(the counterpart of the JAX package's ``parallel/mesh.py``).
 
 The JAX mesh is one program over a ('data', 'pipe') grid of devices; the
 reference runs one process per pipeline stage and joins them with
@@ -7,10 +7,14 @@ reference runs one process per pipeline stage and joins them with
 The port does the latter: :func:`launch` spawns one process per
 coordinate, :func:`init_multihost` joins it to the process group and
 :func:`make_mesh` gives it a :class:`Mesh`, its place in the grid and the
-groups it reduces over. Ranks follow the JAX grid's row-major order with
-the model axis innermost, ``rank = (data * n_pipe + pipe) * n_model +
-model``. The model group (the ranks of one (data, pipe) coordinate) is
-where a stage's Megatron shards meet (``parallel.tensor_parallel``).
+groups it reduces over. Ranks follow the JAX grid's row-major order
+(``mesh.py:54-60``: data, pipe, model, seq, the seq axis innermost),
+``rank = ((data * n_pipe + pipe) * n_model + model) * n_seq + seq``. The
+model group (the ranks of one (data, pipe, seq) coordinate) is where a
+stage's Megatron shards meet (``parallel.tensor_parallel``); the seq
+group (one (data, pipe, model) coordinate) is where a stage's sequence
+shards meet (``parallel.seq_parallel``); the data group carries the
+FSDP gathers and reduce-scatters (``parallel.fsdp``).
 
 The backend is the caller's choice, never switched quietly:
 
@@ -55,6 +59,8 @@ DEFAULT_TIMEOUT_S = 600.0
 # the tag of a hop of the model-axis ring (ops.collectives): above every
 # hand-off channel's tag, and on the model group, never the world's
 RING_TAG = 1 << 10
+# the tag of a hop of the seq-axis ring (ring attention), on the seq group
+SEQ_TAG = 1 << 11
 
 
 class WorldError(RuntimeError):
@@ -109,44 +115,52 @@ def init_multihost(coordinator_address: str, num_processes: int,
 
 @dataclasses.dataclass
 class Mesh:
-    """This rank's place in the ('data', 'pipe', 'model') grid, its groups
-    and its device. Built by :func:`make_mesh`."""
+    """This rank's place in the ('data', 'pipe', 'model', 'seq') grid, its
+    groups and its device. Built by :func:`make_mesh`."""
 
     n_pipe: int
     n_data: int
     rank: int
     backend: str
     device: torch.device
-    pipe_group: Any = None  # the ranks of this (data, model) coordinate
-    data_group: Any = None  # the ranks at this (pipe, model) coordinate
+    pipe_group: Any = None  # the ranks of this (data, model, seq) coordinate
+    data_group: Any = None  # the ranks at this (pipe, model, seq) coordinate
     n_model: int = 1
-    model_group: Any = None  # the ranks at this (data, pipe) coordinate
+    model_group: Any = None  # the ranks at this (data, pipe, seq) coordinate
     hops: int = 0  # model-ring hops posted (:meth:`ring_post`)
+    n_seq: int = 1
+    seq_group: Any = None  # the ranks at this (data, pipe, model) coordinate
 
     @property
     def world(self) -> int:
-        return self.n_pipe * self.n_data * self.n_model
+        return self.n_pipe * self.n_data * self.n_model * self.n_seq
+
+    @property
+    def seq(self) -> int:
+        return self.rank % self.n_seq
 
     @property
     def model(self) -> int:
-        return self.rank % self.n_model
+        return (self.rank // self.n_seq) % self.n_model
 
     @property
     def pipe(self) -> int:
-        return (self.rank // self.n_model) % self.n_pipe
+        return (self.rank // (self.n_seq * self.n_model)) % self.n_pipe
 
     @property
     def data(self) -> int:
-        return self.rank // (self.n_model * self.n_pipe)
+        return self.rank // (self.n_seq * self.n_model * self.n_pipe)
 
     @property
     def shape(self) -> Dict[str, int]:
-        """The JAX ``mesh.shape``: axis name -> size (the model axis where
-        it is above 1, as a config fingerprint of a (data, pipe) world
-        stays what it was)."""
+        """The JAX ``mesh.shape``: axis name -> size (the model and seq
+        axes where they are above 1, as a config fingerprint of a (data,
+        pipe) world stays what it was)."""
         shape = {DATA_AXIS: self.n_data, PIPE_AXIS: self.n_pipe}
         if self.n_model > 1:
             shape[MODEL_AXIS] = self.n_model
+        if self.n_seq > 1:
+            shape[SEQ_AXIS] = self.n_seq
         return shape
 
     @property
@@ -161,8 +175,10 @@ class Mesh:
         tensors through pinned host buffers), ``"gloo"`` or ``"nccl"``."""
         return "gloo-staged" if self.staging else self.backend
 
-    def rank_of(self, data: int, pipe: int, model: int = 0) -> int:
-        return (data * self.n_pipe + pipe) * self.n_model + model
+    def rank_of(self, data: int, pipe: int, model: int = 0,
+                seq: int = 0) -> int:
+        return ((data * self.n_pipe + pipe) * self.n_model
+                + model) * self.n_seq + seq
 
     def describe(self) -> Dict[str, Any]:
         return {"backend": self.backend, "staging": self.staging,
@@ -170,20 +186,23 @@ class Mesh:
                 "world": self.world, "shape": self.shape,
                 "rank": self.rank, "coords": {DATA_AXIS: self.data,
                                               PIPE_AXIS: self.pipe,
-                                              MODEL_AXIS: self.model},
+                                              MODEL_AXIS: self.model,
+                                              SEQ_AXIS: self.seq},
                 "device": str(self.device)}
 
     # -- collectives -----------------------------------------------------
 
     def _group(self, axis: str):
-        """(process group, size) of ``axis``: "pipe", "data", "model" or
-        "world"."""
+        """(process group, size) of ``axis``: "pipe", "data", "model",
+        "seq" or "world"."""
         if axis == PIPE_AXIS:
             return self.pipe_group, self.n_pipe
         if axis == DATA_AXIS:
             return self.data_group, self.n_data
         if axis == MODEL_AXIS:
             return self.model_group, self.n_model
+        if axis == SEQ_AXIS:
+            return self.seq_group, self.n_seq
         if axis == "world":
             return None, self.world
         raise ValueError(f"unknown axis {axis!r}")
@@ -258,6 +277,23 @@ class Mesh:
         dist.all_gather_into_tensor(wire_out, wire_in, group=group)
         out.copy_(wire_out, non_blocking=self.staging)
 
+    def all_to_all(self, out: torch.Tensor, parts: torch.Tensor,
+                   axis: str = SEQ_AXIS) -> None:
+        """``out[j]`` <- block ``index`` of rank j's ``parts``, where
+        ``index`` is this rank's coordinate on ``axis``: ``parts`` and
+        ``out`` are ``[size, ...]``, block j of ``parts`` going to the
+        axis's rank j (gloo moves CPU tensors only, so a CUDA tensor is
+        staged like the other collectives)."""
+        group, size = self._group(axis)
+        if size == 1:
+            out.copy_(parts)
+            return
+        wire_in = self._to_wire(parts)
+        wire_out = self._wire_buffer(out.shape, out.dtype)
+        self._sync_for_wire()
+        dist.all_to_all_single(wire_out, wire_in, group=group)
+        out.copy_(wire_out, non_blocking=self.staging)
+
     def all_gather_object(self, obj, axis: str = "world") -> list:
         group, size = self._group(axis)
         out = [None] * size
@@ -288,21 +324,20 @@ class Mesh:
         Returns ``(send_works, [(work, buffer), ...])``: wait a receive's
         work before reading its buffer (:meth:`landed`), and keep the send
         works until they complete."""
+        def at(peer):
+            return self.rank_of(self.data, peer, self.model, self.seq)
+
         ops, wires = [], []
         for t, peer, tag in sends:
             wire = self._to_wire(t)
             wires.append(wire)
-            ops.append(dist.P2POp(dist.isend, wire,
-                                  self.rank_of(self.data, peer, self.model),
-                                  tag=tag))
+            ops.append(dist.P2POp(dist.isend, wire, at(peer), tag=tag))
         self._sync_for_wire()
         bufs = []
         for shape, dtype, peer, tag in recvs:
             buf = self._wire_buffer(shape, dtype)
             bufs.append(buf)
-            ops.append(dist.P2POp(dist.irecv, buf,
-                                  self.rank_of(self.data, peer, self.model),
-                                  tag=tag))
+            ops.append(dist.P2POp(dist.irecv, buf, at(peer), tag=tag))
         works = dist.batch_isend_irecv(ops) if ops else []
         n = len(sends)
         return (list(zip(works[:n], wires)),
@@ -323,14 +358,16 @@ class Mesh:
         the world group). Counts the hop; :meth:`ring_wait` returns what
         arrived."""
         T, m = self.n_model, self.model
+
+        def at(j):
+            return self.rank_of(self.data, self.pipe, j % T, self.seq)
+
         wire = self._to_wire(x)
         self._sync_for_wire()
         buf = self._wire_buffer(x.shape, x.dtype)
-        ops = [dist.P2POp(dist.isend, wire,
-                          self.rank_of(self.data, self.pipe, (m + offset) % T),
+        ops = [dist.P2POp(dist.isend, wire, at(m + offset),
                           group=self.model_group, tag=RING_TAG),
-               dist.P2POp(dist.irecv, buf,
-                          self.rank_of(self.data, self.pipe, (m - offset) % T),
+               dist.P2POp(dist.irecv, buf, at(m - offset),
                           group=self.model_group, tag=RING_TAG)]
         self.hops += 1
         return dist.batch_isend_irecv(ops), wire, buf
@@ -343,21 +380,45 @@ class Mesh:
             return buf.to(self.device, non_blocking=True)
         return buf
 
+    def seq_shift(self, x: torch.Tensor, offset: int) -> torch.Tensor:
+        """One hop of the seq-axis ring (the JAX ``ppermute`` of ring
+        attention): ``x`` to seq coordinate ``(seq + offset) % n_seq``,
+        and what seq coordinate ``(seq - offset) % n_seq`` sent, returned,
+        on the seq group under :data:`SEQ_TAG` (no pipe hand-off or
+        model-ring hop can match it). Every rank of a seq group posts its
+        hops in one order, so the pairs meet."""
+        D, s = self.n_seq, self.seq
+
+        def at(j):
+            return self.rank_of(self.data, self.pipe, self.model, j % D)
+
+        wire = self._to_wire(x)
+        self._sync_for_wire()
+        buf = self._wire_buffer(x.shape, x.dtype)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, wire, at(s + offset),
+                       group=self.seq_group, tag=SEQ_TAG),
+            dist.P2POp(dist.irecv, buf, at(s - offset),
+                       group=self.seq_group, tag=SEQ_TAG)])
+        for w in works:
+            w.wait()
+        if self.staging:
+            return buf.to(self.device, non_blocking=True)
+        return buf
+
 
 def make_mesh(n_pipe: int, n_data: int = 1, n_model: int = 1,
               n_seq: int = 1, n_expert: int = 1, *, backend: str,
               device) -> Mesh:
     """This rank's :class:`Mesh` over the joined world
     (:func:`init_multihost` first): the world must hold ``n_pipe * n_data
-    * n_model`` ranks. Every rank calls it with the same shape, in the
-    same order (it creates the pipe, data and model groups, a
-    collective). ``n_seq`` and ``n_expert`` above 1 raise
-    ``NotImplementedError``."""
-    for name, n in (("n_seq", n_seq), ("n_expert", n_expert)):
-        if n > 1:
-            raise NotImplementedError(
-                f"{name}={n}: sequence and expert axes are not ported "
-                f"yet: ROADMAP.md Queue 1, item 11")
+    * n_model * n_seq`` ranks. Every rank calls it with the same shape, in
+    the same order (it creates the pipe, data, model and seq groups, a
+    collective). ``n_expert`` above 1 raises ``NotImplementedError``."""
+    if n_expert > 1:
+        raise NotImplementedError(
+            f"n_expert={n_expert}: the expert axis is not ported yet: "
+            f"ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)")
     _check_backend(backend)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a joined world: call "
@@ -366,32 +427,46 @@ def make_mesh(n_pipe: int, n_data: int = 1, n_model: int = 1,
         raise ValueError(f"backend={backend!r}, but the world was joined "
                          f"with {dist.get_backend()!r}")
     world = dist.get_world_size()
-    need = n_pipe * n_data * n_model
+    need = n_pipe * n_data * n_model * n_seq
     if world != need:
         raise ValueError(f"a ({n_data} data x {n_pipe} pipe x {n_model} "
-                         f"model) mesh needs {need} ranks, the world has "
-                         f"{world}")
+                         f"model x {n_seq} seq) mesh needs {need} ranks, "
+                         f"the world has {world}")
     rank = dist.get_rank()
     mesh = Mesh(n_pipe, n_data, rank, backend,
-                rank_device(device, backend, rank, world), n_model=n_model)
+                rank_device(device, backend, rank, world), n_model=n_model,
+                n_seq=n_seq)
     at = mesh.rank_of
+    me = (mesh.data, mesh.pipe, mesh.model, mesh.seq)
     # every rank creates every group, in order
     for k in range(n_data):
         for j in range(n_model):
-            g = dist.new_group([at(k, p, j) for p in range(n_pipe)])
-            if (k, j) == (mesh.data, mesh.model):
-                mesh.pipe_group = g
+            for s in range(n_seq):
+                g = dist.new_group([at(k, p, j, s) for p in range(n_pipe)])
+                if (k, j, s) == (me[0], me[2], me[3]):
+                    mesh.pipe_group = g
     for p in range(n_pipe):
         for j in range(n_model):
-            g = dist.new_group([at(k, p, j) for k in range(n_data)])
-            if (p, j) == (mesh.pipe, mesh.model):
-                mesh.data_group = g
+            for s in range(n_seq):
+                g = dist.new_group([at(k, p, j, s) for k in range(n_data)])
+                if (p, j, s) == me[1:]:
+                    mesh.data_group = g
     if n_model > 1:
         for k in range(n_data):
             for p in range(n_pipe):
-                g = dist.new_group([at(k, p, j) for j in range(n_model)])
-                if (k, p) == (mesh.data, mesh.pipe):
-                    mesh.model_group = g
+                for s in range(n_seq):
+                    g = dist.new_group([at(k, p, j, s)
+                                        for j in range(n_model)])
+                    if (k, p, s) == (me[0], me[1], me[3]):
+                        mesh.model_group = g
+    if n_seq > 1:
+        for k in range(n_data):
+            for p in range(n_pipe):
+                for j in range(n_model):
+                    g = dist.new_group([at(k, p, j, s)
+                                        for s in range(n_seq)])
+                    if (k, p, j) == me[:3]:
+                        mesh.seq_group = g
     if mesh.device.type == "cuda":
         torch.cuda.set_device(mesh.device)
     return mesh
@@ -428,7 +503,7 @@ def _child(rank, mesh_cfg, store, backend, device, timeout_s, call,
         init_multihost(f"file://{store}", world, rank, backend=backend,
                        timeout_s=timeout_s)
         mesh = make_mesh(mesh_cfg.n_pipe, mesh_cfg.n_data, mesh_cfg.n_model,
-                         backend=backend, device=device)
+                         mesh_cfg.n_seq, backend=backend, device=device)
         value = fn(mesh, *args)
         mesh.barrier()  # no rank leaves while another still talks to it
         results.put((rank, True, value))

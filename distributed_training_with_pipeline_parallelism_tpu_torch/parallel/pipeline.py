@@ -37,6 +37,14 @@ on it: the blocks complete over the model group mid-unit
 (``ops.collectives``), and the hand-offs go to the rank of the same model
 coordinate in the next pipe stage. ``tp_vocab_parallel`` splits the last
 stage's cross entropy over the vocab (the JAX ``_stage_ce_impl``).
+
+With ``fsdp=True`` (pp x fsdp, ZeRO-3 inside the pipeline) each rank's
+blocks hold their data coordinate's shards (``parallel.fsdp``), each unit
+gathers its chunk's layers over the data group just in time and its
+backward reduce-scatters their gradients, so they rest at 1/n_data. With
+a seq axis (``mesh.n_seq`` above 1) each rank holds its chunk of every
+sequence and the stages run ``parallel.seq_parallel``'s blocks; the
+hand-offs carry the chunks.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ from ..models.transformer import (Transformer, body_apply, embed_apply,
 from ..ops.layers import fold_seed, global_pad_scale
 from ..utils.config import (ModelConfig, ScheduleConfig, resolve_device,
                             torch_dtype)
-from .mesh import DATA_AXIS, PIPE_AXIS, Mesh
+from .mesh import DATA_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh
 from .schedules import (BANK_BEFORE_B, BANK_BEFORE_F, BANK_BEFORE_W,
                         BANK_END, CHANNELS, COL_BWD_ASLOT, COL_BWD_GSLOT,
                         COL_BWD_LOCAL_SLOT, COL_BWD_M, COL_BWD_V,
@@ -65,8 +73,8 @@ from .schedules import (BANK_BEFORE_B, BANK_BEFORE_F, BANK_BEFORE_W,
                         overlap_bank_stages, placement_stage_of,
                         schedule_placement, schedule_ticks)
 
-# mesh axes of the JAX executor: the data and model axes run as a
-# torch.distributed world (``mesh=``), the others are not ported yet
+# mesh axes of the JAX executor: the data, model and seq axes run as a
+# torch.distributed world (``mesh=``), the expert axis is not ported yet
 _AXIS_ITEMS = {
     "data": "a 'data' axis runs over a torch.distributed world (ROADMAP.md "
             "Queue 1, item 8): pass mesh=make_mesh(n_pipe, n_data) on each "
@@ -76,8 +84,12 @@ _AXIS_ITEMS = {
              "mesh=make_mesh(n_pipe, n_data, n_model) on each rank of a "
              "parallel.mesh.launch world, with the rank's "
              "parallel.tensor_parallel.shard_model",
-    "seq": "ROADMAP.md Queue 1, item 11 (sequence parallelism)",
-    "expert": "ROADMAP.md Queue 1, item 11 (expert parallelism)",
+    "seq": "a 'seq' axis (sequence parallelism) runs over a "
+           "torch.distributed world: pass mesh=make_mesh(n_pipe, n_data, "
+           "n_model, n_seq) on each rank of a parallel.mesh.launch world, "
+           "with the rank's chunk of each batch (utils.data."
+           "batch_sharding)",
+    "expert": "ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)",
 }
 COMM_OVERLAP = ("none", "ring", "auto")
 
@@ -289,6 +301,84 @@ def _check_shard(model: nn.Module, tp: Optional[Mesh],
             f"vocab_parallel={tp_vocab_parallel}) (holds {shard})")
 
 
+def _check_fsdp(model: nn.Module, fsdp: bool, mesh: Optional[Mesh]) -> None:
+    from .fsdp import fsdp_shard_of
+    shard = fsdp_shard_of(model)
+    if not fsdp:
+        if shard is not None:
+            raise ValueError("the model holds FSDP shards: pass fsdp=True")
+        return
+    if shard is None or (shard.n, shard.index) != (mesh.n_data, mesh.data):
+        raise ValueError(
+            f"under fsdp=True the model must be this rank's shard: "
+            f"parallel.fsdp.fsdp_shard_params(model, cfg, mesh) (holds "
+            f"{shard and (shard.n, shard.index)})")
+
+
+def _check_fsdp_args(fsdp: bool, mesh: Optional[Mesh],
+                     remat_backward) -> None:
+    """The JAX ``make_pipeline_grad_fn``'s fsdp refusals."""
+    if fsdp and (mesh is None or mesh.n_data <= 1):
+        raise ValueError("fsdp=True needs a 'data' mesh axis to shard "
+                         "parameters over")
+    if fsdp and remat_backward is False:
+        raise ValueError(
+            "remat_backward=False is incompatible with fsdp=True: the "
+            "stage body's residuals would pin each tick's just-in-time "
+            "all-gathered full weights per in-flight microbatch, "
+            "voiding the ZeRO-3 residency bound")
+
+
+def _layers_runner(cfg: ModelConfig, mesh: Optional[Mesh], tp, fsdp: bool,
+                   sp_attn_impl: str):
+    """``run(layers, dims, x, rng, offset)``: the blocks ``layers`` (a
+    ``ModuleList``) over x, the dense body or, on a seq axis, the
+    sequence-split one; under FSDP inside ``gathered_call`` (``dims``: the
+    list's own parameter names -> data dim)."""
+    from .fsdp import gathered_call
+    from .seq_parallel import sp_body_apply
+    sp = mesh if mesh is not None and mesh.n_seq > 1 else None
+
+    def body(layers, x, rng, offset):
+        if sp is not None:
+            return sp_body_apply(cfg, layers, x, sp, sp_attn_impl, rng,
+                                 offset, tp)
+        return body_apply(cfg, layers, x, rng, offset, tp)
+
+    def run(layers, dims, x, rng, offset):
+        if not fsdp:
+            return body(layers, x, rng, offset)
+        return gathered_call(layers, dims, mesh, body, x, rng, offset)
+
+    return run
+
+
+def _embedder(cfg: ModelConfig, mesh: Optional[Mesh]):
+    """``embed(model, tokens, rng)``: the dense embedding, or on a seq
+    axis the chunk's (``seq_parallel.sp_embed_apply``)."""
+    if mesh is None or mesh.n_seq == 1:
+        return lambda model, toks, rng=None: embed_apply(cfg, model, toks,
+                                                         rng=rng)
+    from .seq_parallel import sp_embed_apply
+    return lambda model, toks, rng=None: sp_embed_apply(cfg, model, toks,
+                                                        mesh, rng)
+
+
+def _chunk_dims(model: nn.Module, layers: nn.ModuleList, first: int
+                ) -> Dict[str, Optional[int]]:
+    """The FSDP dims of a chunk of ``model``'s blocks whose first is
+    global layer ``first``, by the chunk's own parameter names."""
+    from .fsdp import fsdp_shard_of
+    shard = fsdp_shard_of(model)
+    if shard is None:
+        return {}
+    out = {}
+    for name, _ in layers.named_parameters():
+        j, rest = name.split(".", 1)
+        out[name] = shard.dims.get(f"layers.{first + int(j)}.{rest}")
+    return out
+
+
 def _replicated(model: nn.Module) -> List[nn.Parameter]:
     """The parameters every pipe rank holds: the embedding, the final norm
     and the head (everything outside ``layers``)."""
@@ -317,13 +407,15 @@ def mesh_device(device, mesh: Optional[Mesh], n_stages: int
 
 def _pad_scale(cfg: ModelConfig, targets, M: int, mesh: Optional[Mesh]):
     """``global_pad_scale`` over the whole global batch: the valid count
-    sums over the data axis (the JAX ``data_axis`` psum)."""
+    sums over the data axis (the JAX ``data_axis`` psum) and the seq axis
+    (its ``shard_axes``), whose shares the epilogue sums unscaled."""
     if cfg.pad_token_id is None:
         return None
-    if mesh is None or mesh.n_data == 1:
+    if mesh is None or mesh.n_data * mesh.n_seq == 1:
         return global_pad_scale(targets, cfg.pad_token_id, M)
     n_valid = (targets != cfg.pad_token_id).sum().float()
-    mesh.all_reduce([n_valid], DATA_AXIS)
+    for axis in (DATA_AXIS, SEQ_AXIS):
+        mesh.all_reduce([n_valid], axis)
     return M * mesh.n_data / n_valid.clamp_min(1.0)
 
 
@@ -333,7 +425,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           mesh: Optional[Mesh] = None,
                           comm_overlap: str = "none",
                           tp_vocab_parallel: bool = False,
-                          telemetry=None, dynamics=None
+                          telemetry=None, dynamics=None,
+                          sp_attn_impl: str = "ring", fsdp: bool = False
                           ) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: one pipelined forward and
     backward over ``n_stages`` (D) devices under ``sched``, with the
@@ -419,10 +512,35 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     divides by it. Heads, kv heads and ``ffn_dim`` must divide by
     ``n_model``.
 
-    ``axes``: a ``"data"`` or ``"model"`` entry above 1 raises
-    ``NotImplementedError`` pointing at ``mesh``; ``"seq"`` and
-    ``"expert"`` above 1 raise it naming the ``ROADMAP.md`` item that
-    ports them.
+    ``fsdp=True`` (pp x fsdp, ZeRO-3 in the pipeline; the JAX ``fsdp``)
+    needs a data axis; ``model`` is then the rank's
+    ``parallel.fsdp.fsdp_shard_params`` copy, whose blocks' matrices hold
+    their data coordinate's block (``parallel.fsdp.fsdp_shard_dims``;
+    under a model axis on another dim than the Megatron one). Each F, B
+    and W unit gathers its chunk's matrices over the data group just in
+    time (one all-gather a unit, span ``fsdp_gather``) and the unit's
+    backward reduce-scatters their gradients (one a unit, span
+    ``fsdp_reduce_scatter``), so the gradients land in the shards'
+    ``.grad`` already summed over the data group. The epilogue scales
+    them by 1/n_data and averages only the replicated leaves over the data
+    group (the JAX ``:1695-1711``). It always rematerialises:
+    ``remat_backward=False`` raises ``ValueError``, as in JAX.
+
+    With a seq axis (``mesh.n_seq`` above 1, sequence parallelism)
+    ``tokens``/``targets`` are the rank's chunk [B_local, S/n_seq] of each
+    sequence (``utils.data.batch_sharding``); the first stage embeds the
+    chunk at its global positions and every stage runs the
+    sequence-split blocks of ``parallel.seq_parallel`` under
+    ``sp_attn_impl`` ("ring" or "ulysses"; Ulysses needs the rank's
+    heads to divide by ``n_seq``), so the hand-offs are [mb, S/n_seq,
+    dim]. The last stage takes its chunk's mean cross entropy over
+    ``n_seq`` (under ``pad_token_id`` the masked sum over the global
+    valid count); the epilogue sums the loss and every gradient over the
+    seq group after the data average.
+
+    ``axes``: a ``"data"``, ``"model"`` or ``"seq"`` entry above 1 raises
+    ``NotImplementedError`` pointing at ``mesh``; ``"expert"`` above 1
+    raises it naming the ``ROADMAP.md`` item that ports it.
 
     ``telemetry`` (a ``utils.telemetry.PipelineTelemetry``, default None)
     records a measured timeline: the table is attached with the
@@ -459,6 +577,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     device = mesh_device(device, mesh, n_stages)
     _check_axes(axes)
     tp = _tp_of(cfg, mesh, tp_vocab_parallel)
+    from .seq_parallel import sp_mesh_check
+    sp_mesh_check(cfg, mesh, sp_attn_impl, tp)
     if comm_overlap not in COMM_OVERLAP:
         raise ValueError(f"comm_overlap={comm_overlap!r}: choose one of "
                          f"{COMM_OVERLAP}")
@@ -477,11 +597,13 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             f"schedule {sched.name!r}: its W units re-derive parameter "
             f"grads from saved inputs by design (that recompute is what "
             f"fills the bubble ticks)")
+    _check_fsdp_args(fsdp, mesh, remat_backward)
     plain = D == 1 and remat_backward is None and not split
     remat = remat_backward is None or bool(remat_backward)
+    n_seq = 1 if mesh is None else mesh.n_seq
     if dynamics:
         _check_dynamics(cfg, tp, plain, remat_backward, split, placement,
-                        sched.name, D)
+                        sched.name, D, fsdp, n_seq)
     table = cs.table
     inv = 1.0 / M
     lps = cfg.n_layers // S
@@ -540,6 +662,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                 mesh.all_reduce([sq_mb], DATA_AXIS)
         return loss, sq_mb
 
+    run_layers = _layers_runner(cfg, mesh, tp, fsdp, sp_attn_impl)
+    embed_of = _embedder(cfg, mesh)
+
     def step(model: Transformer, tokens, targets, step_seed, reduce_data,
              units: Optional["_UnitGrads"]) -> torch.Tensor:
         """One step; ``units`` (dynamics) banks each backward and W
@@ -548,6 +673,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             raise ValueError(f"dropout={cfg.dropout} > 0: pass the step's "
                              f"seed as the fourth argument")
         _check_shard(model, tp, tp_vocab_parallel)
+        _check_fsdp(model, fsdp, mesh)
         seed = step_seed if use_dropout else None
         if seed is not None and mesh is not None and mesh.n_data > 1:
             seed = fold_seed(seed, mesh.data)
@@ -565,37 +691,43 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             return None if seed is None else fold_seed(seed, m)
 
         def embed(m):
-            return embed_apply(cfg, model, toks[m], rng=mb_rng(m))
+            return embed_of(model, toks[m], mb_rng(m))
 
         pad_scale = _pad_scale(cfg, targets, M, mesh)
 
         def head(y, tgt):
-            return head_loss(cfg, model, y, tgt, pad_scale, tp,
-                             tp_vocab_parallel)
+            ce = head_loss(cfg, model, y, tgt, pad_scale, tp,
+                           tp_vocab_parallel)
+            # a chunk's mean over the seq axis: the epilogue's seq sum
+            # makes the global mean (the pad scale holds its own count)
+            return ce / n_seq if n_seq > 1 and pad_scale is None else ce
 
         loss = torch.zeros((), dtype=torch.float32, device=device)
         if telemetry is not None:
             telemetry.emit(_tm.STEP_START, 0, device)
         if plain:
+            dims = _chunk_dims(model, model.layers, 0)
             with torch.enable_grad():
                 for m in range(M):
-                    y = body_apply(cfg, model.layers, embed(m), mb_rng(m),
-                                   tp=tp)
+                    y = run_layers(model.layers, dims, embed(m), mb_rng(m),
+                                   0)
                     ce = head(y, tgts[m])
                     (ce * inv).backward()
                     loss += ce.detach()
             if telemetry is None:
-                return _epilogue(model, loss * inv, mesh, reduce_data)
+                return _epilogue(model, loss * inv, mesh, reduce_data, fsdp)
             telemetry.emit(_tm.STEP_END, 0, device)
             return _stamped_epilogue(model, loss * inv, reduce_data)
 
         stages = stack_stage_layers(model.layers, D, V, placement)
+        dims = [[_chunk_dims(model, stages[d][v], stage_of(d, v) * lps)
+                 for v in range(V)] for d in range(D)]
 
         def stage_body(d, v, x, m):
             """Device d's chunk v on microbatch m; its first layer's global
             index keys the dropout streams."""
-            return body_apply(cfg, stages[d][v], x, mb_rng(m),
-                              stage_of(d, v) * lps, tp)
+            return run_layers(stages[d][v], dims[d][v], x, mb_rng(m),
+                              stage_of(d, v) * lps)
 
         act: List[List] = [[None] * cs.n_act_slots for _ in range(D)]
         grad: List[List] = [[None] * cs.n_grad_slots for _ in range(D)]
@@ -738,14 +870,14 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                 telemetry.emit(_tm.TICK, t, device)
         transport.finish()
         if telemetry is None:
-            return _epilogue(model, loss * inv, mesh, reduce_data)
+            return _epilogue(model, loss * inv, mesh, reduce_data, fsdp)
         telemetry.emit(_tm.STEP_END, 0, device)
         return _stamped_epilogue(model, loss * inv, reduce_data)
 
     def _stamped_epilogue(model, loss, reduce_data):
         """The epilogue, then a world's rank hands its stamps to global
         rank 0."""
-        loss = _epilogue(model, loss, mesh, reduce_data)
+        loss = _epilogue(model, loss, mesh, reduce_data, fsdp)
         if mesh is not None:
             telemetry.merge_world(mesh)
         return loss
@@ -754,11 +886,16 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
 
 
 def _check_dynamics(cfg: ModelConfig, tp, plain: bool, remat_backward,
-                    split: bool, placement: str, name: str, D: int) -> None:
+                    split: bool, placement: str, name: str, D: int,
+                    fsdp: bool = False, n_seq: int = 1) -> None:
     """``dynamics``' refusals, the JAX ``make_pipeline_grad_fn``'s."""
     blockers = []
+    if fsdp:
+        blockers.append("fsdp")
     if tp is not None:
         blockers.append("a 'model' mesh axis")
+    if n_seq > 1:
+        blockers.append("a 'seq' mesh axis")
     if cfg.tie_embeddings:
         # the tied table takes gradients on the first stage and the last,
         # so the per-stage squared norms no longer sum to |g_m|^2
@@ -821,12 +958,17 @@ class _UnitGrads:
 
 
 def _epilogue(model: nn.Module, loss: torch.Tensor, mesh: Optional[Mesh],
-              reduce_data: bool) -> torch.Tensor:
+              reduce_data: bool, fsdp: bool = False) -> torch.Tensor:
     """The reductions after the ticks (see :func:`make_pipeline_grad_fn`);
     ``loss`` is this rank's share, already scaled by 1/M. Without a mesh
-    it is the loss."""
+    it is the loss. Under FSDP the sharded leaves were summed over the
+    data group by their units' reduce-scatters, so they only take the
+    1/n_data (a second sum would multiply them by n_data); on a seq axis
+    every gradient and the loss are then summed over the seq group (each
+    chunk's share of the global mean)."""
     if mesh is None:
         return loss
+    from .fsdp import fsdp_names
     repl = _replicated(model)
     for p in repl:
         if p.grad is None:
@@ -834,11 +976,19 @@ def _epilogue(model: nn.Module, loss: torch.Tensor, mesh: Optional[Mesh],
     mesh.all_reduce([loss] + [p.grad for p in repl], PIPE_AXIS)
     if mesh.n_data > 1:
         nd = 1.0 / mesh.n_data
+        sharded = fsdp_names(model) if fsdp else set()
         red = [loss]
         if reduce_data:
-            red += [p.grad for p in model.parameters() if p.grad is not None]
+            red += [p.grad for n, p in model.named_parameters()
+                    if p.grad is not None and n not in sharded]
         torch._foreach_mul_(red, nd)
         mesh.all_reduce(red, DATA_AXIS)
+        if sharded:
+            torch._foreach_mul_([p.grad for n, p in model.named_parameters()
+                                 if p.grad is not None and n in sharded], nd)
+    if mesh.n_seq > 1:
+        mesh.all_reduce([loss] + [p.grad for p in model.parameters()
+                                  if p.grad is not None], SEQ_AXIS)
     return loss
 
 
@@ -886,7 +1036,8 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           n_stages: int, device="cuda",
                           axes: Optional[Dict[str, int]] = None,
                           mesh: Optional[Mesh] = None,
-                          tp_vocab_parallel: bool = False
+                          tp_vocab_parallel: bool = False,
+                          sp_attn_impl: str = "ring", fsdp: bool = False
                           ) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: the forward-only pipelined
     loss over ``n_stages`` (D) devices, the evaluation twin of
@@ -903,12 +1054,22 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
     batch. With ``mesh`` the rank runs its row over the same transport as
     the training step, on the +1 forward channel only, and the loss is
     summed over the pipe group and averaged over the data group, so every
-    rank returns the global batch's loss. ``axes``, a model axis and
-    ``tp_vocab_parallel`` are as in :func:`make_pipeline_grad_fn`.
+    rank returns the global batch's loss. ``axes``, a model axis,
+    ``tp_vocab_parallel``, a seq axis with ``sp_attn_impl`` and ``fsdp``
+    (each chunk's matrices gathered just in time, the JAX eval's
+    ``:2145-2152``) are as in :func:`make_pipeline_grad_fn`.
     """
     device = mesh_device(device, mesh, n_stages)
     _check_axes(axes)
     tp = _tp_of(cfg, mesh, tp_vocab_parallel)
+    from .seq_parallel import sp_mesh_check
+    sp_mesh_check(cfg, mesh, sp_attn_impl, tp)
+    if fsdp and (mesh is None or mesh.n_data <= 1):
+        raise ValueError("fsdp eval needs a 'data' mesh axis (matching "
+                         "the training-side pp x fsdp support)")
+    n_seq = 1 if mesh is None else mesh.n_seq
+    run_layers = _layers_runner(cfg, mesh, tp, fsdp, sp_attn_impl)
+    embed_of = _embedder(cfg, mesh)
     D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
     S = D * V
     if cfg.n_layers % S != 0:
@@ -929,6 +1090,7 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
     @torch.no_grad()
     def loss_fn(model: Transformer, tokens, targets) -> torch.Tensor:
         _check_shard(model, tp, tp_vocab_parallel)
+        _check_fsdp(model, fsdp, mesh)
         tokens = torch.as_tensor(tokens, device=device).long()
         targets = torch.as_tensor(targets, device=device).long()
         b, seq = tokens.shape
@@ -939,6 +1101,9 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
         tgts = targets.view(M, b // M, seq)
         pad_scale = _pad_scale(cfg, targets, M, mesh)
         stages = stack_stage_layers(model.layers, D, V)
+        dims = [[_chunk_dims(model, stages[d][v],
+                             placement_stage_of("wrap", d, v, D) * lps)
+                 for v in range(V)] for d in range(D)]
         act: List[List] = [[None] * n_slots for _ in range(D)]
         loss = torch.zeros((), dtype=torch.float32, device=device)
         transport.begin((b // M, seq, cfg.dim), torch_dtype(cfg.dtype))
@@ -951,13 +1116,14 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     continue
                 s = placement_stage_of("wrap", d, v, D)
                 if s == 0:
-                    x = embed_apply(cfg, model, toks[m])
+                    x = embed_of(model, toks[m])
                 else:
                     x, act[d][src] = act[d][src], None  # read once
-                y = body_apply(cfg, stages[d][v], x, None, s * lps, tp)
+                y = run_layers(stages[d][v], dims[d][v], x, None, s * lps)
                 if s == S - 1:
-                    loss += head_loss(cfg, model, y, tgts[m], pad_scale, tp,
-                                      tp_vocab_parallel)
+                    ce = head_loss(cfg, model, y, tgts[m], pad_scale, tp,
+                                   tp_vocab_parallel)
+                    loss += ce / n_seq if pad_scale is None else ce
                 else:
                     transport.send(t, d, 0, y)
             transport.end_tick(t)
@@ -968,6 +1134,7 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
             if mesh.n_data > 1:
                 loss = loss / mesh.n_data
                 mesh.all_reduce([loss], DATA_AXIS)
+            mesh.all_reduce([loss], SEQ_AXIS)
         return loss
 
     return loss_fn

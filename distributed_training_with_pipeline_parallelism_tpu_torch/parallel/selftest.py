@@ -16,13 +16,16 @@ JAX-layout pytree of numpy arrays per tie setting (``"trees"``:
 (``"cfgs"[case["cfg"]]``), its weights (``"trees"[case["tree"]]``) and
 its global batch (``"batches"[case["batch"]]``, a (tokens, targets)
 pair).
-Its mesh is (``"n_pipe"``, ``"n_data"``, ``"n_model"``, the last 1 by
-default); with a model axis each rank holds its Megatron shard
-(``tensor_parallel.shard_model``, the head split over the vocab with
-``"vocab_parallel"``), and a ``"grad"`` case also records the model-ring
-hops the step posted (``"hops"``) and, with ``"seed"``, runs dropout
-under that step seed. Each case is a dict with ``"name"``, ``"kind"`` and
-its fields:
+Its mesh is (``"n_pipe"``, ``"n_data"``, ``"n_model"``, ``"n_seq"``, the
+last two 1 by default); with a model axis each rank holds its Megatron
+shard (``tensor_parallel.shard_model``, the head split over the vocab
+with ``"vocab_parallel"``), with ``"fsdp"`` its data coordinate's FSDP
+shard of that (``fsdp.fsdp_shard_params``; the file then also holds each
+sharded leaf's dim, ``"fsdp/{name}"``), and on a seq axis its chunk of
+each sequence, under ``"sp_attn_impl"``; a ``"grad"`` case also records
+the model-ring hops the step posted (``"hops"``) and, with ``"seed"``,
+runs dropout under that step seed. Each case is a dict with ``"name"``,
+``"kind"`` and its fields:
 
 - ``"grad"``: one step of ``make_pipeline_grad_fn`` on a (``"n_data"`` x
   ``"n_pipe"``) mesh under ``"schedule"`` (``"n_virtual"``, ``"M"``,
@@ -46,12 +49,30 @@ its fields:
 - ``"fit"``: ``fit`` with the anomaly guard and a checkpoint a step
   (under ``{out}/{name}/``); rank ``"poison_rank"`` alone poisons its
   gradients at step ``"poison_step"``.
+- ``"fsdp_fit"``: ``"steps"`` steps of ``fit`` with ``sgd(0.1)``, without
+  and with ``fsdp`` (``replicated/``, ``fsdp/`` params), then the FSDP
+  run again with a checkpoint a step, killed in the save of step
+  ``"kill"`` and resumed to the end (``resumed/`` params); rank 0 also
+  writes the whole model that ``checkpoint.restore_world_model`` reads
+  from the last step dir (``whole/``).
+- ``"fsdp_grad_fn"``: ``fsdp.make_fsdp_grad_fn`` (``"n_pipe"`` 1) on the
+  rank's ``shard_params_fsdp`` copy of the whole model, with each
+  leaf's dim.
+- ``"sp_loss"``: ``seq_parallel.make_sp_loss_fn`` (``"n_pipe"`` 1) on
+  the whole model and the rank's chunks, its gradients summed over the
+  seq group.
+- ``"attn"``: ``ring_attention`` and ``ulysses_attention`` (``"impl"``)
+  on the rank's chunks of seeded q, k, v [``"b"``, ``"s"``, ``"h"``,
+  ``"dh"``] (k, v with ``"h_kv"`` heads, expanded before the ring) and a
+  seeded cotangent, ``"causal"``, ``"window"``, ``"rate"`` with
+  ``"seed"``: the output and dq, dk, dv of the chunk.
 
 Every rank runs every case in order, so the collectives pair.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import sys
 from typing import Dict
@@ -159,6 +180,73 @@ def _dynamics(cfg, sched, D, model, sq_mb, mesh) -> Dict[str, np.ndarray]:
     return {f"dyn/{k}": v.detach().cpu().numpy() for k, v in st.items()}
 
 
+def _attn_case(mesh: Mesh, case: dict) -> Dict[str, np.ndarray]:
+    """An ``"attn"`` case's chunk outputs (see the module doc)."""
+    from ..ops.attention import gqa_expand
+    from .ring_attention import ring_attention
+    from .ulysses import ulysses_attention
+    b, s, h, h_kv, dh = (case[k] for k in ("b", "s", "h", "h_kv", "dh"))
+    g = np.random.default_rng(case.get("data_seed", 0))
+    q, k, v, ct = (torch.from_numpy(g.standard_normal(shape).astype(
+        np.float32)) for shape in ((b, s, h, dh), (b, s, h_kv, dh),
+                                   (b, s, h_kv, dh), (b, s, h, dh)))
+    c = s // mesh.n_seq
+    lo = mesh.seq * c
+    q, k, v = (x[:, lo:lo + c].clone().requires_grad_() for x in (q, k, v))
+    if case["impl"] == "ring":
+        kk, vv = gqa_expand(k, v, h)
+        out = ring_attention(q, kk, vv, mesh, case["causal"],
+                             case.get("rate", 0.0), case.get("seed"),
+                             case.get("window"))
+    else:
+        out = ulysses_attention(q, k, v, mesh, case["causal"],
+                                case.get("rate", 0.0), case.get("seed"),
+                                case.get("window"))
+    out.backward(ct[:, lo:lo + c])
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(),
+            "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+
+
+def _fsdp_fit(mesh: Mesh, cfg, sched, view, case, shard, out: str):
+    """An ``"fsdp_fit"`` case (see the module doc)."""
+    from ..utils import train as ttrain
+    from ..utils.checkpoint import restore_world_model
+    from ..utils.data import synthetic_batches
+    from ..utils.resilience import FaultPlan, SimulatedKill
+
+    def run(model, steps, **kw):
+        data = synthetic_batches(cfg.vocab_size, case["B"], case["S"],
+                                 seed=1, sharding=shard)
+        trained, _ = ttrain.fit(cfg, sched, mesh.n_pipe, copy.deepcopy(model),
+                                data, steps,
+                                optimizer=ttrain.sgd(0.1), log_every=1,
+                                verbose=False, device=mesh.device, mesh=mesh,
+                                **kw)
+        return trained
+
+    res = {}
+    for label, kw in (("replicated", {}), ("fsdp", dict(fsdp=True))):
+        res.update({f"{label}/{k}": v for k, v in _params(run(
+            view, case["steps"], **kw)).items()})
+    ck = os.path.join(out, f"{case['name']}_ck")
+    try:
+        run(view, case["steps"], fsdp=True, checkpoint_dir=ck,
+            checkpoint_every=1,
+            fault_plan=FaultPlan(kill_in_save_step=case["kill"]))
+        raise RuntimeError("the planned kill did not come")
+    except SimulatedKill:
+        pass
+    res.update({f"resumed/{k}": v for k, v in _params(run(
+        view, case["steps"], fsdp=True, checkpoint_dir=ck,
+        checkpoint_every=1, resume=True)).items()})
+    mesh.barrier()
+    if mesh.rank == 0:
+        last = os.path.join(ck, f"step_{case['steps'] - 1}")
+        res.update({f"whole/{k}": v.numpy() for k, v in
+                    restore_world_model(last, cfg).items()})
+    return res
+
+
 def run_cases(world: Mesh, spec: dict) -> dict:
     """Run ``spec``'s cases on this rank (see the module doc); returns
     ``{"rank": r, "seconds": {case: s}, "modules": [top-level modules
@@ -170,6 +258,8 @@ def run_cases(world: Mesh, spec: dict) -> dict:
     from ..utils.resilience import FaultPlan
     from ..utils.telemetry import PipelineTelemetry
     from ..utils.weights import from_jax_params
+    from .fsdp import (fsdp_shard_of, fsdp_shard_params, make_fsdp_grad_fn,
+                       shard_params_fsdp)
     from .pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
                            owned_layers)
     from .tensor_parallel import TPShard, make_tp_grad_fn
@@ -179,7 +269,8 @@ def run_cases(world: Mesh, spec: dict) -> dict:
     meshes = {}
 
     def mesh_of(case):
-        shape = (case["n_pipe"], case["n_data"], case.get("n_model", 1))
+        shape = (case["n_pipe"], case["n_data"], case.get("n_model", 1),
+                 case.get("n_seq", 1))
         if shape not in meshes:
             meshes[shape] = make_mesh(*shape, backend=world.backend,
                                       device=device)
@@ -212,6 +303,10 @@ def run_cases(world: Mesh, spec: dict) -> dict:
         local = shard((tokens, targets))
         view = from_jax_params(cfg, tree, device=device, layers=own,
                                shard=tp)
+        fsdp = case.get("fsdp", False)
+        impl = case.get("sp_attn_impl", "ring")
+        if fsdp and kind != "fsdp_fit":
+            view = fsdp_shard_params(view, cfg, mesh)
         if kind == "grad":
             tel = PipelineTelemetry() if case.get("telemetry") else None
             dyn = case.get("dynamics", False)
@@ -219,10 +314,15 @@ def run_cases(world: Mesh, spec: dict) -> dict:
                                        mesh=mesh,
                                        comm_overlap=case["comm_overlap"],
                                        tp_vocab_parallel=vp, telemetry=tel,
-                                       dynamics=dyn)
+                                       dynamics=dyn, sp_attn_impl=impl,
+                                       fsdp=fsdp)
             hops = mesh.hops
             loss = fn(view, *local, *seed)
             extra = {"hops": np.asarray(mesh.hops - hops)}
+            if fsdp:
+                extra.update({f"fsdp/{n}": np.asarray(d) for n, d in
+                              fsdp_shard_of(view).dims.items()
+                              if d is not None})
             if dyn:
                 loss, sq_mb = loss
                 extra.update(_dynamics(cfg, sched, D, view, sq_mb, mesh))
@@ -250,7 +350,8 @@ def run_cases(world: Mesh, spec: dict) -> dict:
             _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, whole)
         elif kind == "eval":
             loss = make_pipeline_loss_fn(cfg, sched, D, device=device,
-                                         mesh=mesh)(view, *local)
+                                         mesh=mesh, sp_attn_impl=impl,
+                                         fsdp=fsdp)(view, *local)
             extra = {}
             if rank == 0:
                 whole = from_jax_params(cfg, tree, device=device)
@@ -294,6 +395,26 @@ def run_cases(world: Mesh, spec: dict) -> dict:
                 device=device, mesh=mesh)
             _npz(os.path.join(out, f"{name}_r{rank}.npz"), 0.0, extra={
                 "history": np.asarray(history, dtype=np.float64)})
+        elif kind == "fsdp_fit":
+            np.savez(os.path.join(out, f"{name}_r{rank}.npz"),
+                     **_fsdp_fit(mesh, cfg, sched, view, case, shard, out))
+        elif kind == "fsdp_grad_fn":
+            whole = shard_params_fsdp(
+                from_jax_params(cfg, tree, device=device), mesh)
+            loss = make_fsdp_grad_fn(cfg, mesh, device=device)(whole, *local)
+            _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, whole,
+                 extra={f"fsdp/{n}": np.asarray(d) for n, d in
+                        fsdp_shard_of(whole).dims.items() if d is not None})
+        elif kind == "sp_loss":
+            from .seq_parallel import make_sp_loss_fn
+            whole = from_jax_params(cfg, tree, device=device)
+            loss = make_sp_loss_fn(cfg, mesh, impl)(whole, *local)
+            loss.backward()
+            mesh.all_reduce([p.grad for p in whole.parameters()], "seq")
+            _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, whole)
+        elif kind == "attn":
+            np.savez(os.path.join(out, f"{name}_r{rank}.npz"),
+                     **_attn_case(mesh, case))
         else:
             raise ValueError(f"unknown case kind {kind!r}")
         seconds[name] = time.perf_counter() - t0

@@ -21,6 +21,14 @@ and the head are replicated, except the untied head under vocab-parallel
 cross entropy, which splits the vocab (dim 0 of ``out.weight``, and the
 reference arch's bias). Shards are contiguous blocks in model-coordinate
 order, as the JAX ``NamedSharding`` lays them out.
+
+The compositions JAX has: pp x fsdp x tp, where a matrix is split over
+the model axis on its Megatron dim and over the data axis on another
+(``parallel.fsdp.fsdp_shard_dims`` skips the Megatron dim; cut a rank's
+shard first, then its FSDP shard of that); and pp x tp x seq, where each
+model rank's heads cross its own seq group, under Ulysses only when the
+local head count divides by the seq-axis size
+(``parallel.seq_parallel``).
 """
 
 from __future__ import annotations

@@ -37,15 +37,28 @@ counterpart of ``scripts/train.py``: the same flags and defaults, through
         --seq 16 --batch 8 --steps 4 --pipe 2 --tp 2 --vocab-parallel \\
         --backend gloo --device cpu
 
+    # FSDP (ZeRO-3) on the data axis, and sequence parallelism (Ulysses)
+    # on a seq axis: pipe 2 x data 2, pipe 2 x seq 2
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --pipe 2 --data 2 --fsdp --backend gloo \\
+        --batch 8 --seq 1024 --steps 20 --flash on --fused-xent
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --pipe 2 --sp 2 --sp-attn ulysses \\
+        --backend gloo --batch 8 --seq 1024 --steps 20 --fused-xent
+
 Without ``--backend`` all D = ``--pipe`` stages run in one process on the
 one device, in lockstep over the schedule's tick table. ``--backend gloo``
-or ``nccl`` launches a world of ``--pipe`` x ``--data`` x ``--tp``
-processes (``parallel.mesh.launch``): each runs its pipe coordinate's row
-of the table on its view of the model (with ``--tp`` above 1, its model
-coordinate's Megatron shard of it) and its data replica's rows of each
-global batch (on CUDA, gloo stages every hand-off and collective through
-host memory; nccl needs a card per process). ``--data`` or ``--tp``
-above 1 needs a backend; ``--vocab-parallel`` needs ``--tp`` above 1.
+or ``nccl`` launches a world of ``--pipe`` x ``--data`` x ``--tp`` x
+``--sp`` processes (``parallel.mesh.launch``): each runs its pipe
+coordinate's row of the table on its view of the model (with ``--tp``
+above 1, its model coordinate's Megatron shard of it; with ``--fsdp``,
+its data coordinate's shards of the blocks' matrices) and its data
+replica's rows of each global batch (with ``--sp`` above 1, its seq
+coordinate's chunk of each sequence, attention by ``--sp-attn``; on
+CUDA, gloo stages every hand-off and collective through host memory;
+nccl needs a card per process). ``--data``, ``--tp`` or ``--sp`` above 1
+needs a backend; ``--vocab-parallel`` needs ``--tp`` above 1; ``--fsdp``
+needs ``--data`` above 1 and refuses ``--zero1``.
 ``--report-dir`` stamps every step's ticks (``utils.telemetry.
 PipelineTelemetry``) and writes ``events.jsonl``, ``report.json`` (the
 ``RunReport`` manifest of ``fit``) and ``trace.json`` (the newest step's
@@ -55,9 +68,8 @@ the per-stage gradient statistics, the gradient-noise scale and the
 loss-spike forensics (``utils.dynamics``, read at the log points with the
 loss; the bundles need ``--report-dir``); with ``--prefetch`` the batch
 digests are taken from the host arrays before their copy. Flags for parts
-of the JAX package not ported yet (``--sp``/``--ep`` above 1,
-``--fsdp``, ``--moe-experts``, ``--sp-attn ulysses``) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+of the JAX package not ported yet (``--ep`` above 1, ``--moe-experts``)
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -69,8 +81,8 @@ import numpy as np
 
 from .parallel.schedules import schedule_names
 
-_ITEM = {11: "ROADMAP.md Queue 1, item 11 (sequence and expert "
-             "parallelism, FSDP, MoE)"}
+_ITEM = {11: "ROADMAP.md Queue 1, item 11 (MoE with expert "
+             "parallelism)"}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -90,10 +102,17 @@ def parser() -> argparse.ArgumentParser:
                     help="tensor-parallel (model-axis) size: Megatron "
                          "shards of each stage, one process each (needs "
                          "--backend)")
-    ap.add_argument("--sp", type=int, default=1)
-    ap.add_argument("--sp-attn", default="ring", choices=["ring", "ulysses"])
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel (seq-axis) size: each process "
+                         "holds a chunk of every sequence (needs "
+                         "--backend)")
+    ap.add_argument("--sp-attn", default="ring", choices=["ring", "ulysses"],
+                    help="attention over the seq axis: the K/V ring or the "
+                         "head all-to-all")
     ap.add_argument("--zero1", action="store_true")
-    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="ZeRO-3: shard the blocks' matrices over the "
+                         "--data axis, gathered just in time")
     ap.add_argument("--vocab-parallel", action="store_true",
                     help="split the head and its cross entropy over the "
                          "vocab across the --tp model axis")
@@ -215,10 +234,7 @@ def parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for a flag of an unported part."""
-    unported = [("--sp > 1", args.sp > 1, 11),
-                ("--ep > 1", args.ep > 1, 11),
-                ("--sp-attn ulysses", args.sp_attn != "ring", 11),
-                ("--fsdp", args.fsdp, 11),
+    unported = [("--ep > 1", args.ep > 1, 11),
                 ("--moe-experts", args.moe_experts > 0, 11)]
     for flag, given, item in unported:
         if given:
@@ -282,16 +298,26 @@ def _load_weights(model, path: str, mesh=None) -> str:
     if not os.path.basename(os.path.normpath(path)).startswith("step_"):
         raise SystemExit(f"--resume {path}: not a checkpoint of this package "
                          f"(a --ckpt dir or one of its step_N dirs)")
+    from .parallel.fsdp import fsdp_shard_of
+    from .parallel.tensor_parallel import shard_tensor
+    fsdp = fsdp_shard_of(model)
     own = [] if mesh is None else [
         n for n in (world_state_file(mesh), world_state_file(mesh, True))
         if os.path.exists(os.path.join(path, n))]
-    if own:
-        saved = restore_checkpoint(path, own[0])["model"]
-    else:
+    saved = None
+    for name in own:  # this rank's own file, if it holds this layout
+        state = restore_checkpoint(path, name)
+        if bool(state.get("fsdp")) == (fsdp is not None):
+            saved = state["model"]
+            break
+    if saved is None:
         saved = restore_world_model(path, model.cfg)
         shard = model_shard_of(model)
         if shard is not None:
             saved = shard_state(saved, model.cfg, shard)
+        if fsdp is not None:
+            saved = {k: shard_tensor(v, fsdp.dims.get(k), fsdp.n,
+                                     fsdp.index) for k, v in saved.items()}
     model.load_state_dict({k: saved[k] for k in model.state_dict()})
     return path
 
@@ -306,10 +332,11 @@ def main(argv=None) -> int:
                         ("--preemption-safe", args.preemption_safe)):
         if given and not args.ckpt:
             ap.error(f"{flag} requires --ckpt")
-    for flag, n in (("--data", args.data), ("--tp", args.tp)):
+    for flag, n in (("--data", args.data), ("--tp", args.tp),
+                    ("--sp", args.sp)):
         if n > 1 and args.backend is None:
-            ap.error(f"{flag} > 1 runs one process per (data, pipe, model) "
-                     f"coordinate: pass --backend gloo or nccl")
+            ap.error(f"{flag} > 1 runs one process per (data, pipe, model, "
+                     f"seq) coordinate: pass --backend gloo or nccl")
     if args.vocab_parallel and args.tp <= 1:
         ap.error("--vocab-parallel requires --tp > 1")
     check_ported(args)
@@ -317,8 +344,8 @@ def main(argv=None) -> int:
         return run(args)
     from .parallel.mesh import launch
     from .utils.config import MeshConfig
-    launch(_rank_main, MeshConfig(args.pipe, args.data, args.tp), args,
-           backend=args.backend, device=args.device)
+    launch(_rank_main, MeshConfig(args.pipe, args.data, args.tp, args.sp),
+           args, backend=args.backend, device=args.device)
     return 0
 
 
@@ -350,11 +377,14 @@ def run(args, mesh=None) -> int:
                            n_virtual=args.virtual or (
                                2 if args.schedule == "ZBV" else 1))
     say(f"model={args.model} {cfg.dim}d x {cfg.n_layers}L x "
-        f"{cfg.n_heads}H, pipe={args.pipe} on {device}, {args.schedule} "
-        f"M={args.microbatches} V={sched.n_virtual}", flush=True)
+        f"{cfg.n_heads}H, mesh=(data={args.data}, pipe={args.pipe}, "
+        f"model={args.tp}, seq={args.sp}, expert={args.ep}) on {device}, "
+        f"{args.schedule} M={args.microbatches} V={sched.n_virtual}"
+        + (", fsdp" if args.fsdp else "")
+        + (f", sp-attn {args.sp_attn}" if args.sp > 1 else ""), flush=True)
     if mesh is not None:
         say(f"world: {args.data} data x {args.pipe} pipe x {args.tp} model "
-            f"ranks, {mesh.describe()}", flush=True)
+            f"x {args.sp} seq ranks, {mesh.describe()}", flush=True)
     optimizer = train.adamw(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, max_grad_norm=args.max_grad_norm,
@@ -367,6 +397,9 @@ def run(args, mesh=None) -> int:
         from .parallel.tensor_parallel import shard_model
         model = shard_model(model, cfg, mesh,
                             vocab_parallel=args.vocab_parallel)
+    if args.fsdp and mesh is not None and mesh.n_data > 1:
+        from .parallel.fsdp import fsdp_shard_params
+        model = fsdp_shard_params(model, cfg, mesh)
     if args.resume:
         say(f"loaded weights from {_load_weights(model, args.resume, mesh)}",
             flush=True)
@@ -429,8 +462,8 @@ def run(args, mesh=None) -> int:
                    if args.anomaly_guard else None),
             handle_preemption=args.preemption_safe,
             stall_timeout_s=args.stall_timeout or None, device=device,
-            zero1=args.zero1, mesh=mesh,
-            tp_vocab_parallel=args.vocab_parallel,
+            zero1=args.zero1, fsdp=args.fsdp, sp_attn_impl=args.sp_attn,
+            mesh=mesh, tp_vocab_parallel=args.vocab_parallel,
             report_dir=args.report_dir or None, telemetry=telemetry,
             dynamics=args.dynamics or None)
     finally:

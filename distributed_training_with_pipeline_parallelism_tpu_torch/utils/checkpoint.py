@@ -11,7 +11,8 @@ directory counts as *committed* once its ``_COMMITTED.json`` marker (the
 JAX file name and keys) has been renamed into place, strictly after the
 data file was flushed and ``fsync``ed; :mod:`.resilience` builds the
 manager, retention and fallback restore on these primitives. A world
-with a model axis writes one file per (pipe, model) coordinate;
+with a model axis writes one file per (pipe, model) coordinate, an FSDP
+world one per (pipe, data, model) coordinate with its shards' dims;
 :func:`restore_world_model` merges a world's files into the whole model.
 
 Async saves and in-place updates: JAX arrays are immutable, so a JAX save
@@ -199,21 +200,37 @@ def restore_world_model(path: str, cfg) -> Dict[str, torch.Tensor]:
     blocks, and its model ranks' Megatron shards concatenated by
     ``parallel.tensor_parallel.gather_model``, a vocab-split head
     recognised by its shape), so a world's checkpoint loads whole into
-    one process."""
+    one process. An FSDP world's files record their shards' dims
+    (``"fsdp"``): the data ranks' files of each (pipe, model) coordinate
+    are concatenated first (``parallel.fsdp.gather_fsdp``), as JAX saves
+    the global arrays."""
+    from ..parallel.fsdp import gather_fsdp
     from ..parallel.tensor_parallel import gather_model
     if os.path.exists(os.path.join(path, STATE_FILE)):
         return restore_checkpoint(path)["model"]
     files = {}
     for f in os.listdir(path):
         m = _WORLD_FILE.fullmatch(f)
-        if m and int(m.group(2) or 0) == 0:
-            files[(int(m.group(1)), int(m.group(3) or 0))] = f
+        if m:
+            files[(int(m.group(1)), int(m.group(2) or 0),
+                   int(m.group(3) or 0))] = f
     if not files:
         raise FileNotFoundError(f"{path}: no model state to restore")
+
+    def model_of(d, j):
+        state = restore_checkpoint(path, files[(d, 0, j)])
+        spec = state.get("fsdp")
+        if not spec:
+            return state["model"]
+        return gather_fsdp(
+            [state["model"]] + [restore_checkpoint(path, files[(d, k, j)])
+                                ["model"] for k in range(1, spec["n"])],
+            spec["dims"])
+
     out: Dict[str, torch.Tensor] = {}
-    for d in sorted({d for d, _ in files}):
-        shards = [restore_checkpoint(path, files[(d, j)])["model"]
-                  for j in sorted(j for dd, j in files if dd == d)]
+    for d in sorted({d for d, _, _ in files}):
+        shards = [model_of(d, j) for j in sorted(
+            {j for dd, k, j in files if dd == d and k == 0})]
         out_w = shards[0].get("out.weight")
         vocab = out_w is not None and out_w.shape[0] != cfg.vocab_size
         out.update(gather_model(shards, cfg, vocab))

@@ -186,18 +186,20 @@ def resolve_device(device="cuda") -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """The world's shape (the JAX ``MeshConfig``): one process per (data,
-    pipe, model) coordinate, axis order ('data', 'pipe', 'model'), ranks
-    row-major with the model axis innermost. ``n_model`` above 1 splits
-    each stage's blocks Megatron-style over the model group
-    (``parallel.tensor_parallel``)."""
+    pipe, model, seq) coordinate, axis order ('data', 'pipe', 'model',
+    'seq'), ranks row-major with the seq axis innermost. ``n_model`` above
+    1 splits each stage's blocks Megatron-style over the model group
+    (``parallel.tensor_parallel``); ``n_seq`` above 1 splits each
+    sequence over the seq group (``parallel.seq_parallel``)."""
 
     n_pipe: int = 2
     n_data: int = 1
     n_model: int = 1
+    n_seq: int = 1
 
     @property
     def n_devices(self) -> int:
-        return self.n_pipe * self.n_data * self.n_model
+        return self.n_pipe * self.n_data * self.n_model * self.n_seq
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,15 +35,20 @@ Batch = Tuple[torch.Tensor, torch.Tensor]  # (tokens, targets), both [B, S]
 
 
 class BatchSharding:
-    """One rank's share of a global ``[B, ...]`` batch: block ``index`` of
-    ``n`` contiguous blocks of dim 0 (the JAX ``P(DATA_AXIS)`` split). A
-    call maps a batch (a tuple of arrays or tensors) to the rank's
-    rows."""
+    """One rank's share of a global ``[B, S]`` batch: block ``index`` of
+    ``n`` contiguous blocks of dim 0 (the JAX ``P(DATA_AXIS)`` split), and
+    of those rows block ``seq_index`` of ``n_seq`` contiguous blocks of
+    dim 1, the sequence (the JAX ``P(DATA_AXIS, SEQ_AXIS)`` split). A call
+    maps a batch (a tuple of arrays or tensors) to the rank's part."""
 
-    def __init__(self, n: int, index: int):
+    def __init__(self, n: int, index: int, n_seq: int = 1,
+                 seq_index: int = 0):
         if not 0 <= index < n:
             raise ValueError(f"block {index} of {n}")
+        if not 0 <= seq_index < n_seq:
+            raise ValueError(f"sequence block {seq_index} of {n_seq}")
         self.n, self.index = n, index
+        self.n_seq, self.seq_index = n_seq, seq_index
 
     def rows(self, x):
         b = x.shape[0]
@@ -51,7 +56,15 @@ class BatchSharding:
             raise ValueError(f"batch {b} does not split into {self.n} "
                              f"data shards")
         k = b // self.n
-        return x[self.index * k:(self.index + 1) * k]
+        x = x[self.index * k:(self.index + 1) * k]
+        if self.n_seq == 1:
+            return x
+        s = x.shape[1]
+        if s % self.n_seq:
+            raise ValueError(f"sequence {s} does not split into "
+                             f"{self.n_seq} seq shards")
+        c = s // self.n_seq
+        return x[:, self.seq_index * c:(self.seq_index + 1) * c]
 
     def __call__(self, batch):
         return tuple(self.rows(x) for x in batch)
@@ -61,10 +74,14 @@ def batch_sharding(mesh, axis: str = "data") -> BatchSharding:
     """The rank's slice of global ``[B, S]`` batches over the mesh's data
     axis (a :class:`.mesh.Mesh`; the JAX ``batch_sharding``): contiguous
     blocks of dim 0 in data-coordinate order, the same for every pipe rank
-    of a data replica. The loaders and :func:`prefetch_to_device` take
-    it, so each rank draws the global batch stream and keeps its rows."""
+    of a data replica, and on a seq axis the rank's contiguous chunk of
+    each sequence in seq-coordinate order. The loaders and
+    :func:`prefetch_to_device` take it, so each rank draws the global
+    batch stream and keeps its part."""
     coords = {"data": mesh.data, "pipe": mesh.pipe}
-    return BatchSharding(mesh.shape[axis], coords[axis])
+    n_seq = getattr(mesh, "n_seq", 1)
+    return BatchSharding(mesh.shape[axis], coords[axis], n_seq,
+                         mesh.seq if n_seq > 1 else 0)
 
 
 def _sharded(it: Iterator, sharding: Optional[BatchSharding]) -> Iterator:

@@ -39,8 +39,9 @@ def run_train_iterations(step: Callable, model, tokens, targets,
     ``seed`` (a step that runs train-mode dropout) the i-th call, warm-ups
     included, also takes ``seed + i`` as its step seed, so each step
     draws new masks. With ``mesh`` (this rank's ``parallel.mesh.Mesh``;
-    every rank calls it) ``tokens`` is the rank's slice and the tokens
-    count the global batch; global rank 0's numbers are the run's.
+    every rank calls it) ``tokens`` is the rank's slice (its data rows,
+    and on a seq axis its chunk of each sequence) and the tokens count the
+    global batch; global rank 0's numbers are the run's.
 
     ``report`` (a ``utils.telemetry.RunReport``) records the warm-up
     (first launches and kernel builds included) and the timed loop as
@@ -49,8 +50,8 @@ def run_train_iterations(step: Callable, model, tokens, targets,
     ``PipelineTelemetry`` already wired into ``step``) is reset after the
     warm-up, so its stamps cover exactly the timed steps, and is attached
     to ``report`` at the end."""
-    n_data = 1 if mesh is None else mesh.n_data
-    total_toks = tokens.shape[0] * tokens.shape[1] * num_iterations * n_data
+    shards = 1 if mesh is None else mesh.n_data * mesh.n_seq
+    total_toks = tokens.shape[0] * tokens.shape[1] * num_iterations * shards
     barrier = mesh.barrier if mesh is not None else (lambda: None)
 
     def call(i):

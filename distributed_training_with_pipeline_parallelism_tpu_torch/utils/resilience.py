@@ -276,15 +276,17 @@ def gc_checkpoints(checkpoint_dir: str, keep_last: int) -> List[str]:
     return removed
 
 
-def world_state_file(mesh, zero1: bool = False) -> str:
+def world_state_file(mesh, zero1: bool = False, fsdp: bool = False) -> str:
     """The file a rank of ``mesh`` saves and restores in a step dir
     (:class:`CheckpointManager`): ``state.pt`` without a mesh, else
     ``state_pipe{d}[_data{k}][_model{m}].pt`` (the data coordinate with
-    ZeRO-1 over a data axis, the model coordinate with a model axis)."""
+    ZeRO-1 or FSDP over a data axis, the model coordinate with a model
+    axis). The seq ranks of a coordinate hold the same state and share its
+    file."""
     if mesh is None:
         return STATE_FILE
     name = f"state_pipe{mesh.pipe}"
-    if zero1 and mesh.n_data > 1:
+    if (zero1 or fsdp) and mesh.n_data > 1:
         name += f"_data{mesh.data}"
     if mesh.n_model > 1:
         name += f"_model{mesh.model}"
@@ -304,10 +306,11 @@ class CheckpointManager:
     With ``mesh`` (a ``parallel.mesh.Mesh``) every rank of the world calls
     each method at the same point. Global rank 0 prepares ``step_{n}/``;
     each pipe rank of data replica 0 writes its own part as
-    ``state_pipe{d}.pt`` (with ``zero1`` every rank writes, as
-    ``state_pipe{d}_data{k}.pt``, since each holds other moment blocks;
-    with a model axis each name ends in ``_model{m}``, every model rank
-    writing its shard: :func:`world_state_file`);
+    ``state_pipe{d}.pt`` (with ``zero1`` or ``fsdp`` every data rank
+    writes, as ``state_pipe{d}_data{k}.pt``, since each holds other moment
+    blocks or shards; with a model axis each name ends in ``_model{m}``,
+    every model rank writing its shard; on a seq axis only seq coordinate
+    0 writes, the others holding the same state: :func:`world_state_file`);
     rank 0 places the commit marker only after a barrier that follows
     every rank's ``fsync``, and alone runs retention. The digest is the
     world's (every rank's structural digest, hashed in rank order), and
@@ -317,7 +320,7 @@ class CheckpointManager:
     def __init__(self, checkpoint_dir: str, *, keep_last: Optional[int] = None,
                  fingerprint: Optional[str] = None,
                  fault_plan: Optional[FaultPlan] = None, mesh=None,
-                 zero1: bool = False) -> None:
+                 zero1: bool = False, fsdp: bool = False) -> None:
         self.checkpoint_dir = checkpoint_dir
         self.keep_last = keep_last
         self.fingerprint = fingerprint
@@ -329,9 +332,10 @@ class CheckpointManager:
         self._pending: Optional[Tuple[Optional[PendingSave], Dict[str, Any],
                                       str]] = None
         self.lead = mesh is None or mesh.rank == 0
-        self.state_file = world_state_file(mesh, zero1)
-        self.writes = mesh is None or (zero1 and mesh.n_data > 1) \
-            or mesh.data == 0
+        self.state_file = world_state_file(mesh, zero1, fsdp)
+        self.writes = mesh is None or (
+            ((zero1 or fsdp) and mesh.n_data > 1 or mesh.data == 0)
+            and mesh.seq == 0)
         if self.lead:
             os.makedirs(checkpoint_dir, exist_ok=True)
         self._barrier()

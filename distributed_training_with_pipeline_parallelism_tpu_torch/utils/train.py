@@ -16,7 +16,8 @@ step hands the optimizer a ``found_inf`` flag, the fused kernel then
 leaves the parameters, both moments and the step count (and so the
 learning rate) as they were, and the host never waits. ``MultiSteps``
 (``grad_accum``) is ``optax.MultiSteps``: the running mean of k batches'
-gradients, one update per k batches.
+gradients, one update per k batches. ``sgd`` is ``optax.sgd``: plain
+gradient descent at a constant rate, no clipping.
 """
 
 from __future__ import annotations
@@ -98,6 +99,11 @@ def _sharded(model: nn.Module):
     return sharded_names(model)
 
 
+def _fsdp_sharded(model: nn.Module):
+    from ..parallel.fsdp import fsdp_names
+    return fsdp_names(model)
+
+
 class AdamWState:
     """The optimizer state of one model: the fused ``torch.optim.AdamW``
     over its parameters, whose state is built here (step count, both
@@ -138,7 +144,9 @@ class AdamWState:
         summed over the pipe group, so the value is the lockstep one.
         Under a model axis the leaves' squared norms sum over the pipe and
         model groups, a split leaf's from every model rank, a replicated
-        one's from model coordinate 0, then the norm of their roots. The
+        one's from model coordinate 0, then the norm of their roots. Under
+        FSDP a leaf sharded over the data axis sums its squares over the
+        data group too (a replicated one's from data coordinate 0). The
         gradients are the data group's mean already."""
         norms = torch._foreach_norm(grads)
         if mesh is None:
@@ -146,18 +154,24 @@ class AdamWState:
         if self._where is None:
             order = _global_order(self._model)
             self._where = ([order[n] for n in self.names], len(order),
-                           _sharded(self._model))
-        where, n_global, sharded = self._where
+                           _sharded(self._model), _fsdp_sharded(self._model))
+        where, n_global, sharded, fsdp = self._where
         vec = torch.zeros(n_global, dtype=torch.float32,
                           device=grads[0].device)
         have = [i for i, p in enumerate(self.params) if p.grad is not None]
         tp = mesh.n_model > 1
+        sq = tp or bool(fsdp)
         for i, n in zip(have, norms):
-            if _counted(self.names[i], mesh, sharded):
-                vec[where[i]] = n.float().square() if tp else n.float()
+            name = self.names[i]
+            if _counted(name, mesh, sharded) and (
+                    not fsdp or mesh.data == 0 or name in fsdp):
+                vec[where[i]] = n.float().square() if sq else n.float()
         mesh.all_reduce([vec], "pipe")
         if tp:
             mesh.all_reduce([vec], "model")
+        if fsdp:
+            mesh.all_reduce([vec], "data")
+        if sq:
             vec = vec.sqrt()
         return torch.linalg.vector_norm(vec)
 
@@ -344,6 +358,55 @@ def adamw(learning_rate: float = 3e-4, weight_decay: float = 0.01,
                  max_grad_norm)
 
 
+class SGDState:
+    """``sgd``'s state: the parameters and the number of updates taken (a
+    device f32 tensor)."""
+
+    def __init__(self, model: nn.Module):
+        self.params = list(model.parameters())
+        self.count = torch.zeros((), dtype=torch.float32,
+                                 device=self.params[0].device)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def state_dict(self):
+        return {"count": self.count}
+
+    def load_state_dict(self, state) -> None:
+        self.count.copy_(state["count"])
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """``optax.sgd(learning_rate)``: ``p <- p - learning_rate * g``, no
+    momentum and no clipping (linear in the gradients, so two runs whose
+    gradients differ by rounding stay that close)."""
+
+    learning_rate: float
+
+    def init(self, model: nn.Module) -> SGDState:
+        return SGDState(model)
+
+    def update(self, state: SGDState, ok: Optional[torch.Tensor] = None,
+               mesh=None) -> None:
+        """One step; ``ok`` (a device bool) false keeps the parameters and
+        the count."""
+        with torch.no_grad():
+            for p in state.params:
+                if p.grad is None:
+                    continue
+                new = p - self.learning_rate * p.grad
+                p.copy_(new if ok is None else torch.where(ok, new, p))
+            state.count.add_(1.0 if ok is None else ok.to(torch.float32))
+
+
+def sgd(learning_rate: float) -> SGD:
+    """Plain gradient descent (``optax.sgd``)."""
+    return SGD(learning_rate)
+
+
 class MultiStepsState:
     """``MultiSteps``'s state: the inner optimizer's, the running mean of
     this cycle's gradients and the mini-step (a device int32)."""
@@ -445,7 +508,8 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     guard=None, fault_plan=None, mesh=None,
                     comm_overlap: str = "none",
                     tp_vocab_parallel: bool = False,
-                    telemetry=None, dynamics=None) -> Callable:
+                    telemetry=None, dynamics=None, fsdp: bool = False,
+                    sp_attn_impl: str = "ring") -> Callable:
     """``step(model, opt_state, tokens, targets[, step_seed]) -> loss``:
     the pipeline's gradients (:func:`..parallel.pipeline.make_pipeline_grad_fn`),
     then the optimizer's update of ``model`` in place. ``opt_state`` is
@@ -494,7 +558,14 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     ``sq_mb``. Nothing is read back. The loss and the update are the
     dynamics-off step's bit for bit. A model axis and ZeRO-1 (whose
     gradients are not the data group's mean until the update) raise
-    ``ValueError``."""
+    ``ValueError``.
+
+    ``fsdp`` (pp x fsdp) and ``sp_attn_impl`` (a seq axis) are the
+    pipeline's (:func:`..parallel.pipeline.make_pipeline_grad_fn`): under
+    FSDP ``model`` is the rank's ``parallel.fsdp.fsdp_shard_params`` copy
+    and ``opt_state`` ``optimizer.init`` of it, so AdamW steps on the
+    shards and its moments are shard-shaped; the clipping norm sums the
+    shards' squares over the data group."""
     dcfg = as_dynamics_config(dynamics)
     want_gns = dcfg is not None and dcfg.gns
     if dcfg is not None and mesh is not None and mesh.n_model > 1:
@@ -506,7 +577,8 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                                     device=device, mesh=mesh,
                                     comm_overlap=comm_overlap,
                                     tp_vocab_parallel=tp_vocab_parallel,
-                                    telemetry=telemetry, dynamics=want_gns)
+                                    telemetry=telemetry, dynamics=want_gns,
+                                    sp_attn_impl=sp_attn_impl, fsdp=fsdp)
     S = n_stages * sched.n_virtual
     indices: dict = {}  # a StageIndex by the tensor names it covers
 
@@ -631,16 +703,19 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
 
 def make_eval_fn(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                  device="cuda", mesh=None,
-                 tp_vocab_parallel: bool = False) -> Callable:
+                 tp_vocab_parallel: bool = False,
+                 sp_attn_impl: str = "ring", fsdp: bool = False) -> Callable:
     """The eval-mode loss ``(model, tokens, targets) -> loss``: the
     forward-only pipelined loss
     (:func:`..parallel.pipeline.make_pipeline_loss_fn`, over the
-    distributed transport with ``mesh``) with dropout off."""
+    distributed transport with ``mesh``, its seq axis and FSDP shards
+    included) with dropout off."""
     eval_cfg = (dataclasses.replace(cfg, dropout=0.0)
                 if cfg.dropout else cfg)
     return make_pipeline_loss_fn(eval_cfg, sched, n_stages, device=device,
                                  mesh=mesh,
-                                 tp_vocab_parallel=tp_vocab_parallel)
+                                 tp_vocab_parallel=tp_vocab_parallel,
+                                 sp_attn_impl=sp_attn_impl, fsdp=fsdp)
 
 
 def evaluate(eval_fn, model: nn.Module, data: Iterator, num_batches: int
@@ -664,6 +739,15 @@ def evaluate(eval_fn, model: nn.Module, data: Iterator, num_batches: int
             "num_batches": n}
 
 
+def fsdp_dims_of(model: nn.Module) -> dict:
+    """``{"n": n_data, "dims": {name: dim}}`` of a model's FSDP shards
+    (the sharded leaves only), as a checkpoint records them."""
+    from ..parallel.fsdp import fsdp_shard_of
+    shard = fsdp_shard_of(model)
+    return {"n": shard.n, "dims": {k: d for k, d in shard.dims.items()
+                                   if d is not None}}
+
+
 def _latest_step_dir(checkpoint_dir: str) -> Optional[Tuple[int, str]]:
     """The newest *committed* ``step_{n}`` under ``checkpoint_dir``
     (:func:`.resilience.latest_committed_step_dir`)."""
@@ -672,9 +756,7 @@ def _latest_step_dir(checkpoint_dir: str) -> Optional[Tuple[int, str]]:
 
 # fit's arguments that select parts of the JAX package not ported yet
 _FIT_NOT_PORTED = {
-    "fsdp": "ROADMAP.md Queue 1, item 11 (FSDP)",
-    "moe": "ROADMAP.md Queue 1, item 11 (expert parallelism and MoE)",
-    "sp_attn_impl": "ROADMAP.md Queue 1, item 11 (sequence parallelism)",
+    "moe": "ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)",
 }
 
 
@@ -792,22 +874,35 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
       non-finite stage; ``dynamics`` events at the log points and the
       report's ``dynamics`` section.
 
+    - ``fsdp``: pp x fsdp (ZeRO-3 in the pipeline, the JAX ``fsdp``; needs
+      a data axis). A whole view is first cut to the rank's shards
+      (``parallel.fsdp.fsdp_shard_params``; the returned model is that
+      copy), AdamW's moments are born shard-shaped, and each rank's
+      checkpoint file holds its shards (``state_pipe{d}_data{k}...``),
+      which ``utils.checkpoint.restore_world_model`` gathers into the
+      whole model. ``zero1`` with ``fsdp`` raises ``ValueError``, as in
+      JAX: FSDP shards the optimizer state already.
+    - A seq axis (``mesh.n_seq`` above 1): ``data`` yields the rank's
+      chunk of each sequence (``batch_sharding``) and ``sp_attn_impl``
+      ("ring" or "ulysses") picks the attention; the seq ranks hold the
+      same parameters, and only seq coordinate 0 writes checkpoints.
+
     The dropout seed of step i is ``fold_seed(dropout_seed, i)``, so a
-    resumed run draws the unbroken run's masks. ``moe``,
-    ``fsdp`` and an ``sp_attn_impl`` other than "ring" raise
-    ``NotImplementedError`` naming their ``ROADMAP.md`` items.
+    resumed run draws the unbroken run's masks. ``moe`` raises
+    ``NotImplementedError`` naming its ``ROADMAP.md`` item.
     """
-    given = {"fsdp": fsdp, "moe": moe is not None,
-             "sp_attn_impl": sp_attn_impl != "ring"}
-    for name, on in given.items():
-        if on:
-            raise NotImplementedError(f"fit's {name} is not ported yet: "
-                                      f"{_FIT_NOT_PORTED[name]}")
+    if moe is not None:
+        raise NotImplementedError(f"fit's moe is not ported yet: "
+                                  f"{_FIT_NOT_PORTED['moe']}")
+    if fsdp and zero1:
+        raise ValueError("fsdp already shards optimizer state (ZeRO-3 "
+                         "subsumes ZeRO-1) — drop --zero1")
     device = mesh_device(device, mesh, n_stages)
     rank0 = mesh is None or mesh.rank == 0
     verbose = verbose and rank0
     metrics_path = metrics_path if rank0 else None
     n_data = 1 if mesh is None else mesh.n_data
+    n_seq = 1 if mesh is None else mesh.n_seq  # a rank's chunk of each row
     if guard is True:
         guard = AnomalyGuard()
     if optimizer is None:
@@ -821,7 +916,12 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                               remat_backward=remat_backward, device=device,
                               guard=guard, fault_plan=fault_plan, mesh=mesh,
                               tp_vocab_parallel=tp_vocab_parallel,
-                              telemetry=telemetry, dynamics=dcfg)
+                              telemetry=telemetry, dynamics=dcfg, fsdp=fsdp,
+                              sp_attn_impl=sp_attn_impl)
+    if fsdp:
+        from ..parallel.fsdp import fsdp_shard_of, fsdp_shard_params
+        if fsdp_shard_of(model) is None:
+            model = fsdp_shard_params(model, cfg, mesh)
     report = None
     if report_dir is not None and rank0:
         from .telemetry import RunReport
@@ -837,9 +937,12 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     guard_state = init_guard_state(0, device) if guard is not None else None
 
     def _state(i):
-        return {"model": model.state_dict(),
-                "optimizer": opt_state.state_dict(), "step": i,
-                "guard": guard_state}
+        state = {"model": model.state_dict(),
+                 "optimizer": opt_state.state_dict(), "step": i,
+                 "guard": guard_state}
+        if fsdp:  # the shards' dims, for a restore into a whole model
+            state["fsdp"] = fsdp_dims_of(model)
+        return state
 
     mgr = None
     if checkpoint_dir:
@@ -848,7 +951,7 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
             fingerprint=config_fingerprint(
                 cfg, sched, {"pipe": n_stages} if mesh is None
                 else mesh.shape),
-            fault_plan=fault_plan, mesh=mesh, zero1=zero1)
+            fault_plan=fault_plan, mesh=mesh, zero1=zero1, fsdp=fsdp)
     if fault_plan is not None:
         data = fault_plan.wrap_data(data)
 
@@ -899,7 +1002,8 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     eval_fn = None
     if eval_data is not None and eval_every:
         eval_fn = make_eval_fn(cfg, sched, n_stages, device=device,
-                               mesh=mesh, tp_vocab_parallel=tp_vocab_parallel)
+                               mesh=mesh, tp_vocab_parallel=tp_vocab_parallel,
+                               sp_attn_impl=sp_attn_impl, fsdp=fsdp)
     if profile_dir is not None and mesh is not None:
         profile_dir = os.path.join(profile_dir, f"rank{mesh.rank}")
     # under a mesh the preemption flag is the world's: one host read a
@@ -1040,7 +1144,7 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                 tokens, targets = batch
                 if data_shape is None:
                     data_shape = (int(tokens.shape[0]) * n_data,
-                                  int(tokens.shape[1]))
+                                  int(tokens.shape[1]) * n_seq)
                 if recorder is not None:
                     digest = getattr(batch, "digest", None)
                     recorder.note_batch(i, digest if digest is not None
@@ -1070,7 +1174,8 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                 last_done = i
                 if watchdog is not None:
                     watchdog.beat(i)
-                window_tokens += tokens.shape[0] * tokens.shape[1] * n_data
+                window_tokens += (tokens.shape[0] * tokens.shape[1] * n_data
+                                  * n_seq)
                 if i % log_every == 0 or i == num_steps - 1:
                     # one read-back closes the window: the loss and, from
                     # the same step, the guard counters (exact in f64)

@@ -365,7 +365,7 @@ def test_backend_and_device_rules(monkeypatch):
     with pytest.raises(RuntimeError, match="init_multihost"):
         tmesh.make_mesh(2, 2, backend="gloo", device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
-        tmesh.make_mesh(2, n_seq=2, backend="gloo", device="cpu")
+        tmesh.make_mesh(2, n_expert=2, backend="gloo", device="cpu")
 
 
 def test_pipeline_refusals_and_rank_view():

@@ -457,19 +457,25 @@ def test_train_main_runs_on_cpu(tmp_path, data):
     assert tmain.main(TINY + ["--steps", "1", "--resume", ckpt]) == 0
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--sp", "2"], "item 11"),
-    (["--ep", "2"], "item 11"), (["--sp-attn", "ulysses"], "item 11"),
-    (["--fsdp"], "item 11"),
-    (["--moe-experts", "4"], "item 11"),
+@pytest.mark.parametrize("argv,error,match", [
+    (["--ep", "2"], NotImplementedError, "item 11"),
+    (["--ep", "2", "--sp", "2", "--backend", "gloo"], NotImplementedError,
+     "item 11"),
+    (["--fsdp"], ValueError, "needs a 'data' mesh axis"),
+    (["--fsdp", "--zero1"], ValueError, "subsumes ZeRO-1"),
+    (["--moe-experts", "4"], NotImplementedError, "item 11"),
 ])
-def test_unported_flags_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_flags_raise(argv, error, match):
+    """The expert axis and MoE are still refused (before a world starts);
+    ``--fsdp`` runs (``tests/test_torch_fsdp.py``) but needs a data axis
+    and refuses ZeRO-1, as the JAX script does."""
+    with pytest.raises(error, match=match):
         tmain.main(TINY + argv)
 
 
 @pytest.mark.parametrize("argv,message", [
     (["--tp", "2"], "pass --backend"),
+    (["--sp", "2"], "pass --backend"),
     (["--vocab-parallel"], "requires --tp > 1"),
 ])
 def test_tp_flags_need_a_world(argv, message, capsys):
@@ -488,13 +494,18 @@ def test_fit_vocab_parallel_needs_a_model_axis():
                    1, device="cpu", tp_vocab_parallel=True)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(fsdp=True), "item 11"),
-    (dict(moe=object()), "item 11"), (dict(sp_attn_impl="ulysses"), "item 11"),
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(fsdp=True), ValueError, "needs a 'data' mesh axis"),
+    (dict(moe=object()), NotImplementedError, "item 11"),
+    (dict(sp_attn_impl="ulysses_v2"), ValueError, "sp_attn_impl"),
+    (dict(fsdp=True, zero1=True), ValueError, "subsumes ZeRO-1"),
 ])
-def test_fit_unported_arguments_raise(kw, item):
+def test_fit_unported_arguments_raise(kw, error, match):
+    """``moe`` is still refused; ``fsdp`` and ``sp_attn_impl`` run in a
+    world (``tests/test_torch_fsdp.py``, ``tests/test_torch_seq_parallel.py``)
+    and keep JAX's refusals."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         ttrain.fit(tcfg, port.ScheduleConfig("1F1B", M), 2, None, iter([]),
                    1, device="cpu", **kw)
 
