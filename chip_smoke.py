@@ -328,6 +328,37 @@ JAX. Phases, each fatal on failure:
     reduce-scatters, the seq ring's hops and all-to-alls and the
     hand-offs). The phase prints its seconds.
 
+15. Pipelined batch inference and Mixture-of-Experts. (a)
+    ``make_pipeline_forward`` on tied GPT-2-small at full width and depth,
+    random weights from a seed, B = 8 sequences of 1024 tokens, f32: at D
+    = 4, M = 4 on the lockstep transport the logits [8, 1024, 50257]
+    within 1e-5 of their largest |value| of single-device
+    ``transformer_apply``; ``flash_fwd`` (K4) launched M·L = 48 times, by
+    the wrappers' counters and by the profiler, and no other kernel of the
+    port. (b) A MoE LM of the same widths at 4 of the 12 layers (cut for
+    the script's time), E = 8, top-2, capacity 1.25 (a microbatch routes
+    2048 tokens into C = 640 slots an expert), aux 0.01, expert ffn 3072,
+    B = 4, 1F1B at D = 2, M = 2, f32: the loss within 1e-5 relative and
+    every leaf within phase 4's bound of the per-microbatch oracle
+    (autograd of the mean of ``moe_lm_loss`` on the plain versions); the
+    cross-entropy kernels launched M times each and no flash kernel (MoE
+    blocks attend densely, as in JAX). (c) One world of 4 processes on the
+    card (gloo, staged) that makes two meshes over its ranks: pipe 2 x
+    data 2, whose forward (V = 1, M = 2) gives every rank its data shard's
+    logits within (a)'s bound of the lockstep forward of the same rows;
+    and pipe 2 x expert 2, where the MoE step at capacity E and aux 0 is
+    held to the lockstep step on the same weights and batch with (b)'s
+    gate, each rank's expert stacks exactly half its stage's bytes, 24
+    expert all-to-alls a rank's step. (d) ``train.py --moe-experts 8
+    --pipe 2`` and ``... --ep 2 --backend gloo``, 3 steps each at 4 layers,
+    at once beside the world's gates: exit 0 and a finite final loss.
+    Then, in turn, bf16 over f32 masters: the lockstep forward's tokens/s;
+    the lockstep MoE step's tokens/s, allocator peak and one profiled step
+    (idle share, top kernels, the forward's dispatch and combine einsums'
+    share of the device time); the pipe 2 x expert 2 world's tokens/s and
+    one profiled step (the all-to-alls' count and host ms). The phase
+    prints its seconds.
+
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
@@ -344,7 +375,9 @@ counted bf16 TP world step by rank and summed; phase 12's counted f32
 dynamics steps and its guarded bf16 ``fit`` run; phase 13's probes and
 serving benches; phase 14's counted f32 FSDP, ring and Ulysses steps by
 rank and summed, 0 where no kernel serves them; phase 14's shapes' bf16
-times beside each kernel's),
+times beside each kernel's (phase 15's microbatches take the same
+shapes); phase 15's counted forward, MoE step and world steps by rank and
+summed),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -4589,6 +4622,596 @@ def phase_par(report, device="cuda"):
             for w in ("fsdp", "ring", "ulysses")}
 
 
+# Pipelined batch inference and Mixture-of-Experts (phase 15). The forward:
+# tied GPT-2-small at full width and depth, B = 8 sequences of 1024 tokens,
+# D = 4, M = 4 on the lockstep transport, then pipe 2 x data 2 in a world
+# (V = 1, M = 2). MoE: the same widths at 4 of the 12 layers (cut for the
+# script's time limit), E = 8, top-2, capacity 1.25, aux 0.01, expert ffn
+# 3072, B = 4, 1F1B at D = 2, M = 2 (a microbatch routes 2048 tokens into
+# C = 640 slots an expert); the world's pipe 2 x expert 2 step at capacity
+# E and aux 0, where it equals the lockstep step
+FWD_D, FWD_M, FWD_B, FWD_WORLD_M = 4, 4, 8, 2
+FWD_TIMED = 3  # (a)'s timed bf16 forward calls, after one warm-up
+MOE_LAYERS, MOE_B, MOE_M = 4, 4, 2
+MOE_FIELDS = dict(n_experts=8, top_k=2, capacity_factor=1.25,
+                  aux_loss_weight=0.01, ffn_dim=3072)
+MOE_EP_FIELDS = dict(MOE_FIELDS, capacity_factor=8.0, aux_loss_weight=0.0)
+MOE_TIMED = 2  # (b) and (c)'s timed bf16 steps, after DIST_WARMUP
+MOE_SPANS = ("moe_route", "moe_dispatch", "moe_experts", "moe_combine")
+# (d): train.py, 3 steps each at the layers above, lockstep and as a world
+MOE_TRAIN_COMMON = ["--model", "gpt2-small", "--tie-embeddings", "--layers",
+                    str(MOE_LAYERS), "--batch", str(MOE_B), "--seq",
+                    str(TRAIN_S), "--microbatches", str(MOE_M), "--steps",
+                    "3", "--fused-xent", "--moe-experts", "8"]
+MOE_TRAIN_ARGS = {"lockstep": ["--pipe", "2"],
+                  "ep": ["--pipe", "2", "--ep", "2", "--backend", "gloo"]}
+
+
+def moe_setup(bf16=False, ep=False):
+    """(cfg, moe) of phase 15's MoE model: ``dist_config`` at
+    ``MOE_LAYERS`` layers; (c)'s routing (capacity E, aux 0) with ``ep``."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import (
+        MoEConfig)
+    cfg = dataclasses.replace(dist_config(bf16), n_layers=MOE_LAYERS)
+    return cfg, MoEConfig(**(MOE_EP_FIELDS if ep else MOE_FIELDS))
+
+
+def counted_launches(fn):
+    """``fn()``'s result and each kernel's launches during it (the
+    wrappers' counters, set to 0 just before)."""
+    import torch
+    kernels = all_kernels()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in kernels}
+
+
+def profiled_launches(fn, want):
+    """How many times the profiler saw each of the port's kernels run in
+    one call of ``fn``: the first of up to three traces that shows
+    ``want``, else the last. CUPTI has been seen to drop some of a
+    trace's kernel events late in the whole script (43 of 48 ``flash_fwd``
+    events in one trace whose wrappers counted 48), so a trace short of
+    ``want`` is taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {k.name: 0 for k in all_kernels()}
+        for e in prof.key_averages():
+            for k in out:
+                if k in e.key and e.self_device_time_total > 0:
+                    out[k] += e.count
+        if out == want:
+            break
+    return out
+
+
+def moe_profile(step, mesh=None):
+    """One call of ``step`` under the profiler: wall, device busy (the
+    device's own events), idle share, the top kernels, the device ms of
+    the kernels launched inside each MoE FFN range (the forwards'; the
+    backward's kernels run outside them) and the host ms and count of
+    the expert all-to-alls' and hand-offs' spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    if mesh is not None:
+        mesh.barrier()
+    from torch.autograd import DeviceType
+    avg = prof.key_averages()
+    named = MOE_SPANS + ("ep_all_to_all", "handoff_wait", "handoff_post")
+    # the device's own events (kernels, copies), not the host ops that
+    # launched them nor the ranges' device-side spans
+    kern = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in avg if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0 and e.key not in named),
+                  key=lambda x: -x[1])
+    busy = sum(ms for _, ms, _ in kern)
+    ranges, spans = {}, {}
+    for e in avg:
+        if e.key in MOE_SPANS and e.device_type == DeviceType.CPU:
+            # the kernels launched inside the host range
+            ranges[e.key] = e.device_time_total / 1e3
+        if e.key in ("ep_all_to_all", "handoff_wait", "handoff_post"):
+            spans[e.key] = dict(ms=max(spans.get(e.key, {}).get("ms", 0.0),
+                                       e.cpu_time_total / 1e3),
+                                count=max(spans.get(e.key, {}).get("count",
+                                                                   0),
+                                          e.count))
+    share = (ranges.get("moe_dispatch", 0.0)
+             + ranges.get("moe_combine", 0.0)) / max(busy, 1e-9)
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                idle_share=1 - busy / (wall * 1e3), range_device_ms=ranges,
+                dispatch_combine_share=share, spans=spans,
+                top_kernels=[dict(name=n[:120], ms=ms, count=c)
+                             for n, ms, c in kern[:10]])
+
+
+def moe_leaf_ratio(mesh, model, ref):
+    """Worst leaf ratio (phase 4's bound) of this rank's MoE gradients
+    against the lockstep ``ref``: an expert stack's block against the
+    reference's block, each leaf's squared error and norm summed over the
+    expert group (any other leaf's from expert coordinate 0), so the
+    ratio is the whole leaf's. Returns (ratio, leaf)."""
+    import torch
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.moe import (
+        expert_block, is_expert_leaf)
+    names, sq = [], []
+    for n, p in model.named_parameters():
+        r = expert_block(n, ref["grads"][n], model.expert).to(p.device)
+        w = 1.0 if mesh.expert == 0 or is_expert_leaf(n) else 0.0
+        sq.append(torch.stack([(p.grad.double() - r.double()).square().sum(),
+                               r.double().square().sum()]) * w)
+        names.append(n)
+    sq = torch.stack(sq)
+    mesh.all_reduce([sq], "expert")
+    ratios = (sq[:, 0].sqrt() / (1e-4 * sq[:, 1].sqrt()
+                                 + 1e-6 * ref["g_norm"])).tolist()
+    worst = max(range(len(names)), key=lambda i: ratios[i])
+    return ratios[worst], names[worst]
+
+
+def moe_worker(mesh, spec):
+    """One rank of phase 15's world (pipe 2 x expert 2, and pipe 2 x data 2
+    over the same ranks): (a) the forward's world gate, (c) the f32 EP
+    gate, then, once the launcher's lockstep timing is done, (c)'s bf16
+    timing and one profiled step. Returns this rank's numbers; raises
+    (failing the world) at a gate."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.moe import (
+        MoELM, is_expert_leaf)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.expert_parallel import (
+        ep_shard_state)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
+        torch_dtype)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
+        batch_sharding)
+    device = mesh.device
+    t_phase = time.perf_counter()
+    fwd_mesh = port.make_mesh(2, 2, backend=mesh.backend, device=device)
+    res = dict(rank=mesh.rank, describe=mesh.describe(),
+               fwd_describe=fwd_mesh.describe())
+    cfg = dist_config()
+    res["warm_s"] = dist_warm((cfg,), device,
+                              (FWD_B // 2 // FWD_WORLD_M, TRAIN_S))
+    res["refs_wait_s"] = wait_for(spec["ready"], "phase 15's references")
+
+    def dense(layers=None):
+        whole = torch.load(spec["whole"], mmap=True, weights_only=True)
+        m = Transformer(cfg, device=device,
+                        dtype=torch_dtype(cfg.storage_dtype), layers=layers)
+        m.load_state_dict({k: whole[k] for k in m.state_dict()})
+        return m
+
+    # (a) the forward over pipe 2 x data 2 against the lockstep forward of
+    # this rank's rows, on the same microbatches
+    fsched = port.ScheduleConfig("GPipe", FWD_WORLD_M)
+    tokens = batch_sharding(fwd_mesh)(
+        (torch.load(spec["fwd_tokens"], weights_only=True),))[0].to(device)
+    view = dense(port.owned_layers(cfg.n_layers, fsched, 2, fwd_mesh.pipe))
+    fwd = port.make_pipeline_forward(cfg, fsched, 2, device=device,
+                                     mesh=fwd_mesh)
+    logits, launches = counted_launches(lambda: fwd(view, tokens))
+    del view
+    full = dense()
+    ref = port.make_pipeline_forward(cfg, fsched, 2, device=device)(full,
+                                                                    tokens)
+    rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+    want = {"flash_fwd": cfg.n_layers // 2 * FWD_WORLD_M, "flash_bwd": 0,
+            "xent_fwd": 0, "xent_bwd": 0}
+    res["forward"] = dict(rel_err=rel, launches=launches,
+                          shape=list(logits.shape))
+    check(rel <= 1e-5, f"forward world rank {mesh.rank}: logits rel err "
+          f"{rel} > 1e-5 of the lockstep forward's")
+    check(launches == want, f"forward world rank {mesh.rank}: launches "
+          f"{launches} != {want}")
+    del logits, ref, full
+    torch.cuda.empty_cache()
+
+    # (c) the f32 EP step against the lockstep step on the same weights
+    cfg_m, moe = moe_setup(ep=True)
+    sched = port.ScheduleConfig("1F1B", MOE_M)
+    moe_whole = torch.load(spec["moe_whole"], mmap=True, weights_only=True)
+    ref = torch.load(spec["moe_ref"], mmap=True, weights_only=True)
+    batch = batch_sharding(mesh)(tuple(
+        t.to(device) for t in torch.load(spec["batch"], weights_only=True)))
+
+    def moe_model(c):
+        m = MoELM(c, moe, device=device, dtype=torch_dtype(c.storage_dtype),
+                  layers=port.owned_layers(MOE_LAYERS, sched, 2, mesh.pipe),
+                  expert=(mesh.n_expert, mesh.expert))
+        m.load_state_dict(ep_shard_state(
+            {k: moe_whole[k] for k in m.state_dict()}, m.expert))
+        return m
+
+    model = moe_model(cfg_m)
+    fn = port.make_pipeline_grad_fn(cfg_m, sched, 2, device=device,
+                                    mesh=mesh, moe=moe)
+    a2a = mesh.a2a
+    t = time.perf_counter()
+    loss, launches = counted_launches(lambda: fn(model, *batch).item())
+    step_s = time.perf_counter() - t
+    n_a2a = mesh.a2a - a2a
+    rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    worst, leaf = moe_leaf_ratio(mesh, model, ref)
+    experts = [(n, p) for n, p in model.named_parameters()
+               if is_expert_leaf(n)]
+    held = sum(p.numel() * p.element_size() for _, p in experts)
+    stage = sum(moe_whole[n].numel() * moe_whole[n].element_size()
+                for n, _ in experts)
+    lps = MOE_LAYERS // 2
+    last = mesh.pipe == 1
+    want = {"flash_fwd": 0, "flash_bwd": 0, "xent_fwd": MOE_M * last,
+            "xent_bwd": MOE_M * last}
+    res["ep"] = dict(loss=loss, loss_rel_err=rel, worst_bound_ratio=worst,
+                     worst_leaf=leaf, launches=launches, all_to_alls=n_a2a,
+                     expert_bytes=held, stage_expert_bytes=stage,
+                     step_s=step_s)
+    check(rel <= 1e-5, f"EP rank {mesh.rank}: loss rel err {rel} > 1e-5")
+    check(worst <= 1.0, f"EP rank {mesh.rank}: leaf {leaf} over its bound "
+          f"({worst})")
+    check(2 * held == stage, f"EP rank {mesh.rank}: its expert stacks hold "
+          f"{held} B of its stage's {stage} B, not a half")
+    check(launches == want, f"EP rank {mesh.rank}: launches {launches} != "
+          f"{want}")
+    # each MoE layer of a unit: 2 in the forward, 2 recomputed and 2
+    # transposed in the backward
+    check(n_a2a == MOE_M * lps * 6, f"EP rank {mesh.rank}: {n_a2a} expert "
+          f"all-to-alls, not {MOE_M * lps * 6}")
+    del model
+    torch.cuda.empty_cache()
+    res["gates_s"] = time.perf_counter() - t_phase
+    mesh.barrier()
+    if mesh.rank == 0:
+        signal_file(spec["gates_done"], "ok")
+    res["lock_wait_s"] = wait_for(spec["lock_done"],
+                                  "phase 15's lockstep timing")
+
+    # (c) bf16 over f32 masters: timed steps, one counted, one profiled
+    cfg16, _ = moe_setup(bf16=True, ep=True)
+    model = moe_model(cfg16)
+    opt = port.adamw(warmup_steps=2, total_steps=100)
+    state = opt.init(model)
+    step = port.make_train_step(cfg16, sched, 2, opt, device=device,
+                                mesh=mesh, moe=moe)
+
+    def run(m, t, y):
+        return step(m, state, t, y)
+
+    timed = port.run_train_iterations(run, model, *batch,
+                                      num_iterations=MOE_TIMED,
+                                      warmup_iterations=DIST_WARMUP,
+                                      mesh=mesh)
+    loss, launches = counted_launches(lambda: run(model, *batch).item())
+    check(math.isfinite(loss), f"EP bf16 rank {mesh.rank}: loss {loss}")
+    res["bf16"] = dict(tokens_per_s=timed["throughput"], loss=loss,
+                       launches=launches,
+                       profile=moe_profile(lambda: run(model, *batch),
+                                           mesh))
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def phase_fwd_moe(report, device="cuda"):
+    """Pipelined batch inference and MoE (see the module doc): the
+    lockstep gates and timing here, ``train.py``'s two runs and a world of
+    4 processes beside them. Returns the launches of each counted path
+    (the world's by rank)."""
+    import copy
+    import shutil
+    import tempfile
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.moe import (
+        moe_init_params, moe_lm_loss)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        transformer_apply)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-moe-")
+    spec = {k: str(Path(tmp) / k) for k in (
+        "whole", "fwd_tokens", "moe_whole", "moe_ref", "batch", "ready",
+        "gates_done", "lock_done", "train_done")}
+    res, box, world, trainer = {}, {}, None, None
+    out = {}
+
+    def run_world():
+        try:
+            box["ranks"] = port.launch(moe_worker,
+                                       port.MeshConfig(2, 1, 1, 1, 2), spec,
+                                       backend="gloo", device=device,
+                                       timeout_s=300)
+        except BaseException as e:  # re-raised by the phase
+            box["error"] = e
+
+    def train_runs():
+        """``train.py``'s lockstep MoE run and its pipe 2 x expert 2
+        world, at once."""
+        t = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.train", *MOE_TRAIN_COMMON, *args],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True) for name, args in MOE_TRAIN_ARGS.items()}
+        status = "ok"
+        res["train_main"] = {}
+        for name, proc in procs.items():
+            try:
+                text, _ = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+            final = [ln for ln in text.splitlines()
+                     if ln.startswith("final loss:")]
+            loss = float(final[-1].split(":")[1]) if final else math.nan
+            res["train_main"][name] = dict(
+                rc=proc.returncode, final_loss=loss,
+                seconds=time.perf_counter() - t, output=text[-2000:])
+            if status == "ok" and (proc.returncode != 0
+                                   or not math.isfinite(loss)):
+                status = (f"train.py {name}: rc {proc.returncode}, "
+                          f"{text[-3000:]}")
+        signal_file(spec["train_done"], status)
+
+    try:
+        # the world's inputs: the dense and MoE weights, the batches
+        cfg = dist_config()
+        model = port.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 device)
+        torch.save({n: t.cpu() for n, t in model.state_dict().items()},
+                   spec["whole"])
+        g = torch.Generator().manual_seed(SEED + 3)
+        fwd_tokens = torch.randint(0, cfg.vocab_size, (FWD_B, TRAIN_S),
+                                   generator=g)
+        torch.save(fwd_tokens, spec["fwd_tokens"])
+        batch = tuple(torch.randint(0, cfg.vocab_size, (MOE_B, TRAIN_S),
+                                    generator=g) for _ in range(2))
+        torch.save(batch, spec["batch"])
+        batch = tuple(x.to(device) for x in batch)
+        cfg_m, moe = moe_setup()
+        moe_model = moe_init_params(cfg_m, moe,
+                                    torch.Generator().manual_seed(SEED),
+                                    device)
+        torch.save({n: t.cpu() for n, t in moe_model.state_dict().items()},
+                   spec["moe_whole"])
+        world = threading.Thread(target=run_world)
+        world.start()
+        trainer = threading.Thread(target=train_runs)
+        trainer.start()
+        sched = port.ScheduleConfig("1F1B", MOE_M)
+        try:  # (c)'s reference: the lockstep step at capacity E, aux 0
+            _, moe_ep = moe_setup(ep=True)
+            ref_model = copy.deepcopy(moe_model)
+            loss = port.make_pipeline_grad_fn(
+                cfg_m, sched, 2, device=device, moe=moe_ep)(
+                ref_model, *batch).item()
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in ref_model.named_parameters()}
+            g_norm = math.sqrt(sum((x.double() ** 2).sum().item()
+                                   for x in grads.values()))
+            torch.save({"grads": grads, "loss": loss, "g_norm": g_norm},
+                       spec["moe_ref"])
+            res["ep_lockstep_loss"] = loss
+            del ref_model, grads
+            torch.cuda.empty_cache()
+            signal_file(spec["ready"], "ok")
+        except BaseException as e:
+            signal_file(spec["ready"], f"the launcher failed: {e!r}")
+            raise
+
+        # (a) the lockstep forward, f32, against single-device
+        # transformer_apply; K4 only, M * L launches
+        fwd = port.make_pipeline_forward(
+            cfg, port.ScheduleConfig("GPipe", FWD_M), FWD_D, device=device)
+        tokens = fwd_tokens.to(device)
+        want = {"flash_fwd": FWD_M * cfg.n_layers, "flash_bwd": 0,
+                "xent_fwd": 0, "xent_bwd": 0}
+        logits, launches = counted_launches(lambda: fwd(model, tokens))
+        by_profiler = profiled_launches(lambda: fwd(model, tokens), want)
+        with torch.no_grad():
+            ref = transformer_apply(cfg, model, tokens)
+        rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+        res["forward"] = dict(rel_err=rel, launches=launches,
+                              profiler_launches=by_profiler,
+                              shape=list(logits.shape))
+        print(f"  (a) f32 forward (D={FWD_D}, M={FWD_M}, B={FWD_B}, "
+              f"S={TRAIN_S}): logits {list(logits.shape)}, max err "
+              f"{rel:.2e} of max |logits| against transformer_apply; "
+              f"launches {launches}, by the profiler {by_profiler}")
+        check(rel <= 1e-5, f"forward: logits rel err {rel} > 1e-5")
+        check(launches == want and by_profiler == want,
+              f"forward: launches {launches}, by the profiler "
+              f"{by_profiler}, not {want}")
+        out["forward"] = launches
+        del logits, ref, model, fwd
+        torch.cuda.empty_cache()
+
+        # (b) the lockstep MoE step, f32, against the per-microbatch oracle
+        # on the plain versions
+        moe_model.zero_grad(set_to_none=True)
+        plain = copy.deepcopy(moe_model)
+        fn = port.make_pipeline_grad_fn(cfg_m, sched, 2, device=device,
+                                        moe=moe)
+        loss, launches = counted_launches(lambda: fn(moe_model,
+                                                     *batch).item())
+        grads = {n: p.grad.detach() for n, p in moe_model.named_parameters()}
+        cfg_plain = dataclasses.replace(cfg_m, use_fused_xent=False,
+                                        use_flash_attention=False)
+        toks, tgts = (x.view(MOE_M, -1, TRAIN_S) for x in batch)
+        ref_loss = sum(moe_lm_loss(cfg_plain, moe, plain, toks[m], tgts[m])
+                       for m in range(MOE_M)) / MOE_M
+        ref_loss.backward()
+        rel = abs(loss - ref_loss.item()) / abs(ref_loss.item())
+        worst, leaf, worst_rel = grad_errors(
+            grads, {n: p.grad for n, p in plain.named_parameters()})
+        want = {"flash_fwd": 0, "flash_bwd": 0, "xent_fwd": MOE_M,
+                "xent_bwd": MOE_M}
+        res["moe"] = dict(loss=loss, loss_rel_err=rel,
+                          worst_bound_ratio=worst, worst_leaf=leaf,
+                          worst_rel_err=worst_rel, launches=launches)
+        print(f"  (b) f32 MoE 1F1B (D=2, M={MOE_M}, B={MOE_B}, "
+              f"{MOE_LAYERS} layers, E={moe.n_experts}, top-{moe.top_k}, "
+              f"C={moe.capacity(MOE_B // MOE_M * TRAIN_S)}): loss "
+              f"{loss:.6f} (rel err {rel:.2e}), worst leaf {leaf} at "
+              f"{worst:.3f} of its bound; launches {launches}")
+        check(rel <= 1e-5, f"MoE: loss rel err {rel} > 1e-5")
+        check(worst <= 1.0, f"MoE: leaf {leaf} over its bound ({worst})")
+        check(launches == want, f"MoE: launches {launches} != {want}")
+        out["moe"] = launches
+        del plain, grads, ref_loss, moe_model, fn
+        torch.cuda.empty_cache()
+
+        # the timing waits for train.py's runs and the world's gates
+        trainer.join()
+        check(Path(spec["train_done"]).read_text() == "ok",
+              Path(spec["train_done"]).read_text())
+        t = time.perf_counter()
+        while not Path(spec["gates_done"]).exists() and world.is_alive():
+            time.sleep(0.05)
+        if "error" in box:
+            raise box["error"]
+        res["gates_wait_s"] = wait_for(spec["gates_done"],
+                                       "the world's gates")
+        try:
+            cfg16 = dist_config(bf16=True)
+            model16 = port.init_params(cfg16,
+                                       torch.Generator().manual_seed(SEED),
+                                       device)
+            fwd16 = port.make_pipeline_forward(
+                cfg16, port.ScheduleConfig("GPipe", FWD_M), FWD_D,
+                device=device)
+            fwd16(model16, tokens)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(FWD_TIMED):
+                fwd16(model16, tokens)
+            torch.cuda.synchronize()
+            res["forward"]["bf16_tokens_per_s"] = (
+                FWD_B * TRAIN_S * FWD_TIMED / (time.perf_counter() - t))
+            del model16, fwd16
+            torch.cuda.empty_cache()
+            cfg_m16, _ = moe_setup(bf16=True)
+            m16 = moe_init_params(cfg_m16, moe,
+                                  torch.Generator().manual_seed(SEED),
+                                  device)
+            opt = port.adamw(warmup_steps=2, total_steps=100)
+            state = opt.init(m16)
+            step = port.make_train_step(cfg_m16, sched, 2, opt,
+                                        device=device, moe=moe)
+
+            def run(m, t, y):
+                return step(m, state, t, y)
+
+            torch.cuda.reset_peak_memory_stats()
+            timed = port.run_train_iterations(
+                run, m16, *batch, num_iterations=MOE_TIMED,
+                warmup_iterations=DIST_WARMUP)
+            res["moe"]["bf16_tokens_per_s"] = timed["throughput"]
+            res["moe"]["bf16_peak_bytes"] = torch.cuda.max_memory_allocated()
+            res["moe"]["bf16_profile"] = moe_profile(lambda: run(m16,
+                                                                 *batch))
+            del m16, state, step
+            torch.cuda.empty_cache()
+            signal_file(spec["lock_done"], "ok")
+        except BaseException as e:
+            signal_file(spec["lock_done"], f"the launcher failed: {e!r}")
+            raise
+        world.join()
+        if "error" in box:
+            raise box["error"]
+        ranks = box["ranks"]
+        for r in ranks:
+            check(r["describe"]["transport"] == "gloo-staged",
+                  f"rank {r['rank']}: {r['describe']}")
+        print(f"  rank 0: {ranks[0]['describe']}; its forward mesh "
+              f"{ranks[0]['fwd_describe']['shape']}")
+        fw = [r["forward"] for r in ranks]
+        print(f"  (a) pipe 2 x data 2 forward: worst logits err "
+              f"{max(x['rel_err'] for x in fw):.2e} of the lockstep "
+              f"forward's, launches by rank {[x['launches'] for x in fw]}; "
+              f"bf16 lockstep {res['forward']['bf16_tokens_per_s']:.1f} "
+              f"tokens/s")
+        p = res["moe"]["bf16_profile"]
+        print(f"  (b) bf16 MoE: {res['moe']['bf16_tokens_per_s']:.1f} "
+              f"tokens/s, allocator peak {res['moe']['bf16_peak_bytes']} B; "
+              f"profiled: wall {p['wall_ms']:.1f} ms, idle share "
+              f"{p['idle_share']:.3f}, forward dispatch + combine "
+              f"{p['dispatch_combine_share']:.3f} of the device time "
+              f"({ {k: round(v, 3) for k, v in p['range_device_ms'].items()} }"
+              f" ms)")
+        for k in p["top_kernels"][:8]:
+            print(f"    {k['ms']:9.3f} ms  {k['count']:6d}x  "
+                  f"{k['name'][:90]}")
+        ep = [r["ep"] for r in ranks]
+        print(f"  (c) f32 pipe 2 x expert 2 (C = E, aux 0): loss "
+              f"{ep[0]['loss']:.6f} (rel err "
+              f"{max(x['loss_rel_err'] for x in ep):.2e} vs lockstep "
+              f"{res['ep_lockstep_loss']:.6f}), worst leaf at "
+              f"{max(x['worst_bound_ratio'] for x in ep):.3f} of its bound, "
+              f"expert stacks {ep[0]['expert_bytes']} of "
+              f"{ep[0]['stage_expert_bytes']} B a rank, "
+              f"{ep[0]['all_to_alls']} all-to-alls a step, launches by rank "
+              f"{[x['launches'] for x in ep]}")
+        b = [r["bf16"] for r in ranks]
+        sp = b[0]["profile"]["spans"]
+        print(f"  (c) bf16 pipe 2 x expert 2: {b[0]['tokens_per_s']:.1f} "
+              f"tokens/s beside lockstep "
+              f"{res['moe']['bf16_tokens_per_s']:.1f}; rank 0 profiled: "
+              f"wall {b[0]['profile']['wall_ms']:.1f} ms, "
+              + ", ".join(f"{k} {v['count']} x {v['ms']:.1f} ms"
+                          for k, v in sorted(sp.items())))
+        for name, tr in res["train_main"].items():
+            print(f"  (d) train.py {' '.join(MOE_TRAIN_ARGS[name])} "
+                  f"--moe-experts 8: rc {tr['rc']}, final loss "
+                  f"{tr['final_loss']:.4f}, {tr['seconds']:.1f} s")
+        res["forward_world"] = fw
+        res["ep"] = ep
+        res["ep_bf16"] = [{k: x[k] for k in ("tokens_per_s", "loss",
+                                             "launches", "profile")}
+                          for x in b]
+        res["world_ranks_s"] = [{k: r[k] for k in (
+            "warm_s", "refs_wait_s", "gates_s", "lock_wait_s", "seconds")}
+            for r in ranks]
+        out["forward_world"] = {r["rank"]: r["forward"]["launches"]
+                                for r in ranks}
+        out["moe_ep"] = {r["rank"]: r["ep"]["launches"] for r in ranks}
+        for w in ("forward_world", "moe_ep"):
+            total = {k: sum(x[k] for x in out[w].values())
+                     for k in out["moe"]}
+            need = ("flash_fwd",) if w == "forward_world" else (
+                "xent_fwd", "xent_bwd")
+            check(all(total[k] > 0 for k in need),
+                  f"{w}: a kernel of its path was never launched: {total}")
+    finally:
+        for k in ("ready", "lock_done"):  # a failed launcher frees the world
+            if not Path(spec[k]).exists():
+                signal_file(spec[k], "the launcher stopped")
+        for th in (world, trainer):
+            if th is not None:
+                th.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 15: {res['seconds']:.1f} s")
+    report["fwd_moe"] = res
+    return out
+
+
 # training dynamics and the certified search (phase 12): untied GPT-2-small
 # (the JAX default), D = 4, M = 4, S = TRAIN_S; the f32 gates at B = 8, the
 # bf16 fit at B = 24 over f32 masters
@@ -5337,6 +5960,11 @@ def main() -> int:
             "card, pipe 2 x data 2 and pipe 2 x seq 2 (ring, Ulysses), "
             "GPT-2-small", phase_par, report)
         torch.cuda.empty_cache()
+        fwd_moe_launches = phase(
+            15, "pipelined batch inference and Mixture-of-Experts: "
+            "GPT-2-small's forward, MoE lockstep and a gloo world of pipe 2 "
+            "x expert 2", phase_fwd_moe, report)
+        torch.cuda.empty_cache()
     dyn_launches = phase(12, "the static verifier, a certified searched "
                          "schedule and training dynamics: untied "
                          "GPT-2-small", phase_dynamics, report, tables)
@@ -5407,7 +6035,15 @@ def main() -> int:
                                          for r in sorted(counts)]
                    for w, counts in par_launches.items()},
                 **{f"{w}_step": sum(counts[r][name] for r in counts)
-                   for w, counts in par_launches.items()}}))
+                   for w, counts in par_launches.items()},
+                "forward": fwd_moe_launches["forward"][name],
+                "moe_step": fwd_moe_launches["moe"][name],
+                **{f"{w}_by_rank": [fwd_moe_launches[w][r][name]
+                                    for r in sorted(fwd_moe_launches[w])]
+                   for w in ("forward_world", "moe_ep")},
+                **{w: sum(fwd_moe_launches[w][r][name]
+                          for r in fwd_moe_launches[w])
+                   for w in ("forward_world", "moe_ep")}}))
         kernels[-1]["par_shape"] = {
             k: main_shapes[(f"{name}_par", "bfloat16")][k]
             for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",

@@ -48,7 +48,18 @@ package's. Ported so far:
   ``parallel.ring_attention``, ``parallel.ulysses``,
   ``parallel.seq_parallel``), both inside the pipeline, through ``fit``
   and ``train.py --fsdp`` / ``--sp N --sp-attn {ring,ulysses}``; the
-  world's axes are data x pipe x model x seq, as the JAX mesh's;
+  world's axes are data x pipe x model x seq x expert, as the JAX mesh's;
+- Mixture-of-Experts (``MoEConfig``, ``MoELM``, ``moe_lm_loss``;
+  ``models.moe``): top-k capacity routing with the Switch aux loss, MoE
+  blocks through the tick executor under every schedule, the eval (cross
+  entropy only), ``fit`` and ``train.py --moe-experts``, lockstep or over
+  an expert axis of the world (``MeshConfig(n_expert=)``,
+  ``parallel.expert_parallel``: ``make_ep_loss_fn``; the slots exchanged
+  by an all-to-all over the expert group, which also splits the batch)
+  composed with the pipe and data axes (``train.py --ep N``);
+- pipelined batch inference (``make_pipeline_forward``): the merged
+  logits of the eval executor's fill-drain forward, lockstep or on data
+  x pipe x model worlds;
 - Megatron tensor parallelism on the world's model axis
   (``MeshConfig(n_model=T)``, ``parallel.tensor_parallel``:
   ``shard_model``, ``gather_model``, ``make_tp_grad_fn``;
@@ -82,8 +93,10 @@ from .models.transformer import init_params
 from .parallel.fsdp import (fsdp_shard_params, make_fsdp_grad_fn,
                             shard_params_fsdp)
 from .parallel.mesh import init_multihost, launch, make_mesh
-from .parallel.pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
-                                owned_layers)
+from .models.moe import MoEConfig, MoELM, moe_lm_loss
+from .parallel.expert_parallel import make_ep_loss_fn
+from .parallel.pipeline import (make_pipeline_forward, make_pipeline_grad_fn,
+                                make_pipeline_loss_fn, owned_layers)
 from .parallel.pipelined_decode import make_pipeline_generate_fn
 from .parallel.schedules import compile_schedule
 from .parallel.tensor_parallel import gather_model, shard_model
@@ -101,7 +114,8 @@ __all__ = ["ModelConfig", "ScheduleConfig", "RunConfig", "MeshConfig",
            "make_mesh", "launch", "init_multihost", "owned_layers",
            "init_sharded_opt_state", "shard_model", "gather_model",
            "fsdp_shard_params", "shard_params_fsdp", "make_fsdp_grad_fn",
-           "make_sp_loss_fn", "sgd",
+           "make_sp_loss_fn", "sgd", "MoEConfig", "MoELM", "moe_lm_loss",
+           "make_ep_loss_fn", "make_pipeline_forward",
            "gpt2_config",
            "llama_config", "generate", "make_pipeline_generate_fn",
            "init_params", "from_jax_params", "compile_schedule",

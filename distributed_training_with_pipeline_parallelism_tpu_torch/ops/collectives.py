@@ -41,12 +41,23 @@ Sequence parallelism's (``parallel.seq_parallel``), over the seq group:
   backward (the loss's ``psum``: each rank's cotangent reaches its own
   share, and the replicated parameters' gradients are summed later).
 
+Expert parallelism's (``models.moe``, ``parallel.expert_parallel``), over
+the expert group: :func:`expert_all_to_all`, MoE's slot exchange (the
+all-to-all above on the expert axis, split and concatenated along dim 0,
+so its backward is the same exchange), and :func:`expert_sum`. Every rank
+of an expert group shares its pipe coordinate and so its row of the tick
+table, and builds the same autograd graph: the exchanges of forward and
+backward are posted in one order on every rank of the group, on the
+group's own communicator (no pipe hand-off or seq exchange can match
+them).
+
 FSDP's (``parallel.fsdp``), over the data group: :func:`fsdp_gather`
 all-gathers a list of shards, each along its own dim, in one message,
 and reduce-scatters their gradients back in one message (JAX
 ``all_gather``'s transpose, ``psum_scatter``). Its spans are
 ``fsdp_gather`` and ``fsdp_reduce_scatter``; the seq ring's hops are
-``sp_shift`` and the all-to-alls ``sp_all_to_all``.
+``sp_shift``, the seq all-to-alls ``sp_all_to_all`` and the expert ones
+``ep_all_to_all``.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import DATA_AXIS as DATA
+from ..parallel.mesh import EXPERT_AXIS as EXPERT
 from ..parallel.mesh import MODEL_AXIS as MODEL
 from ..parallel.mesh import SEQ_AXIS as SEQ
 
@@ -397,28 +409,37 @@ def seq_shift(x: torch.Tensor, mesh, offset: int = 1) -> torch.Tensor:
     return _SeqShift.apply(x, mesh, offset)
 
 
-def _all_to_all(x: torch.Tensor, mesh, split_dim: int,
-                concat_dim: int) -> torch.Tensor:
-    """Block j of ``x`` along ``split_dim`` to seq rank j; the blocks
-    received, in seq order, concatenated along ``concat_dim``."""
-    parts = torch.stack(x.detach().chunk(mesh.n_seq, dim=split_dim))
+# an axis's all-to-all span and the mesh's counter of them (None: none)
+_A2A = {SEQ: ("sp_all_to_all", None), EXPERT: ("ep_all_to_all", "a2a")}
+
+
+def _all_to_all(x: torch.Tensor, mesh, split_dim: int, concat_dim: int,
+                axis: str) -> torch.Tensor:
+    """Block j of ``x`` along ``split_dim`` to rank j of ``axis``; the
+    blocks received, in the axis's order, concatenated along
+    ``concat_dim``."""
+    _, n = mesh._group(axis)
+    parts = torch.stack(x.detach().chunk(n, dim=split_dim))
     out = torch.empty_like(parts)
-    with torch.profiler.record_function("sp_all_to_all"):
-        mesh.all_to_all(out, parts, SEQ)
+    span, counter = _A2A[axis]
+    with torch.profiler.record_function(span):
+        mesh.all_to_all(out, parts, axis)
+    if counter is not None:
+        setattr(mesh, counter, getattr(mesh, counter) + 1)
     return torch.cat(out.unbind(0), dim=concat_dim)
 
 
-class _SeqAllToAll(torch.autograd.Function):
+class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, split_dim, concat_dim):
-        ctx.mesh, ctx.dims = mesh, (split_dim, concat_dim)
-        return _all_to_all(x, mesh, split_dim, concat_dim)
+    def forward(ctx, x, mesh, split_dim, concat_dim, axis):
+        ctx.mesh, ctx.dims, ctx.axis = mesh, (split_dim, concat_dim), axis
+        return _all_to_all(x, mesh, split_dim, concat_dim, axis)
 
     @staticmethod
     def backward(ctx, g):
         split_dim, concat_dim = ctx.dims
-        return _all_to_all(g, ctx.mesh, concat_dim, split_dim), None, None, \
-            None
+        return (_all_to_all(g, ctx.mesh, concat_dim, split_dim, ctx.axis),
+                None, None, None, None)
 
 
 def seq_all_to_all(x: torch.Tensor, mesh, split_dim: int,
@@ -428,25 +449,41 @@ def seq_all_to_all(x: torch.Tensor, mesh, split_dim: int,
     block j goes to seq rank j, and the blocks this rank receives are
     concatenated along ``concat_dim`` in seq order. Its backward is the
     inverse exchange."""
-    return _SeqAllToAll.apply(x, mesh, split_dim, concat_dim)
+    return _AllToAll.apply(x, mesh, split_dim, concat_dim, SEQ)
 
 
-class _SeqSum(torch.autograd.Function):
+def expert_all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
+    """MoE's slot exchange over the expert group (the JAX ``all_to_all(x,
+    'expert', 0, 0)``): ``x`` [n_expert * G, ...] is cut into n_expert
+    blocks along dim 0, block j goes to expert rank j, and the blocks
+    received are stacked in expert order along dim 0. Its backward is
+    the same exchange of the cotangent (the inverse of this one). Each
+    call counts one on ``mesh.a2a``; span ``ep_all_to_all``."""
+    return _AllToAll.apply(x, mesh, 0, 0, EXPERT)
+
+
+class _AxisSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, mesh, axis):
         out = x.detach().clone()
-        mesh.all_reduce([out], SEQ)
+        mesh.all_reduce([out], axis)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 def seq_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of ``x`` over the seq group forward, the identity backward
     (the JAX loss ``psum`` under ``shard_map``)."""
-    return _SeqSum.apply(x, mesh)
+    return _AxisSum.apply(x, mesh, SEQ)
+
+
+def expert_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the expert group forward, the identity
+    backward (the JAX MoE loss's ``psum`` over 'expert')."""
+    return _AxisSum.apply(x, mesh, EXPERT)
 
 
 # ---------------------------------------------------------------------------

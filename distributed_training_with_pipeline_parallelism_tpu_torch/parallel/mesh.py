@@ -1,5 +1,5 @@
-"""The world of processes: one per (data, pipe, model, seq) coordinate
-(the counterpart of the JAX package's ``parallel/mesh.py``).
+"""The world of processes: one per (data, pipe, model, seq, expert)
+coordinate (the counterpart of the JAX package's ``parallel/mesh.py``).
 
 The JAX mesh is one program over a ('data', 'pipe') grid of devices; the
 reference runs one process per pipeline stage and joins them with
@@ -8,13 +8,17 @@ The port does the latter: :func:`launch` spawns one process per
 coordinate, :func:`init_multihost` joins it to the process group and
 :func:`make_mesh` gives it a :class:`Mesh`, its place in the grid and the
 groups it reduces over. Ranks follow the JAX grid's row-major order
-(``mesh.py:54-60``: data, pipe, model, seq, the seq axis innermost),
-``rank = ((data * n_pipe + pipe) * n_model + model) * n_seq + seq``. The
-model group (the ranks of one (data, pipe, seq) coordinate) is where a
-stage's Megatron shards meet (``parallel.tensor_parallel``); the seq
-group (one (data, pipe, model) coordinate) is where a stage's sequence
-shards meet (``parallel.seq_parallel``); the data group carries the
-FSDP gathers and reduce-scatters (``parallel.fsdp``).
+(``mesh.py:44-66``: data, pipe, model, seq, expert, the expert axis
+innermost), ``rank = (((data * n_pipe + pipe) * n_model + model) * n_seq
++ seq) * n_expert + expert``. The model group (the ranks that share every
+other coordinate) is where a stage's Megatron shards meet
+(``parallel.tensor_parallel``); the seq group is where a stage's sequence
+shards meet (``parallel.seq_parallel``); the expert group is where a MoE
+stage's expert shards exchange their token slots (``parallel.
+expert_parallel``; the expert axis doubles as a batch axis); the data
+group carries the FSDP gathers and reduce-scatters (``parallel.fsdp``).
+A world with an expert axis and a model or seq axis above 1 is refused,
+naming ``ROADMAP.md`` item 11.
 
 The backend is the caller's choice, never switched quietly:
 
@@ -32,6 +36,8 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 import pickle
 import queue as queue_mod
@@ -115,52 +121,64 @@ def init_multihost(coordinator_address: str, num_processes: int,
 
 @dataclasses.dataclass
 class Mesh:
-    """This rank's place in the ('data', 'pipe', 'model', 'seq') grid, its
-    groups and its device. Built by :func:`make_mesh`."""
+    """This rank's place in the ('data', 'pipe', 'model', 'seq', 'expert')
+    grid, its groups and its device. Built by :func:`make_mesh`."""
 
     n_pipe: int
     n_data: int
     rank: int
     backend: str
     device: torch.device
-    pipe_group: Any = None  # the ranks of this (data, model, seq) coordinate
-    data_group: Any = None  # the ranks at this (pipe, model, seq) coordinate
+    pipe_group: Any = None  # the ranks sharing every coordinate but pipe
+    data_group: Any = None  # the ranks sharing every coordinate but data
     n_model: int = 1
     model_group: Any = None  # the ranks at this (data, pipe, seq) coordinate
     hops: int = 0  # model-ring hops posted (:meth:`ring_post`)
     n_seq: int = 1
     seq_group: Any = None  # the ranks at this (data, pipe, model) coordinate
+    n_expert: int = 1
+    expert_group: Any = None  # the ranks sharing every coordinate but expert
+    a2a: int = 0  # expert all-to-alls posted (ops.collectives)
 
     @property
     def world(self) -> int:
-        return self.n_pipe * self.n_data * self.n_model * self.n_seq
+        return (self.n_pipe * self.n_data * self.n_model * self.n_seq
+                * self.n_expert)
+
+    @property
+    def expert(self) -> int:
+        return self.rank % self.n_expert
 
     @property
     def seq(self) -> int:
-        return self.rank % self.n_seq
+        return (self.rank // self.n_expert) % self.n_seq
 
     @property
     def model(self) -> int:
-        return (self.rank // self.n_seq) % self.n_model
+        return (self.rank // (self.n_expert * self.n_seq)) % self.n_model
 
     @property
     def pipe(self) -> int:
-        return (self.rank // (self.n_seq * self.n_model)) % self.n_pipe
+        return (self.rank // (self.n_expert * self.n_seq * self.n_model)
+                ) % self.n_pipe
 
     @property
     def data(self) -> int:
-        return self.rank // (self.n_seq * self.n_model * self.n_pipe)
+        return self.rank // (self.n_expert * self.n_seq * self.n_model
+                             * self.n_pipe)
 
     @property
     def shape(self) -> Dict[str, int]:
-        """The JAX ``mesh.shape``: axis name -> size (the model and seq
-        axes where they are above 1, as a config fingerprint of a (data,
-        pipe) world stays what it was)."""
+        """The JAX ``mesh.shape``: axis name -> size (the model, seq and
+        expert axes where they are above 1, as a config fingerprint of a
+        (data, pipe) world stays what it was)."""
         shape = {DATA_AXIS: self.n_data, PIPE_AXIS: self.n_pipe}
         if self.n_model > 1:
             shape[MODEL_AXIS] = self.n_model
         if self.n_seq > 1:
             shape[SEQ_AXIS] = self.n_seq
+        if self.n_expert > 1:
+            shape[EXPERT_AXIS] = self.n_expert
         return shape
 
     @property
@@ -176,9 +194,9 @@ class Mesh:
         return "gloo-staged" if self.staging else self.backend
 
     def rank_of(self, data: int, pipe: int, model: int = 0,
-                seq: int = 0) -> int:
-        return ((data * self.n_pipe + pipe) * self.n_model
-                + model) * self.n_seq + seq
+                seq: int = 0, expert: int = 0) -> int:
+        return (((data * self.n_pipe + pipe) * self.n_model
+                 + model) * self.n_seq + seq) * self.n_expert + expert
 
     def describe(self) -> Dict[str, Any]:
         return {"backend": self.backend, "staging": self.staging,
@@ -187,14 +205,15 @@ class Mesh:
                 "rank": self.rank, "coords": {DATA_AXIS: self.data,
                                               PIPE_AXIS: self.pipe,
                                               MODEL_AXIS: self.model,
-                                              SEQ_AXIS: self.seq},
+                                              SEQ_AXIS: self.seq,
+                                              EXPERT_AXIS: self.expert},
                 "device": str(self.device)}
 
     # -- collectives -----------------------------------------------------
 
     def _group(self, axis: str):
         """(process group, size) of ``axis``: "pipe", "data", "model",
-        "seq" or "world"."""
+        "seq", "expert" or "world"."""
         if axis == PIPE_AXIS:
             return self.pipe_group, self.n_pipe
         if axis == DATA_AXIS:
@@ -203,6 +222,8 @@ class Mesh:
             return self.model_group, self.n_model
         if axis == SEQ_AXIS:
             return self.seq_group, self.n_seq
+        if axis == EXPERT_AXIS:
+            return self.expert_group, self.n_expert
         if axis == "world":
             return None, self.world
         raise ValueError(f"unknown axis {axis!r}")
@@ -319,13 +340,14 @@ class Mesh:
         """Post this rank's sends ``(tensor, peer pipe coordinate, tag)``
         and receives ``(shape, dtype, peer, tag)`` together
         (``batch_isend_irecv``: one order on every rank, so no pairing can
-        deadlock). Peers are pipe coordinates of this rank's (data, model)
-        coordinate.
+        deadlock). Peers are pipe coordinates of this rank's other
+        coordinates.
         Returns ``(send_works, [(work, buffer), ...])``: wait a receive's
         work before reading its buffer (:meth:`landed`), and keep the send
         works until they complete."""
         def at(peer):
-            return self.rank_of(self.data, peer, self.model, self.seq)
+            return self.rank_of(self.data, peer, self.model, self.seq,
+                                self.expert)
 
         ops, wires = [], []
         for t, peer, tag in sends:
@@ -360,7 +382,8 @@ class Mesh:
         T, m = self.n_model, self.model
 
         def at(j):
-            return self.rank_of(self.data, self.pipe, j % T, self.seq)
+            return self.rank_of(self.data, self.pipe, j % T, self.seq,
+                                self.expert)
 
         wire = self._to_wire(x)
         self._sync_for_wire()
@@ -390,7 +413,8 @@ class Mesh:
         D, s = self.n_seq, self.seq
 
         def at(j):
-            return self.rank_of(self.data, self.pipe, self.model, j % D)
+            return self.rank_of(self.data, self.pipe, self.model, j % D,
+                                self.expert)
 
         wire = self._to_wire(x)
         self._sync_for_wire()
@@ -407,18 +431,27 @@ class Mesh:
         return buf
 
 
+def check_expert_axes(n_model: int, n_seq: int, n_expert: int) -> None:
+    """Refuse an expert axis composed with a model or seq axis (ROADMAP.md
+    item 11 takes those compositions next)."""
+    for name, n in (("n_model", n_model), ("n_seq", n_seq)):
+        if n_expert > 1 and n > 1:
+            raise NotImplementedError(
+                f"n_expert={n_expert} with {name}={n}: expert parallelism "
+                f"composed with a model or seq axis is not ported yet: "
+                f"ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)")
+
+
 def make_mesh(n_pipe: int, n_data: int = 1, n_model: int = 1,
               n_seq: int = 1, n_expert: int = 1, *, backend: str,
               device) -> Mesh:
     """This rank's :class:`Mesh` over the joined world
     (:func:`init_multihost` first): the world must hold ``n_pipe * n_data
-    * n_model * n_seq`` ranks. Every rank calls it with the same shape, in
-    the same order (it creates the pipe, data, model and seq groups, a
-    collective). ``n_expert`` above 1 raises ``NotImplementedError``."""
-    if n_expert > 1:
-        raise NotImplementedError(
-            f"n_expert={n_expert}: the expert axis is not ported yet: "
-            f"ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)")
+    * n_model * n_seq * n_expert`` ranks. Every rank calls it with the same
+    shape, in the same order (it creates the pipe, data, model, seq and
+    expert groups, a collective). ``n_expert`` above 1 with ``n_model`` or
+    ``n_seq`` above 1 raises ``NotImplementedError``."""
+    check_expert_axes(n_model, n_seq, n_expert)
     _check_backend(backend)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a joined world: call "
@@ -427,46 +460,32 @@ def make_mesh(n_pipe: int, n_data: int = 1, n_model: int = 1,
         raise ValueError(f"backend={backend!r}, but the world was joined "
                          f"with {dist.get_backend()!r}")
     world = dist.get_world_size()
-    need = n_pipe * n_data * n_model * n_seq
+    sizes = (n_data, n_pipe, n_model, n_seq, n_expert)
+    need = math.prod(sizes)
     if world != need:
         raise ValueError(f"a ({n_data} data x {n_pipe} pipe x {n_model} "
-                         f"model x {n_seq} seq) mesh needs {need} ranks, "
-                         f"the world has {world}")
+                         f"model x {n_seq} seq x {n_expert} expert) mesh "
+                         f"needs {need} ranks, the world has {world}")
     rank = dist.get_rank()
     mesh = Mesh(n_pipe, n_data, rank, backend,
                 rank_device(device, backend, rank, world), n_model=n_model,
-                n_seq=n_seq)
-    at = mesh.rank_of
-    me = (mesh.data, mesh.pipe, mesh.model, mesh.seq)
-    # every rank creates every group, in order
-    for k in range(n_data):
-        for j in range(n_model):
-            for s in range(n_seq):
-                g = dist.new_group([at(k, p, j, s) for p in range(n_pipe)])
-                if (k, j, s) == (me[0], me[2], me[3]):
-                    mesh.pipe_group = g
-    for p in range(n_pipe):
-        for j in range(n_model):
-            for s in range(n_seq):
-                g = dist.new_group([at(k, p, j, s) for k in range(n_data)])
-                if (p, j, s) == me[1:]:
-                    mesh.data_group = g
-    if n_model > 1:
-        for k in range(n_data):
-            for p in range(n_pipe):
-                for s in range(n_seq):
-                    g = dist.new_group([at(k, p, j, s)
-                                        for j in range(n_model)])
-                    if (k, p, s) == (me[0], me[1], me[3]):
-                        mesh.model_group = g
-    if n_seq > 1:
-        for k in range(n_data):
-            for p in range(n_pipe):
-                for j in range(n_model):
-                    g = dist.new_group([at(k, p, j, s)
-                                        for s in range(n_seq)])
-                    if (k, p, j) == me[:3]:
-                        mesh.seq_group = g
+                n_seq=n_seq, n_expert=n_expert)
+    me = (mesh.data, mesh.pipe, mesh.model, mesh.seq, mesh.expert)
+    # every rank creates every group of every axis, in one order: an
+    # axis's groups run over the other axes' coordinates row-major
+    for axis, attr in enumerate(("data_group", "pipe_group", "model_group",
+                                 "seq_group", "expert_group")):
+        if sizes[axis] == 1 and attr in ("model_group", "seq_group",
+                                         "expert_group"):
+            continue
+        others = [range(n) for i, n in enumerate(sizes) if i != axis]
+        for rest in itertools.product(*others):
+            coords = [list(rest[:axis]) + [c] + list(rest[axis:])
+                      for c in range(sizes[axis])]
+            g = dist.new_group([mesh.rank_of(k, p, j, s, e)
+                                for k, p, j, s, e in coords])
+            if tuple(rest) == me[:axis] + me[axis + 1:]:
+                setattr(mesh, attr, g)
     if mesh.device.type == "cuda":
         torch.cuda.set_device(mesh.device)
     return mesh
@@ -503,7 +522,8 @@ def _child(rank, mesh_cfg, store, backend, device, timeout_s, call,
         init_multihost(f"file://{store}", world, rank, backend=backend,
                        timeout_s=timeout_s)
         mesh = make_mesh(mesh_cfg.n_pipe, mesh_cfg.n_data, mesh_cfg.n_model,
-                         mesh_cfg.n_seq, backend=backend, device=device)
+                         mesh_cfg.n_seq, mesh_cfg.n_expert, backend=backend,
+                         device=device)
         value = fn(mesh, *args)
         mesh.barrier()  # no rank leaves while another still talks to it
         results.put((rank, True, value))

@@ -45,6 +45,15 @@ backward reduce-scatters their gradients, so they rest at 1/n_data. With
 a seq axis (``mesh.n_seq`` above 1) each rank holds its chunk of every
 sequence and the stages run ``parallel.seq_parallel``'s blocks; the
 hand-offs carry the chunks.
+
+With ``moe=`` (a ``models.moe.MoEConfig``) the stages are MoE blocks
+(``models.moe.MoELM``): each unit's stage returns its output and its
+layers' summed routing aux loss, which enters the stage's objective. With
+an expert axis (``mesh.n_expert`` above 1) each rank holds its expert
+coordinate's block of the experts, the MoE FFNs exchange their slots over
+the expert group, and the expert axis doubles as a batch axis (the batch
+splits over data x expert). :func:`make_pipeline_forward` is pipelined
+batch inference over the eval executor's table: the merged logits.
 """
 
 from __future__ import annotations
@@ -58,11 +67,11 @@ import torch.nn as nn
 
 from ..analysis import maybe_verify_forward_table, maybe_verify_schedule
 from ..models.transformer import (Transformer, body_apply, embed_apply,
-                                  head_loss)
+                                  head_apply, head_loss)
 from ..ops.layers import fold_seed, global_pad_scale
 from ..utils.config import (ModelConfig, ScheduleConfig, resolve_device,
                             torch_dtype)
-from .mesh import DATA_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh
+from .mesh import DATA_AXIS, EXPERT_AXIS, PIPE_AXIS, SEQ_AXIS, Mesh
 from .schedules import (BANK_BEFORE_B, BANK_BEFORE_F, BANK_BEFORE_W,
                         BANK_END, CHANNELS, COL_BWD_ASLOT, COL_BWD_GSLOT,
                         COL_BWD_LOCAL_SLOT, COL_BWD_M, COL_BWD_V,
@@ -73,8 +82,8 @@ from .schedules import (BANK_BEFORE_B, BANK_BEFORE_F, BANK_BEFORE_W,
                         overlap_bank_stages, placement_stage_of,
                         schedule_placement, schedule_ticks)
 
-# mesh axes of the JAX executor: the data, model and seq axes run as a
-# torch.distributed world (``mesh=``), the expert axis is not ported yet
+# mesh axes of the JAX executor: each runs as an axis of a
+# torch.distributed world (``mesh=``)
 _AXIS_ITEMS = {
     "data": "a 'data' axis runs over a torch.distributed world (ROADMAP.md "
             "Queue 1, item 8): pass mesh=make_mesh(n_pipe, n_data) on each "
@@ -89,8 +98,14 @@ _AXIS_ITEMS = {
            "n_model, n_seq) on each rank of a parallel.mesh.launch world, "
            "with the rank's chunk of each batch (utils.data."
            "batch_sharding)",
-    "expert": "ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)",
+    "expert": "an 'expert' axis (expert parallelism) runs over a "
+              "torch.distributed world: pass mesh=make_mesh(n_pipe, n_data, "
+              "n_expert=E) and moe= on each rank of a parallel.mesh.launch "
+              "world, with the rank's expert shard (from_jax_params(..., "
+              "expert=(E, mesh.expert)))",
 }
+# the compositions of MoE that the next slice ports
+_MOE_ITEM = "ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)"
 COMM_OVERLAP = ("none", "ring", "auto")
 
 
@@ -330,14 +345,22 @@ def _check_fsdp_args(fsdp: bool, mesh: Optional[Mesh],
 
 
 def _layers_runner(cfg: ModelConfig, mesh: Optional[Mesh], tp, fsdp: bool,
-                   sp_attn_impl: str):
-    """``run(layers, dims, x, rng, offset)``: the blocks ``layers`` (a
-    ``ModuleList``) over x, the dense body or, on a seq axis, the
-    sequence-split one; under FSDP inside ``gathered_call`` (``dims``: the
-    list's own parameter names -> data dim)."""
+                   sp_attn_impl: str, moe=None):
+    """``run(layers, dims, x, rng, offset) -> (y, aux)``: the blocks
+    ``layers`` (a ``ModuleList``) over x, the dense body or, on a seq
+    axis, the sequence-split one; under FSDP inside ``gathered_call``
+    (``dims``: the list's own parameter names -> data dim). ``aux`` is
+    None, or with ``moe`` the MoE blocks' summed routing aux loss (their
+    experts exchanged over the mesh's expert group where it is above
+    1)."""
     from .fsdp import gathered_call
     from .seq_parallel import sp_body_apply
     sp = mesh if mesh is not None and mesh.n_seq > 1 else None
+    if moe is not None:
+        from ..models.moe import moe_layers_apply
+        ep = mesh if mesh is not None and mesh.n_expert > 1 else None
+        return lambda layers, dims, x, rng, offset: moe_layers_apply(
+            cfg, moe, layers, x, rng, offset, ep)
 
     def body(layers, x, rng, offset):
         if sp is not None:
@@ -347,10 +370,59 @@ def _layers_runner(cfg: ModelConfig, mesh: Optional[Mesh], tp, fsdp: bool,
 
     def run(layers, dims, x, rng, offset):
         if not fsdp:
-            return body(layers, x, rng, offset)
-        return gathered_call(layers, dims, mesh, body, x, rng, offset)
+            return body(layers, x, rng, offset), None
+        return gathered_call(layers, dims, mesh, body, x, rng, offset), None
 
     return run
+
+
+def _check_moe_mesh(cfg: ModelConfig, moe, T: int, n_ep: int) -> None:
+    """The JAX ``_check_moe_mesh``: gpt2 blocks, experts that divide over
+    the expert axis, an expert ffn that divides over the model axis."""
+    if cfg.arch != "gpt2":
+        raise ValueError("MoE pipeline blocks are gpt2-style; set "
+                         "arch='gpt2'")
+    if moe.n_experts % n_ep:
+        raise ValueError(f"n_experts={moe.n_experts} must divide over "
+                         f"{n_ep} expert shards")
+    if T > 1 and (moe.ffn_dim or cfg.ffn_dim) % T:
+        raise ValueError(
+            f"MoE expert ffn_dim={moe.ffn_dim or cfg.ffn_dim} must be "
+            f"divisible by the model-axis size {T}")
+
+
+def _check_moe(cfg: ModelConfig, moe, mesh: Optional[Mesh],
+               fsdp: bool) -> None:
+    """The MoE refusals of the JAX executor (an expert axis without a
+    ``MoEConfig``, ``_check_moe_mesh``) and the port's own: MoE with a
+    model or seq axis or with FSDP is the next slice's."""
+    n_ep = 1 if mesh is None else mesh.n_expert
+    if n_ep > 1 and moe is None:
+        raise ValueError("mesh has an 'expert' axis but no MoEConfig given")
+    if moe is None:
+        return
+    _check_moe_mesh(cfg, moe, 1 if mesh is None else mesh.n_model, n_ep)
+    if mesh is not None and (mesh.n_model > 1 or mesh.n_seq > 1):
+        raise NotImplementedError(
+            f"MoE with a 'model' or 'seq' mesh axis is not ported yet: "
+            f"{_MOE_ITEM}")
+    if fsdp:
+        raise NotImplementedError(f"MoE with fsdp is not ported yet: "
+                                  f"{_MOE_ITEM}")
+
+
+def _check_expert(model: nn.Module, moe, mesh: Optional[Mesh]) -> None:
+    """A MoE model must hold this rank's block of the experts."""
+    if moe is None:
+        return
+    want = (1, 0) if mesh is None or mesh.n_expert == 1 \
+        else (mesh.n_expert, mesh.expert)
+    have = getattr(model, "expert", None)
+    if have != want:
+        raise ValueError(
+            f"the MoE model holds expert block {have}, this rank needs "
+            f"{want} (from_jax_params(..., moe=, expert=(n_expert, "
+            f"mesh.expert)))")
 
 
 def _embedder(cfg: ModelConfig, mesh: Optional[Mesh]):
@@ -407,14 +479,15 @@ def mesh_device(device, mesh: Optional[Mesh], n_stages: int
 
 def _pad_scale(cfg: ModelConfig, targets, M: int, mesh: Optional[Mesh]):
     """``global_pad_scale`` over the whole global batch: the valid count
-    sums over the data axis (the JAX ``data_axis`` psum) and the seq axis
-    (its ``shard_axes``), whose shares the epilogue sums unscaled."""
+    sums over the data axis (the JAX ``data_axis`` psum) and the seq and
+    expert axes (its ``shard_axes``), whose shares the epilogue sums
+    unscaled."""
     if cfg.pad_token_id is None:
         return None
-    if mesh is None or mesh.n_data * mesh.n_seq == 1:
+    if mesh is None or mesh.n_data * mesh.n_seq * mesh.n_expert == 1:
         return global_pad_scale(targets, cfg.pad_token_id, M)
     n_valid = (targets != cfg.pad_token_id).sum().float()
-    for axis in (DATA_AXIS, SEQ_AXIS):
+    for axis in (DATA_AXIS, SEQ_AXIS, EXPERT_AXIS):
         mesh.all_reduce([n_valid], axis)
     return M * mesh.n_data / n_valid.clamp_min(1.0)
 
@@ -426,8 +499,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           comm_overlap: str = "none",
                           tp_vocab_parallel: bool = False,
                           telemetry=None, dynamics=None,
-                          sp_attn_impl: str = "ring", fsdp: bool = False
-                          ) -> Callable[..., torch.Tensor]:
+                          sp_attn_impl: str = "ring", fsdp: bool = False,
+                          moe=None) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: one pipelined forward and
     backward over ``n_stages`` (D) devices under ``sched``, with the
     gradients accumulated into the parameters' ``.grad`` (zero them
@@ -538,9 +611,32 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     valid count); the epilogue sums the loss and every gradient over the
     seq group after the data average.
 
-    ``axes``: a ``"data"``, ``"model"`` or ``"seq"`` entry above 1 raises
-    ``NotImplementedError`` pointing at ``mesh``; ``"expert"`` above 1
-    raises it naming the ``ROADMAP.md`` item that ports it.
+    ``moe`` (a ``models.moe.MoEConfig``; the JAX ``moe``): ``model`` is a
+    ``models.moe.MoELM`` and the stages run its MoE blocks, which attend
+    densely (no flash kernel) and return their summed routing aux loss
+    with their output. Each unit adds ``aux_loss_weight / n_layers /
+    n_expert`` times its stage's aux to the stage's objective (JAX
+    ``:1116-1119``), so a backward unit back-propagates the output's
+    cotangent and that scale (both times 1/M) together; the reported loss
+    is the cross entropy plus the aux term, the mean over microbatches of
+    ``models.moe.moe_lm_loss`` (capacity and the routing statistics are a
+    microbatch's). Every schedule runs it; under a split schedule the W
+    unit carries the router's and the expert stacks' gradients. Dropout
+    (``cfg.dropout > 0``) draws at sites 0-2 of each layer, keyed on the
+    global layer, so the masks do not depend on (D, V). With
+    ``mesh.n_expert`` above 1 (the JAX 'expert' axis) ``model`` holds this
+    rank's block of the experts (``from_jax_params(..., moe=,
+    expert=(n_expert, mesh.expert))``), the MoE FFNs exchange their slots
+    over the expert group, the batch splits over data x expert
+    (``utils.data.batch_sharding``), the dropout seed folds the expert
+    coordinate after the data one, and the epilogue sums the loss and
+    every gradient but the expert stacks' over the expert group (each
+    rank's share was divided by ``n_expert``). An expert axis without
+    ``moe`` raises ``ValueError``; MoE with a model or seq axis or with
+    ``fsdp`` raises ``NotImplementedError`` naming ``ROADMAP.md`` item 11.
+
+    ``axes``: a ``"data"``, ``"model"``, ``"seq"`` or ``"expert"`` entry
+    above 1 raises ``NotImplementedError`` pointing at ``mesh``.
 
     ``telemetry`` (a ``utils.telemetry.PipelineTelemetry``, default None)
     records a measured timeline: the table is attached with the
@@ -579,6 +675,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     tp = _tp_of(cfg, mesh, tp_vocab_parallel)
     from .seq_parallel import sp_mesh_check
     sp_mesh_check(cfg, mesh, sp_attn_impl, tp)
+    _check_moe(cfg, moe, mesh, fsdp)
     if comm_overlap not in COMM_OVERLAP:
         raise ValueError(f"comm_overlap={comm_overlap!r}: choose one of "
                          f"{COMM_OVERLAP}")
@@ -598,12 +695,19 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             f"grads from saved inputs by design (that recompute is what "
             f"fills the bubble ticks)")
     _check_fsdp_args(fsdp, mesh, remat_backward)
-    plain = D == 1 and remat_backward is None and not split
+    plain = (D == 1 and remat_backward is None and not split
+             and moe is None)
     remat = remat_backward is None or bool(remat_backward)
     n_seq = 1 if mesh is None else mesh.n_seq
+    n_ep = 1 if mesh is None else mesh.n_expert
     if dynamics:
         _check_dynamics(cfg, tp, plain, remat_backward, split, placement,
-                        sched.name, D, fsdp, n_seq)
+                        sched.name, D, fsdp, n_seq, moe, n_ep)
+    # each rank's share of the global mean: the epilogue sums the seq and
+    # expert shares (JAX ``loss_norm``)
+    loss_norm = n_seq * n_ep
+    aux_scale = (0.0 if moe is None
+                 else moe.aux_loss_weight / cfg.n_layers / loss_norm)
     table = cs.table
     inv = 1.0 / M
     lps = cfg.n_layers // S
@@ -662,7 +766,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                 mesh.all_reduce([sq_mb], DATA_AXIS)
         return loss, sq_mb
 
-    run_layers = _layers_runner(cfg, mesh, tp, fsdp, sp_attn_impl)
+    run_layers = _layers_runner(cfg, mesh, tp, fsdp, sp_attn_impl, moe)
     embed_of = _embedder(cfg, mesh)
 
     def step(model: Transformer, tokens, targets, step_seed, reduce_data,
@@ -674,9 +778,14 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                              f"seed as the fourth argument")
         _check_shard(model, tp, tp_vocab_parallel)
         _check_fsdp(model, fsdp, mesh)
+        _check_expert(model, moe, mesh)
         seed = step_seed if use_dropout else None
         if seed is not None and mesh is not None and mesh.n_data > 1:
             seed = fold_seed(seed, mesh.data)
+        if seed is not None and n_ep > 1:
+            # the expert axis doubles as a batch axis: its shards hold
+            # other tokens, so they draw other masks (JAX ``:988-994``)
+            seed = fold_seed(seed, mesh.expert)
         tokens = torch.as_tensor(tokens, device=device).long()
         targets = torch.as_tensor(targets, device=device).long()
         b, seq = tokens.shape
@@ -698,9 +807,10 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
         def head(y, tgt):
             ce = head_loss(cfg, model, y, tgt, pad_scale, tp,
                            tp_vocab_parallel)
-            # a chunk's mean over the seq axis: the epilogue's seq sum
-            # makes the global mean (the pad scale holds its own count)
-            return ce / n_seq if n_seq > 1 and pad_scale is None else ce
+            # a chunk's mean over the seq and expert axes: the epilogue's
+            # sums make the global mean (the pad scale holds its own count)
+            return ce / loss_norm if loss_norm > 1 and pad_scale is None \
+                else ce
 
         loss = torch.zeros((), dtype=torch.float32, device=device)
         if telemetry is not None:
@@ -709,8 +819,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             dims = _chunk_dims(model, model.layers, 0)
             with torch.enable_grad():
                 for m in range(M):
-                    y = run_layers(model.layers, dims, embed(m), mb_rng(m),
-                                   0)
+                    y, _ = run_layers(model.layers, dims, embed(m),
+                                      mb_rng(m), 0)
                     ce = head(y, tgts[m])
                     (ce * inv).backward()
                     loss += ce.detach()
@@ -724,8 +834,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                  for v in range(V)] for d in range(D)]
 
         def stage_body(d, v, x, m):
-            """Device d's chunk v on microbatch m; its first layer's global
-            index keys the dropout streams."""
+            """Device d's chunk v on microbatch m -> (y, aux or None); its
+            first layer's global index keys the dropout streams."""
             return run_layers(stages[d][v], dims[d][v], x, mb_rng(m),
                               stage_of(d, v) * lps)
 
@@ -742,26 +852,38 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                 with torch.no_grad():
                     x = embed(m) if s == 0 else act[d][slot]
                     act[d][slot] = x  # the saved stage input
-                    y = stage_body(d, v, x, m)
+                    y, _ = stage_body(d, v, x, m)
             else:
                 with torch.enable_grad():
                     x = embed(m) if s == 0 \
                         else act[d][slot].detach().requires_grad_()
                     act[d][slot] = x
-                    y = stage_body(d, v, x, m)
-                graphs[d][slot] = (x, y)
+                    y, aux = stage_body(d, v, x, m)
+                graphs[d][slot] = (x, y, aux)
                 y = y.detach()
             return s, y
 
-        def objective(d, v, s, m, y, gslot):
-            """(loss or None, output, its cotangent) to back-propagate from
-            stage s: on the last stage its microbatch's loss and the loss
-            / M, else the body output and the stored incoming
-            cotangent."""
+        def objective(d, v, s, m, y, aux, gslot):
+            """(loss or None, outputs, their cotangents) to back-propagate
+            from stage s: on the last stage its microbatch's loss and the
+            loss / M, else the body output and the stored incoming
+            cotangent; with MoE blocks also the stage's aux term / M (a
+            scalar, whose cotangent is 1)."""
             if s == S - 1:
                 ce = head(y, tgts[m])
-                return ce, ce * inv, None
-            return None, y, grad[d][gslot]
+                outs, cots = [ce * inv], [None]
+            else:
+                ce, outs, cots = None, [y], [grad[d][gslot]]
+            if aux is not None:
+                outs.append(aux * (aux_scale * inv))
+                cots.append(None)
+            return ce, outs, cots
+
+        def report(aux):
+            """The stage's aux share of the reported loss."""
+            nonlocal loss
+            if aux is not None:
+                loss += aux.detach() * aux_scale
 
         def release(d, aslot, gslot, s):
             """The unit that reads the saved input and cotangent last frees
@@ -780,9 +902,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
             with torch.enable_grad():
                 if split:  # stage 0 has no B
                     x = act[d][aslot].detach().requires_grad_()
-                    ce, out, g = objective(d, v, s, m, stage_body(d, v, x, m),
-                                           gslot)
-                    gx, = torch.autograd.grad(out, x, grad_outputs=g)
+                    ce, outs, cots = objective(d, v, s, m,
+                                               *stage_body(d, v, x, m), gslot)
+                    gx, = torch.autograd.grad(outs, x, grad_outputs=cots)
                     if ce is not None:
                         loss += ce.detach()
                     return s, gx
@@ -791,13 +913,14 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                     # the input's gradient flows on into the tables
                     x = embed(m) if s == 0 \
                         else act[d][aslot].detach().requires_grad_()
-                    y = stage_body(d, v, x, m)
+                    y, aux = stage_body(d, v, x, m)
                 else:
-                    x, y = graphs[d].pop(aslot)
-                ce, out, g = objective(d, v, s, m, y, gslot)
-                torch.autograd.backward(out, g)
+                    x, y, aux = graphs[d].pop(aslot)
+                ce, outs, cots = objective(d, v, s, m, y, aux, gslot)
+                torch.autograd.backward(outs, cots)
                 if ce is not None:
                     loss += ce.detach()
+                report(aux)
             release(d, aslot, gslot, s)
             return s, (x.grad if s > 0 else None)
 
@@ -816,13 +939,14 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
                         [model.pos] if cfg.arch == "gpt2" else [])
                 else:
                     x = act[d][aslot]
-                _, out, g = objective(d, v, s, m, stage_body(d, v, x, m),
-                                      gslot)
+                y, aux = stage_body(d, v, x, m)
+                _, outs, cots = objective(d, v, s, m, y, aux, gslot)
                 if s == S - 1:
                     params += list(model.norm.parameters()) + (
                         [model.tok] if cfg.tie_embeddings
                         else list(model.out.parameters()))
-                torch.autograd.backward(out, g, inputs=params)
+                torch.autograd.backward(outs, cots, inputs=params)
+                report(aux)  # W runs once for every stage's microbatch
             release(d, aslot, gslot, s)
 
         transport.begin((b // M, seq, cfg.dim), torch_dtype(cfg.dtype))
@@ -887,15 +1011,20 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
 
 def _check_dynamics(cfg: ModelConfig, tp, plain: bool, remat_backward,
                     split: bool, placement: str, name: str, D: int,
-                    fsdp: bool = False, n_seq: int = 1) -> None:
+                    fsdp: bool = False, n_seq: int = 1, moe=None,
+                    n_ep: int = 1) -> None:
     """``dynamics``' refusals, the JAX ``make_pipeline_grad_fn``'s."""
     blockers = []
+    if moe is not None:
+        blockers.append("moe")
     if fsdp:
         blockers.append("fsdp")
     if tp is not None:
         blockers.append("a 'model' mesh axis")
     if n_seq > 1:
         blockers.append("a 'seq' mesh axis")
+    if n_ep > 1:
+        blockers.append("an 'expert' mesh axis")
     if cfg.tie_embeddings:
         # the tied table takes gradients on the first stage and the last,
         # so the per-stage squared norms no longer sum to |g_m|^2
@@ -965,7 +1094,11 @@ def _epilogue(model: nn.Module, loss: torch.Tensor, mesh: Optional[Mesh],
     data group by their units' reduce-scatters, so they only take the
     1/n_data (a second sum would multiply them by n_data); on a seq axis
     every gradient and the loss are then summed over the seq group (each
-    chunk's share of the global mean)."""
+    chunk's share of the global mean), and on an expert axis the loss and
+    every gradient but the expert stacks' over the expert group (each
+    batch shard's share; an expert stack's gradient is whole on its rank,
+    every token having reached it by the all-to-all, JAX
+    ``:1720-1734``)."""
     if mesh is None:
         return loss
     from .fsdp import fsdp_names
@@ -989,6 +1122,11 @@ def _epilogue(model: nn.Module, loss: torch.Tensor, mesh: Optional[Mesh],
     if mesh.n_seq > 1:
         mesh.all_reduce([loss] + [p.grad for p in model.parameters()
                                   if p.grad is not None], SEQ_AXIS)
+    if mesh.n_expert > 1:
+        from ..models.moe import is_expert_leaf
+        mesh.all_reduce([loss] + [p.grad for n, p in model.named_parameters()
+                                  if p.grad is not None
+                                  and not is_expert_leaf(n)], EXPERT_AXIS)
     return loss
 
 
@@ -1032,13 +1170,94 @@ def _fwd_tick_table(D: int, V: int, M: int):
     return table, n_slots
 
 
+def _forward_runner(cfg: ModelConfig, sched: ScheduleConfig, D: int,
+                    device: torch.device, mesh: Optional[Mesh], tp,
+                    fsdp: bool, sp_attn_impl: str, moe):
+    """``run(model, tokens, last)``: the rows of :func:`_fwd_tick_table`
+    (every schedule's forward order is fill-drain over ``sched.n_virtual``
+    wrap-placed chunks), in eval mode, over the lockstep transport or,
+    with ``mesh``, this rank's row over the distributed one (the +1
+    forward channel only). ``last(y, m)`` takes the last stage's output of
+    microbatch m. The shared body of :func:`make_pipeline_loss_fn` and
+    :func:`make_pipeline_forward` (the JAX ``_build_forward_program``)."""
+    run_layers = _layers_runner(cfg, mesh, tp, fsdp, sp_attn_impl, moe)
+    embed_of = _embedder(cfg, mesh)
+    V, M = sched.n_virtual, sched.n_microbatches
+    S = D * V
+    if cfg.n_layers % S != 0:
+        raise ValueError(f"n_layers={cfg.n_layers} must divide evenly into "
+                         f"{S} stages")
+    table, n_slots = _fwd_tick_table(D, V, M)
+    lps = cfg.n_layers // S
+    channels = (("act", +1, 0),)  # the store column banks the +1 ring
+    if mesh is None:
+        transport = LockstepTransport(D, channels)
+    else:
+        _check_hops(table, channels, [
+            (t, d, 0) for t in range(table.shape[0]) for d in range(D)
+            if table[t, d, 2] >= 0
+            and placement_stage_of("wrap", d, int(table[t, d, 1]), D) < S - 1])
+        transport = DistTransport(mesh, table, channels)
+
+    def run(model, tokens, last) -> None:
+        _check_expert(model, moe, mesh)
+        b, seq = tokens.shape
+        if b % M:
+            raise ValueError(f"batch {b} not divisible by "
+                             f"n_microbatches={M}")
+        toks = tokens.view(M, b // M, seq)
+        stages = stack_stage_layers(model.layers, D, V)
+        dims = [[_chunk_dims(model, stages[d][v],
+                             placement_stage_of("wrap", d, v, D) * lps)
+                 for v in range(V)] for d in range(D)]
+        act: List[List] = [[None] * n_slots for _ in range(D)]
+        transport.begin((b // M, seq, cfg.dim), torch_dtype(cfg.dtype))
+        for t in range(table.shape[0]):
+            for d in transport.devices:
+                store, v, m, src = (int(c) for c in table[t, d])
+                if store >= 0:
+                    act[d][store] = transport.arrival(t, d, 0)
+                if m < 0:
+                    continue
+                s = placement_stage_of("wrap", d, v, D)
+                if s == 0:
+                    x = embed_of(model, toks[m])
+                else:
+                    x, act[d][src] = act[d][src], None  # read once
+                y, _ = run_layers(stages[d][v], dims[d][v], x, None, s * lps)
+                if s == S - 1:
+                    last(y, m)
+                else:
+                    transport.send(t, d, 0, y)
+            transport.end_tick(t)
+        transport.finish()
+
+    return run
+
+
+def _eval_checks(cfg: ModelConfig, mesh: Optional[Mesh], axes,
+                 tp_vocab_parallel: bool, sp_attn_impl: str, fsdp: bool,
+                 moe):
+    """The eval executor's refusals; returns the model axis's mesh or
+    None."""
+    _check_axes(axes)
+    tp = _tp_of(cfg, mesh, tp_vocab_parallel)
+    from .seq_parallel import sp_mesh_check
+    sp_mesh_check(cfg, mesh, sp_attn_impl, tp)
+    if fsdp and (mesh is None or mesh.n_data <= 1):
+        raise ValueError("fsdp eval needs a 'data' mesh axis (matching "
+                         "the training-side pp x fsdp support)")
+    _check_moe(cfg, moe, mesh, fsdp)
+    return tp
+
+
 def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                           n_stages: int, device="cuda",
                           axes: Optional[Dict[str, int]] = None,
                           mesh: Optional[Mesh] = None,
                           tp_vocab_parallel: bool = False,
-                          sp_attn_impl: str = "ring", fsdp: bool = False
-                          ) -> Callable[..., torch.Tensor]:
+                          sp_attn_impl: str = "ring", fsdp: bool = False,
+                          moe=None) -> Callable[..., torch.Tensor]:
     """``(model, tokens, targets) -> loss``: the forward-only pipelined
     loss over ``n_stages`` (D) devices, the evaluation twin of
     :func:`make_pipeline_grad_fn` (the JAX ``make_pipeline_loss_fn``).
@@ -1058,34 +1277,20 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
     ``tp_vocab_parallel``, a seq axis with ``sp_attn_impl`` and ``fsdp``
     (each chunk's matrices gathered just in time, the JAX eval's
     ``:2145-2152``) are as in :func:`make_pipeline_grad_fn`.
+
+    ``moe``: the stages are a ``models.moe.MoELM``'s MoE blocks, on an
+    expert axis too (as in :func:`make_pipeline_grad_fn`; the loss is
+    summed over the expert group). The eval loss is the cross entropy
+    only: the routing aux is a training regulariser, so the stages' aux
+    is dropped (the JAX MoE eval convention, ``utils/train.py:337-341``).
     """
     device = mesh_device(device, mesh, n_stages)
-    _check_axes(axes)
-    tp = _tp_of(cfg, mesh, tp_vocab_parallel)
-    from .seq_parallel import sp_mesh_check
-    sp_mesh_check(cfg, mesh, sp_attn_impl, tp)
-    if fsdp and (mesh is None or mesh.n_data <= 1):
-        raise ValueError("fsdp eval needs a 'data' mesh axis (matching "
-                         "the training-side pp x fsdp support)")
-    n_seq = 1 if mesh is None else mesh.n_seq
-    run_layers = _layers_runner(cfg, mesh, tp, fsdp, sp_attn_impl)
-    embed_of = _embedder(cfg, mesh)
-    D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
-    S = D * V
-    if cfg.n_layers % S != 0:
-        raise ValueError(f"n_layers={cfg.n_layers} must divide evenly into "
-                         f"{S} stages")
-    table, n_slots = _fwd_tick_table(D, V, M)
-    lps = cfg.n_layers // S
-    channels = (("act", +1, 0),)  # the store column banks the +1 ring
-    if mesh is None:
-        transport = LockstepTransport(D, channels)
-    else:
-        _check_hops(table, channels, [
-            (t, d, 0) for t in range(table.shape[0]) for d in range(D)
-            if table[t, d, 2] >= 0
-            and placement_stage_of("wrap", d, int(table[t, d, 1]), D) < S - 1])
-        transport = DistTransport(mesh, table, channels)
+    tp = _eval_checks(cfg, mesh, axes, tp_vocab_parallel, sp_attn_impl,
+                      fsdp, moe)
+    loss_norm = 1 if mesh is None else mesh.n_seq * mesh.n_expert
+    M = sched.n_microbatches
+    run = _forward_runner(cfg, sched, n_stages, device, mesh, tp, fsdp,
+                          sp_attn_impl, moe)
 
     @torch.no_grad()
     def loss_fn(model: Transformer, tokens, targets) -> torch.Tensor:
@@ -1093,41 +1298,21 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
         _check_fsdp(model, fsdp, mesh)
         tokens = torch.as_tensor(tokens, device=device).long()
         targets = torch.as_tensor(targets, device=device).long()
-        b, seq = tokens.shape
+        b, seq = targets.shape
         if b % M:
             raise ValueError(f"batch {b} not divisible by "
                              f"n_microbatches={M}")
-        toks = tokens.view(M, b // M, seq)
         tgts = targets.view(M, b // M, seq)
         pad_scale = _pad_scale(cfg, targets, M, mesh)
-        stages = stack_stage_layers(model.layers, D, V)
-        dims = [[_chunk_dims(model, stages[d][v],
-                             placement_stage_of("wrap", d, v, D) * lps)
-                 for v in range(V)] for d in range(D)]
-        act: List[List] = [[None] * n_slots for _ in range(D)]
         loss = torch.zeros((), dtype=torch.float32, device=device)
-        transport.begin((b // M, seq, cfg.dim), torch_dtype(cfg.dtype))
-        for t in range(table.shape[0]):
-            for d in transport.devices:
-                store, v, m, src = (int(c) for c in table[t, d])
-                if store >= 0:
-                    act[d][store] = transport.arrival(t, d, 0)
-                if m < 0:
-                    continue
-                s = placement_stage_of("wrap", d, v, D)
-                if s == 0:
-                    x = embed_of(model, toks[m])
-                else:
-                    x, act[d][src] = act[d][src], None  # read once
-                y = run_layers(stages[d][v], dims[d][v], x, None, s * lps)
-                if s == S - 1:
-                    ce = head_loss(cfg, model, y, tgts[m], pad_scale, tp,
-                                   tp_vocab_parallel)
-                    loss += ce / n_seq if pad_scale is None else ce
-                else:
-                    transport.send(t, d, 0, y)
-            transport.end_tick(t)
-        transport.finish()
+
+        def last(y, m):
+            nonlocal loss
+            ce = head_loss(cfg, model, y, tgts[m], pad_scale, tp,
+                           tp_vocab_parallel)
+            loss += ce / loss_norm if pad_scale is None else ce
+
+        run(model, tokens, last)
         loss = loss / M
         if mesh is not None:
             mesh.all_reduce([loss], PIPE_AXIS)
@@ -1135,6 +1320,73 @@ def make_pipeline_loss_fn(cfg: ModelConfig, sched: ScheduleConfig,
                 loss = loss / mesh.n_data
                 mesh.all_reduce([loss], DATA_AXIS)
             mesh.all_reduce([loss], SEQ_AXIS)
+            mesh.all_reduce([loss], EXPERT_AXIS)
         return loss
 
     return loss_fn
+
+
+def make_pipeline_forward(cfg: ModelConfig, sched: ScheduleConfig,
+                          n_stages: int, device="cuda",
+                          axes: Optional[Dict[str, int]] = None,
+                          mesh: Optional[Mesh] = None
+                          ) -> Callable[..., torch.Tensor]:
+    """``(model, tokens) -> logits [B, S, V]`` in f32: pipelined batch
+    inference (the JAX ``make_pipeline_forward``, the parity twin of
+    upstream's ``PipelineScheduleSingle.step`` return value). The eval
+    executor's fill-drain rows over ``sched.n_virtual`` wrap-placed
+    chunks, under ``torch.no_grad()`` in eval mode; the last stage runs
+    ``head_apply`` on each microbatch and the microbatches' logits are
+    merged back along the batch. No schedule is compiled (every
+    schedule's forward order is fill-drain), so any M >= 1 runs: 1F1B's
+    M >= D does not apply. ``n_layers`` must divide over D * V.
+
+    With ``mesh`` (data x pipe x model worlds) ``tokens`` is the rank's
+    data shard (``utils.data.batch_sharding``) and every rank returns that
+    shard's logits, which the last pipe stage hands its pipe peers (the
+    sum over the pipe group of zeros elsewhere, JAX's ``psum``). Under a
+    model axis the stages run Megatron TP on the rank's shard
+    (``parallel.tensor_parallel.shard_model``, the head replicated), so
+    every model rank returns the same full logits. A seq or expert axis
+    raises ``NotImplementedError`` (JAX's words: the contract is
+    materialised full-batch logits; ``make_pipeline_loss_fn`` serves those
+    meshes' eval)."""
+    device = mesh_device(device, mesh, n_stages)
+    for axis, n in (("seq", 1 if mesh is None else mesh.n_seq),
+                    ("expert", 1 if mesh is None else mesh.n_expert)):
+        if n > 1:
+            raise NotImplementedError(
+                f"make_pipeline_forward supports data x pipe x model meshes "
+                f"(got a '{axis}' axis); for eval losses on SP/MoE meshes "
+                f"use make_pipeline_loss_fn")
+    tp = _eval_checks(cfg, mesh, axes, False, "ring", False, None)
+    D, V, M = n_stages, sched.n_virtual, sched.n_microbatches
+    if M < 1:
+        raise ValueError(f"n_microbatches={M} must be >= 1")
+    if cfg.n_layers % (D * V):
+        raise ValueError(f"n_layers={cfg.n_layers} must divide over "
+                         f"{D * V} stages")
+    run = _forward_runner(cfg, sched, D, device, mesh, tp, False, "ring",
+                          None)
+
+    @torch.no_grad()
+    def forward(model: Transformer, tokens) -> torch.Tensor:
+        _check_shard(model, tp, False)
+        tokens = torch.as_tensor(tokens, device=device).long()
+        b, seq = tokens.shape
+        if b % M:
+            raise ValueError(f"batch {b} not divisible by "
+                             f"n_microbatches={M}")
+        out = torch.zeros((M, b // M, seq, cfg.vocab_size),
+                          dtype=torch.float32, device=device)
+
+        def last(y, m):
+            out[m] = head_apply(cfg, model, y).float()
+
+        run(model, tokens, last)
+        if mesh is not None:
+            # the logits live on the last pipe stage; zeros elsewhere
+            mesh.all_reduce([out], PIPE_AXIS)
+        return out.view(b, seq, cfg.vocab_size)
+
+    return forward

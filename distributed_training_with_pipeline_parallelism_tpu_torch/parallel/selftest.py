@@ -16,8 +16,14 @@ JAX-layout pytree of numpy arrays per tie setting (``"trees"``:
 (``"cfgs"[case["cfg"]]``), its weights (``"trees"[case["tree"]]``) and
 its global batch (``"batches"[case["batch"]]``, a (tokens, targets)
 pair).
-Its mesh is (``"n_pipe"``, ``"n_data"``, ``"n_model"``, ``"n_seq"``, the
-last two 1 by default); with a model axis each rank holds its Megatron
+Its mesh is (``"n_pipe"``, ``"n_data"``, ``"n_model"``, ``"n_seq"``,
+``"n_expert"``, the last three 1 by default); with ``"moe"`` (a
+``MoEConfig``'s fields) the weights are a JAX ``moe_lm_init`` tree and each
+rank holds its ``MoELM`` view with its expert coordinate's block of the
+experts (``from_jax_params(..., moe=, expert=)``), which the ``"grad"``
+and ``"eval"`` cases run (their files then hold the expert stacks' blocks
+and, for ``"grad"``, the expert all-to-alls the step posted, ``"a2a"``);
+with a model axis each rank holds its Megatron
 shard (``tensor_parallel.shard_model``, the head split over the vocab
 with ``"vocab_parallel"``), with ``"fsdp"`` its data coordinate's FSDP
 shard of that (``fsdp.fsdp_shard_params``; the file then also holds each
@@ -61,6 +67,19 @@ runs dropout under that step seed. Each case is a dict with ``"name"``,
 - ``"sp_loss"``: ``seq_parallel.make_sp_loss_fn`` (``"n_pipe"`` 1) on
   the whole model and the rank's chunks, its gradients summed over the
   seq group.
+- ``"forward"``: ``make_pipeline_forward`` on the rank's view (its
+  Megatron shard under a model axis) and its data shard: the logits.
+- ``"ep_loss"``: ``expert_parallel.make_ep_loss_fn`` (``"n_pipe"`` 1,
+  an expert-only mesh) on the rank's expert shard of the whole model and
+  its rows, its gradients reduced by ``ep_reduce_grads``.
+- ``"moe_fit"``: ``"steps"`` steps of ``fit`` with ``sgd(0.1)`` and
+  ``moe``, from a whole-expert view (``fit`` cuts it), then again with a
+  checkpoint a step, killed in the save of step ``"kill"`` and resumed to
+  the end (``resumed/`` params); the first run's params are ``plain/``
+  (expert stacks as the rank's block), and ``adamw/`` those of 2 steps
+  of ``adamw`` with ``"opt"``'s fields; rank 0 also writes the whole model
+  that ``checkpoint.restore_world_model`` reads from the last step dir
+  (``whole/``).
 - ``"attn"``: ``ring_attention`` and ``ulysses_attention`` (``"impl"``)
   on the rank's chunks of seeded q, k, v [``"b"``, ``"s"``, ``"h"``,
   ``"dh"``] (k, v with ``"h_kv"`` heads, expanded before the ring) and a
@@ -247,6 +266,43 @@ def _fsdp_fit(mesh: Mesh, cfg, sched, view, case, shard, out: str):
     return res
 
 
+def _moe_fit(mesh: Mesh, cfg, sched, view, case, moe, shard, out: str):
+    """A ``"moe_fit"`` case (see the module doc)."""
+    from ..utils import train as ttrain
+    from ..utils.checkpoint import restore_world_model
+    from ..utils.data import synthetic_batches
+    from ..utils.resilience import FaultPlan, SimulatedKill
+
+    def run(steps, optimizer=ttrain.sgd(0.1), **kw):
+        data = synthetic_batches(cfg.vocab_size, case["B"], case["S"],
+                                 seed=1, sharding=shard)
+        trained, _ = ttrain.fit(cfg, sched, mesh.n_pipe, copy.deepcopy(view),
+                                data, steps, optimizer=optimizer,
+                                log_every=1, verbose=False,
+                                device=mesh.device, mesh=mesh, moe=moe, **kw)
+        return trained
+
+    res = {f"plain/{k}": v for k, v in _params(run(case["steps"])).items()}
+    res.update({f"adamw/{k}": v for k, v in _params(run(
+        2, ttrain.adamw(**case["opt"]))).items()})
+    ck = os.path.join(out, f"{case['name']}_ck")
+    try:
+        run(case["steps"], checkpoint_dir=ck, checkpoint_every=1,
+            fault_plan=FaultPlan(kill_in_save_step=case["kill"]))
+        raise RuntimeError("the planned kill did not come")
+    except SimulatedKill:
+        pass
+    res.update({f"resumed/{k}": v for k, v in _params(run(
+        case["steps"], checkpoint_dir=ck, checkpoint_every=1,
+        resume=True)).items()})
+    mesh.barrier()
+    if mesh.rank == 0:
+        last = os.path.join(ck, f"step_{case['steps'] - 1}")
+        res.update({f"whole/{k}": v.numpy() for k, v in
+                    restore_world_model(last, cfg).items()})
+    return res
+
+
 def run_cases(world: Mesh, spec: dict) -> dict:
     """Run ``spec``'s cases on this rank (see the module doc); returns
     ``{"rank": r, "seconds": {case: s}, "modules": [top-level modules
@@ -260,8 +316,9 @@ def run_cases(world: Mesh, spec: dict) -> dict:
     from ..utils.weights import from_jax_params
     from .fsdp import (fsdp_shard_of, fsdp_shard_params, make_fsdp_grad_fn,
                        shard_params_fsdp)
-    from .pipeline import (make_pipeline_grad_fn, make_pipeline_loss_fn,
-                           owned_layers)
+    from ..models.moe import MoEConfig
+    from .pipeline import (make_pipeline_forward, make_pipeline_grad_fn,
+                           make_pipeline_loss_fn, owned_layers)
     from .tensor_parallel import TPShard, make_tp_grad_fn
 
     torch.set_num_threads(spec.get("threads", 1))
@@ -270,7 +327,7 @@ def run_cases(world: Mesh, spec: dict) -> dict:
 
     def mesh_of(case):
         shape = (case["n_pipe"], case["n_data"], case.get("n_model", 1),
-                 case.get("n_seq", 1))
+                 case.get("n_seq", 1), case.get("n_expert", 1))
         if shape not in meshes:
             meshes[shape] = make_mesh(*shape, backend=world.backend,
                                       device=device)
@@ -301,8 +358,10 @@ def run_cases(world: Mesh, spec: dict) -> dict:
                  else (spec["tokens"], spec["targets"]))
         tokens, targets = (torch.from_numpy(x) for x in batch)
         local = shard((tokens, targets))
+        moe = MoEConfig(**case["moe"]) if "moe" in case else None
+        expert = (mesh.n_expert, mesh.expert)
         view = from_jax_params(cfg, tree, device=device, layers=own,
-                               shard=tp)
+                               shard=tp, moe=moe, expert=expert)
         fsdp = case.get("fsdp", False)
         impl = case.get("sp_attn_impl", "ring")
         if fsdp and kind != "fsdp_fit":
@@ -315,10 +374,11 @@ def run_cases(world: Mesh, spec: dict) -> dict:
                                        comm_overlap=case["comm_overlap"],
                                        tp_vocab_parallel=vp, telemetry=tel,
                                        dynamics=dyn, sp_attn_impl=impl,
-                                       fsdp=fsdp)
-            hops = mesh.hops
+                                       fsdp=fsdp, moe=moe)
+            hops, a2a = mesh.hops, mesh.a2a
             loss = fn(view, *local, *seed)
-            extra = {"hops": np.asarray(mesh.hops - hops)}
+            extra = {"hops": np.asarray(mesh.hops - hops),
+                     "a2a": np.asarray(mesh.a2a - a2a)}
             if fsdp:
                 extra.update({f"fsdp/{n}": np.asarray(d) for n, d in
                               fsdp_shard_of(view).dims.items()
@@ -351,9 +411,9 @@ def run_cases(world: Mesh, spec: dict) -> dict:
         elif kind == "eval":
             loss = make_pipeline_loss_fn(cfg, sched, D, device=device,
                                          mesh=mesh, sp_attn_impl=impl,
-                                         fsdp=fsdp)(view, *local)
+                                         fsdp=fsdp, moe=moe)(view, *local)
             extra = {}
-            if rank == 0:
+            if rank == 0 and moe is None:
                 whole = from_jax_params(cfg, tree, device=device)
                 extra["lockstep"] = np.asarray(float(make_pipeline_loss_fn(
                     cfg, sched, D, device=device)(whole, tokens, targets)))
@@ -412,6 +472,23 @@ def run_cases(world: Mesh, spec: dict) -> dict:
             loss.backward()
             mesh.all_reduce([p.grad for p in whole.parameters()], "seq")
             _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, whole)
+        elif kind == "forward":
+            logits = make_pipeline_forward(cfg, sched, D, device=device,
+                                           mesh=mesh)(view, local[0])
+            np.savez(os.path.join(out, f"{name}_r{rank}.npz"),
+                     logits=logits.numpy())
+        elif kind == "ep_loss":
+            from .expert_parallel import ep_reduce_grads, make_ep_loss_fn
+            loss = make_ep_loss_fn(cfg, moe, mesh)(view, *local)
+            loss.backward()
+            ep_reduce_grads(view, mesh)
+            _npz(os.path.join(out, f"{name}_r{rank}.npz"), loss, view)
+        elif kind == "moe_fit":
+            whole_view = from_jax_params(cfg, tree, device=device,
+                                         layers=own, moe=moe)
+            np.savez(os.path.join(out, f"{name}_r{rank}.npz"),
+                     **_moe_fit(mesh, cfg, sched, whole_view, case, moe,
+                                shard, out))
         elif kind == "attn":
             np.savez(os.path.join(out, f"{name}_r{rank}.npz"),
                      **_attn_case(mesh, case))

@@ -46,6 +46,15 @@ counterpart of ``scripts/train.py``: the same flags and defaults, through
         --model gpt2-small --pipe 2 --sp 2 --sp-attn ulysses \\
         --backend gloo --batch 8 --seq 1024 --steps 20 --fused-xent
 
+    # Mixture-of-Experts blocks (8 experts, top-2), lockstep; then their
+    # experts split over an expert axis of 2: pipe 2 x expert 2
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --moe-experts 8 --pipe 2 --batch 8 --seq 1024 \\
+        --steps 20 --fused-xent
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --moe-experts 8 --ep 2 --pipe 2 --backend gloo \\
+        --batch 8 --seq 1024 --steps 20 --fused-xent
+
 Without ``--backend`` all D = ``--pipe`` stages run in one process on the
 one device, in lockstep over the schedule's tick table. ``--backend gloo``
 or ``nccl`` launches a world of ``--pipe`` x ``--data`` x ``--tp`` x
@@ -56,9 +65,14 @@ its data coordinate's shards of the blocks' matrices) and its data
 replica's rows of each global batch (with ``--sp`` above 1, its seq
 coordinate's chunk of each sequence, attention by ``--sp-attn``; on
 CUDA, gloo stages every hand-off and collective through host memory;
-nccl needs a card per process). ``--data``, ``--tp`` or ``--sp`` above 1
-needs a backend; ``--vocab-parallel`` needs ``--tp`` above 1; ``--fsdp``
-needs ``--data`` above 1 and refuses ``--zero1``.
+nccl needs a card per process). ``--data``, ``--tp``, ``--sp`` or
+``--ep`` above 1 needs a backend; ``--vocab-parallel`` needs ``--tp``
+above 1; ``--fsdp`` needs ``--data`` above 1 and refuses ``--zero1``.
+``--moe-experts N`` (with ``--moe-topk``, ``--moe-capacity``,
+``--moe-aux``) builds a ``models.moe.MoEConfig`` and trains a MoE LM of
+GPT-2 blocks (a ``gpt2-*`` model); ``--ep`` above 1 splits its experts
+over an expert axis of that size (which also splits the batch, with the
+data axis), and needs ``--moe-experts``.
 ``--report-dir`` stamps every step's ticks (``utils.telemetry.
 PipelineTelemetry``) and writes ``events.jsonl``, ``report.json`` (the
 ``RunReport`` manifest of ``fit``) and ``trace.json`` (the newest step's
@@ -68,8 +82,9 @@ the per-stage gradient statistics, the gradient-noise scale and the
 loss-spike forensics (``utils.dynamics``, read at the log points with the
 loss; the bundles need ``--report-dir``); with ``--prefetch`` the batch
 digests are taken from the host arrays before their copy. Flags for parts
-of the JAX package not ported yet (``--ep`` above 1, ``--moe-experts``)
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+of the JAX package not ported yet (``--ep`` or ``--moe-experts`` with
+``--tp``, ``--sp`` or ``--fsdp``) raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -217,11 +232,17 @@ def parser() -> argparse.ArgumentParser:
                          "data replay depends on")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="device-prefetch depth (0 disables)")
-    ap.add_argument("--moe-experts", type=int, default=0)
+    ap.add_argument("--moe-experts", type=int, default=0,
+                    help="Mixture-of-Experts: number of experts (MoE "
+                         "blocks replace dense FFNs)")
     ap.add_argument("--moe-topk", type=int, default=2)
-    ap.add_argument("--moe-capacity", type=float, default=1.25)
-    ap.add_argument("--moe-aux", type=float, default=0.01)
-    ap.add_argument("--ep", type=int, default=1)
+    ap.add_argument("--moe-capacity", type=float, default=1.25,
+                    help="capacity factor (slots per expert scale)")
+    ap.add_argument("--moe-aux", type=float, default=0.01,
+                    help="load-balancing aux loss weight")
+    ap.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel (expert-axis) size; requires "
+                         "--moe-experts divisible by it (needs --backend)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
@@ -233,13 +254,20 @@ def parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag of an unported part."""
-    unported = [("--ep > 1", args.ep > 1, 11),
-                ("--moe-experts", args.moe_experts > 0, 11)]
+    """Raise ``NotImplementedError`` for flags of an unported part: the
+    expert axis or MoE composed with a model or seq axis or with FSDP; and
+    the JAX ``ValueError`` for an expert axis without MoE."""
+    moe = args.ep > 1 or args.moe_experts > 0
+    unported = [("--tp > 1", args.tp > 1, 11), ("--sp > 1", args.sp > 1, 11),
+                ("--fsdp", args.fsdp, 11)]
     for flag, given, item in unported:
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet: "
-                                      f"{_ITEM[item]}")
+        if moe and given:
+            raise NotImplementedError(
+                f"--ep/--moe-experts with {flag} is not ported yet: "
+                f"{_ITEM[item]}")
+    if args.ep > 1 and not args.moe_experts:
+        raise ValueError("--ep requires --moe-experts: mesh has an "
+                         "'expert' axis but no MoEConfig given")
 
 
 def build_config(args):
@@ -318,6 +346,10 @@ def _load_weights(model, path: str, mesh=None) -> str:
         if fsdp is not None:
             saved = {k: shard_tensor(v, fsdp.dims.get(k), fsdp.n,
                                      fsdp.index) for k, v in saved.items()}
+    expert = getattr(model, "expert", (1, 0))
+    if expert[0] > 1:  # a checkpoint holds the whole expert stacks
+        from .parallel.expert_parallel import ep_shard_state
+        saved = ep_shard_state(saved, expert)
     model.load_state_dict({k: saved[k] for k in model.state_dict()})
     return path
 
@@ -332,19 +364,22 @@ def main(argv=None) -> int:
                         ("--preemption-safe", args.preemption_safe)):
         if given and not args.ckpt:
             ap.error(f"{flag} requires --ckpt")
+    check_ported(args)
     for flag, n in (("--data", args.data), ("--tp", args.tp),
-                    ("--sp", args.sp)):
+                    ("--sp", args.sp), ("--ep", args.ep)):
         if n > 1 and args.backend is None:
             ap.error(f"{flag} > 1 runs one process per (data, pipe, model, "
-                     f"seq) coordinate: pass --backend gloo or nccl")
+                     f"seq, expert) coordinate: pass --backend gloo or nccl")
     if args.vocab_parallel and args.tp <= 1:
         ap.error("--vocab-parallel requires --tp > 1")
-    check_ported(args)
+    if args.moe_experts and not args.model.startswith("gpt2-"):
+        ap.error("--moe-experts uses gpt2-style blocks; pick a gpt2-* model")
     if args.backend is None:
         return run(args)
     from .parallel.mesh import launch
     from .utils.config import MeshConfig
-    launch(_rank_main, MeshConfig(args.pipe, args.data, args.tp, args.sp),
+    launch(_rank_main, MeshConfig(args.pipe, args.data, args.tp, args.sp,
+                                  args.ep),
            args, backend=args.backend, device=args.device)
     return 0
 
@@ -376,7 +411,14 @@ def run(args, mesh=None) -> int:
                            n_microbatches=args.microbatches,
                            n_virtual=args.virtual or (
                                2 if args.schedule == "ZBV" else 1))
-    say(f"model={args.model} {cfg.dim}d x {cfg.n_layers}L x "
+    moe = None
+    if args.moe_experts:
+        from .models.moe import MoEConfig
+        moe = MoEConfig(n_experts=args.moe_experts, top_k=args.moe_topk,
+                        capacity_factor=args.moe_capacity,
+                        aux_loss_weight=args.moe_aux)
+    moe_desc = f" MoE E={args.moe_experts}" if moe else ""
+    say(f"model={args.model}{moe_desc} {cfg.dim}d x {cfg.n_layers}L x "
         f"{cfg.n_heads}H, mesh=(data={args.data}, pipe={args.pipe}, "
         f"model={args.tp}, seq={args.sp}, expert={args.ep}) on {device}, "
         f"{args.schedule} M={args.microbatches} V={sched.n_virtual}"
@@ -384,15 +426,22 @@ def run(args, mesh=None) -> int:
         + (f", sp-attn {args.sp_attn}" if args.sp > 1 else ""), flush=True)
     if mesh is not None:
         say(f"world: {args.data} data x {args.pipe} pipe x {args.tp} model "
-            f"x {args.sp} seq ranks, {mesh.describe()}", flush=True)
+            f"x {args.sp} seq x {args.ep} expert ranks, {mesh.describe()}",
+            flush=True)
     optimizer = train.adamw(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         warmup_steps=args.warmup_steps, max_grad_norm=args.max_grad_norm,
         total_steps=max(1, args.steps // args.grad_accum))
     layers = (None if mesh is None else
               owned_layers(cfg.n_layers, sched, args.pipe, mesh.pipe))
-    model = init_params(cfg, torch.Generator().manual_seed(args.seed),
-                        device=device, layers=layers)
+    gen = torch.Generator().manual_seed(args.seed)
+    if moe is not None:
+        from .models.moe import moe_init_params
+        model = moe_init_params(cfg, moe, gen, device=device, layers=layers,
+                                expert=(1, 0) if mesh is None
+                                else (mesh.n_expert, mesh.expert))
+    else:
+        model = init_params(cfg, gen, device=device, layers=layers)
     if mesh is not None and mesh.n_model > 1:
         from .parallel.tensor_parallel import shard_model
         model = shard_model(model, cfg, mesh,
@@ -465,7 +514,7 @@ def run(args, mesh=None) -> int:
             zero1=args.zero1, fsdp=args.fsdp, sp_attn_impl=args.sp_attn,
             mesh=mesh, tp_vocab_parallel=args.vocab_parallel,
             report_dir=args.report_dir or None, telemetry=telemetry,
-            dynamics=args.dynamics or None)
+            dynamics=args.dynamics or None, moe=moe)
     finally:
         if loader is not None:
             loader.close()

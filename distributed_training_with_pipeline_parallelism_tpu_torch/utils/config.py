@@ -186,20 +186,25 @@ def resolve_device(device="cuda") -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """The world's shape (the JAX ``MeshConfig``): one process per (data,
-    pipe, model, seq) coordinate, axis order ('data', 'pipe', 'model',
-    'seq'), ranks row-major with the seq axis innermost. ``n_model`` above
-    1 splits each stage's blocks Megatron-style over the model group
-    (``parallel.tensor_parallel``); ``n_seq`` above 1 splits each
-    sequence over the seq group (``parallel.seq_parallel``)."""
+    pipe, model, seq, expert) coordinate, axis order ('data', 'pipe',
+    'model', 'seq', 'expert'), ranks row-major with the expert axis
+    innermost. ``n_model`` above 1 splits each stage's blocks
+    Megatron-style over the model group (``parallel.tensor_parallel``);
+    ``n_seq`` above 1 splits each sequence over the seq group
+    (``parallel.seq_parallel``); ``n_expert`` above 1 splits a MoE model's
+    experts over the expert group, which also splits the batch
+    (``parallel.expert_parallel``)."""
 
     n_pipe: int = 2
     n_data: int = 1
     n_model: int = 1
     n_seq: int = 1
+    n_expert: int = 1
 
     @property
     def n_devices(self) -> int:
-        return self.n_pipe * self.n_data * self.n_model * self.n_seq
+        return (self.n_pipe * self.n_data * self.n_model * self.n_seq
+                * self.n_expert)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -75,13 +75,18 @@ def batch_sharding(mesh, axis: str = "data") -> BatchSharding:
     axis (a :class:`.mesh.Mesh`; the JAX ``batch_sharding``): contiguous
     blocks of dim 0 in data-coordinate order, the same for every pipe rank
     of a data replica, and on a seq axis the rank's contiguous chunk of
-    each sequence in seq-coordinate order. The loaders and
+    each sequence in seq-coordinate order. On an expert axis, which
+    doubles as a batch axis, the rows split over data x expert,
+    data-major (the JAX ``P((DATA_AXIS, EXPERT_AXIS))``). The loaders and
     :func:`prefetch_to_device` take it, so each rank draws the global
     batch stream and keeps its part."""
     coords = {"data": mesh.data, "pipe": mesh.pipe}
     n_seq = getattr(mesh, "n_seq", 1)
-    return BatchSharding(mesh.shape[axis], coords[axis], n_seq,
-                         mesh.seq if n_seq > 1 else 0)
+    n, index = mesh.shape[axis], coords[axis]
+    n_expert = getattr(mesh, "n_expert", 1)
+    if axis == "data" and n_expert > 1:
+        n, index = n * n_expert, index * n_expert + mesh.expert
+    return BatchSharding(n, index, n_seq, mesh.seq if n_seq > 1 else 0)
 
 
 def _sharded(it: Iterator, sharding: Optional[BatchSharding]) -> Iterator:

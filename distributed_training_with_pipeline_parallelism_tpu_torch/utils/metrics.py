@@ -50,7 +50,7 @@ def run_train_iterations(step: Callable, model, tokens, targets,
     ``PipelineTelemetry`` already wired into ``step``) is reset after the
     warm-up, so its stamps cover exactly the timed steps, and is attached
     to ``report`` at the end."""
-    shards = 1 if mesh is None else mesh.n_data * mesh.n_seq
+    shards = 1 if mesh is None else mesh.n_data * mesh.n_seq * mesh.n_expert
     total_toks = tokens.shape[0] * tokens.shape[1] * num_iterations * shards
     barrier = mesh.barrier if mesh is not None else (lambda: None)
 

@@ -310,7 +310,9 @@ class CheckpointManager:
     writes, as ``state_pipe{d}_data{k}.pt``, since each holds other moment
     blocks or shards; with a model axis each name ends in ``_model{m}``,
     every model rank writing its shard; on a seq axis only seq coordinate
-    0 writes, the others holding the same state: :func:`world_state_file`);
+    0 writes, the others holding the same state, and on an expert axis
+    only expert coordinate 0, the state being the expert group's gathered
+    one (``utils.train.fit``): :func:`world_state_file`);
     rank 0 places the commit marker only after a barrier that follows
     every rank's ``fsync``, and alone runs retention. The digest is the
     world's (every rank's structural digest, hashed in rank order), and
@@ -335,7 +337,7 @@ class CheckpointManager:
         self.state_file = world_state_file(mesh, zero1, fsdp)
         self.writes = mesh is None or (
             ((zero1 or fsdp) and mesh.n_data > 1 or mesh.data == 0)
-            and mesh.seq == 0)
+            and mesh.seq == 0 and mesh.expert == 0)
         if self.lead:
             os.makedirs(checkpoint_dir, exist_ok=True)
         self._barrier()

@@ -53,9 +53,12 @@ from .resilience import (AnomalyBudgetExceeded, AnomalyGuard,
 def _param_groups(recipe: "AdamW", model: nn.Module, params, of):
     """The fused AdamW's two groups over ``params`` (``of(p)`` is the
     model parameter a tensor stands for): weight decay on the linear
-    matrices only."""
+    matrices only, and a MoE FFN's router and expert matrices (its
+    ``decayed_names``; the JAX mask's "w", "w1", "w2")."""
     matrices = {id(m.weight) for m in model.modules()
                 if isinstance(m, nn.Linear)}
+    matrices |= {id(getattr(m, n)) for m in model.modules()
+                 for n in getattr(m, "decayed_names", ())}
     return [g for g in (
         {"params": [t for t in params if id(of(t)) in matrices],
          "weight_decay": recipe.weight_decay},
@@ -79,8 +82,11 @@ def _fused_adamw(groups, lr):
 def _global_order(model: nn.Module):
     """name -> index in the whole model's parameter order (a rank's view
     holds a subset of the whole model's parameters)."""
+    from ..models.moe import MoELM
     from ..models.transformer import Transformer
-    whole = Transformer(model.cfg, device="meta")
+    whole = (MoELM(model.cfg, model.moe, device="meta")
+             if isinstance(model, MoELM)
+             else Transformer(model.cfg, device="meta"))
     return {n: i for i, (n, _) in enumerate(whole.named_parameters())}
 
 
@@ -89,9 +95,13 @@ def _counted(name: str, mesh, sharded=()) -> bool:
     a layer's leaf where its stage runs, a replicated leaf (embedding,
     final norm, head) on pipe coordinate 0 only; under a model axis a
     leaf split over it (``sharded``) on every model rank, whose squares
-    sum to the whole leaf's, any other on model coordinate 0 only."""
+    sum to the whole leaf's, any other on model coordinate 0 only; on an
+    expert axis an expert stack on every expert rank, any other leaf on
+    expert coordinate 0 only."""
+    from ..models.moe import is_expert_leaf
     return ((mesh.pipe == 0 or name.startswith("layers."))
-            and (mesh.model == 0 or name in sharded))
+            and (mesh.model == 0 or name in sharded)
+            and (mesh.expert == 0 or is_expert_leaf(name)))
 
 
 def _sharded(model: nn.Module):
@@ -146,7 +156,8 @@ class AdamWState:
         model groups, a split leaf's from every model rank, a replicated
         one's from model coordinate 0, then the norm of their roots. Under
         FSDP a leaf sharded over the data axis sums its squares over the
-        data group too (a replicated one's from data coordinate 0). The
+        data group too (a replicated one's from data coordinate 0), and on
+        an expert axis an expert stack's over the expert group. The
         gradients are the data group's mean already."""
         norms = torch._foreach_norm(grads)
         if mesh is None:
@@ -160,7 +171,8 @@ class AdamWState:
                           device=grads[0].device)
         have = [i for i, p in enumerate(self.params) if p.grad is not None]
         tp = mesh.n_model > 1
-        sq = tp or bool(fsdp)
+        ep = mesh.n_expert > 1
+        sq = tp or ep or bool(fsdp)
         for i, n in zip(have, norms):
             name = self.names[i]
             if _counted(name, mesh, sharded) and (
@@ -169,6 +181,8 @@ class AdamWState:
         mesh.all_reduce([vec], "pipe")
         if tp:
             mesh.all_reduce([vec], "model")
+        if ep:
+            mesh.all_reduce([vec], "expert")
         if fsdp:
             mesh.all_reduce([vec], "data")
         if sq:
@@ -509,7 +523,7 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                     comm_overlap: str = "none",
                     tp_vocab_parallel: bool = False,
                     telemetry=None, dynamics=None, fsdp: bool = False,
-                    sp_attn_impl: str = "ring") -> Callable:
+                    sp_attn_impl: str = "ring", moe=None) -> Callable:
     """``step(model, opt_state, tokens, targets[, step_seed]) -> loss``:
     the pipeline's gradients (:func:`..parallel.pipeline.make_pipeline_grad_fn`),
     then the optimizer's update of ``model`` in place. ``opt_state`` is
@@ -565,7 +579,16 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     FSDP ``model`` is the rank's ``parallel.fsdp.fsdp_shard_params`` copy
     and ``opt_state`` ``optimizer.init`` of it, so AdamW steps on the
     shards and its moments are shard-shaped; the clipping norm sums the
-    shards' squares over the data group."""
+    shards' squares over the data group.
+
+    ``moe`` (a ``models.moe.MoEConfig``): ``model`` is a
+    ``models.moe.MoELM`` and its stages run MoE blocks
+    (:func:`..parallel.pipeline.make_pipeline_grad_fn`; the loss is the
+    cross entropy plus the routing aux term). With an expert axis
+    ``model`` holds the rank's block of the experts and so does AdamW's
+    state: the expert stacks' moments are shard-shaped, and the clipping
+    norm sums the stacks' squares over the expert group. AdamW decays the
+    router and the expert matrices (the JAX mask's "w", "w1", "w2")."""
     dcfg = as_dynamics_config(dynamics)
     want_gns = dcfg is not None and dcfg.gns
     if dcfg is not None and mesh is not None and mesh.n_model > 1:
@@ -578,7 +601,8 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                                     comm_overlap=comm_overlap,
                                     tp_vocab_parallel=tp_vocab_parallel,
                                     telemetry=telemetry, dynamics=want_gns,
-                                    sp_attn_impl=sp_attn_impl, fsdp=fsdp)
+                                    sp_attn_impl=sp_attn_impl, fsdp=fsdp,
+                                    moe=moe)
     S = n_stages * sched.n_virtual
     indices: dict = {}  # a StageIndex by the tensor names it covers
 
@@ -704,18 +728,23 @@ def make_train_step(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
 def make_eval_fn(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                  device="cuda", mesh=None,
                  tp_vocab_parallel: bool = False,
-                 sp_attn_impl: str = "ring", fsdp: bool = False) -> Callable:
+                 sp_attn_impl: str = "ring", fsdp: bool = False,
+                 moe=None) -> Callable:
     """The eval-mode loss ``(model, tokens, targets) -> loss``: the
     forward-only pipelined loss
     (:func:`..parallel.pipeline.make_pipeline_loss_fn`, over the
-    distributed transport with ``mesh``, its seq axis and FSDP shards
-    included) with dropout off."""
+    distributed transport with ``mesh``, its seq and expert axes and FSDP
+    shards included) with dropout off. With ``moe`` it is the cross
+    entropy only: the routing aux is a training regulariser, so a MoE
+    eval loss compares across capacity and aux settings (the JAX MoE
+    eval convention)."""
     eval_cfg = (dataclasses.replace(cfg, dropout=0.0)
                 if cfg.dropout else cfg)
     return make_pipeline_loss_fn(eval_cfg, sched, n_stages, device=device,
                                  mesh=mesh,
                                  tp_vocab_parallel=tp_vocab_parallel,
-                                 sp_attn_impl=sp_attn_impl, fsdp=fsdp)
+                                 sp_attn_impl=sp_attn_impl, fsdp=fsdp,
+                                 moe=moe)
 
 
 def evaluate(eval_fn, model: nn.Module, data: Iterator, num_batches: int
@@ -754,10 +783,31 @@ def _latest_step_dir(checkpoint_dir: str) -> Optional[Tuple[int, str]]:
     return latest_committed_step_dir(checkpoint_dir)
 
 
-# fit's arguments that select parts of the JAX package not ported yet
-_FIT_NOT_PORTED = {
-    "moe": "ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)",
-}
+def _ep_opt_state(opt_state, state, fn):
+    """``state`` (``opt_state.state_dict()``) with each expert stack's
+    per-parameter tensors (AdamW's moments, the accumulation's running
+    mean) mapped by ``fn(name, tensor)``, in the parameters' order (so a
+    collective in ``fn`` pairs on every rank)."""
+    from ..models.moe import is_expert_leaf
+    if isinstance(opt_state, MultiStepsState):
+        names = opt_state.inner.names
+        return {**state,
+                "inner": _ep_opt_state(opt_state.inner, state["inner"], fn),
+                "acc": [fn(n, a) if is_expert_leaf(n) else a
+                        for n, a in zip(names, state["acc"])]}
+    if not isinstance(opt_state, AdamWState):
+        return state  # SGD's count only
+    name_of = dict(zip(map(id, opt_state.params), opt_state.names))
+    order = [name_of[id(p)] for g in opt_state.optimizer.param_groups
+             for p in g["params"]]
+    out = dict(state, state={})
+    for i in sorted(state["state"]):
+        entry = dict(state["state"][i])
+        if is_expert_leaf(order[i]):
+            for k in ("exp_avg", "exp_avg_sq"):
+                entry[k] = fn(order[i], entry[k])
+        out["state"][i] = entry
+    return out
 
 
 def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
@@ -886,14 +936,28 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
       chunk of each sequence (``batch_sharding``) and ``sp_attn_impl``
       ("ring" or "ulysses") picks the attention; the seq ranks hold the
       same parameters, and only seq coordinate 0 writes checkpoints.
+    - ``moe`` (a ``models.moe.MoEConfig``; ``model`` a
+      ``models.moe.MoELM``): MoE stages (:func:`make_train_step`), the
+      eval the cross entropy only (:func:`make_eval_fn`). On an expert
+      axis ``data`` yields the rank's rows over data x expert
+      (``batch_sharding``), a whole model is first cut to the rank's block
+      of the experts (``parallel.expert_parallel.ep_shard_model``; the
+      returned model is that copy), and a checkpoint holds the whole
+      expert stacks and their moments, gathered over the expert group and
+      written by expert coordinate 0 (JAX saves global arrays), so a run
+      without the expert axis loads it; a resumed rank takes its block.
+      MoE with ``fsdp``, with ``zero1`` on an expert axis, or on a model or
+      seq axis raises ``NotImplementedError`` naming ``ROADMAP.md`` item 11.
 
     The dropout seed of step i is ``fold_seed(dropout_seed, i)``, so a
-    resumed run draws the unbroken run's masks. ``moe`` raises
-    ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+    resumed run draws the unbroken run's masks.
     """
-    if moe is not None:
-        raise NotImplementedError(f"fit's moe is not ported yet: "
-                                  f"{_FIT_NOT_PORTED['moe']}")
+    n_ep = 1 if mesh is None else mesh.n_expert
+    if moe is not None and (fsdp or zero1 and n_ep > 1):
+        raise NotImplementedError(
+            f"fit with moe and {'fsdp' if fsdp else 'zero1'} is not ported "
+            f"yet: ROADMAP.md Queue 1, item 11 (MoE with expert "
+            f"parallelism)")
     if fsdp and zero1:
         raise ValueError("fsdp already shards optimizer state (ZeRO-3 "
                          "subsumes ZeRO-1) — drop --zero1")
@@ -901,7 +965,8 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     rank0 = mesh is None or mesh.rank == 0
     verbose = verbose and rank0
     metrics_path = metrics_path if rank0 else None
-    n_data = 1 if mesh is None else mesh.n_data
+    # the global batch's rows: the expert axis splits them too
+    n_data = 1 if mesh is None else mesh.n_data * mesh.n_expert
     n_seq = 1 if mesh is None else mesh.n_seq  # a rank's chunk of each row
     if guard is True:
         guard = AnomalyGuard()
@@ -917,7 +982,10 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                               guard=guard, fault_plan=fault_plan, mesh=mesh,
                               tp_vocab_parallel=tp_vocab_parallel,
                               telemetry=telemetry, dynamics=dcfg, fsdp=fsdp,
-                              sp_attn_impl=sp_attn_impl)
+                              sp_attn_impl=sp_attn_impl, moe=moe)
+    if n_ep > 1 and moe is not None and model.expert == (1, 0):
+        from ..parallel.expert_parallel import ep_shard_model
+        model = ep_shard_model(model, mesh)
     if fsdp:
         from ..parallel.fsdp import fsdp_shard_of, fsdp_shard_params
         if fsdp_shard_of(model) is None:
@@ -942,7 +1010,25 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
                  "guard": guard_state}
         if fsdp:  # the shards' dims, for a restore into a whole model
             state["fsdp"] = fsdp_dims_of(model)
+        if n_ep > 1:  # the whole expert stacks, as JAX saves them
+            from ..parallel.expert_parallel import ep_gather, ep_gather_state
+            state["model"] = ep_gather_state(state["model"], mesh)
+            state["optimizer"] = _ep_opt_state(
+                opt_state, state["optimizer"], lambda _, t: ep_gather(t, mesh))
         return state
+
+    def _load(state):
+        """This rank's part of a restored state into the model and the
+        optimizer (its block of the experts on an expert axis)."""
+        model_state, opt = state["model"], state["optimizer"]
+        if n_ep > 1:
+            from ..models.moe import expert_block
+            from ..parallel.expert_parallel import ep_shard_state
+            model_state = ep_shard_state(model_state, model.expert)
+            opt = _ep_opt_state(opt_state, opt, lambda n, t: expert_block(
+                n, t, model.expert).clone())
+        model.load_state_dict(model_state)
+        opt_state.load_state_dict(opt)
 
     mgr = None
     if checkpoint_dir:
@@ -961,8 +1047,7 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
         restored = mgr.restore_latest(_state(0))
         if restored is not None:
             n, path, state = restored
-            model.load_state_dict(state["model"])
-            opt_state.load_state_dict(state["optimizer"])
+            _load(state)
             if guard_state is not None:
                 for k, v in state["guard"].items():
                     guard_state[k].copy_(v)
@@ -1003,7 +1088,7 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
     if eval_data is not None and eval_every:
         eval_fn = make_eval_fn(cfg, sched, n_stages, device=device,
                                mesh=mesh, tp_vocab_parallel=tp_vocab_parallel,
-                               sp_attn_impl=sp_attn_impl, fsdp=fsdp)
+                               sp_attn_impl=sp_attn_impl, fsdp=fsdp, moe=moe)
     if profile_dir is not None and mesh is not None:
         profile_dir = os.path.join(profile_dir, f"rank{mesh.rank}")
     # under a mesh the preemption flag is the world's: one host read a

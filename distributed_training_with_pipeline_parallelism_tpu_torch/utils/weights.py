@@ -12,11 +12,16 @@ gradient pytree loads the same way, into a model whose parameters are
 the gradients (what the parity tests compare leaf by leaf), and a
 speculative draft's pytree loads with the draft's config as the target's
 does with its own.
+
+A JAX ``moe_lm_init`` pytree (``moe=`` its ``MoEConfig``) loads into a
+``models.moe.MoELM``: its blocks' ``ln1``, ``attn``, ``ln2`` as a GPT-2
+block's, and ``moe``'s ``router.w`` and expert stacks as they are (the
+port keeps their layout); ``expert=`` takes a rank's block of experts.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,14 +37,17 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
-def _linears(cfg: ModelConfig, layers: Dict) -> Dict:
-    """The block's linear leaves by port name."""
+def _linears(cfg: ModelConfig, layers: Dict, moe=None) -> Dict:
+    """The block's linear leaves by port name (a MoE block's attention
+    only: its FFN is not made of linears)."""
     attns = ("self_attn", "cross_attn") if cfg.arch == "ref_decoder" \
         else ("attn",)
     lins = {f"{a}.{n}": layers[a][n] for a in attns
             for n in ("q", "k", "v", "o")}
-    names = ("w1", "w2", "w3") if cfg.arch == "llama" else ("lin1", "lin2")
-    lins.update({n: layers[n] for n in names})
+    if moe is None:
+        names = ("w1", "w2", "w3") if cfg.arch == "llama" \
+            else ("lin1", "lin2")
+        lins.update({n: layers[n] for n in names})
     return lins
 
 
@@ -49,7 +57,8 @@ _BLOCK_NORMS = {"ref_decoder": ("ln1", "ln2", "ln3"), "gpt2": ("ln1", "ln2"),
 
 def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda",
                     layers: Optional[Iterable[int]] = None,
-                    shard=None) -> Transformer:
+                    shard=None, moe=None,
+                    expert: Tuple[int, int] = (1, 0)) -> Transformer:
     """The port's model holding the weights of the JAX pytree with numpy
     leaves, in ``cfg.storage_dtype`` on ``device``. Reference:
     ``{"embed": {"tok"}, "layers": {"self_attn", "cross_attn", "ln1",
@@ -65,7 +74,13 @@ def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda",
     world of ranks can be held to the JAX mesh on the same weights.
     ``shard`` (a ``parallel.tensor_parallel.TPShard``): the rank's
     Megatron shard of that view, the blocks of the JAX ``shard_params``
-    layout at its model coordinate (``parallel.tensor_parallel.shard_model``)."""
+    layout at its model coordinate (``parallel.tensor_parallel.shard_model``).
+
+    ``moe`` (a ``models.moe.MoEConfig``): ``tree`` is a JAX
+    ``moe_lm_init`` pytree (``layers``: ``ln1``, ``attn``, ``ln2``,
+    ``moe``: ``{"router": {"w"}, "w1", "b1", "w2", "b2"}``) and the result
+    a ``models.moe.MoELM``; ``expert`` = ``(n_ep, index)`` keeps block
+    ``index`` of ``n_ep`` of every expert stack (a rank's expert shard)."""
     device = resolve_device(device)
     state = {"tok": tree["embed"]["tok"],
              "norm.weight": tree["head"]["norm"]["scale"]}
@@ -85,12 +100,25 @@ def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda",
             state[f"layers.{i}.{norm}.weight"] = leaves[norm]["scale"][i]
             if "bias" in leaves[norm]:
                 state[f"layers.{i}.{norm}.bias"] = leaves[norm]["bias"][i]
-        for name, leaf in _linears(cfg, leaves).items():
+        for name, leaf in _linears(cfg, leaves, moe).items():
             state[f"layers.{i}.{name}.weight"] = np.asarray(leaf["w"][i]).T
             if "b" in leaf:
                 state[f"layers.{i}.{name}.bias"] = leaf["b"][i]
+        if moe is not None:
+            from ..models.moe import EXPERT_LEAVES, expert_block
+            ffn = leaves["moe"]
+            state[f"layers.{i}.moe.router"] = ffn["router"]["w"][i]
+            for leaf in EXPERT_LEAVES:
+                name = f"layers.{i}.moe.{leaf}"
+                state[name] = expert_block(name, np.asarray(ffn[leaf][i]),
+                                           expert)
     dtype = torch_dtype(cfg.storage_dtype)
-    model = Transformer(cfg, device=device, dtype=dtype, layers=own)
+    if moe is not None:
+        from ..models.moe import MoELM
+        model = MoELM(cfg, moe, device=device, dtype=dtype, layers=own,
+                      expert=expert)
+    else:
+        model = Transformer(cfg, device=device, dtype=dtype, layers=own)
     model.load_state_dict({k: _tensor(v).to(device=device, dtype=dtype)
                            for k, v in state.items()})
     if shard is not None:
