@@ -66,8 +66,9 @@ JAX. Phases, each fatal on failure:
    policy gives the same completions in no fewer ticks, and the engine's
    CUDA graphs give the completions of the same operations launched one
    by one (4 requests). (c) The
-   same engine in bf16 over a 32-request trace, continuous and static, 3
-   runs each, the median by wall time: tokens/s, tick gain, s_per_tick,
+   same engine in bf16 over a 32-request trace, continuous and static,
+   ``SERVE_REPS`` runs each (one; three until the script needed the
+   time), the median by wall time: tokens/s, tick gain, s_per_tick,
    TTFT and TPOT percentiles in ticks, blocking reads per block (also as
    CUDA's sync debug mode counts them), and one block under the profiler.
 6. Paged KV and speculative serving of the same Llama-3.2-1B on the
@@ -80,8 +81,8 @@ JAX. Phases, each fatal on failure:
    speculative gate against the plain engine on the 12 requests: the
    target as its own draft (fewer ticks), a random 2-layer draft (verify
    visits) and the self-draft paged; the CUDA graphs against eager
-   launches on 4 requests in each mode. (c) bf16 timing, 3 runs each, the
-   median by wall time: contiguous against paged on 32 shared-prefix
+   launches on 4 requests in each mode. (c) bf16 timing, ``SERVE_REPS``
+   runs each as in phase 5: contiguous against paged on 32 shared-prefix
    requests, plain against both drafts on the 32 Poisson requests, each
    with tokens/s, ticks, TTFT/TPOT, the page or acceptance gauges, the
    synchronising calls inside the tick blocks under CUDA's sync debug
@@ -228,10 +229,10 @@ JAX. Phases, each fatal on failure:
     lockstep process's step, whose relu masks each rank replays on its
     columns (``ReluMasks``: the row-parallel sums round otherwise,
     and the kink turns that into gradient jumps; fewer than 1e-6 of the
-    relu inputs may change sign). (d) bf16 over f32 masters, B = 24, 1F1B: the
-    lockstep process (D = 2), the world twice, the lockstep process again
-    (1 warm-up and 2 timed ``make_train_step`` steps each): tokens/s,
-    launches by rank, one step profiled on every rank (idle share, the
+    relu inputs may change sign). (d) bf16 over f32 masters, B = 24, 1F1B
+    (the tokens/s of the world in turns with the lockstep process were cut
+    for the script's time): launches by rank of one counted step, one
+    step profiled on every rank (idle share, the
     model-axis all-reduces' count and host time, the hand-offs'), one
     step stamped on every rank as in phase 10 (c). (e)
     ``train.py --pipe 2 --tp 2 --backend gloo`` at 4 layers, S = 256, 4
@@ -359,6 +360,31 @@ JAX. Phases, each fatal on failure:
     one profiled step (the all-to-alls' count and host ms). The phase
     prints its seconds.
 
+16. MoE composed with TP, FSDP and seq: one world of 8 processes on the
+    card (gloo, staged) that makes three meshes over its ranks, pipe 2 x
+    model 2 x expert 2, data 2 x pipe 2 x expert 2 with FSDP and pipe 2 x
+    seq 2 x expert 2 with Ulysses; phase 15's MoE LM (GPT-2-small's
+    widths, E = 8, top-2, expert ffn 3072, 4 of the 12 layers, cut for the
+    script's time), B = 8, S = 1024, 1F1B at D = 2, M = 2. (a) f32 at
+    capacity E and aux 0 (no drops): on each mesh the rank's model is its
+    expert block, Megatron shard and FSDP shards of the seeded weights;
+    the loss within 1e-5 relative and every leaf (a block's error and
+    norm summed over the world from one rank a block) within phase 4's
+    bound of the launcher's lockstep step on the same rows; the
+    cross-entropy kernels launched M times on each last-stage rank and
+    never elsewhere, no flash kernel (MoE blocks attend densely, as in
+    JAX); 24 expert all-to-alls a rank's step. (b) bf16 over f32 masters
+    at phase 15's routing (capacity 1.25, aux 0.01), on each mesh one
+    profiled ``make_train_step`` step (the first, so it also pays the
+    first-use costs) and one timed:
+    tokens/s, a rank's expert-stack and FSDP-shard bytes, the count and
+    host ms of the all-to-alls, model all-reduces, gathers,
+    reduce-scatters and hand-offs, and the idle share from the device's
+    own events, in [0, 1]. (c) ``train.py --moe-experts 8 --ep 2 --pipe 2
+    --tp 2`` and ``... --fsdp --data 2``, 2 steps each at 2 layers and S =
+    256, at once beside the world: exit 0 and a final loss within 1 of ln
+    V. The phase prints its seconds.
+
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
@@ -377,6 +403,7 @@ serving benches; phase 14's counted f32 FSDP, ring and Ulysses steps by
 rank and summed, 0 where no kernel serves them; phase 14's shapes' bf16
 times beside each kernel's (phase 15's microbatches take the same
 shapes); phase 15's counted forward, MoE step and world steps by rank and
+summed; phase 16's counted f32 steps on its three meshes by rank and
 summed),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -412,7 +439,9 @@ LLAMA_PREFILL_SHAPE = [LLAMA_B // M, LLAMA_P, 32, 64]  # heads expanded from 8
 SERVE = dict(n_slots=8, max_len=640, prompt_max=512, out_max=64,
              prefill_chunk=32, eos_id=1)
 SERVE_PROMPTS, SERVE_OUTS, SERVE_LOAD = (16, 512), (8, 64), 1.5
-SERVE_GATE_N, SERVE_TIME_N, SERVE_REPS = 12, 32, 3
+# SERVE_REPS: phases 5 and 6's timed runs a configuration (cut from 3, the
+# median by wall time, for the script's time limit)
+SERVE_GATE_N, SERVE_TIME_N, SERVE_REPS = 12, 32, 1
 # the reference's own job (ref_decoder, dim 768, vocab 10000, ffn 2048):
 # batch 32 of 128 tokens, 4 microbatches; one microbatch's attention at
 # 8 heads (head_dim 96) and at 4 (head_dim 192), non-causal
@@ -3119,6 +3148,24 @@ def dist_warm(configs, device, shape):
     return time.perf_counter() - t
 
 
+# the port's torch.profiler ranges: with CUDA activity each also makes a
+# device-side entry of its name, which spans the kernels inside it
+RANGES = ("handoff_wait", "handoff_post", "tp_all_reduce", "tp_all_gather",
+          "tp_reduce_scatter", "fsdp_gather", "fsdp_reduce_scatter",
+          "sp_shift", "sp_all_to_all", "ep_all_to_all", "moe_route",
+          "moe_dispatch", "moe_experts", "moe_combine")
+
+
+def device_busy_ms(avg) -> float:
+    """The device's own busy time in ms in a profile's ``key_averages()``:
+    its kernels and copies (``DeviceType.CUDA`` events), not the host ops
+    that launched them nor the ranges' device-side entries."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA
+               and e.key not in RANGES) / 1e3
+
+
 def dist_profile(step, mesh, profile_it):
     """One step on every rank; the ranks with ``profile_it`` under the
     profiler: wall, this rank's device busy, its idle share, and the host
@@ -3138,7 +3185,7 @@ def dist_profile(step, mesh, profile_it):
         wall = time.perf_counter() - t
     mesh.barrier()
     avg = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    busy = device_busy_ms(avg)
     spans = {}  # a span's copies also make a device-side entry of its name
     for e in avg:
         if e.key in ("handoff_wait", "handoff_post"):
@@ -3765,7 +3812,6 @@ TP_TRAIN_ARGS = ["--model", "gpt2-small", "--tie-embeddings", "--layers",
                  "--batch", "8", "--seq", "256", "--microbatches", "2",
                  "--steps", "4", "--ckpt-every", "1", "--flash", "on",
                  "--fused-xent", "--anomaly-guard"]
-TP_TIMED = 2  # (d)'s timed steps a run, after DIST_WARMUP
 
 
 def tp_llama_config():
@@ -3859,7 +3905,7 @@ def tp_profile(step, mesh):
         wall = time.perf_counter() - t
     mesh.barrier()
     avg = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    busy = device_busy_ms(avg)
     spans = {}
     for e in avg:
         if e.key in ("tp_all_reduce", "handoff_wait", "handoff_post"):
@@ -3994,7 +4040,9 @@ def tp_worker(mesh, spec):
                                     "the killed train.py TP world's end")
     mesh.barrier()
 
-    # (d) bf16 timing (twice), one counted step, one profiled step
+    # (d) bf16: one counted step (which pays the first-use costs), one
+    # profiled, one stamped (the timing in turns against the lockstep
+    # process was cut for the script's time limit)
     sched = port.ScheduleConfig("1F1B", TP_M)
     whole = torch.load(spec["gpt2_1F1B_whole"], mmap=True, weights_only=True)
     model = shard(cfg16, sched, False, whole)
@@ -4012,12 +4060,6 @@ def tp_worker(mesh, spec):
         losses.append(loss)
         return loss
 
-    res["timed"] = [port.run_train_iterations(
-        run, model, *batch, num_iterations=TP_TIMED,
-        warmup_iterations=DIST_WARMUP, mesh=mesh) for _ in range(2)]
-    res["losses"] = [x.item() for x in losses]
-    check(all(math.isfinite(x) for x in res["losses"]),
-          f"TP rank {mesh.rank}: non-finite bf16 loss {res['losses']}")
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -4028,6 +4070,9 @@ def tp_worker(mesh, spec):
           f"TP bf16 rank {mesh.rank}: launches {res['step_launches']} != "
           f"the pipe rank's {want}")
     res["profile"] = tp_profile(lambda: run(model, *batch), mesh)
+    res["losses"] = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"TP rank {mesh.rank}: non-finite bf16 loss {res['losses']}")
     res["stamps"] = stamped_world_step(
         lambda tel: port.make_train_step(cfg16, sched, mesh.n_pipe, opt,
                                          device=device, mesh=mesh,
@@ -4067,7 +4112,6 @@ def phase_tp(report, device="cuda"):
     from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
         torch_dtype)
     t0 = time.perf_counter()
-    cfg16 = dist_config(bf16=True)
     tmp = tempfile.mkdtemp(prefix="chip-smoke-tp-")
     res, killed, world = {}, None, None
 
@@ -4114,24 +4158,6 @@ def phase_tp(report, device="cuda"):
             torch.cuda.empty_cache()
             signal_file(spec[f"{name}_ready"], "ok")
 
-    def lockstep_tps():
-        m = port.init_params(cfg16, torch.Generator().manual_seed(SEED),
-                             device)
-        opt = port.adamw(warmup_steps=2, total_steps=100)
-        st = opt.init(m)
-        sched = port.ScheduleConfig("1F1B", TP_M)
-        step = port.make_train_step(cfg16, sched, TP_MESH[0], opt,
-                                    device=device)
-        tokens, targets = (x % cfg16.vocab_size
-                           for x in batch_of(TP_TIME_B, TRAIN_S, SEED + 3))
-        out = port.run_train_iterations(
-            lambda mm, t, y: step(mm, st, t, y), m, tokens.to(device),
-            targets.to(device), num_iterations=TP_TIMED,
-            warmup_iterations=DIST_WARMUP)
-        del m, st
-        torch.cuda.empty_cache()
-        return out["throughput"]
-
     def run_world(spec, box):
         try:
             box["ranks"] = port.launch(tp_worker, port.MeshConfig(*TP_MESH),
@@ -4141,7 +4167,6 @@ def phase_tp(report, device="cuda"):
             box["error"] = e
 
     try:
-        lock = [lockstep_tps()]
         spec = {k: str(Path(tmp) / k) for k in (
             "unbroken", "killed", "killed_done")}
         for name, c, *_ in tp_gates():  # one whole model a family
@@ -4169,7 +4194,6 @@ def phase_tp(report, device="cuda"):
         ranks = box["ranks"]
         res["world_s"] = time.perf_counter() - t_world
         res["killed_world"] = killed.finish()
-        lock.append(lockstep_tps())
         print(f"  mesh.describe() of rank 0: {ranks[0]['describe']}")
         for r in ranks:
             check(r["describe"]["transport"] == "gloo-staged",
@@ -4203,23 +4227,13 @@ def phase_tp(report, device="cuda"):
                           f"TP {name}: a flash kernel was never launched: "
                           f"{total}")
             res[f"f32_{name}"] = rows
-        world_tps = [[r["timed"][i]["throughput"] for r in ranks]
-                     for i in range(2)]
         res["bf16"] = dict(
-            lockstep_tokens_per_s=lock,
-            world_tokens_per_s=[w[0] for w in world_tps],
-            ratio=sum(w[0] for w in world_tps) / sum(lock),
             losses=[r["losses"] for r in ranks],
             step_launches=[r["step_launches"] for r in ranks],
             profile={r["rank"]: r["profile"] for r in ranks},
             stamps=ranks[0]["stamps"])
-        print(f"  bf16 1F1B pipe 2 x model 2, B={TP_TIME_B}, S={TRAIN_S}, in "
-              f"turns ({DIST_WARMUP} warm-up, {TP_TIMED} timed steps "
-              f"each): lockstep (D=2) {lock[0]:.1f}, world "
-              f"{world_tps[0][0]:.1f}, world {world_tps[1][0]:.1f}, "
-              f"lockstep {lock[1]:.1f} tokens/s (world / lockstep "
-              f"{res['bf16']['ratio']:.4f}); launches by rank "
-              f"{res['bf16']['step_launches']}")
+        print(f"  bf16 1F1B pipe 2 x model 2, B={TP_TIME_B}, S={TRAIN_S}: "
+              f"launches by rank {res['bf16']['step_launches']}")
         for r, p in sorted(res["bf16"]["profile"].items()):
             print(f"  rank {r} profiled step: wall {p['wall_ms']:.1f} ms, "
                   f"its device busy {p['device_busy_ms']:.1f} ms, idle share "
@@ -4319,7 +4333,8 @@ def par_profile(step, mesh):
     """One step under the profiler: wall, this rank's device busy, its
     idle share, the port's kernels among the device kernels, and the host
     time and count of the collectives' spans (FSDP's gathers and
-    reduce-scatters, the seq ring's hops and all-to-alls, the hand-offs)."""
+    reduce-scatters, the seq ring's hops and all-to-alls, the model-axis
+    all-reduces, the expert all-to-alls, the hand-offs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -4330,11 +4345,12 @@ def par_profile(step, mesh):
         wall = time.perf_counter() - t
     mesh.barrier()
     avg = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    busy = device_busy_ms(avg)
     spans = {}
     for e in avg:
         if e.key in ("fsdp_gather", "fsdp_reduce_scatter", "sp_shift",
-                     "sp_all_to_all", "handoff_wait", "handoff_post"):
+                     "sp_all_to_all", "tp_all_reduce", "ep_all_to_all",
+                     "handoff_wait", "handoff_post"):
             spans[e.key] = dict(ms=max(spans.get(e.key, {}).get("ms", 0.0),
                                        e.cpu_time_total / 1e3),
                                 count=max(spans.get(e.key, {}).get("count",
@@ -4712,14 +4728,13 @@ def moe_profile(step, mesh=None):
         mesh.barrier()
     from torch.autograd import DeviceType
     avg = prof.key_averages()
-    named = MOE_SPANS + ("ep_all_to_all", "handoff_wait", "handoff_post")
     # the device's own events (kernels, copies), not the host ops that
     # launched them nor the ranges' device-side spans
     kern = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in avg if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0 and e.key not in named),
+                   and e.self_device_time_total > 0 and e.key not in RANGES),
                   key=lambda x: -x[1])
-    busy = sum(ms for _, ms, _ in kern)
+    busy = device_busy_ms(avg)
     ranges, spans = {}, {}
     for e in avg:
         if e.key in MOE_SPANS and e.device_type == DeviceType.CPU:
@@ -5209,6 +5224,350 @@ def phase_fwd_moe(report, device="cuda"):
     res["seconds"] = time.perf_counter() - t0
     print(f"  phase 15: {res['seconds']:.1f} s")
     report["fwd_moe"] = res
+    return out
+
+
+# MoE composed with TP, FSDP and seq (phase 16): phase 15's MoE LM (tied
+# GPT-2-small's widths, E = 8, top-2, expert ffn 3072, 4 of 12 layers, cut
+# for the script's time limit), B = 8, S = 1024, 1F1B at D = 2, M = 2, in
+# one gloo world of 8 ranks staged through host memory on the card, on
+# three meshes (pipe, data, model, seq, expert). The f32 gates at capacity
+# E and aux 0 (no drops: every chunking routes alike) against the lockstep
+# step on the same rows; the bf16 step at phase 15's routing (capacity
+# 1.25, aux 0.01)
+MOE_PAR_B, MOE_PAR_M, MOE_PAR_REF_M = 8, 2, 8
+MOE_PAR_MESHES = {"ep_tp": ((2, 1, 2, 1, 2), {}),
+                  "fsdp_ep": ((2, 2, 1, 1, 2), {"fsdp": True}),
+                  "seq_ep": ((2, 1, 1, 2, 2), {"sp_attn_impl": "ulysses"})}
+# (c): train.py, 2 steps each, as worlds of 8 beside the phase's, at 2
+# layers and S = 256 (the card's host runs 24 processes meanwhile)
+MOE_PAR_TRAIN_COMMON = ["--model", "gpt2-small", "--tie-embeddings",
+                        "--layers", "2", "--batch",
+                        str(MOE_PAR_B), "--seq", "256",
+                        "--microbatches", str(MOE_PAR_M), "--steps", "2",
+                        "--fused-xent", "--moe-experts", "8", "--ep", "2",
+                        "--pipe", "2", "--backend", "gloo"]
+MOE_PAR_TRAIN_ARGS = {"ep_tp": ["--tp", "2"],
+                      "fsdp_ep": ["--fsdp", "--data", "2"]}
+
+
+def moe_par_model(cfg, moe, mesh, fsdp, whole, device):
+    """This rank's MoE model on ``mesh``: its blocks' expert block of the
+    ``whole`` state, then its Megatron shard, then its FSDP shards."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import (
+        owned_layers)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.moe import (
+        MoELM)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.expert_parallel import (
+        ep_shard_state)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.fsdp import (
+        fsdp_shard_params)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.tensor_parallel import (
+        shard_model)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.config import (
+        ScheduleConfig, torch_dtype)
+    m = MoELM(cfg, moe, device=device, dtype=torch_dtype(cfg.storage_dtype),
+              layers=owned_layers(cfg.n_layers, ScheduleConfig(
+                  "1F1B", MOE_PAR_M), 2, mesh.pipe),
+              expert=(mesh.n_expert, mesh.expert))
+    m.load_state_dict(ep_shard_state({k: whole[k] for k in m.state_dict()},
+                                     m.expert))
+    if mesh.n_model > 1:
+        m = shard_model(m, cfg, mesh)
+    return fsdp_shard_params(m, cfg, mesh) if fsdp else m
+
+
+def moe_par_leaf_ratio(mesh, model, ref):
+    """Worst leaf ratio (phase 4's bound) of this rank's gradients against
+    the lockstep ``ref``: each of its leaves against the reference cut as
+    the rank holds it (the expert block, the Megatron shard, the FSDP
+    shard), each whole leaf's squared error and norm summed over the
+    world from the one rank of each block (a replicated leaf from
+    coordinate 0 of the axes that replicate it). Returns (ratio, leaf)."""
+    import torch
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.moe import (
+        expert_block, is_expert_leaf)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.fsdp import (
+        fsdp_shard_of)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.tensor_parallel import (
+        shard_tensor, split_dim)
+    names = list(ref["grads"])
+    fs = fsdp_shard_of(model)
+    sq = torch.zeros((len(names), 2), dtype=torch.float64,
+                     device=mesh.device)
+    for n, p in model.named_parameters():
+        r = expert_block(n, ref["grads"][n], model.expert)
+        tp = split_dim(model.cfg, n) if mesh.n_model > 1 else None
+        r = shard_tensor(r, tp, mesh.n_model, mesh.model)
+        fd = None if fs is None else fs.dims.get(n)
+        r = shard_tensor(r, fd, mesh.n_data, mesh.data).to(p.device)
+        own = ((mesh.pipe == 0 or n.startswith("layers."))
+               and (mesh.expert == 0 or is_expert_leaf(n))
+               and (mesh.model == 0 or tp is not None)
+               and (mesh.data == 0 or fd is not None) and mesh.seq == 0)
+        if own:
+            sq[names.index(n)] = torch.stack([
+                (p.grad.double() - r.double()).square().sum(),
+                r.double().square().sum()])
+    mesh.all_reduce([sq], "world")
+    ratios = (sq[:, 0].sqrt() / (1e-4 * sq[:, 1].sqrt()
+                                 + 1e-6 * ref["g_norm"])).tolist()
+    worst = max(range(len(names)), key=lambda i: ratios[i])
+    return ratios[worst], names[worst]
+
+
+def moe_par_worker(world, spec):
+    """One rank of phase 16's world: on each mesh the f32 gate against the
+    launcher's lockstep step, then on each the bf16 timed step and one
+    profiled step. Returns this rank's numbers; raises (failing the
+    world) at a gate."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.moe import (
+        is_expert_leaf)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel.fsdp import (
+        fsdp_names)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
+        batch_sharding)
+    device = world.device
+    t_phase = time.perf_counter()
+    res = dict(rank=world.rank, gates={}, bf16={})
+    meshes = {name: port.make_mesh(*shape, backend=world.backend,
+                                   device=device)
+              for name, (shape, _) in MOE_PAR_MESHES.items()}
+    res["describe"] = {k: m.describe() for k, m in meshes.items()}
+    res["refs_wait_s"] = wait_for(spec["ready"], "phase 16's reference")
+    whole = torch.load(spec["moe_whole"], mmap=True, weights_only=True)
+    ref = torch.load(spec["moe_ref"], mmap=True, weights_only=True)
+    batch = tuple(t.to(device) for t in torch.load(spec["batch"],
+                                                   weights_only=True))
+    sched = port.ScheduleConfig("1F1B", MOE_PAR_M)
+    cfg, moe = moe_setup(ep=True)
+    for name, (_, kw) in MOE_PAR_MESHES.items():
+        mesh = meshes[name]
+        fsdp = kw.get("fsdp", False)
+        model = moe_par_model(cfg, moe, mesh, fsdp, whole, device)
+        fn = port.make_pipeline_grad_fn(cfg, sched, 2, device=device,
+                                        mesh=mesh, moe=moe, fsdp=fsdp,
+                                        sp_attn_impl=kw.get("sp_attn_impl",
+                                                            "ring"))
+        local = batch_sharding(mesh)(batch)
+        a2a = mesh.a2a
+        t = time.perf_counter()
+        loss, launches = counted_launches(lambda: fn(model, *local).item())
+        step_s = time.perf_counter() - t
+        rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        worst, leaf = moe_par_leaf_ratio(mesh, model, ref)
+        held = {n: p.numel() * p.element_size()
+                for n, p in model.named_parameters()}
+        last = mesh.pipe == 1
+        want = {"flash_fwd": 0, "flash_bwd": 0,
+                "xent_fwd": MOE_PAR_M * last, "xent_bwd": MOE_PAR_M * last}
+        res["gates"][name] = dict(
+            loss=loss, loss_rel_err=rel, worst_bound_ratio=worst,
+            worst_leaf=leaf, launches=launches,
+            all_to_alls=mesh.a2a - a2a, step_s=step_s,
+            expert_bytes=sum(b for n, b in held.items()
+                             if is_expert_leaf(n)),
+            fsdp_bytes=sum(held[n] for n in fsdp_names(model)),
+            param_bytes=sum(held.values()))
+        check(rel <= 1e-5, f"{name} rank {world.rank}: loss rel err {rel} "
+              f"> 1e-5")
+        check(worst <= 1.0, f"{name} rank {world.rank}: leaf {leaf} over "
+              f"its bound ({worst})")
+        check(launches == want, f"{name} rank {world.rank}: launches "
+              f"{launches} != {want}")
+        # 2 forward, 2 recomputed, 2 transposed a layer a microbatch
+        n_a2a = MOE_PAR_M * (MOE_LAYERS // 2) * 6
+        check(mesh.a2a - a2a == n_a2a, f"{name} rank {world.rank}: "
+              f"{mesh.a2a - a2a} expert all-to-alls, not {n_a2a}")
+        del model, fn
+        torch.cuda.empty_cache()
+    res["gates_s"] = time.perf_counter() - t_phase
+
+    # bf16 over f32 masters at phase 15's routing: one profiled step (which
+    # also pays the first-use costs), then one timed
+    cfg16, moe16 = moe_setup(bf16=True)
+    for name, (_, kw) in MOE_PAR_MESHES.items():
+        mesh = meshes[name]
+        fsdp = kw.get("fsdp", False)
+        model = moe_par_model(cfg16, moe16, mesh, fsdp, whole, device)
+        opt = port.adamw(warmup_steps=2, total_steps=100)
+        state = opt.init(model)
+        step = port.make_train_step(cfg16, sched, 2, opt, device=device,
+                                    mesh=mesh, moe=moe16, fsdp=fsdp,
+                                    sp_attn_impl=kw.get("sp_attn_impl",
+                                                        "ring"))
+        local = batch_sharding(mesh)(batch)
+
+        losses = []
+
+        def run(m, t, y):
+            losses.append(step(m, state, t, y))
+            return losses[-1]
+
+        profile = par_profile(lambda: run(model, *local), mesh)
+        timed = port.run_train_iterations(run, model, *local,
+                                          num_iterations=1,
+                                          warmup_iterations=0, mesh=mesh)
+        loss = losses[-1].item()
+        check(math.isfinite(loss), f"{name} bf16 rank {world.rank}: loss "
+              f"{loss}")
+        res["bf16"][name] = dict(tokens_per_s=timed["throughput"],
+                                 loss=loss, profile=profile)
+        del model, state, step
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def phase_moe_par(report, device="cuda"):
+    """MoE composed with TP, FSDP and seq (see the comment above the
+    constants): the lockstep reference here, a world of 8 processes and
+    ``train.py``'s two worlds beside it. Returns each mesh's f32 launches
+    by rank."""
+    import copy
+    import shutil
+    import tempfile
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.moe import (
+        moe_init_params)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-moe-par-")
+    spec = {k: str(Path(tmp) / k) for k in ("moe_whole", "moe_ref", "batch",
+                                            "ready")}
+    res, box, world, trainer = {}, {}, None, None
+
+    def run_world():
+        try:
+            box["ranks"] = port.launch(moe_par_worker,
+                                       port.MeshConfig(2, 4), spec,
+                                       backend="gloo", device=device,
+                                       timeout_s=300)
+        except BaseException as e:  # re-raised by the phase
+            box["error"] = e
+
+    def train_runs():
+        """``train.py``'s two composed worlds, at once."""
+        t = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.train", *MOE_PAR_TRAIN_COMMON,
+             *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+            for name, args in MOE_PAR_TRAIN_ARGS.items()}
+        res["train_main"] = {}
+        for name, proc in procs.items():
+            try:
+                text, _ = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+            final = [ln for ln in text.splitlines()
+                     if ln.startswith("final loss:")]
+            res["train_main"][name] = dict(
+                rc=proc.returncode,
+                final_loss=float(final[-1].split(":")[1]) if final
+                else math.nan, seconds=time.perf_counter() - t,
+                output=text[-3000:])
+
+    try:
+        cfg, moe = moe_setup(ep=True)
+        model = moe_init_params(cfg, moe, torch.Generator().manual_seed(SEED),
+                                device)
+        torch.save({n: t.cpu() for n, t in model.state_dict().items()},
+                   spec["moe_whole"])
+        g = torch.Generator().manual_seed(SEED + 5)
+        batch = tuple(torch.randint(0, cfg.vocab_size, (MOE_PAR_B, TRAIN_S),
+                                    generator=g) for _ in range(2))
+        torch.save(batch, spec["batch"])
+        world = threading.Thread(target=run_world)
+        world.start()
+        trainer = threading.Thread(target=train_runs)
+        trainer.start()
+        try:  # the gates' reference: the lockstep step on the same rows
+            ref_model = copy.deepcopy(model)
+            fn = port.make_pipeline_grad_fn(
+                cfg, port.ScheduleConfig("1F1B", MOE_PAR_REF_M), 2,
+                device=device, moe=moe)
+            loss = fn(ref_model, *(x.to(device) for x in batch)).item()
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in ref_model.named_parameters()}
+            g_norm = math.sqrt(sum((x.double() ** 2).sum().item()
+                                   for x in grads.values()))
+            torch.save({"grads": grads, "loss": loss, "g_norm": g_norm},
+                       spec["moe_ref"])
+            res["lockstep_loss"] = loss
+            del ref_model, grads, model, fn
+            torch.cuda.empty_cache()
+            signal_file(spec["ready"], "ok")
+        except BaseException as e:
+            signal_file(spec["ready"], f"the launcher failed: {e!r}")
+            raise
+        world.join()
+        trainer.join()
+        if "error" in box:
+            raise box["error"]
+        ranks = box["ranks"]
+        for r in ranks:
+            for name, d in r["describe"].items():
+                check(d["transport"] == "gloo-staged",
+                      f"rank {r['rank']} {name}: {d}")
+        res["ranks"] = [{k: r[k] for k in ("rank", "gates", "bf16",
+                                           "refs_wait_s", "gates_s",
+                                           "seconds")} for r in ranks]
+        out = {}
+        for name, (shape, kw) in MOE_PAR_MESHES.items():
+            g = [r["gates"][name] for r in ranks]
+            b = [r["bf16"][name] for r in ranks]
+            out[name] = {r["rank"]: r["gates"][name]["launches"]
+                         for r in ranks}
+            sp = b[0]["profile"]["spans"]
+            print(f"  f32 {name} (pipe, data, model, seq, expert) = {shape}"
+                  f"{' ' + str(kw) if kw else ''}: loss {g[0]['loss']:.6f} "
+                  f"(rel err {max(x['loss_rel_err'] for x in g):.2e} vs "
+                  f"lockstep {res['lockstep_loss']:.6f}), worst leaf at "
+                  f"{max(x['worst_bound_ratio'] for x in g):.3f} of its "
+                  f"bound, rank 0: expert stacks {g[0]['expert_bytes']} B, "
+                  f"FSDP shards {g[0]['fsdp_bytes']} B of "
+                  f"{g[0]['param_bytes']} B, {g[0]['all_to_alls']} "
+                  f"all-to-alls, step {g[0]['step_s']:.2f} s; launches by "
+                  f"rank {[x['launches'] for x in g]}")
+            print(f"  bf16 {name}: {b[0]['tokens_per_s']:.1f} tokens/s; "
+                  f"rank 0 profiled: wall {b[0]['profile']['wall_ms']:.1f} "
+                  f"ms, device busy {b[0]['profile']['device_busy_ms']:.1f} "
+                  f"ms, idle share {b[0]['profile']['idle_share']:.3f}; "
+                  + ", ".join(f"{k} {v['count']} x {v['ms']:.1f} ms"
+                              for k, v in sorted(sp.items())))
+            total = {k: sum(x["launches"][k] for x in g)
+                     for k in g[0]["launches"]}
+            check(total["xent_fwd"] > 0 and total["xent_bwd"] > 0,
+                  f"{name}: a kernel of its path was never launched: "
+                  f"{total}")
+            for x in b:
+                check(0.0 <= x["profile"]["idle_share"] <= 1.0,
+                      f"{name}: idle share {x['profile']['idle_share']} "
+                      f"outside [0, 1]")
+        for name, tr in res["train_main"].items():
+            print(f"  train.py {' '.join(MOE_PAR_TRAIN_ARGS[name])} --ep 2 "
+                  f"--pipe 2 --moe-experts 8: rc {tr['rc']}, final loss "
+                  f"{tr['final_loss']:.4f}, {tr['seconds']:.1f} s")
+            check(tr["rc"] == 0 and math.isfinite(tr["final_loss"])
+                  and abs(tr["final_loss"] - math.log(cfg.vocab_size)) < 1.0,
+                  f"train.py {name}: rc {tr['rc']}, final loss "
+                  f"{tr['final_loss']}: {tr['output']}")
+    finally:
+        if not Path(spec["ready"]).exists():  # a failed launcher frees it
+            signal_file(spec["ready"], "the launcher stopped")
+        for th in (world, trainer):
+            if th is not None:
+                th.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 16: {res['seconds']:.1f} s")
+    report["moe_par"] = res
     return out
 
 
@@ -5965,6 +6324,12 @@ def main() -> int:
             "GPT-2-small's forward, MoE lockstep and a gloo world of pipe 2 "
             "x expert 2", phase_fwd_moe, report)
         torch.cuda.empty_cache()
+        moe_par_launches = phase(
+            16, "MoE composed with TP, FSDP and seq: a gloo world of 8 on "
+            "the card, pipe 2 x model 2 x expert 2, data 2 x pipe 2 x "
+            "expert 2 (FSDP), pipe 2 x seq 2 x expert 2 (Ulysses)",
+            phase_moe_par, report)
+        torch.cuda.empty_cache()
     dyn_launches = phase(12, "the static verifier, a certified searched "
                          "schedule and training dynamics: untied "
                          "GPT-2-small", phase_dynamics, report, tables)
@@ -6043,7 +6408,12 @@ def main() -> int:
                    for w in ("forward_world", "moe_ep")},
                 **{w: sum(fwd_moe_launches[w][r][name]
                           for r in fwd_moe_launches[w])
-                   for w in ("forward_world", "moe_ep")}}))
+                   for w in ("forward_world", "moe_ep")},
+                **{f"moe_{w}_by_rank": [counts[r][name]
+                                        for r in sorted(counts)]
+                   for w, counts in moe_par_launches.items()},
+                **{f"moe_{w}": sum(counts[r][name] for r in counts)
+                   for w, counts in moe_par_launches.items()}}))
         kernels[-1]["par_shape"] = {
             k: main_shapes[(f"{name}_par", "bfloat16")][k]
             for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",

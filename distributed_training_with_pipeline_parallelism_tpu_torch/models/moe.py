@@ -19,11 +19,26 @@ counterpart of the JAX package's ``models/moe.py``).
   (``ops.collectives.expert_all_to_all``, whose backward is the inverse
   exchange). Without it the same math runs on all E experts: the oracle
   the EP path is held to.
+- **Tensor parallelism** (``tp``, a mesh whose model axis is above 1):
+  the block attends on its model rank's H/T heads (the dense Megatron
+  linears) and every expert's matmuls split over the model axis, ``w1``
+  and ``b1`` column-parallel on the ffn dim, ``w2`` row-parallel with one
+  all-reduce, ``b2`` replicated and added once (the JAX
+  ``_expert_mlp(tp_axis=)``). EP moves whole experts and TP splits each,
+  so the two compose; the router stays replicated and f32.
+- **Sequence parallelism** (``sp``, a mesh whose seq axis is above 1):
+  attention goes through the ring or Ulysses transport of
+  ``parallel.seq_parallel`` (with the model rank's heads under TP too);
+  the position-wise FFN routes the rank's local tokens with the capacity
+  of the local count (the JAX ``moe_layer_apply(sp_axis=)``), and the
+  residual and FFN dropout masks are the full sequence's masks' local
+  slices. No new collective: the all-to-all stays on the expert axis.
 
 The router computes in f32 whatever the compute dtype. The parameters keep
 JAX's layout: ``router`` ``[dim, E]``, ``w1`` ``[E, dim, f]``, ``b1``
 ``[E, f]``, ``w2`` ``[E, f, dim]``, ``b2`` ``[E, dim]`` (the leading dim
-the rank's G = E / n_ep experts under EP), so ``utils.weights`` loads a
+the rank's G = E / n_ep experts under EP, f its f/T columns under TP),
+so ``utils.weights`` loads a
 JAX ``moe_lm_init`` pytree leaf for leaf. A MoE block attends densely
 whatever ``cfg.use_flash_attention`` says, as the JAX ``moe_layer_apply``
 calls ``mha_apply`` with its default ``flash=False``: a MoE stage launches
@@ -42,10 +57,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import band_mask, scaled_dot_attention
-from ..ops.layers import (dropout_apply, fold_seed, gelu,
+from ..ops.layers import (block_dropout, fold_seed, gelu, seeded_generator,
                           select_masked_xent_sum, select_xent)
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
-from .transformer import _c, _linear, _ln, _site, embed_apply, head_apply
+from .transformer import (_c, _linear, _ln, _row, _site, embed_apply,
+                          head_apply)
 
 # the leaves of a MoE FFN that hold one block per expert (the JAX
 # ``expert_parallel._EXPERT_LEAVES``): sharded over the expert axis
@@ -147,21 +163,28 @@ class MoEFFN(nn.Module):
         self.b2 = nn.Parameter(torch.empty(G, dim, **kw))
 
 
-def _expert_mlp(ffn: MoEFFN, x: torch.Tensor) -> torch.Tensor:
-    """Each local expert's gelu MLP on its slot block x [G, N, d]."""
+def _expert_mlp(ffn: MoEFFN, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Each local expert's gelu MLP on its slot block x [G, N, d]; under
+    ``tp`` on this model rank's ffn columns (``w1`` [G, d, f/T], ``b1``
+    [G, f/T], ``w2`` [G, f/T, d]), the partial outputs summed over the
+    model group before the replicated ``b2`` (the JAX ``_expert_mlp``)."""
+    from ..ops.collectives import tp_copy, tp_reduce
+    x = tp_copy(x, tp)
     h = torch.bmm(x, _c(ffn.w1, x)) + _c(ffn.b1, x)[:, None]
-    return torch.bmm(gelu(h), _c(ffn.w2, x)) + _c(ffn.b2, x)[:, None]
+    out = tp_reduce(torch.bmm(gelu(h), _c(ffn.w2, x)), tp)
+    return out + _c(ffn.b2, x)[:, None]
 
 
-def moe_ffn_apply(ffn: MoEFFN, x: torch.Tensor, moe: MoEConfig, ep=None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_apply(ffn: MoEFFN, x: torch.Tensor, moe: MoEConfig, ep=None,
+                  tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN on x [B, S, d] -> ([B, S, d], aux) (the JAX
     ``moe_ffn_apply``). Routing, and so the capacity, is over the B * S
     local tokens. With ``ep`` the slots [E, C, d] go to their experts'
     ranks by one all-to-all over the expert group (``[G, n_ep * C, d]``
-    arrive), run there, and come back by the inverse one. Its parts are
-    ``torch.profiler`` ranges: ``moe_route``, ``moe_dispatch``,
-    ``moe_experts`` and ``moe_combine``."""
+    arrive), run there, and come back by the inverse one; with ``tp`` the
+    experts run on this model rank's ffn columns (:func:`_expert_mlp`).
+    Its parts are ``torch.profiler`` ranges: ``moe_route``,
+    ``moe_dispatch``, ``moe_experts`` and ``moe_combine``."""
     from ..ops.collectives import expert_all_to_all
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
@@ -184,13 +207,13 @@ def moe_ffn_apply(ffn: MoEFFN, x: torch.Tensor, moe: MoEConfig, ep=None
         slots = torch.einsum("tec,td->ecd", dispatch, xt)  # [E, C, d]
     if n_ep == 1:
         with torch.profiler.record_function("moe_experts"):
-            out = _expert_mlp(ffn, slots)
+            out = _expert_mlp(ffn, slots, tp)
     else:
         recv = expert_all_to_all(slots, ep)  # [n_ep (source), G, C, d]
         with torch.profiler.record_function("moe_experts"):
             hid = recv.view(n_ep, G, C, d).transpose(0, 1).reshape(
                 G, n_ep * C, d)
-            hid = _expert_mlp(ffn, hid)
+            hid = _expert_mlp(ffn, hid, tp)
             back = hid.view(G, n_ep, C, d).transpose(0, 1).reshape(E, C, d)
         out = expert_all_to_all(back, ep)
     with torch.profiler.record_function("moe_combine"):
@@ -223,41 +246,67 @@ class MoEBlock(nn.Module):
 
 
 def moe_layer_apply(cfg: ModelConfig, moe: MoEConfig, block: MoEBlock,
-                    h: torch.Tensor, ep=None, rng: Optional[int] = None
+                    h: torch.Tensor, ep=None, rng: Optional[int] = None,
+                    tp=None, sp=None, sp_attn_impl: str = "ring"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One MoE block on h [b, s, dim] -> (h, aux) (the JAX
     ``moe_layer_apply``): ln1, causal dense attention, the residual, ln2,
     the MoE FFN, the residual. ``rng`` (train mode): the layer's dropout
     seed; sites 0 (the attention probabilities), 1 (the attention
     residual) and 2 (the combined FFN output, position-wise on [b, s, d],
-    so its mask does not depend on how the experts are split)."""
+    so its mask does not depend on how the experts are split). ``tp``:
+    this model rank's heads and expert ffn columns (the probabilities'
+    mask the unsharded one's head block). ``sp``: h is this seq rank's
+    chunk [b, S/n_seq, dim]; attention by ``sp_attn_impl`` ("ring" or
+    "ulysses", ``parallel.seq_parallel``), the FFN routing the chunk's
+    tokens, the residual and FFN masks the unsharded masks' chunks."""
+    from ..ops import collectives as col
     b, s, _ = h.shape
+    p = cfg.dropout if rng is not None else 0.0
+    seq = () if sp is None else ((1, sp.n_seq, sp.seq),)
+
+    def drop(x, j):
+        gen = None if p == 0.0 else seeded_generator(fold_seed(rng, j),
+                                                     x.device)
+        return block_dropout(x, p, gen, seq)
+
     a = _ln(block.ln1, h)
+    if sp is not None:
+        from ..parallel.seq_parallel import ATTN_IMPLS
+        att = ATTN_IMPLS[sp_attn_impl](
+            cfg, block.attn, a, a, sp, True, None, tp,
+            None if p == 0.0 else fold_seed(rng, 0))
+    else:
+        a = col.tp_attention_inputs(a, a, tp)[0]
 
-    def heads(name):
-        return _linear(block.attn[name], a).view(b, s, -1, cfg.head_dim)
+        def heads(name):
+            return _linear(block.attn[name], a).view(b, s, -1, cfg.head_dim)
 
-    mask = band_mask(s, s, None, device=h.device)[None, None]
-    att = scaled_dot_attention(heads("q"), heads("k"), heads("v"), mask,
-                               cfg.dropout, _site(cfg, rng, 0, h.device))
-    att = _linear(block.attn["o"], att.reshape(b, s, -1))
-    h = h + dropout_apply(att, cfg.dropout, _site(cfg, rng, 1, h.device))
-    y, aux = moe_ffn_apply(block.moe, _ln(block.ln2, h), moe, ep)
-    return h + dropout_apply(y, cfg.dropout,
-                             _site(cfg, rng, 2, h.device)), aux
+        mask = band_mask(s, s, None, device=h.device)[None, None]
+        att = scaled_dot_attention(
+            heads("q"), heads("k"), heads("v"), mask, cfg.dropout,
+            _site(cfg, rng, 0, h.device),
+            (tp.n_model, tp.model) if col.tp_active(tp) else None)
+        att = _row(block.attn["o"], att.reshape(b, s, -1), tp)
+    h = h + drop(att, 1)
+    y, aux = moe_ffn_apply(block.moe, _ln(block.ln2, h), moe, ep, tp)
+    return h + drop(y, 2), aux
 
 
 def moe_layers_apply(cfg: ModelConfig, moe: MoEConfig, layers,
                      h: torch.Tensor, rng: Optional[int] = None,
-                     layer_offset: int = 0, ep=None
+                     layer_offset: int = 0, ep=None, tp=None, sp=None,
+                     sp_attn_impl: str = "ring"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A slice of MoE blocks over h -> (h, summed aux, f32). ``rng``: the
     microbatch's dropout seed; block ``i`` folds ``layer_offset + i``, its
-    global layer index, so every stage split draws the same masks."""
+    global index, so every stage split draws the same masks. ``ep``,
+    ``tp``, ``sp`` and ``sp_attn_impl``: as in :func:`moe_layer_apply`."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, block in enumerate(layers):
         rng_l = None if rng is None else fold_seed(rng, layer_offset + i)
-        h, a = moe_layer_apply(cfg, moe, block, h, ep, rng_l)
+        h, a = moe_layer_apply(cfg, moe, block, h, ep, rng_l, tp, sp,
+                               sp_attn_impl)
         aux = aux + a
     return h, aux
 

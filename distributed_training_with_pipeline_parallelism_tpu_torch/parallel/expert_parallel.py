@@ -19,11 +19,16 @@ Where JAX gives ``shard_map`` a ``PartitionSpec`` tree
 ``models.moe.MoELM(..., expert=(n_ep, index))``, built by
 ``utils.weights.from_jax_params(..., moe=, expert=)`` or cut from a whole
 model by :func:`ep_shard_model`; :func:`ep_gather_state` is the inverse,
-the whole stacks from the group's blocks (what a checkpoint holds).
+the whole stacks from the group's blocks (what a checkpoint holds). The
+expert dim is neither the model axis's (each expert's ffn dim,
+``parallel.tensor_parallel``) nor, under EP, the data axis's
+(``parallel.fsdp.moe_fsdp_shard_dims``), so a rank's block composes with
+its Megatron and FSDP shards, and the gather works on either.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict
 
 import torch
@@ -42,16 +47,24 @@ __all__ = ["is_expert_leaf", "ep_shard_model", "ep_gather",
 def ep_shard_model(model: MoELM, mesh: Mesh) -> MoELM:
     """A copy of a whole-expert ``model`` (all E experts in each stack)
     holding this rank's block of them (``expert=(n_expert,
-    mesh.expert)``); the other leaves are copied as they are."""
+    mesh.expert)``); the other leaves are copied as they are. ``model``
+    may be a pipe rank's view, its Megatron shard
+    (``parallel.tensor_parallel.shard_model``) or its FSDP shard: the
+    expert dim is split by neither, so the cuts compose in any order."""
+    from .tensor_parallel import _owner
     if model.expert != (1, 0):
         raise ValueError(f"the model holds expert block {model.expert}, "
                          f"not all experts")
     expert = (mesh.n_expert, mesh.expert)
-    out = MoELM(model.cfg, model.moe, device="meta", expert=expert,
-                layers=[i for i, b in enumerate(model.layers)
-                        if len(list(b.parameters()))])
-    out.load_state_dict(ep_shard_state(model.state_dict(), expert),
-                        assign=True)
+    out = copy.deepcopy(model)
+    with torch.no_grad():
+        for name, p in list(out.named_parameters()):
+            if is_expert_leaf(name):
+                mod, leaf = _owner(out, name)
+                setattr(mod, leaf, nn.Parameter(
+                    expert_block(name, p.detach(), expert).clone(),
+                    requires_grad=p.requires_grad))
+    out.expert = expert
     return out
 
 

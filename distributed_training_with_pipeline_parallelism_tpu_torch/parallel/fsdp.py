@@ -25,6 +25,11 @@ Two placements, as in JAX:
   pipeline): only the blocks' linear matrices, each on its first weight
   dim that divides ``n_data`` and, under a model axis, is not its
   Megatron dim; norms, biases, the embedding and the head replicated.
+  Its MoE twin :func:`moe_fsdp_shard_dims` (the JAX
+  ``_moe_fsdp_shard_dims``) adds the expert stacks ``w1`` and ``w2``, each
+  on its first dim that divides ``n_data`` and is owned by neither the
+  expert axis (E, under EP) nor the model axis (the ffn dim, under TP);
+  the router, ``b1`` and ``b2`` stay replicated.
 
 A JAX ``linear.w`` is ``[in, out]`` and the port's weight ``[out, in]``:
 a JAX dim is mapped to the port's layout leaf by leaf, so a port shard is
@@ -135,6 +140,33 @@ def fsdp_shard_dims(cfg: ModelConfig, n_data: int, T: int = 1
     return out
 
 
+def moe_fsdp_shard_dims(cfg: ModelConfig, moe, n_data: int, T: int = 1,
+                        n_ep: int = 1) -> Dict[str, Optional[int]]:
+    """The MoE blocks' per-leaf data dims (the JAX ``_moe_fsdp_shard_dims``,
+    reached through its ``_resolve_fsdp_dims``), by a block's parameter
+    name (``attn.q.weight``, ``moe.w1``...): a leaf of two dims or more
+    other than the router and ``b1`` takes the first dim, in JAX's order
+    (a linear weight's in, then out: the port's dims 1, then 0; an expert
+    stack's E, then its own), that divides ``n_data`` and that neither
+    the expert axis owns (E, with ``n_ep`` above 1) nor the model axis
+    (its Megatron dim, with ``T`` above 1); None for the rest."""
+    from ..models.moe import MoEBlock, is_expert_leaf
+    from .tensor_parallel import split_dim
+    block = MoEBlock(cfg, moe, device="meta")
+    out = {}
+    for name, p in block.named_parameters():
+        out[name] = None
+        if p.dim() < 2 or name in ("moe.router", "moe.b1", "moe.b2"):
+            continue
+        owned = {split_dim(cfg, f"layers.0.{name}") if T > 1 else None,
+                 0 if n_ep > 1 and is_expert_leaf(name) else None}
+        for dim in (1, 0) if name.startswith("attn.") else range(p.dim()):
+            if dim not in owned and p.shape[dim] % n_data == 0:
+                out[name] = dim
+                break
+    return out
+
+
 def _shard_copy(model: nn.Module, dims: Dict[str, Optional[int]], n: int,
                 index: int) -> nn.Module:
     """A copy of ``model`` holding block ``index`` of ``n`` of every leaf
@@ -176,14 +208,21 @@ def fsdp_shard_params(model: nn.Module, cfg: ModelConfig, mesh=None, *,
     of ``model`` (a pipe rank's view, or its Megatron shard) whose blocks'
     linear matrices hold data coordinate ``index`` of ``n``'s block along
     :func:`fsdp_shard_dims`; ``mesh`` gives both (and the model axis's
-    size). The embedding, the head, norms and biases stay whole."""
-    T = 1
+    size). The embedding, the head, norms and biases stay whole. A
+    ``models.moe.MoELM`` (its expert block and Megatron shard cut first)
+    takes :func:`moe_fsdp_shard_dims`, the expert axis's size its
+    ``expert`` block count."""
+    from .tensor_parallel import model_shard_of
+    tp = model_shard_of(model)
+    T = 1 if tp is None else tp.n
     if mesh is not None:
         n, index, T = mesh.n_data, mesh.data, mesh.n_model
     if n <= 1:
         raise ValueError("fsdp_shard_params needs a 'data' mesh axis to "
                          "shard parameters over (make_mesh(n_data=...))")
-    leaf = fsdp_shard_dims(cfg, n, T)
+    moe = getattr(model, "moe", None)
+    leaf = (fsdp_shard_dims(cfg, n, T) if moe is None
+            else moe_fsdp_shard_dims(cfg, moe, n, T, model.expert[0]))
     dims = {name: leaf[name.split(".", 2)[2]] if name.startswith("layers.")
             else None for name, _ in model.named_parameters()}
     return _shard_copy(model, dims, n, index)

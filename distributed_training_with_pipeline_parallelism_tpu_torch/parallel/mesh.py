@@ -17,8 +17,8 @@ shards meet (``parallel.seq_parallel``); the expert group is where a MoE
 stage's expert shards exchange their token slots (``parallel.
 expert_parallel``; the expert axis doubles as a batch axis); the data
 group carries the FSDP gathers and reduce-scatters (``parallel.fsdp``).
-A world with an expert axis and a model or seq axis above 1 is refused,
-naming ``ROADMAP.md`` item 11.
+Any shape makes its groups: a MoE stage runs on a world with every axis
+above 1, its rows split over data x expert and its sequences over seq.
 
 The backend is the caller's choice, never switched quietly:
 
@@ -431,17 +431,6 @@ class Mesh:
         return buf
 
 
-def check_expert_axes(n_model: int, n_seq: int, n_expert: int) -> None:
-    """Refuse an expert axis composed with a model or seq axis (ROADMAP.md
-    item 11 takes those compositions next)."""
-    for name, n in (("n_model", n_model), ("n_seq", n_seq)):
-        if n_expert > 1 and n > 1:
-            raise NotImplementedError(
-                f"n_expert={n_expert} with {name}={n}: expert parallelism "
-                f"composed with a model or seq axis is not ported yet: "
-                f"ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)")
-
-
 def make_mesh(n_pipe: int, n_data: int = 1, n_model: int = 1,
               n_seq: int = 1, n_expert: int = 1, *, backend: str,
               device) -> Mesh:
@@ -449,9 +438,7 @@ def make_mesh(n_pipe: int, n_data: int = 1, n_model: int = 1,
     (:func:`init_multihost` first): the world must hold ``n_pipe * n_data
     * n_model * n_seq * n_expert`` ranks. Every rank calls it with the same
     shape, in the same order (it creates the pipe, data, model, seq and
-    expert groups, a collective). ``n_expert`` above 1 with ``n_model`` or
-    ``n_seq`` above 1 raises ``NotImplementedError``."""
-    check_expert_axes(n_model, n_seq, n_expert)
+    expert groups, a collective)."""
     _check_backend(backend)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a joined world: call "

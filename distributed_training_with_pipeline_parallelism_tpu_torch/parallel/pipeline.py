@@ -52,8 +52,12 @@ layers' summed routing aux loss, which enters the stage's objective. With
 an expert axis (``mesh.n_expert`` above 1) each rank holds its expert
 coordinate's block of the experts, the MoE FFNs exchange their slots over
 the expert group, and the expert axis doubles as a batch axis (the batch
-splits over data x expert). :func:`make_pipeline_forward` is pipelined
-batch inference over the eval executor's table: the merged logits.
+splits over data x expert). MoE blocks compose with the model axis (each
+expert's ffn Megatron-split), with FSDP (their matrices gathered per unit
+on the dims ``parallel.fsdp.moe_fsdp_shard_dims`` gives) and with a seq
+axis (attention by the ring or Ulysses, routing the chunk's tokens).
+:func:`make_pipeline_forward` is pipelined batch inference over the eval
+executor's table: the merged logits.
 """
 
 from __future__ import annotations
@@ -104,8 +108,6 @@ _AXIS_ITEMS = {
               "world, with the rank's expert shard (from_jax_params(..., "
               "expert=(E, mesh.expert)))",
 }
-# the compositions of MoE that the next slice ports
-_MOE_ITEM = "ROADMAP.md Queue 1, item 11 (MoE with expert parallelism)"
 COMM_OVERLAP = ("none", "ring", "auto")
 
 
@@ -351,27 +353,31 @@ def _layers_runner(cfg: ModelConfig, mesh: Optional[Mesh], tp, fsdp: bool,
     axis, the sequence-split one; under FSDP inside ``gathered_call``
     (``dims``: the list's own parameter names -> data dim). ``aux`` is
     None, or with ``moe`` the MoE blocks' summed routing aux loss (their
-    experts exchanged over the mesh's expert group where it is above
-    1)."""
+    experts exchanged over the mesh's expert group where it is above 1,
+    on the model rank's heads and ffn columns under ``tp``, over the seq
+    rank's chunk by ``sp_attn_impl`` on a seq axis)."""
     from .fsdp import gathered_call
     from .seq_parallel import sp_body_apply
     sp = mesh if mesh is not None and mesh.n_seq > 1 else None
     if moe is not None:
         from ..models.moe import moe_layers_apply
         ep = mesh if mesh is not None and mesh.n_expert > 1 else None
-        return lambda layers, dims, x, rng, offset: moe_layers_apply(
-            cfg, moe, layers, x, rng, offset, ep)
 
-    def body(layers, x, rng, offset):
-        if sp is not None:
+        def body(layers, x, rng, offset):
+            return moe_layers_apply(cfg, moe, layers, x, rng, offset, ep, tp,
+                                    sp, sp_attn_impl)
+    elif sp is not None:
+        def body(layers, x, rng, offset):
             return sp_body_apply(cfg, layers, x, sp, sp_attn_impl, rng,
-                                 offset, tp)
-        return body_apply(cfg, layers, x, rng, offset, tp)
+                                 offset, tp), None
+    else:
+        def body(layers, x, rng, offset):
+            return body_apply(cfg, layers, x, rng, offset, tp), None
 
     def run(layers, dims, x, rng, offset):
         if not fsdp:
-            return body(layers, x, rng, offset), None
-        return gathered_call(layers, dims, mesh, body, x, rng, offset), None
+            return body(layers, x, rng, offset)
+        return gathered_call(layers, dims, mesh, body, x, rng, offset)
 
     return run
 
@@ -385,30 +391,20 @@ def _check_moe_mesh(cfg: ModelConfig, moe, T: int, n_ep: int) -> None:
     if moe.n_experts % n_ep:
         raise ValueError(f"n_experts={moe.n_experts} must divide over "
                          f"{n_ep} expert shards")
-    if T > 1 and (moe.ffn_dim or cfg.ffn_dim) % T:
-        raise ValueError(
-            f"MoE expert ffn_dim={moe.ffn_dim or cfg.ffn_dim} must be "
-            f"divisible by the model-axis size {T}")
+    from .tensor_parallel import check_moe_tp
+    check_moe_tp(cfg, moe, T)
 
 
-def _check_moe(cfg: ModelConfig, moe, mesh: Optional[Mesh],
-               fsdp: bool) -> None:
-    """The MoE refusals of the JAX executor (an expert axis without a
-    ``MoEConfig``, ``_check_moe_mesh``) and the port's own: MoE with a
-    model or seq axis or with FSDP is the next slice's."""
+def _check_moe(cfg: ModelConfig, moe, mesh: Optional[Mesh]) -> None:
+    """The MoE refusals of the JAX executor: an expert axis without a
+    ``MoEConfig``, and ``_check_moe_mesh``. MoE composes with every other
+    axis and with FSDP."""
     n_ep = 1 if mesh is None else mesh.n_expert
     if n_ep > 1 and moe is None:
         raise ValueError("mesh has an 'expert' axis but no MoEConfig given")
     if moe is None:
         return
     _check_moe_mesh(cfg, moe, 1 if mesh is None else mesh.n_model, n_ep)
-    if mesh is not None and (mesh.n_model > 1 or mesh.n_seq > 1):
-        raise NotImplementedError(
-            f"MoE with a 'model' or 'seq' mesh axis is not ported yet: "
-            f"{_MOE_ITEM}")
-    if fsdp:
-        raise NotImplementedError(f"MoE with fsdp is not ported yet: "
-                                  f"{_MOE_ITEM}")
 
 
 def _check_expert(model: nn.Module, moe, mesh: Optional[Mesh]) -> None:
@@ -631,9 +627,15 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     (``utils.data.batch_sharding``), the dropout seed folds the expert
     coordinate after the data one, and the epilogue sums the loss and
     every gradient but the expert stacks' over the expert group (each
-    rank's share was divided by ``n_expert``). An expert axis without
-    ``moe`` raises ``ValueError``; MoE with a model or seq axis or with
-    ``fsdp`` raises ``NotImplementedError`` naming ``ROADMAP.md`` item 11.
+    rank's share was divided by ``n_expert``). MoE composes with the
+    other axes as dense blocks do: with a model axis ``model`` is the
+    rank's Megatron shard of its expert block (each expert's ffn split,
+    the router replicated, ``parallel.tensor_parallel.shard_model``), with
+    ``fsdp`` its FSDP shard of that (``parallel.fsdp.fsdp_shard_params``,
+    the MoE dims), and on a seq axis each rank routes its chunk's tokens
+    with the chunk's capacity. An expert axis without ``moe`` raises
+    ``ValueError``, as do JAX's ``_check_moe_mesh`` rules (gpt2 blocks, E
+    divisible by ``n_expert``, the expert ffn by ``n_model``).
 
     ``axes``: a ``"data"``, ``"model"``, ``"seq"`` or ``"expert"`` entry
     above 1 raises ``NotImplementedError`` pointing at ``mesh``.
@@ -675,7 +677,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, sched: ScheduleConfig,
     tp = _tp_of(cfg, mesh, tp_vocab_parallel)
     from .seq_parallel import sp_mesh_check
     sp_mesh_check(cfg, mesh, sp_attn_impl, tp)
-    _check_moe(cfg, moe, mesh, fsdp)
+    _check_moe(cfg, moe, mesh)
     if comm_overlap not in COMM_OVERLAP:
         raise ValueError(f"comm_overlap={comm_overlap!r}: choose one of "
                          f"{COMM_OVERLAP}")
@@ -1247,7 +1249,7 @@ def _eval_checks(cfg: ModelConfig, mesh: Optional[Mesh], axes,
     if fsdp and (mesh is None or mesh.n_data <= 1):
         raise ValueError("fsdp eval needs a 'data' mesh axis (matching "
                          "the training-side pp x fsdp support)")
-    _check_moe(cfg, moe, mesh, fsdp)
+    _check_moe(cfg, moe, mesh)
     return tp
 
 

@@ -22,7 +22,9 @@ Its mesh is (``"n_pipe"``, ``"n_data"``, ``"n_model"``, ``"n_seq"``,
 rank holds its ``MoELM`` view with its expert coordinate's block of the
 experts (``from_jax_params(..., moe=, expert=)``), which the ``"grad"``
 and ``"eval"`` cases run (their files then hold the expert stacks' blocks
-and, for ``"grad"``, the expert all-to-alls the step posted, ``"a2a"``);
+and, for ``"grad"``, the expert all-to-alls the step posted, ``"a2a"``)
+on any mesh: with a model axis, ``"fsdp"`` and a seq axis as below, the
+Megatron and FSDP shards cut from the expert block;
 with a model axis each rank holds its Megatron
 shard (``tensor_parallel.shard_model``, the head split over the vocab
 with ``"vocab_parallel"``), with ``"fsdp"`` its data coordinate's FSDP
@@ -79,7 +81,12 @@ runs dropout under that step seed. Each case is a dict with ``"name"``,
   (expert stacks as the rank's block), and ``adamw/`` those of 2 steps
   of ``adamw`` with ``"opt"``'s fields; rank 0 also writes the whole model
   that ``checkpoint.restore_world_model`` reads from the last step dir
-  (``whole/``).
+  (``whole/``). With ``"fit_kw"`` (``{"zero1": True}`` or ``{"fsdp":
+  True}``) the checkpointed and resumed runs pass them, ``par/`` holds
+  the params of the unbroken run with them (FSDP shards, their dims
+  ``fsdp/{name}``), ``plain/`` that run's without them, and with
+  ``"adamw": True`` all three take ``adamw`` with ``"opt"``'s fields (no
+  ``adamw/`` run).
 - ``"attn"``: ``ring_attention`` and ``ulysses_attention`` (``"impl"``)
   on the rank's chunks of seeded q, k, v [``"b"``, ``"s"``, ``"h"``,
   ``"dh"``] (k, v with ``"h_kv"`` heads, expanded before the ring) and a
@@ -272,8 +279,13 @@ def _moe_fit(mesh: Mesh, cfg, sched, view, case, moe, shard, out: str):
     from ..utils.checkpoint import restore_world_model
     from ..utils.data import synthetic_batches
     from ..utils.resilience import FaultPlan, SimulatedKill
+    from .fsdp import fsdp_shard_of
 
-    def run(steps, optimizer=ttrain.sgd(0.1), **kw):
+    fit_kw = case.get("fit_kw", {})
+    base = (ttrain.adamw(**case["opt"]) if case.get("adamw")
+            else ttrain.sgd(0.1))
+
+    def run(steps, optimizer=base, **kw):
         data = synthetic_batches(cfg.vocab_size, case["B"], case["S"],
                                  seed=1, sharding=shard)
         trained, _ = ttrain.fit(cfg, sched, mesh.n_pipe, copy.deepcopy(view),
@@ -283,18 +295,25 @@ def _moe_fit(mesh: Mesh, cfg, sched, view, case, moe, shard, out: str):
         return trained
 
     res = {f"plain/{k}": v for k, v in _params(run(case["steps"])).items()}
-    res.update({f"adamw/{k}": v for k, v in _params(run(
-        2, ttrain.adamw(**case["opt"]))).items()})
+    if fit_kw:
+        par = run(case["steps"], **fit_kw)
+        res.update({f"par/{k}": v for k, v in _params(par).items()})
+        if fsdp_shard_of(par) is not None:
+            res.update({f"fsdp/{n}": np.asarray(d) for n, d in
+                        fsdp_shard_of(par).dims.items() if d is not None})
+    else:
+        res.update({f"adamw/{k}": v for k, v in _params(run(
+            2, ttrain.adamw(**case["opt"]))).items()})
     ck = os.path.join(out, f"{case['name']}_ck")
     try:
         run(case["steps"], checkpoint_dir=ck, checkpoint_every=1,
-            fault_plan=FaultPlan(kill_in_save_step=case["kill"]))
+            fault_plan=FaultPlan(kill_in_save_step=case["kill"]), **fit_kw)
         raise RuntimeError("the planned kill did not come")
     except SimulatedKill:
         pass
     res.update({f"resumed/{k}": v for k, v in _params(run(
         case["steps"], checkpoint_dir=ck, checkpoint_every=1,
-        resume=True)).items()})
+        resume=True, **fit_kw)).items()})
     mesh.barrier()
     if mesh.rank == 0:
         last = os.path.join(ck, f"step_{case['steps'] - 1}")

@@ -19,7 +19,13 @@ once, after the reduce). GQA kv projections split their kv heads; the
 Qwen2 family's q/k/v biases split with their matrices. Norms, embeddings
 and the head are replicated, except the untied head under vocab-parallel
 cross entropy, which splits the vocab (dim 0 of ``out.weight``, and the
-reference arch's bias). Shards are contiguous blocks in model-coordinate
+reference arch's bias). A MoE block (``models.moe.MoEBlock``) places its
+attention as a dense block does and splits each expert's ffn dim: ``w1``
+[E, d, f] on f and ``b1`` [E, f] on f (column-parallel), ``w2`` [E, f,
+d] on f (row-parallel); the router, ``b2`` and the norms are replicated
+(the JAX ``_moe_layer_specs``). A rank's expert block is cut first
+(``parallel.expert_parallel.ep_shard_model``), then its Megatron shard
+of that. Shards are contiguous blocks in model-coordinate
 order, as the JAX ``NamedSharding`` lays them out.
 
 The compositions JAX has: pp x fsdp x tp, where a matrix is split over
@@ -46,6 +52,9 @@ from ..utils.config import ModelConfig, ScheduleConfig
 # column-parallel leaves split with them, those of row-parallel ones not
 _COLUMN = ("q", "k", "v", "lin1", "w1", "w3")
 _ROW = ("o", "lin2", "w2")
+# a MoE FFN's leaves (JAX's layout, experts leading) -> the ffn dim split
+# (the JAX ``_moe_layer_specs``); the router and ``b2`` are replicated
+_MOE = {"w1": 2, "b1": 1, "w2": 1}
 
 
 def resolve_tp_overlap(mode: str, axis_size: int, seq_len: int) -> str:
@@ -98,6 +107,8 @@ def split_dim(cfg: ModelConfig, name: str,
     parts = name.split(".")
     if parts[0] == "layers":
         leaf, kind = parts[-2], parts[-1]
+        if leaf == "moe":
+            return _MOE.get(kind)
         if leaf in _COLUMN:
             return 0
         if leaf in _ROW:
@@ -125,6 +136,15 @@ def check_tp(cfg: ModelConfig, T: int, vocab_parallel: bool = False) -> None:
             f"tensor parallelism needs n_heads ({cfg.n_heads}), "
             f"n_kv_heads ({n_kv}) and ffn_dim ({cfg.ffn_dim}) divisible "
             f"by the model-axis size {T}")
+
+
+def check_moe_tp(cfg: ModelConfig, moe, T: int) -> None:
+    """A MoE model's expert ffn must divide over the model axis (the JAX
+    ``_check_moe_mesh``'s TP rule)."""
+    if moe is not None and T > 1 and (moe.ffn_dim or cfg.ffn_dim) % T:
+        raise ValueError(
+            f"MoE expert ffn_dim={moe.ffn_dim or cfg.ffn_dim} must be "
+            f"divisible by the model-axis size {T}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +186,7 @@ def shard_model(model: nn.Module, cfg: ModelConfig, mesh=None, *,
     if mesh is not None:
         n, index = mesh.n_model, mesh.model
     check_tp(cfg, n, vocab_parallel and n > 1)
+    check_moe_tp(cfg, getattr(model, "moe", None), n)
     out = copy.deepcopy(model)
     with torch.no_grad():
         for name, p in list(out.named_parameters()):

@@ -55,6 +55,22 @@ counterpart of ``scripts/train.py``: the same flags and defaults, through
         --model gpt2-small --moe-experts 8 --ep 2 --pipe 2 --backend gloo \\
         --batch 8 --seq 1024 --steps 20 --fused-xent
 
+    # MoE composed with the other axes (8 processes each): each expert's
+    # ffn split over a model axis; the experts' matrices FSDP-sharded over
+    # a data axis; a seq axis (Ulysses); ZeRO-1 over data beside experts
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --moe-experts 8 --ep 2 --tp 2 --pipe 2 \\
+        --backend gloo --batch 8 --seq 1024 --steps 20 --fused-xent
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --moe-experts 8 --ep 2 --fsdp --data 2 --pipe 2 \\
+        --backend gloo --batch 8 --seq 1024 --steps 20 --fused-xent
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --moe-experts 8 --ep 2 --sp 2 --sp-attn ulysses \\
+        --pipe 2 --backend gloo --batch 8 --seq 1024 --steps 20 --fused-xent
+    python -m distributed_training_with_pipeline_parallelism_tpu_torch.train \\
+        --model gpt2-small --moe-experts 8 --ep 2 --zero1 --data 2 --pipe 2 \\
+        --backend gloo --batch 8 --seq 1024 --steps 20 --fused-xent
+
 Without ``--backend`` all D = ``--pipe`` stages run in one process on the
 one device, in lockstep over the schedule's tick table. ``--backend gloo``
 or ``nccl`` launches a world of ``--pipe`` x ``--data`` x ``--tp`` x
@@ -72,7 +88,8 @@ above 1; ``--fsdp`` needs ``--data`` above 1 and refuses ``--zero1``.
 ``--moe-aux``) builds a ``models.moe.MoEConfig`` and trains a MoE LM of
 GPT-2 blocks (a ``gpt2-*`` model); ``--ep`` above 1 splits its experts
 over an expert axis of that size (which also splits the batch, with the
-data axis), and needs ``--moe-experts``.
+data axis), and needs ``--moe-experts``. MoE composes with ``--tp``,
+``--sp``, ``--fsdp`` and ``--zero1`` as the dense blocks do.
 ``--report-dir`` stamps every step's ticks (``utils.telemetry.
 PipelineTelemetry``) and writes ``events.jsonl``, ``report.json`` (the
 ``RunReport`` manifest of ``fit``) and ``trace.json`` (the newest step's
@@ -81,10 +98,7 @@ global rank 0 writes them, from every rank's stamps. ``--dynamics`` adds
 the per-stage gradient statistics, the gradient-noise scale and the
 loss-spike forensics (``utils.dynamics``, read at the log points with the
 loss; the bundles need ``--report-dir``); with ``--prefetch`` the batch
-digests are taken from the host arrays before their copy. Flags for parts
-of the JAX package not ported yet (``--ep`` or ``--moe-experts`` with
-``--tp``, ``--sp`` or ``--fsdp``) raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.
+digests are taken from the host arrays before their copy.
 """
 
 from __future__ import annotations
@@ -95,9 +109,6 @@ import os
 import numpy as np
 
 from .parallel.schedules import schedule_names
-
-_ITEM = {11: "ROADMAP.md Queue 1, item 11 (MoE with expert "
-             "parallelism)"}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -254,17 +265,7 @@ def parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for flags of an unported part: the
-    expert axis or MoE composed with a model or seq axis or with FSDP; and
-    the JAX ``ValueError`` for an expert axis without MoE."""
-    moe = args.ep > 1 or args.moe_experts > 0
-    unported = [("--tp > 1", args.tp > 1, 11), ("--sp > 1", args.sp > 1, 11),
-                ("--fsdp", args.fsdp, 11)]
-    for flag, given, item in unported:
-        if moe and given:
-            raise NotImplementedError(
-                f"--ep/--moe-experts with {flag} is not ported yet: "
-                f"{_ITEM[item]}")
+    """The JAX script's refusal of an expert axis without MoE."""
     if args.ep > 1 and not args.moe_experts:
         raise ValueError("--ep requires --moe-experts: mesh has an "
                          "'expert' axis but no MoEConfig given")

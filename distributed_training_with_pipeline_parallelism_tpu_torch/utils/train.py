@@ -215,6 +215,7 @@ class ShardedAdamWState:
     def __init__(self, recipe: "AdamW", model: nn.Module, mesh):
         named = list(model.named_parameters())
         self.params = [p for _, p in named]
+        self.names = [n for n, _ in named]
         self.mesh = mesh
         n = mesh.n_data
         self._chunks = [-(-p.numel() // n) for p in self.params]
@@ -236,7 +237,10 @@ class ShardedAdamWState:
         self._where = [order[nm] for nm, _ in named]
         self._n_global = len(order)
         sharded = _sharded(model)
-        self._counted = [_counted(nm, mesh, sharded) for nm, _ in named]
+        # the norm sums over the whole world, whose seq ranks hold the same
+        # blocks: seq coordinate 0's count
+        self._counted = [_counted(nm, mesh, sharded) and mesh.seq == 0
+                         for nm, _ in named]
 
     def refresh(self) -> None:
         """Master blocks <- the parameters' values (at init, and after the
@@ -787,7 +791,9 @@ def _ep_opt_state(opt_state, state, fn):
     """``state`` (``opt_state.state_dict()``) with each expert stack's
     per-parameter tensors (AdamW's moments, the accumulation's running
     mean) mapped by ``fn(name, tensor)``, in the parameters' order (so a
-    collective in ``fn`` pairs on every rank)."""
+    collective in ``fn`` pairs on every rank). Under ZeRO-1 a moment is
+    the rank's flat data block of its expert stack, so the expert group's
+    blocks, gathered, lie end to end in expert order."""
     from ..models.moe import is_expert_leaf
     if isinstance(opt_state, MultiStepsState):
         names = opt_state.inner.names
@@ -795,9 +801,10 @@ def _ep_opt_state(opt_state, state, fn):
                 "inner": _ep_opt_state(opt_state.inner, state["inner"], fn),
                 "acc": [fn(n, a) if is_expert_leaf(n) else a
                         for n, a in zip(names, state["acc"])]}
-    if not isinstance(opt_state, AdamWState):
+    if not isinstance(opt_state, (AdamWState, ShardedAdamWState)):
         return state  # SGD's count only
-    name_of = dict(zip(map(id, opt_state.params), opt_state.names))
+    tensors = getattr(opt_state, "shards", opt_state.params)
+    name_of = dict(zip(map(id, tensors), opt_state.names))
     order = [name_of[id(p)] for g in opt_state.optimizer.param_groups
              for p in g["params"]]
     out = dict(state, state={})
@@ -946,18 +953,16 @@ def fit(cfg: ModelConfig, sched: ScheduleConfig, n_stages: int,
       expert stacks and their moments, gathered over the expert group and
       written by expert coordinate 0 (JAX saves global arrays), so a run
       without the expert axis loads it; a resumed rank takes its block.
-      MoE with ``fsdp``, with ``zero1`` on an expert axis, or on a model or
-      seq axis raises ``NotImplementedError`` naming ``ROADMAP.md`` item 11.
+      MoE composes with every axis and with ``fsdp`` (the expert block
+      cut first, then its FSDP shards on the MoE dims) and ``zero1`` (the
+      moments over the data group only: a rank's blocks of its own
+      experts' stacks, gathered over the expert group into the
+      checkpoint).
 
     The dropout seed of step i is ``fold_seed(dropout_seed, i)``, so a
     resumed run draws the unbroken run's masks.
     """
     n_ep = 1 if mesh is None else mesh.n_expert
-    if moe is not None and (fsdp or zero1 and n_ep > 1):
-        raise NotImplementedError(
-            f"fit with moe and {'fsdp' if fsdp else 'zero1'} is not ported "
-            f"yet: ROADMAP.md Queue 1, item 11 (MoE with expert "
-            f"parallelism)")
     if fsdp and zero1:
         raise ValueError("fsdp already shards optimizer state (ZeRO-3 "
                          "subsumes ZeRO-1) — drop --zero1")

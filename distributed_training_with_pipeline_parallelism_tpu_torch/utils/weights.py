@@ -16,7 +16,10 @@ does with its own.
 A JAX ``moe_lm_init`` pytree (``moe=`` its ``MoEConfig``) loads into a
 ``models.moe.MoELM``: its blocks' ``ln1``, ``attn``, ``ln2`` as a GPT-2
 block's, and ``moe``'s ``router.w`` and expert stacks as they are (the
-port keeps their layout); ``expert=`` takes a rank's block of experts.
+port keeps their layout); ``expert=`` takes a rank's block of experts,
+and ``shard=`` its Megatron shard of that block (each expert's ffn
+split: JAX's addressable shard); ``parallel.fsdp.fsdp_shard_params``
+cuts its FSDP shards from either.
 """
 
 from __future__ import annotations
@@ -80,7 +83,8 @@ def from_jax_params(cfg: ModelConfig, tree: Dict, device="cuda",
     ``moe_lm_init`` pytree (``layers``: ``ln1``, ``attn``, ``ln2``,
     ``moe``: ``{"router": {"w"}, "w1", "b1", "w2", "b2"}``) and the result
     a ``models.moe.MoELM``; ``expert`` = ``(n_ep, index)`` keeps block
-    ``index`` of ``n_ep`` of every expert stack (a rank's expert shard)."""
+    ``index`` of ``n_ep`` of every expert stack (a rank's expert shard),
+    which ``shard`` then splits as a MoE block's Megatron shard."""
     device = resolve_device(device)
     state = {"tok": tree["embed"]["tok"],
              "norm.weight": tree["head"]["norm"]["scale"]}

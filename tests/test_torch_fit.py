@@ -460,20 +460,15 @@ def test_train_main_runs_on_cpu(tmp_path, data):
 @pytest.mark.parametrize("argv,error,match", [
     (["--ep", "2"], ValueError,
      "mesh has an 'expert' axis but no MoEConfig given"),
-    (["--ep", "2", "--sp", "2", "--backend", "gloo"], NotImplementedError,
-     "item 11"),
     (["--fsdp"], ValueError, "needs a 'data' mesh axis"),
     (["--fsdp", "--zero1"], ValueError, "subsumes ZeRO-1"),
-    (["--moe-experts", "4", "--tp", "2", "--backend", "gloo"],
-     NotImplementedError, "item 11"),
 ])
 def test_unported_flags_raise(argv, error, match):
-    """``--ep`` without ``--moe-experts`` raises JAX's ``ValueError``; the
-    expert axis or MoE composed with a seq or model axis is still refused,
-    naming ``ROADMAP.md`` item 11 (before a world starts; MoE runs, in
-    ``tests/test_torch_moe.py``); ``--fsdp`` runs
-    (``tests/test_torch_fsdp.py``) but needs a data axis and refuses
-    ZeRO-1, as the JAX script does."""
+    """``--ep`` without ``--moe-experts`` raises JAX's ``ValueError``
+    (before a world starts; MoE runs, composed with every axis, in
+    ``tests/test_torch_moe.py`` and ``tests/test_torch_moe_par.py``);
+    ``--fsdp`` runs (``tests/test_torch_fsdp.py``) but needs a data axis
+    and refuses ZeRO-1, as the JAX script does."""
     with pytest.raises(error, match=match):
         tmain.main(TINY + argv)
 
@@ -492,12 +487,6 @@ def test_tp_flags_need_a_world(argv, message, capsys):
     assert message in capsys.readouterr().err
 
 
-def _moe_config():
-    from distributed_training_with_pipeline_parallelism_tpu_torch.models.moe \
-        import MoEConfig
-    return MoEConfig(n_experts=4)
-
-
 def test_fit_vocab_parallel_needs_a_model_axis():
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="'model' mesh axis"):
@@ -507,15 +496,13 @@ def test_fit_vocab_parallel_needs_a_model_axis():
 
 @pytest.mark.parametrize("kw,error,match", [
     (dict(fsdp=True), ValueError, "needs a 'data' mesh axis"),
-    (dict(moe=_moe_config(), fsdp=True), NotImplementedError, "item 11"),
     (dict(sp_attn_impl="ulysses_v2"), ValueError, "sp_attn_impl"),
     (dict(fsdp=True, zero1=True), ValueError, "subsumes ZeRO-1"),
 ])
 def test_fit_unported_arguments_raise(kw, error, match):
-    """``moe`` runs (``tests/test_torch_moe.py``) but not with ``fsdp``
-    yet (``ROADMAP.md`` item 11); ``fsdp`` and ``sp_attn_impl`` run in a
-    world (``tests/test_torch_fsdp.py``, ``tests/test_torch_seq_parallel.py``)
-    and keep JAX's refusals."""
+    """``fsdp`` and ``sp_attn_impl`` run in a world
+    (``tests/test_torch_fsdp.py``, ``tests/test_torch_seq_parallel.py``,
+    with MoE ``tests/test_torch_moe_par.py``) and keep JAX's refusals."""
     _, tcfg = _cfgs()
     with pytest.raises(error, match=match):
         ttrain.fit(tcfg, port.ScheduleConfig("1F1B", M), 2, None, iter([]),

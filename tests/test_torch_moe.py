@@ -22,8 +22,8 @@ package's ``models/moe.py`` and its MoE pipeline on the simulated mesh.
 - (e) ``fit(moe=)``: SGD for 4 steps equals the port's own step loop
   bitwise, and a run killed in a save and resumed ends bitwise where the
   unbroken one does.
-- (g) The refusals and their messages, the compositions the next slice
-  takes (MoE with a model or seq axis, with FSDP) included.
+- (g) The refusals and their messages (JAX's; MoE's compositions with
+  TP, FSDP, seq and ZeRO-1 run in ``tests/test_torch_moe_par.py``).
 
 Sizes are the JAX tests': gpt2, dim 32, 4 layers, 4 heads, vocab 64, ffn
 64, batch 8, seq 8; weights in the JAX ``moe_lm_init`` layout with
@@ -428,29 +428,12 @@ def _grad_fn(cfg, moe, **kw):
         c, port.ScheduleConfig("GPipe", 2), 2, device="cpu",
         mesh=_fake_mesh(n_expert=2)),
      ValueError, "no MoEConfig given"),
-    (lambda c, m: _grad_fn(c, m, mesh=_fake_mesh(n_model=2)),
-     NotImplementedError, "item 11"),
-    (lambda c, m: _grad_fn(c, m, mesh=_fake_mesh(n_seq=2)),
-     NotImplementedError, "item 11"),
-    (lambda c, m: _grad_fn(c, m, mesh=tmesh.Mesh(2, 2, 0, "gloo",
-                                                 torch.device("cpu")),
-                           fsdp=True),
-     NotImplementedError, "item 11"),
     (lambda c, m: _grad_fn(c, m, dynamics=True), ValueError,
      "unsupported here: moe"),
     (lambda c, m: _grad_fn(c, m, axes={"expert": 2}), NotImplementedError,
      "an 'expert' axis"),
-    (lambda c, m: tmesh.make_mesh(2, n_seq=2, n_expert=2, backend="gloo",
-                                  device="cpu"),
-     NotImplementedError, "item 11"),
-    (lambda c, m: tmesh.make_mesh(2, n_model=2, n_expert=2, backend="gloo",
-                                  device="cpu"),
-     NotImplementedError, "item 11"),
     (lambda c, m: tmoe.MoEConfig(n_experts=2, top_k=3), ValueError,
      r"top_k=3 must be in \[1, 2\]"),
-    (lambda c, m: ttrain.fit(c, port.ScheduleConfig("GPipe", 2), 2, None,
-                             iter([]), 1, device="cpu", moe=m, fsdp=True),
-     NotImplementedError, "item 11"),
 ])
 def test_moe_refusals(build, error, match):
     _, tcfg = _cfgs()

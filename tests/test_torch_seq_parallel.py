@@ -435,9 +435,6 @@ def _fake_mesh(n_seq=2):
      "sp_attn_impl"),
     (lambda cfg: port.make_sp_loss_fn(cfg, _fake_mesh(), "stripe"),
      ValueError, "attn_impl must be one of"),
-    (lambda cfg: tmesh.make_mesh(2, n_seq=2, n_expert=2, backend="gloo",
-                                 device="cpu"),
-     NotImplementedError, "item 11"),
     (lambda cfg: BatchSharding(1, 0, 3, 1).rows(np.zeros((2, 16))),
      ValueError, "does not split into 3 seq shards"),
 ])
