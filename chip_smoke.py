@@ -109,10 +109,11 @@ JAX. Phases, each fatal on failure:
    speedup, efficiency, bubble columns, the card's MFU and peak memory;
    then one f32 step of the headline row (L8/H8, GPipe, D = 2) under the
    profiler for its idle share. (e) The sweep as the reference runs it:
-   the L8/H8 rows at D = 2 and 4 under the three schedules as world rows
-   (``sweep_rows(..., backend="gloo")``: one world of D processes per D,
-   staged on the one card; 3 timed steps after 2), each world row's
-   tokens/s beside its lockstep row's, the bubble columns equal.
+   the L8/H8 rows at D = 2 under the three schedules as world rows
+   (``sweep_rows(..., backend="gloo")``: one world of 2 processes,
+   staged on the one card; 3 timed steps after 2; the D = 4 rows were
+   cut for the script's time), each world row's tokens/s beside its
+   lockstep row's, the bubble columns equal.
 
 8. ``fit``, the training entry point: tied GPT-2-small at full width,
    random weights from a seed, 1F1B at D = 4, M = 4, S = 1024, both
@@ -366,7 +367,8 @@ JAX. Phases, each fatal on failure:
     seq 2 x expert 2 with Ulysses; phase 15's MoE LM (GPT-2-small's
     widths, E = 8, top-2, expert ffn 3072, 4 of the 12 layers, cut for the
     script's time), B = 8, S = 1024, 1F1B at D = 2, M = 2. (a) f32 at
-    capacity E and aux 0 (no drops): on each mesh the rank's model is its
+    capacity E / top_k and aux 0 (no drops; cut from capacity E for the
+    script's time): on each mesh the rank's model is its
     expert block, Megatron shard and FSDP shards of the seeded weights;
     the loss within 1e-5 relative and every leaf (a block's error and
     norm summed over the world from one rank a block) within phase 4's
@@ -384,6 +386,32 @@ JAX. Phases, each fatal on failure:
     --tp 2`` and ``... --fsdp --data 2``, 2 steps each at 2 layers and S =
     256, at once beside the world: exit 0 and a final loss within 1 of ln
     V. The phase prints its seconds.
+
+17. TP in the pipelined decoder and the serving engine: one world of
+    (pipe 1, data 1, model 2) processes on the card (gloo, staged), each
+    rank running D = 2 lockstep stages on its Megatron shard (the blocks
+    split, the embedding and the tied head whole) through
+    ``parallel.selftest.run_cases``; Llama-3.2-1B at full width (GQA
+    32/8, tied, vocab 128256, so the greedy head goes vocab-parallel),
+    random weights from a seed. (a) f32 at phase 11's 4 of 16 layers, B
+    = 4 prompts of 256 tokens, 16 new tokens, M = 2: each rank's greedy
+    tokens those of the T = 1 lockstep decoder and of ``generate`` on
+    the same weights, and a ``return_logprobs`` run (the replicated
+    head) within 1e-4 (phase 3's rule: a row may part only at a top-2
+    logit gap below 1e-4); K4 launched on both ranks at [2, 256, 16, 64]
+    (a rank's 16 of 32 heads) and K1 in the log-probs run, by the
+    wrappers' counters and each launch's recorded shape. (b) The engine
+    in f32, 4 slots, chunk 16, 8 requests (prompts of 16-128 tokens,
+    outputs of 8-32): contiguous, paged (pages of 16) and speculative (a
+    2-layer draft, whole on every rank, gamma 2), every rank's
+    completions (tokens, slots, tick stamps) exactly the T = 1 engine's
+    with CUDA graphs, and ``cuda_graphs`` False in the world (staged
+    collectives cannot be captured). (c) bf16 at all 16 layers, one
+    warm-up and one timed run each, beside the T = 1 lockstep process's
+    (timed first, alone on the card): the decoder's tokens/s, the
+    engine's s_per_tick and its median TTFT and TPOT in ticks, and from
+    one profiled run the count and host ms of the model-axis all-reduces
+    and all-gathers. The phase prints its seconds.
 
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
 ulps of its largest |o| of the plain version. Then it prints the kernel
@@ -404,7 +432,9 @@ rank and summed, 0 where no kernel serves them; phase 14's shapes' bf16
 times beside each kernel's (phase 15's microbatches take the same
 shapes); phase 15's counted forward, MoE step and world steps by rank and
 summed; phase 16's counted f32 steps on its three meshes by rank and
-summed),
+summed, and the cross-entropy kernels' times at its [1024, 50257]; phase
+17's f32 decode and serve runs by rank, and K1's f32 time at its
+decode log-probs' [2, 128256]),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -824,6 +854,12 @@ def phase_kernels(report):
         # [4, 512] microbatch, 2048 rows either way
         main[("xent_fwd_par", dtype)] = xent_case(PAR_XENT_ROWS, 50257,
                                                   dtype, rtol)
+        # phase 16's loss on a data x expert rank: a [1, 1024] microbatch
+        main[("xent_fwd_moe", dtype)] = xent_case(MOE_XENT_ROWS, 50257,
+                                                  dtype, rtol)
+        # phase 17's decode log-probs: B/M rows of Llama's vocabulary
+        main[("xent_fwd_tps", dtype)] = xent_case(TPS_B // TPS_M, 128256,
+                                                  dtype, rtol)
         # the decode path's head: B/M rows per stage call
         xent_case(B // M, 50257, dtype, rtol)
         xent_case(7, 50257, dtype, rtol)
@@ -851,6 +887,8 @@ def phase_kernels(report):
             TRAIN_B // TRAIN_M * TRAIN_S, 50257, dtype, bwd_tol[dtype])
         main[("xent_bwd_par", dtype)] = xent_bwd_case(
             PAR_XENT_ROWS, 50257, dtype, bwd_tol[dtype])
+        main[("xent_bwd_moe", dtype)] = xent_bwd_case(
+            MOE_XENT_ROWS, 50257, dtype, bwd_tol[dtype])
         xent_bwd_case(7, 50257, dtype, bwd_tol[dtype], pad_row=3)
     for r in rows:
         print(f"  {r['kernel']} {r['shape']} {r['dtype']}"
@@ -2188,17 +2226,17 @@ def phase_ref(report, device="cuda"):
     # (e) the headline rows as the reference runs them: a world of D
     # processes a config (one world per D), beside the lockstep rows
     t0 = time.perf_counter()
-    world_rows = sweep_rows(layers=(8,), heads=(8,), devices=(2, 4),
+    world_rows = sweep_rows(layers=(8,), heads=(8,), devices=(2,),
                             verbose=False, device=device, backend="gloo",
                             num_iterations=REF_WORLD_TIMED)
-    check(len(world_rows) == 6 and all("throughput" in r
+    check(len(world_rows) == 3 and all("throughput" in r
                                        for r in world_rows),
-          f"world sweep: {len(world_rows)} rows, not 6 timed ones: "
+          f"world sweep: {len(world_rows)} rows, not 3 timed ones: "
           f"{[r.get('error') for r in world_rows]}")
     lock = {(r["num_processes"], r["schedule"]): r for r in rows
             if r["n_heads"] == 8}
-    print(f"  the sweep as a world (gloo, staged; two worlds, D = 2 and 4): "
-          f"6 rows in {time.perf_counter() - t0:.1f} s")
+    print(f"  the sweep as a world (gloo, staged; one world, D = 2): "
+          f"3 rows in {time.perf_counter() - t0:.1f} s")
     for r in world_rows:
         twin = lock[(r["num_processes"], r["schedule"])]
         check(r["transport"] == "gloo-staged"
@@ -4690,12 +4728,17 @@ def profiled_launches(fn, want):
     one call of ``fn``: the first of up to three traces that shows
     ``want``, else the last. CUPTI has been seen to drop some of a
     trace's kernel events late in the whole script (43 of 48 ``flash_fwd``
-    events in one trace whose wrappers counted 48), so a trace short of
-    ``want`` is taken again."""
+    events in one trace whose wrappers counted 48; in one run in all
+    three traces), so a trace short of ``want`` is taken again, and each
+    trace waits a moment after it starts, before ``fn`` launches
+    anything: the short count was the same in every trace of that run,
+    as if its first launches came before the tracer was recording."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.2)
             fn()
             torch.cuda.synchronize()
         out = {k.name: 0 for k in all_kernels()}
@@ -5232,10 +5275,15 @@ def phase_fwd_moe(report, device="cuda"):
 # for the script's time limit), B = 8, S = 1024, 1F1B at D = 2, M = 2, in
 # one gloo world of 8 ranks staged through host memory on the card, on
 # three meshes (pipe, data, model, seq, expert). The f32 gates at capacity
-# E and aux 0 (no drops: every chunking routes alike) against the lockstep
-# step on the same rows; the bf16 step at phase 15's routing (capacity
-# 1.25, aux 0.01)
+# E / top_k and aux 0 (no drops: an expert takes at most one slot a token,
+# so every chunking routes alike) against the lockstep step on the same
+# rows; the bf16 step at phase 15's routing (capacity 1.25, aux 0.01)
 MOE_PAR_B, MOE_PAR_M, MOE_PAR_REF_M = 8, 2, 8
+# the cross-entropy rows of a data 2 x expert 2 rank's microbatch
+MOE_XENT_ROWS = 1024
+# (a)'s routing (cut from capacity E for the script's time)
+MOE_PAR_FIELDS = dict(MOE_EP_FIELDS, capacity_factor=MOE_FIELDS["n_experts"]
+                      / MOE_FIELDS["top_k"])
 MOE_PAR_MESHES = {"ep_tp": ((2, 1, 2, 1, 2), {}),
                   "fsdp_ep": ((2, 2, 1, 1, 2), {"fsdp": True}),
                   "seq_ep": ((2, 1, 1, 2, 2), {"sp_attn_impl": "ulysses"})}
@@ -5344,7 +5392,8 @@ def moe_par_worker(world, spec):
     batch = tuple(t.to(device) for t in torch.load(spec["batch"],
                                                    weights_only=True))
     sched = port.ScheduleConfig("1F1B", MOE_PAR_M)
-    cfg, moe = moe_setup(ep=True)
+    cfg, _ = moe_setup(ep=True)
+    moe = port.MoEConfig(**MOE_PAR_FIELDS)
     for name, (_, kw) in MOE_PAR_MESHES.items():
         mesh = meshes[name]
         fsdp = kw.get("fsdp", False)
@@ -5474,7 +5523,8 @@ def phase_moe_par(report, device="cuda"):
                 output=text[-3000:])
 
     try:
-        cfg, moe = moe_setup(ep=True)
+        cfg, _ = moe_setup(ep=True)
+        moe = port.MoEConfig(**MOE_PAR_FIELDS)
         model = moe_init_params(cfg, moe, torch.Generator().manual_seed(SEED),
                                 device)
         torch.save({n: t.cpu() for n, t in model.state_dict().items()},
@@ -5569,6 +5619,365 @@ def phase_moe_par(report, device="cuda"):
     print(f"  phase 16: {res['seconds']:.1f} s")
     report["moe_par"] = res
     return out
+
+
+# Tensor parallelism in the pipelined decoder and the serving engine
+# (phase 17): one gloo world of (pipe 1, data 1, model 2) on the card,
+# staged, each rank running D = 2 lockstep stages on its model shard;
+# Llama-3.2-1B at full width (GQA 32/8, tied, vocab 128256: the greedy
+# head goes vocab-parallel), phase 11's 4 of its 16 layers for the f32
+# gates and all 16 for the bf16 timing
+TPS_MESH = (1, 1, 2)  # (n_pipe, n_data, n_model)
+TPS_D, TPS_B, TPS_P, TPS_N, TPS_M = 2, 4, 256, 16, 2
+TPS_SHAPE = [TPS_B // TPS_M, TPS_P, 16, 64]  # K4 at a rank's 16 of 32 heads
+TPS_SERVE = dict(n_slots=4, max_len=160, prompt_max=128, out_max=32,
+                 prefill_chunk=16, eos_id=1)
+TPS_PAGE, TPS_GAMMA, TPS_DRAFT_LAYERS = 16, 2, 2
+TPS_REQUESTS, TPS_PROMPTS, TPS_OUTS = 8, (16, 128), (8, 32)
+# (c): the decoder timed after one warm-up; the engine's first run, on the
+# trace's first 4 requests (a staged all-reduce takes ~2 ms on one card,
+# 24 of them a tick at 16 layers: the whole trace took 24 s a run)
+TPS_TIME_REQUESTS = 4
+
+
+def tps_configs():
+    """(f32 gate config, its draft, the bf16 timing config)."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import llama_config
+    kw = dict(use_flash_attention=True, use_fused_xent=True)
+    return (tp_llama_config(),
+            llama_config("llama3.2-1b", n_layers=TPS_DRAFT_LAYERS, **kw),
+            llama_config("llama3.2-1b", dtype="bfloat16", **kw))
+
+
+def tps_cases():
+    """The world's ``run_cases`` cases: (a)'s two decodes, (b)'s three
+    engines, (c)'s bf16 decode (a warm-up and a timed run) and engine
+    (one run of the trace's first ``TPS_TIME_REQUESTS``)."""
+    world = dict(zip(("n_pipe", "n_data", "n_model"), TPS_MESH),
+                 n_stages=TPS_D)
+    dec = dict(kind="decode", N=TPS_N, prompt="p", init_seed=SEED, **world)
+    serve = dict(kind="serve", requests="r", init_seed=SEED, **world)
+    return [
+        dict(dec, name="f32_decode", cfg="f32",
+             decode=dict(n_streams=TPS_M)),
+        dict(dec, name="f32_decode_lp", cfg="f32",
+             decode=dict(n_streams=TPS_M, return_logprobs=True)),
+        dict(serve, name="f32_contiguous", cfg="f32", program=TPS_SERVE),
+        dict(serve, name="f32_paged", cfg="f32",
+             program=dict(TPS_SERVE, paged=True, page_size=TPS_PAGE)),
+        dict(serve, name="f32_spec", cfg="f32", draft_cfg="draft",
+             draft_init_seed=SEED + 1,
+             program=dict(TPS_SERVE, gamma=TPS_GAMMA)),
+        dict(dec, name="bf16_decode", cfg="bf16", runs=2,
+             decode=dict(n_streams=TPS_M)),
+        dict(serve, name="bf16_contiguous", cfg="bf16", program=TPS_SERVE,
+             requests="timed")]
+
+
+def tps_worker(mesh, spec):
+    """One rank of phase 17's world: ``selftest.run_cases`` over
+    ``tps_cases``, with the shape (and dtype code) of every K4 and K1
+    launch counted."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
+        FLASH_FWD)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
+        XENT_FWD)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+        selftest)
+    shapes = {}
+
+    def record(kernel, dtype_at, dims):
+        call = kernel.call
+
+        def counted(fn, *args):
+            key = f"{kernel.name} {list(args[dims])} dtype {args[dtype_at]}"
+            shapes[key] = shapes.get(key, 0) + 1
+            return call(fn, *args)
+
+        kernel.call = counted
+
+    # flash_fwd's arguments: five pointers, the dtype code, b, s, h, dh;
+    # xent_fwd's: four pointers, the dtype code, n, v
+    record(FLASH_FWD, 5, slice(6, 10))
+    record(XENT_FWD, 4, slice(5, 7))
+    out = selftest.run_cases(mesh, spec)
+    out.update(shapes=shapes, describe=mesh.describe())
+    return out
+
+
+def tps_completions(comps):
+    """(rid, tokens, slot, first tick, finish tick, status) rows by rid."""
+    return {c[0]: tuple(c[1:]) for c in comps}
+
+
+def tps_latency(comps, requests):
+    """The median TTFT and TPOT in ticks of completion rows."""
+    arrival = {r.rid: r.arrival for r in requests}
+    ttft = [c[3] - arrival[c[0]] for c in comps]
+    tpot = [(c[4] - c[3]) / (len(c[1]) - 1) for c in comps
+            if len(c[1]) > 1]
+    return statistics.median(ttft), statistics.median(tpot)
+
+
+def phase_tp_serving(report, device="cuda"):
+    """TP in the decoder and the engine (see the comment above the
+    constants): the T = 1 bf16 timing here first, then the world, beside
+    which the T = 1 f32 references run here. Returns the launches of the
+    world's decode cases and its serve cases by rank."""
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
+        FLASH_FWD)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
+        XENT_FWD)
+    t0 = time.perf_counter()
+    card = report["card"]
+    cfg, dcfg, cfg16 = tps_configs()
+    kernels = (FLASH_FWD, XENT_FWD)
+    prompt = torch.randint(0, cfg.vocab_size, (TPS_B, TPS_P),
+                           generator=torch.Generator().manual_seed(SEED + 2))
+    trace = port.synth_trace(TPS_REQUESTS, prompt_lens=TPS_PROMPTS,
+                             out_lens=TPS_OUTS,
+                             prefill_chunk=TPS_SERVE["prefill_chunk"],
+                             load=SERVE_LOAD, vocab_size=cfg.vocab_size,
+                             seed=SEED)
+    timed = trace[:TPS_TIME_REQUESTS]
+    spec = dict(cfgs={k: dataclasses.asdict(c) for k, c in
+                      (("f32", cfg), ("draft", dcfg), ("bf16", cfg16))},
+                trees={}, prompts={"p": prompt.numpy()},
+                requests={k: [(r.rid, list(r.prompt), r.max_new_tokens,
+                               r.arrival) for r in t]
+                          for k, t in (("r", trace), ("timed", timed))},
+                threads=1, cases=tps_cases())
+    res = dict(shape=TPS_SHAPE)
+
+    def model_of(c, seed):
+        return port.init_params(
+            c, torch.Generator(device=device).manual_seed(seed), device)
+
+    def engine_of(c, model, draft=None, **kw):
+        program = port.make_serving_step_fn(c, TPS_D, device=device,
+                                            **TPS_SERVE, **kw)
+        return program, port.ServingEngine(program, model,
+                                           draft_params=draft)
+
+    # (c) first, alone on the card: the T = 1 lockstep bf16 timing
+    model16 = model_of(cfg16, SEED)
+    gen16 = port.make_pipeline_generate_fn(cfg16, TPS_D, TPS_N,
+                                           n_streams=TPS_M, device=device)
+    lock = {"decode_s": []}
+    for _ in range(2):  # a warm-up, then the timed run
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks16 = gen16(model16, prompt.to(device))
+        torch.cuda.synchronize()
+        lock["decode_s"].append(time.perf_counter() - t)
+    program16, engine16 = engine_of(cfg16, model16)
+    run16 = engine16.run(timed)  # its first run, as the world's
+    lock.update(serve_s=run16.wall_s, decode_tokens=toks16.cpu(),
+                ticks=run16.ticks,
+                completions=[(c.rid, c.tokens, c.slot, c.first_token_tick,
+                              c.finish_tick, c.status)
+                             for c in run16.completions],
+                cuda_graphs=program16.cuda_graphs)
+    del model16, gen16, program16, engine16
+    torch.cuda.empty_cache()
+    res["lockstep_bf16_s"] = time.perf_counter() - t0
+
+    box = {}
+
+    def run_world():
+        try:
+            box["ranks"] = port.launch(tps_worker, port.MeshConfig(*TPS_MESH),
+                                       spec, backend="gloo", device=device,
+                                       timeout_s=300)
+        except BaseException as e:  # re-raised by the phase
+            box["error"] = e
+
+    t_world = time.perf_counter()
+    world = threading.Thread(target=run_world)
+    world.start()
+    try:
+        # (a), (b): the T = 1 f32 references, beside the world's gates
+        model = model_of(cfg, SEED)
+        draft = model_of(dcfg, SEED + 1)
+        p_dev = prompt.to(device)
+        for k in kernels:
+            k.launches = 0
+        toks_l = port.make_pipeline_generate_fn(
+            cfg, TPS_D, TPS_N, n_streams=TPS_M, device=device)(model, p_dev)
+        toks_s = port.generate(cfg, model, p_dev, TPS_N, device=device)
+        toks_lp, lps = port.make_pipeline_generate_fn(
+            cfg, TPS_D, TPS_N, n_streams=TPS_M, return_logprobs=True,
+            device=device)(model, p_dev)
+        res["lockstep_launches"] = {k.name: k.launches for k in kernels}
+        gap = top2_gap_of(cfg, model, toks_s, TPS_P)
+        res["lockstep_vs_generate"] = compare_tokens(
+            "f32 T = 1 lockstep decoder vs generate", toks_l, toks_s,
+            torch.zeros(toks_l.shape), torch.zeros(toks_s.shape), gap,
+            p=TPS_P, n=TPS_N)
+        ref_serve = {}
+        for mode, kw in (("contiguous", {}),
+                         ("paged", dict(paged=True, page_size=TPS_PAGE)),
+                         ("spec", dict(speculative=True, gamma=TPS_GAMMA,
+                                       draft_cfg=dcfg))):
+            program, engine = engine_of(cfg, model,
+                                        draft if mode == "spec" else None,
+                                        **kw)
+            check(program.cuda_graphs, f"T = 1 {mode}: no CUDA graphs")
+            r = engine.run(trace)
+            check(r.n_failed == 0 and len(r.completions) == TPS_REQUESTS,
+                  f"T = 1 {mode}: {len(r.completions)} completions, "
+                  f"{r.n_failed} failed")
+            ref_serve[mode] = [(c.rid, c.tokens, c.slot, c.first_token_tick,
+                                c.finish_tick, c.status)
+                               for c in r.completions]
+        res["refs_s"] = time.perf_counter() - t_world
+        refs_done = time.time()
+        top_gap = (top2_gap_of(cfg, model, toks_lp, TPS_P), gap)
+        del draft, engine, program
+        torch.cuda.empty_cache()
+    finally:
+        world.join()
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    res["world_s"] = time.perf_counter() - t_world
+    res["case_s"] = [{k: round(v, 1) for k, v in r["seconds"].items()}
+                     for r in ranks]
+    print(f"  mesh.describe() of rank 0: {ranks[0]['describe']}; the T = 1 "
+          f"bf16 timing {res['lockstep_bf16_s']:.1f} s, the f32 references "
+          f"{res['refs_s']:.1f} s beside the world; the world's cases by "
+          f"rank (s): {res['case_s']}")
+    for r in ranks:
+        check(r["describe"]["transport"] == "gloo-staged",
+              f"rank {r['rank']}: {r['describe']}")
+
+    # (a) the decoder gate: tokens against T = 1 on each rank
+    res["decode"] = {}
+    for r in ranks:
+        g, lp = r["cases"]["f32_decode"], r["cases"]["f32_decode_lp"]
+        toks = torch.from_numpy(g["outputs"][0])
+        got_lp, got_lps = (torch.from_numpy(x) for x in lp["outputs"])
+        res["decode"][r["rank"]] = dict(
+            vs_lockstep=compare_tokens(
+                f"f32 TP rank {r['rank']} vs T = 1 lockstep", toks,
+                toks_l.cpu(), torch.zeros(toks.shape),
+                torch.zeros(toks.shape), top_gap[1].cpu(), p=TPS_P,
+                n=TPS_N),
+            vs_generate=compare_tokens(
+                f"f32 TP rank {r['rank']} vs generate", toks, toks_s.cpu(),
+                torch.zeros(toks.shape), torch.zeros(toks.shape),
+                top_gap[1].cpu(), p=TPS_P, n=TPS_N),
+            logprobs=compare_tokens(
+                f"f32 TP rank {r['rank']} log-probs run vs T = 1", got_lp,
+                toks_lp.cpu(), got_lps, lps.cpu(), top_gap[0].cpu(),
+                p=TPS_P, n=TPS_N),
+            launches=g["launches"], launches_lp=lp["launches"])
+        check(g["launches"]["flash_fwd"] > 0 and lp["launches"]["xent_fwd"]
+              > 0 and g["launches"]["xent_fwd"] == 0,
+              f"rank {r['rank']}: decode launches {g['launches']}, "
+              f"log-probs run {lp['launches']}")
+        k4 = {k: v for k, v in r["shapes"].items()
+              if k.startswith("flash_fwd")}
+        check(all(k.startswith(f"flash_fwd {TPS_SHAPE} ") for k in k4),
+              f"rank {r['rank']}: K4 launched at {k4}, not {TPS_SHAPE}")
+        print(f"  rank {r['rank']}: launches greedy {g['launches']}, "
+              f"log-probs {lp['launches']}; by shape {r['shapes']}")
+    # (b) the engine gate: the T = 1 engine's completions, exactly
+    res["serve"] = {}
+    for mode in ("contiguous", "paged", "spec"):
+        want = tps_completions(ref_serve[mode])
+        for r in ranks:
+            info = r["cases"][f"f32_{mode}"]
+            got = tps_completions(info["completions"])
+            if got != want:
+                rids = [k for k in want if got.get(k) != want[k]]
+                check(False, f"f32 TP {mode} rank {r['rank']}: the "
+                      f"completions of rids {rids} differ from T = 1's: "
+                      f"{[(got.get(k), want[k]) for k in rids[:2]]}")
+            check(info["cuda_graphs"] is False,
+                  f"{mode} rank {r['rank']}: cuda_graphs "
+                  f"{info['cuda_graphs']} under a staging mesh")
+        res["serve"][mode] = dict(
+            ticks=ranks[0]["cases"][f"f32_{mode}"]["ticks"],
+            launches=[r["cases"][f"f32_{mode}"]["launches"] for r in ranks],
+            acceptance_rate=ranks[0]["cases"][f"f32_{mode}"][
+                "acceptance_rate"],
+            cuda_graphs=False)
+        print(f"  f32 TP engine {mode}: {TPS_REQUESTS} completions on each "
+              f"rank equal the T = 1 engine's (graphs on) exactly, "
+              f"{res['serve'][mode]['ticks']} ticks, cuda_graphs=False, "
+              f"launches by rank {res['serve'][mode]['launches']}"
+              + (f", acceptance {res['serve'][mode]['acceptance_rate']:.3f}"
+                 if mode == "spec" else ""))
+
+    # (c) bf16 timing beside T = 1
+    dec = [r["cases"]["bf16_decode"] for r in ranks]
+    srv = [r["cases"]["bf16_contiguous"] for r in ranks]
+    n_tok = TPS_B * TPS_N
+    t_dec = max(x["wall_s"][-1] for x in dec)
+    t_srv = max(x["wall_s"][-1] for x in srv)
+    ticks = srv[0]["ticks"]
+    lat_tp = tps_latency(srv[0]["completions"], timed)
+    lat_l = tps_latency(lock["completions"], timed)
+    dec_ticks = TPS_M + TPS_D + TPS_M * (TPS_N - 1) + TPS_D
+    res["bf16"] = dict(
+        decode_tokens_per_s=n_tok / t_dec,
+        lockstep_decode_tokens_per_s=n_tok / lock["decode_s"][-1],
+        serve_s_per_tick=t_srv / ticks,
+        lockstep_serve_s_per_tick=lock["serve_s"] / lock["ticks"],
+        ticks=ticks, lockstep_ticks=lock["ticks"],
+        ttft_tpot_ticks=lat_tp, lockstep_ttft_tpot_ticks=lat_l,
+        same_tokens_decode=[torch.equal(torch.from_numpy(x["outputs"][0]),
+                                        lock["decode_tokens"]) for x in dec],
+        same_completions_serve=[tps_completions(x["completions"])
+                                == tps_completions(lock["completions"])
+                                for x in srv],
+        decode_collectives=[x["collectives"] for x in dec],
+        serve_collectives=[x["collectives"] for x in srv],
+        decode_ticks=dec_ticks,
+        started_after_refs=min(x["t0"] for x in dec) >= refs_done,
+        launches_decode=[x["launches"] for x in dec],
+        launches_serve=[x["launches"] for x in srv])
+    b = res["bf16"]
+    ratio = b["decode_tokens_per_s"] / b["lockstep_decode_tokens_per_s"]
+    print(f"  bf16 decoder ({cfg16.n_layers} layers, B={TPS_B}, P={TPS_P}, "
+          f"N={TPS_N}, M={TPS_M}): TP world {b['decode_tokens_per_s']:.1f} "
+          f"tokens/s vs T = 1 lockstep "
+          f"{b['lockstep_decode_tokens_per_s']:.1f} ({ratio:.4f}x); tokens "
+          f"equal T = 1's by rank {b['same_tokens_decode']} [{card}]")
+    print(f"  bf16 engine ({cfg16.n_layers} layers, {TPS_TIME_REQUESTS} "
+          f"requests, each side's first run): TP world "
+          f"s_per_tick {b['serve_s_per_tick']:.6f} over {ticks} ticks vs "
+          f"T = 1 (graphs) {b['lockstep_serve_s_per_tick']:.6f} over "
+          f"{b['lockstep_ticks']}; TTFT / TPOT p50 ticks {lat_tp} vs "
+          f"{lat_l}; completions equal T = 1's by rank "
+          f"{b['same_completions_serve']} [{card}]")
+    for name, key, n_ticks in (("decode", "decode_collectives", dec_ticks),
+                               ("engine", "serve_collectives", ticks)):
+        for r, sp in enumerate(b[key]):
+            print(f"  bf16 {name} rank {r}, the timed run: "
+                  + ", ".join(f"{k} {v['count']} ({v['count'] / n_ticks:.2f}"
+                              f" a tick) {v['host_ms']:.1f} host ms"
+                              for k, v in sp.items()))
+    print(f"  the world's bf16 cases started after the T = 1 references "
+          f"ended: {b['started_after_refs']}")
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 17: {res['seconds']:.1f} s (the world "
+          f"{res['world_s']:.1f} s)")
+    report["tp_serving"] = res
+    by_rank = {"decode": {}, "serve": {}}
+    for r in ranks:
+        c = r["cases"]
+        by_rank["decode"][r["rank"]] = {
+            k: c["f32_decode"]["launches"][k] + c["f32_decode_lp"][
+                "launches"][k] for k in c["f32_decode"]["launches"]}
+        by_rank["serve"][r["rank"]] = {
+            k: sum(c[f"f32_{m}"]["launches"][k]
+                   for m in ("contiguous", "paged", "spec"))
+            for k in c["f32_decode"]["launches"]}
+    return by_rank
 
 
 # training dynamics and the certified search (phase 12): untied GPT-2-small
@@ -6330,6 +6739,11 @@ def main() -> int:
             "expert 2 (FSDP), pipe 2 x seq 2 x expert 2 (Ulysses)",
             phase_moe_par, report)
         torch.cuda.empty_cache()
+        tps_launches = phase(
+            17, "TP in the pipelined decoder and the serving engine: a "
+            "gloo world of model 2 on the card, Llama-3.2-1B, contiguous, "
+            "paged and speculative", phase_tp_serving, report)
+        torch.cuda.empty_cache()
     dyn_launches = phase(12, "the static verifier, a certified searched "
                          "schedule and training dynamics: untied "
                          "GPT-2-small", phase_dynamics, report, tables)
@@ -6413,11 +6827,22 @@ def main() -> int:
                                         for r in sorted(counts)]
                    for w, counts in moe_par_launches.items()},
                 **{f"moe_{w}": sum(counts[r][name] for r in counts)
-                   for w, counts in moe_par_launches.items()}}))
+                   for w, counts in moe_par_launches.items()},
+                **{f"tp_{w}_by_rank": [counts[r].get(name, 0)
+                                       for r in sorted(counts)]
+                   for w, counts in tps_launches.items()}}))
+        fields = ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms")
         kernels[-1]["par_shape"] = {
-            k: main_shapes[(f"{name}_par", "bfloat16")][k]
-            for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
-                      "bound_ms", "bound_by", "library_ms")}
+            k: main_shapes[(f"{name}_par", "bfloat16")][k] for k in fields}
+        if name.startswith("xent"):
+            kernels[-1]["moe_shape"] = {
+                k: main_shapes[(f"{name}_moe", "bfloat16")][k]
+                for k in fields}
+        if name == "xent_fwd":
+            kernels[-1]["tp_decode_shape"] = {
+                k: main_shapes[("xent_fwd_tps", "float32")][k]
+                for k in fields}
         if name.startswith("flash"):
             kernels[-1]["ref_shapes"] = [
                 {k: main_shapes[(f"{name}_ref{dh}", "bfloat16")][k]

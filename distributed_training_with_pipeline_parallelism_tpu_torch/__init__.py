@@ -67,6 +67,12 @@ package's. Ported so far:
   cross entropy and the collective-matmul ring) inside the pipeline,
   through ``fit`` and ``train.py --tp``, and the reference's sweep run as
   a world of D processes (``run_one_experiment(backend=)``);
+- TP in the pipelined decoder and the serving engine (contiguous, paged,
+  speculative): ``make_pipeline_generate_fn(..., mesh=)`` and
+  ``make_serving_step_fn(..., mesh=)`` on a (pipe 1, data 1, model T)
+  world, each rank on its ``shard_model`` shard of the lockstep stages,
+  its caches holding ``n_kv / T`` heads, the greedy heads vocab-parallel
+  (``check_tp`` holds the shapes to the Megatron contract);
 - run reports and pipeline telemetry, the static table verifier,
   certified schedule search and training dynamics;
 - the cost model's calibration (``analysis.calibration``: measured probes,
@@ -99,7 +105,7 @@ from .parallel.pipeline import (make_pipeline_forward, make_pipeline_grad_fn,
                                 make_pipeline_loss_fn, owned_layers)
 from .parallel.pipelined_decode import make_pipeline_generate_fn
 from .parallel.schedules import compile_schedule
-from .parallel.tensor_parallel import gather_model, shard_model
+from .parallel.tensor_parallel import check_tp, gather_model, shard_model
 from .serving import (Request, ServingEngine, make_serving_step_fn,
                       run_serve_bench, synth_trace)
 from .utils.config import MeshConfig, ModelConfig, RunConfig, ScheduleConfig
@@ -113,6 +119,7 @@ from .utils.weights import from_jax_params
 __all__ = ["ModelConfig", "ScheduleConfig", "RunConfig", "MeshConfig",
            "make_mesh", "launch", "init_multihost", "owned_layers",
            "init_sharded_opt_state", "shard_model", "gather_model",
+           "check_tp",
            "fsdp_shard_params", "shard_params_fsdp", "make_fsdp_grad_fn",
            "make_sp_loss_fn", "sgd", "MoEConfig", "MoELM", "moe_lm_loss",
            "make_ep_loss_fn", "make_pipeline_forward",

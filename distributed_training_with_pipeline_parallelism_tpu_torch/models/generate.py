@@ -16,6 +16,14 @@ exactly as at the JAX ``generate.py:128-135``. Decode steps attend the
 cache through the plain :func:`_attend_cached`, which is XLA code in the
 JAX package, not a kernel. ``cfg.use_fused_xent`` routes the emitted
 tokens' log-probabilities through the fused-xent kernel.
+
+Under tensor parallelism (``tp``, a rank's ``parallel.mesh.Mesh`` with a
+model axis, its blocks ``parallel.tensor_parallel.shard_model``'s
+shard) a block runs the JAX ``tp_axis`` path of ``_layer_step``: q, k
+and v column-parallel on the rank's H/T heads behind ``tp_copy``, the
+cache holding its ``Hkv/T`` kv heads, the output and MLP
+down-projections row-parallel (one all-reduce each). The flash prefill
+then runs on [b, P, H/T, hd].
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..ops import collectives as col
 from ..ops.attention import (Rope, band_mask, gqa_expand,
                              scaled_dot_attention)
 from ..ops.flash_attention import flash_attention
@@ -92,10 +101,12 @@ def _layer_step(cfg: ModelConfig, block, h: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor, offset: int,
                 rope: Optional[Rope], mask: Optional[torch.Tensor],
                 prefill: bool = False,
-                live_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                live_rows: Optional[torch.Tensor] = None,
+                tp=None) -> torch.Tensor:
     """One block over S new positions h [B, S, dim]: writes their k/v
     (keys rotated by ``rope``, the rows of these positions) into the
-    layer's cache [B, T, Hkv, hd] at ``offset`` and returns h_out.
+    layer's cache [B, T, Hkv, hd] at ``offset`` and returns h_out; under
+    ``tp`` the rank's heads, its Hkv/T cache and its FFN columns.
 
     ``prefill=True`` is the caller's promise that ``offset`` is 0 and the
     cache held nothing before: the new block is then the whole visible
@@ -104,36 +115,38 @@ def _layer_step(cfg: ModelConfig, block, h: torch.Tensor,
     it attends the cache under ``mask``. ``live_rows`` [B] bool masks the
     cache write of frozen rows (their outputs are discarded)."""
     b, s, _ = h.shape
-    q, k, v = block.qkv(cfg, block.attn_norm(h), rope)
+    q, k, v = block.qkv(cfg, col.tp_copy(block.attn_norm(h), tp), rope)
+    n_heads = q.shape[2]  # H/T under tp
     _write_cache(k_cache, k, offset, live_rows)
     _write_cache(v_cache, v, offset, live_rows)
     if prefill and cfg.flash_for(True, h.device):
-        kf, vf = gqa_expand(k, v, cfg.n_heads)
+        kf, vf = gqa_expand(k, v, n_heads)
         att = flash_attention(q, kf, vf, causal=True,
                               window=cfg.sliding_window).reshape(b, s, -1)
     else:
-        att = _attend_cached(q, k_cache, v_cache, offset, cfg.n_heads,
+        att = _attend_cached(q, k_cache, v_cache, offset, n_heads,
                              cfg.sliding_window, mask)
-    return block.mlp(h + block.proj(att))
+    return block.mlp(h + block.proj(att, tp), tp=tp)
 
 
 def layers_with_cache(cfg: ModelConfig, layers, h: torch.Tensor,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
                       offset: int, rope: Optional[Rope],
                       prefill: bool = False,
-                      live_rows: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      live_rows: Optional[torch.Tensor] = None,
+                      tp=None) -> torch.Tensor:
     """Run a stack of blocks over S new positions with per-layer caches
-    [L, B, T, Hkv, hd] (updated in place); ``rope`` is the whole table
-    (at least T rows; None for GPT-2). Shared by the single-device
-    decode and the pipelined decoder's stages."""
+    [L, B, T, Hkv, hd] (updated in place; Hkv/T under ``tp``); ``rope`` is
+    the whole table (at least T rows; None for GPT-2). Shared by the
+    single-device decode and the pipelined decoder's stages."""
     s, t = h.shape[1], k_cache.shape[2]
     rows = None if rope is None else rope.rows(offset, s)
     mask = None if prefill and cfg.flash_for(True, h.device) else \
         band_mask(s, t, cfg.sliding_window, q_offset=offset, device=h.device)
     for i, block in enumerate(layers):
         h = _layer_step(cfg, block, h, k_cache[i], v_cache[i], offset,
-                        rows, mask, prefill=prefill, live_rows=live_rows)
+                        rows, mask, prefill=prefill, live_rows=live_rows,
+                        tp=tp)
     return h
 
 

@@ -17,9 +17,12 @@ over ``Mesh.all_reduce`` on that group:
   cotangent, already replicated, flows to every shard unchanged.
 
 Every model-axis all-reduce runs inside a ``torch.profiler`` span
-``tp_all_reduce``. The vocab-parallel cross entropy (:func:`vocab_parallel_xent`)
-never builds the ``[..., V]`` logits: an all-reduce max, then one
-all-reduce of the sum of exps and the target's logit together.
+``tp_all_reduce``, and :func:`tp_all_gather` (the decoders'
+vocab-parallel greedy head) inside ``tp_all_gather``; both are counted,
+with their host seconds, in ``Mesh.tp_stats``. The vocab-parallel cross
+entropy (:func:`vocab_parallel_xent`) never builds the ``[..., V]``
+logits: an all-reduce max, then one all-reduce of the sum of exps and
+the target's logit together.
 
 The collective-matmul ring (:func:`all_gather_matmul`,
 :func:`matmul_reduce_scatter`, :func:`seq_all_gather`) moves chunks
@@ -62,6 +65,8 @@ and reduce-scatters their gradients back in one message (JAX
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -79,10 +84,22 @@ def tp_active(mesh) -> bool:
     return mesh is not None and mesh.n_model > 1
 
 
+@contextlib.contextmanager
+def _model_span(mesh, kind: str):
+    """A model-axis collective: its profiler span ``kind``, counted with
+    its host seconds in ``mesh.tp_stats``."""
+    t = time.perf_counter()
+    with torch.profiler.record_function(kind):
+        yield
+    stat = mesh.tp_stats.setdefault(kind, [0, 0.0])
+    stat[0] += 1
+    stat[1] += time.perf_counter() - t
+
+
 def _all_reduce(mesh, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """``t`` summed (or maxed) over the model group, as a new tensor."""
     out = t.detach().clone()
-    with torch.profiler.record_function("tp_all_reduce"):
+    with _model_span(mesh, "tp_all_reduce"):
         mesh.all_reduce([out], MODEL, op=op)
     return out
 
@@ -118,6 +135,16 @@ def tp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
     """All-reduce over the model group forward, identity backward (the JAX
     ``tp_reduce``); the identity without a model axis."""
     return _Reduce.apply(x, mesh) if tp_active(mesh) else x
+
+
+def tp_all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` of every rank of the model group, stacked in model-coordinate
+    order: [T, *x.shape] (the JAX ``all_gather`` over the model axis; no
+    gradient: the decoders' greedy head is its one user)."""
+    out = x.new_empty((mesh.n_model * x.numel(),))
+    with _model_span(mesh, "tp_all_gather"):
+        mesh.all_gather(out, x.reshape(-1), MODEL)
+    return out.view(mesh.n_model, *x.shape)
 
 
 def row_parallel_linear(x: torch.Tensor, weight: torch.Tensor,

@@ -139,6 +139,10 @@ class Mesh:
     n_expert: int = 1
     expert_group: Any = None  # the ranks sharing every coordinate but expert
     a2a: int = 0  # expert all-to-alls posted (ops.collectives)
+    # the model-axis all-reduces and all-gathers of ops.collectives: kind
+    # -> [count, host seconds]
+    tp_stats: Dict[str, List[float]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def world(self) -> int:

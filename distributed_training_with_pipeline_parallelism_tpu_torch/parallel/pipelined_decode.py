@@ -19,8 +19,25 @@ which only banks the final token.
 EOS: stage 0 keeps the ``done`` table; a live-row mask rides the channel
 with the hidden state, every stage masks the cache writes of frozen rows,
 and a stream whose rows have all finished skips its stage compute.
-``return_logprobs`` rides home with the token. Tensor parallelism (the
-JAX ``model`` mesh axis) is not ported (``ROADMAP.md`` Queue 1, item 7).
+``return_logprobs`` rides home with the token.
+
+Tensor parallelism (the JAX pipe x model mesh): ``mesh`` is a rank's
+``parallel.mesh.Mesh`` of a world of shape (pipe 1, data 1, model T).
+The JAX mesh's pipe axis stays this process's lockstep stages and its
+model axis becomes the ranks: each rank holds its Megatron shard of
+every stage (``tensor_parallel.shard_model(model, cfg, mesh,
+vocab_parallel=False)``: the blocks split, the embedding and the head
+whole), caches its ``Hkv/T`` kv heads and runs the same ticks, its
+blocks' row-parallel projections all-reduced over the model group. The
+greedy head goes vocab-parallel where T divides the vocabulary (the JAX
+``_head_token``): rank t reads rows ``t*V/T .. (t+1)*V/T`` of the head
+(or of the tied token table), and one all-gather of the ranks' (max,
+argmax) pairs picks the first maximum, the global argmax's lowest-index
+tie-break. Sampling and ``return_logprobs`` keep the replicated head;
+every rank's logits are the same numbers, so ranks handed generators
+seeded alike draw the same tokens. A data, seq or expert axis raises
+the JAX refusal; a pipe axis above 1 (stages on ranks, the ring hop as
+P2P) is ``ROADMAP.md`` Queue 1, item 15.
 """
 
 from __future__ import annotations
@@ -33,37 +50,45 @@ import torch
 from ..models.generate import (check_decodable, check_decode_args,
                                layers_with_cache, lengths_of, model_on,
                                sample_logits, token_logprob)
-from ..models.transformer import (Transformer, compute_cast, embed_apply,
-                                  head_apply, rope_table)
+from ..models.transformer import (Transformer, _c, compute_cast,
+                                  embed_apply, head_apply, head_norm_apply,
+                                  rope_table)
+from ..ops import collectives as col
+from ..ops.layers import linear
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
 from .pipeline import stack_stage_layers
+from .tensor_parallel import (check_block_shard, check_decode_mesh, check_tp,
+                              kv_shard_heads)
 
 
 def _slot_cache_apply(cfg: ModelConfig, layers, h: torch.Tensor,
                       kc: torch.Tensor, vc: torch.Tensor, g: int,
                       n_rows: int, offset: int, rope, *,
                       live_rows: Optional[torch.Tensor] = None,
-                      prefill: bool = False) -> torch.Tensor:
+                      prefill: bool = False, tp=None) -> torch.Tensor:
     """One stage's layer slice on h [n_rows, s, dim] for stream ``g``:
     its cache rows ``g*n_rows .. (g+1)*n_rows`` are updated in place
-    (frozen rows, where ``live_rows`` is False, keep theirs). ``rope`` is the RoPE table (None for GPT-2). ``prefill``
-    marks the offset-0 whole-prompt pass, the one site that may take the
-    flash kernel."""
+    (frozen rows, where ``live_rows`` is False, keep theirs). ``rope`` is
+    the RoPE table (None for GPT-2). ``prefill`` marks the offset-0
+    whole-prompt pass, the one site that may take the flash kernel.
+    ``tp``: the rank's mesh, its blocks a model shard."""
     rows = slice(g * n_rows, (g + 1) * n_rows)
     return layers_with_cache(cfg, layers, h, kc[:, rows], vc[:, rows],
                              offset, rope, prefill=prefill,
-                             live_rows=live_rows)
+                             live_rows=live_rows, tp=tp)
 
 
 class _Stage:
     """One pipeline stage: its layer slice and its KV cache
-    [lps, B, max_len, Hkv, hd]."""
+    [lps, B, max_len, Hkv, hd] (Hkv/T under ``tp``)."""
 
     def __init__(self, cfg: ModelConfig, layers, batch: int, max_len: int,
-                 device: torch.device):
-        shape = (len(layers), batch, max_len, cfg.kv_heads, cfg.head_dim)
+                 device: torch.device, tp=None):
+        shape = (len(layers), batch, max_len, kv_shard_heads(cfg, tp),
+                 cfg.head_dim)
         dtype = torch_dtype(cfg.dtype)
         self.layers = layers
+        self.tp = tp
         self.kc = torch.zeros(shape, dtype=dtype, device=device)
         self.vc = torch.zeros(shape, dtype=dtype, device=device)
         self.rope = rope_table(cfg, max_len, device)
@@ -72,13 +97,44 @@ class _Stage:
               prefill=False):
         return _slot_cache_apply(cfg, self.layers, h, self.kc, self.vc, g,
                                  n_rows, offset, self.rope,
-                                 live_rows=live_rows, prefill=prefill)
+                                 live_rows=live_rows, prefill=prefill,
+                                 tp=self.tp)
+
+
+def vocab_parallel_greedy(cfg: ModelConfig, model: Transformer,
+                          y: torch.Tensor, mesh) -> torch.Tensor:
+    """Greedy tokens [N] of hidden rows y [N, dim] with the head split
+    over the vocab (the JAX ``_head_token``'s vocab-parallel branch):
+    model rank t multiplies by rows ``t*V/T .. (t+1)*V/T`` of the head
+    (or of the tied token table), and one all-gather of every rank's
+    (max, argmax) pairs, in f64 (exact for both), picks the first
+    maximum: ``torch.argmax`` takes the first on both levels, so the
+    result is the global argmax with its lowest-index tie-break."""
+    T, t = mesh.n_model, mesh.model
+    vl = cfg.vocab_size // T
+    hn = head_norm_apply(cfg, model, y)
+    # the decodable archs' heads carry no bias
+    w = model.tok if cfg.tie_embeddings else model.out.weight
+    val, idx = linear(hn, _c(w[t * vl:(t + 1) * vl], hn)).max(dim=-1)
+    pairs = col.tp_all_gather(torch.stack([val.double(),
+                                           (idx + t * vl).double()]), mesh)
+    win = pairs[:, 0].argmax(dim=0)  # [N]: the first rank holding the max
+    return pairs[:, 1].gather(0, win[None])[0].long()
 
 
 def _head_token(cfg: ModelConfig, model: Transformer, y_last: torch.Tensor,
-                sample, return_logprobs: bool):
+                sample, return_logprobs: bool, tp=None,
+                vocab_parallel: bool = False):
     """The last stage's head: next-token ids [B] from the last-position
-    hidden y_last [B, dim], and their log-probs [B] f32 (or None)."""
+    hidden y_last [B, dim], and their log-probs [B] f32 (or None).
+    ``vocab_parallel`` (greedy under ``tp``) splits the head over the
+    vocab (:func:`vocab_parallel_greedy`); log-probs need the replicated
+    head's whole logits."""
+    if vocab_parallel:
+        if return_logprobs:
+            raise ValueError("return_logprobs needs the replicated head "
+                             "(full logits); vocab_parallel must be off")
+        return vocab_parallel_greedy(cfg, model, y_last, tp), None
     logits = head_apply(cfg, model, y_last)
     tok = sample(logits)
     lp = token_logprob(cfg, logits, tok) if return_logprobs else None
@@ -117,7 +173,7 @@ def make_pipeline_generate_fn(cfg: ModelConfig, n_stages: int,
                               eos_id: Optional[int] = None,
                               return_lengths: bool = False,
                               return_logprobs: bool = False,
-                              tp_size: int = 1, device="cuda"):
+                              mesh=None, device="cuda"):
     """Build ``gen(model, prompt[, generator]) -> tokens [B, P+N]`` over
     ``n_stages`` lockstep stages (see the module doc).
 
@@ -128,12 +184,14 @@ def make_pipeline_generate_fn(cfg: ModelConfig, n_stages: int,
     Greedy at temperature 0; sampling draws from ``generator`` (on the
     run's device) in tick order, so its numbers differ from the
     single-device ``generate``'s for the same generator state.
+
+    ``mesh``: the rank's mesh of a (pipe 1, data 1, model T) world, whose
+    ``model`` is its model shard (see the module doc); every rank calls
+    ``gen`` with the same prompt (and a generator seeded alike).
     """
     check_decodable(cfg)
-    if tp_size != 1:
-        raise NotImplementedError(
-            "tensor parallelism inside the pipelined decoder is not ported "
-            "yet: ROADMAP.md Queue 1, item 7 (item 11's TP in the decoder)")
+    T = check_decode_mesh(mesh, "decode")
+    check_tp(cfg, T)
     D = n_stages
     if D < 1 or cfg.n_layers % D:
         raise ValueError(f"n_layers={cfg.n_layers} must divide over {D} "
@@ -150,6 +208,9 @@ def make_pipeline_generate_fn(cfg: ModelConfig, n_stages: int,
                          "one every stream emits exactly max_new_tokens)")
     device = resolve_device(device)
     use_eos = eos_id is not None
+    # the JAX rule: greedy without log-probs, the vocab dividing over T
+    vocab_parallel = (T > 1 and temperature == 0.0
+                      and cfg.vocab_size % T == 0 and not return_logprobs)
 
     @torch.no_grad()
     def gen(model: Transformer, prompt, generator=None):
@@ -163,9 +224,10 @@ def make_pipeline_generate_fn(cfg: ModelConfig, n_stages: int,
         mlen = check_decode_args(cfg, P, N, max_len, eos_id, return_lengths,
                                  temperature, generator)
         model_on(model, device)
+        check_block_shard(model, mesh)
         model_c = compute_cast(cfg, model)
         Bg = B // M
-        stages = [_Stage(cfg, chunks[0], B, mlen, device)
+        stages = [_Stage(cfg, chunks[0], B, mlen, device, mesh)
                   for chunks in stack_stage_layers(model_c.layers, D)]
         prompt_g = prompt.long().view(M, Bg, P)
         token_buf = torch.zeros((M, Bg), dtype=torch.long, device=device)
@@ -180,7 +242,7 @@ def make_pipeline_generate_fn(cfg: ModelConfig, n_stages: int,
                 cfg, model_c, y[:, -1],
                 lambda lg: sample_logits(lg, temperature, top_k, top_p,
                                          generator),
-                return_logprobs)
+                return_logprobs, mesh, vocab_parallel)
 
         # the channels of the ring: h_chan[d] (and lives_chan[d]) feed stage
         # d > 0 from stage d-1; tok_chan/lp_chan feed stage 0 from stage D-1

@@ -93,6 +93,29 @@ runs dropout under that step seed. Each case is a dict with ``"name"``,
   seeded cotangent, ``"causal"``, ``"window"``, ``"rate"`` with
   ``"seed"``: the output and dq, dk, dv of the chunk.
 
+Two kinds serve models on a (pipe 1, data 1, model T) mesh, each rank on
+its ``shard_model`` shard (blocks split, embedding and head whole) of the
+whole model: ``"tree"``'s weights, or ``init_params`` from a generator
+on the rank's device seeded ``"init_seed"``. They need no schedule and
+return their results in :func:`run_cases`' ``"cases"`` entry, not in a
+file: each run's wall seconds (``"runs"`` runs, default 1; ``"t0"``,
+the epoch second the first began), the kernel launches of the first and
+the count and host ms of the last's model-axis all-reduces and
+all-gathers (``Mesh.tp_stats``).
+
+- ``"decode"``: ``make_pipeline_generate_fn`` over ``"n_stages"``
+  lockstep stages with ``"N"`` new tokens and ``"decode"``'s keywords on
+  ``"prompts"[case["prompt"]]``, a generator seeded ``"seed"`` for each
+  run where it is given: the tokens (and log-probs).
+- ``"serve"``: ``make_serving_step_fn`` with ``"program"``'s keywords and
+  a ``ServingEngine`` over ``"requests"[case["requests"]]`` (``(rid,
+  prompt, max_new_tokens, arrival)`` rows), continuous batching; with
+  ``"draft_cfg"`` (and ``"draft_tree"`` or ``"draft_init_seed"``) the
+  program is speculative and the draft whole on every rank: each
+  completion's (rid, tokens, slot, first and finish tick, status), the
+  ticks, the acceptance rate and ``program.cuda_graphs``; a paged
+  program's pool passes ``check_invariants``.
+
 Every rank runs every case in order, so the collectives pair.
 """
 
@@ -322,10 +345,113 @@ def _moe_fit(mesh: Mesh, cfg, sched, view, case, moe, shard, out: str):
     return res
 
 
+def _launch_counts() -> Dict[str, int]:
+    """The port's kernel launch counters, by kernel name."""
+    from ..ops.flash_attention import FLASH_BWD, FLASH_FWD
+    from ..ops.fused_xent import XENT_BWD, XENT_FWD
+    return {k.name: k.launches
+            for k in (FLASH_FWD, XENT_FWD, FLASH_BWD, XENT_BWD)}
+
+
+def _timed_runs(fn, case: dict, mesh: Mesh) -> tuple:
+    """(the first run's value, its info): ``case["runs"]`` runs of
+    ``fn`` with their wall seconds, the first's kernel launches and the
+    last's model-axis collectives (count and host ms by kind)."""
+    import time
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    info: Dict = {"wall_s": [], "t0": time.time()}
+    first = None
+    for i in range(case.get("runs", 1)):
+        before, stats = _launch_counts(), copy.deepcopy(mesh.tp_stats)
+        sync()
+        t = time.perf_counter()
+        value = fn()
+        sync()
+        info["wall_s"].append(time.perf_counter() - t)
+        if i == 0:
+            first = value
+            info["launches"] = {k: n - before[k]
+                                for k, n in _launch_counts().items()}
+        info["collectives"] = {
+            k: dict(count=n - stats.get(k, [0, 0.0])[0],
+                    host_ms=(s - stats.get(k, [0, 0.0])[1]) * 1e3)
+            for k, (n, s) in mesh.tp_stats.items()}
+    return first, info
+
+
+def _whole_model(cfg: ModelConfig, spec: dict, case: dict, device,
+                 prefix: str = ""):
+    """The whole model of a serving case: ``spec["trees"]`` at
+    ``case[prefix + "tree"]``, or ``init_params`` seeded
+    ``case[prefix + "init_seed"]``."""
+    from ..models.transformer import init_params
+    from ..utils.weights import from_jax_params
+    if prefix + "init_seed" in case:
+        gen = torch.Generator(device=device).manual_seed(
+            case[prefix + "init_seed"])
+        return init_params(cfg, gen, device)
+    return from_jax_params(cfg, spec["trees"][case[prefix + "tree"]],
+                           device=device)
+
+
+def _decode_case(mesh: Mesh, spec: dict, case: dict) -> dict:
+    from .pipelined_decode import make_pipeline_generate_fn
+    from .tensor_parallel import shard_model
+    device = mesh.device
+    cfg = ModelConfig(**spec["cfgs"][case["cfg"]])
+    model = shard_model(_whole_model(cfg, spec, case, device), cfg, mesh)
+    prompt = torch.as_tensor(spec["prompts"][case["prompt"]], device=device)
+    gen = make_pipeline_generate_fn(cfg, case["n_stages"], case["N"],
+                                    mesh=mesh, device=device,
+                                    **case.get("decode", {}))
+
+    def run():
+        extra = (() if "seed" not in case else
+                 (torch.Generator(device=device).manual_seed(case["seed"]),))
+        out = gen(model, prompt, *extra)
+        return [x.cpu().numpy() for x in (out if isinstance(out, tuple)
+                                          else (out,))]
+
+    out, info = _timed_runs(run, case, mesh)
+    info["outputs"] = out
+    return info
+
+
+def _serve_case(mesh: Mesh, spec: dict, case: dict) -> dict:
+    from ..serving.engine import Request, ServingEngine, make_serving_step_fn
+    from .tensor_parallel import shard_model
+    device = mesh.device
+    cfg = ModelConfig(**spec["cfgs"][case["cfg"]])
+    model = shard_model(_whole_model(cfg, spec, case, device), cfg, mesh)
+    kw, draft = dict(case["program"]), None
+    if "draft_cfg" in case:
+        dcfg = ModelConfig(**spec["cfgs"][case["draft_cfg"]])
+        draft = _whole_model(dcfg, spec, case, device, "draft_")
+        kw.update(speculative=True, draft_cfg=dcfg)
+    program = make_serving_step_fn(cfg, case["n_stages"], mesh=mesh,
+                                   device=device, **kw)
+    engine = ServingEngine(program, model, draft_params=draft)
+    requests = [Request(*r) for r in spec["requests"][case["requests"]]]
+    res, info = _timed_runs(lambda: engine.run(requests), case, mesh)
+    if engine.paging is not None:
+        engine.paging.check_invariants()
+    info.update(completions=[(c.rid, c.tokens, c.slot, c.first_token_tick,
+                              c.finish_tick, c.status)
+                             for c in res.completions],
+                ticks=res.ticks, acceptance_rate=res.acceptance_rate,
+                cuda_graphs=program.cuda_graphs)
+    return info
+
+
 def run_cases(world: Mesh, spec: dict) -> dict:
     """Run ``spec``'s cases on this rank (see the module doc); returns
-    ``{"rank": r, "seconds": {case: s}, "modules": [top-level modules
-    this process imported]}``."""
+    ``{"rank": r, "seconds": {case: s}, "cases": {case: info} (the
+    serving kinds'), "modules": [top-level modules this process
+    imported]}``."""
     import time
 
     from ..utils import train as ttrain
@@ -352,12 +478,17 @@ def run_cases(world: Mesh, spec: dict) -> dict:
                                       device=device)
         return meshes[shape]
 
-    out, rank = spec["out"], world.rank
-    seconds = {}
+    out, rank = spec.get("out"), world.rank
+    seconds, infos = {}, {}
     for case in spec["cases"]:
         t0 = time.perf_counter()
         name, kind = case["name"], case["kind"]
         mesh = mesh_of(case)
+        if kind in ("decode", "serve"):
+            infos[name] = (_decode_case if kind == "decode"
+                           else _serve_case)(mesh, spec, case)
+            seconds[name] = time.perf_counter() - t0
+            continue
         if "cfg" in case:
             cfg = ModelConfig(**spec["cfgs"][case["cfg"]])
         else:
@@ -514,5 +645,5 @@ def run_cases(world: Mesh, spec: dict) -> dict:
         else:
             raise ValueError(f"unknown case kind {kind!r}")
         seconds[name] = time.perf_counter() - t0
-    return {"rank": rank, "seconds": seconds,
+    return {"rank": rank, "seconds": seconds, "cases": infos,
             "modules": sorted({m.split(".")[0] for m in sys.modules})}

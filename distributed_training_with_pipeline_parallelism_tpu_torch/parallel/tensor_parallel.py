@@ -35,6 +35,13 @@ shard first, then its FSDP shard of that); and pp x tp x seq, where each
 model rank's heads cross its own seq group, under Ulysses only when the
 local head count divides by the seq-axis size
 (``parallel.seq_parallel``).
+
+The decoders (``parallel.pipelined_decode``, ``serving.engine``) run the
+JAX pipe x model decode mesh on a (pipe 1, data 1, model T) world, each
+rank on its shard of every lockstep stage with the embedding and the
+head whole (``shard_model(..., vocab_parallel=False)``, held by
+:func:`check_block_shard`): their caches hold :func:`kv_shard_heads`
+heads, and :func:`check_decode_mesh` refuses other axes.
 """
 
 from __future__ import annotations
@@ -138,6 +145,38 @@ def check_tp(cfg: ModelConfig, T: int, vocab_parallel: bool = False) -> None:
             f"by the model-axis size {T}")
 
 
+def kv_shard_heads(cfg: ModelConfig, mesh) -> int:
+    """The kv heads a model rank caches: ``n_kv_heads / T`` (the JAX
+    decoders' ``Hkv/tp_size`` cache shard)."""
+    return cfg.kv_heads // (1 if mesh is None else mesh.n_model)
+
+
+def check_decode_mesh(mesh, what: str) -> int:
+    """The decoder's and the serving engine's mesh contract; returns T.
+    A data, seq or expert axis raises the JAX refusal (``what`` is
+    ``"decode"`` or ``"serving"``); a pipe axis above 1 raises the port's:
+    both run their D stages in lockstep in each rank's process."""
+    if mesh is None:
+        return 1
+    for ax, n in mesh.shape.items():
+        if ax not in ("pipe", "model") and n > 1:
+            if what == "decode":
+                raise NotImplementedError(
+                    f"pipelined decode composes pipe x model meshes; axis "
+                    f"{ax!r} has size {n} (batch scoring via "
+                    "make_pipeline_forward supports the full mesh space)")
+            raise NotImplementedError(
+                f"the serving executor composes pipe x model meshes; axis "
+                f"{ax!r} has size {n}")
+    if mesh.n_pipe > 1:
+        raise NotImplementedError(
+            f"the port's {what} runs its stages in lockstep in each model "
+            f"rank's process, so its world has pipe 1 (got n_pipe="
+            f"{mesh.n_pipe}); stages on ranks, with the ring hop as P2P, "
+            "are ROADMAP.md Queue 1, item 15")
+    return mesh.n_model
+
+
 def check_moe_tp(cfg: ModelConfig, moe, T: int) -> None:
     """A MoE model's expert ffn must divide over the model axis (the JAX
     ``_check_moe_mesh``'s TP rule)."""
@@ -232,6 +271,23 @@ def shard_state(state: Dict[str, torch.Tensor], cfg: ModelConfig,
 def model_shard_of(model: nn.Module) -> Optional[TPShard]:
     """The :class:`TPShard` a model holds, or None for a whole one."""
     return getattr(model, "tp_shard", None)
+
+
+def check_block_shard(model: nn.Module, mesh) -> None:
+    """Raise unless ``model`` holds ``mesh``'s model shard of the blocks
+    with the embedding and the head whole (``shard_model(...,
+    vocab_parallel=False)``), what the decoder and the engine run."""
+    shard = model_shard_of(model)
+    have = (1, 0, False) if shard is None else (
+        shard.n, shard.index, shard.vocab_parallel)
+    want = (1, 0, False) if mesh is None else (mesh.n_model, mesh.model,
+                                               False)
+    if have != want and not (want[0] == 1 and have[0] == 1):
+        raise ValueError(
+            f"the model holds shard {have[1]} of {have[0]} (vocab_parallel="
+            f"{have[2]}); this rank needs shard {want[1]} of {want[0]}: "
+            "tensor_parallel.shard_model(model, cfg, mesh, "
+            "vocab_parallel=False)")
 
 
 def sharded_names(model: nn.Module) -> Iterable[str]:

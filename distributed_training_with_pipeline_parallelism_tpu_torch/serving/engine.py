@@ -98,9 +98,25 @@ slot, positions and page row from static device buffers.
 
 One slot table on one card replaces the JAX stage-0 tables and their
 replication at the block end. ``ServeResult.host_syncs`` counts the
-blocking reads (one per block). Tensor parallelism raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item. A
-``utils.resilience.FaultPlan`` injects admission faults
+blocking reads (one per block).
+
+**Tensor parallelism** (``mesh``: a rank's mesh of a (pipe 1, data 1,
+model T) world; the JAX pipe x model mesh with its pipe axis kept as the
+lockstep stages). Each rank holds its Megatron shard of every stage
+(``tensor_parallel.shard_model(model, cfg, mesh, vocab_parallel=False)``)
+and runs the whole program: its slot caches and page pools hold its
+``Hkv/T`` kv heads, its blocks all-reduce their row-parallel projections
+over the model group, and the decode and verify heads go vocab-parallel
+(one all-gather of (max, argmax) pairs a head call) where T divides the
+vocabulary. The draft runs replicated on every rank (JAX: inside stage
+0's TP group). The host scheduler runs SPMD on every rank, over the same
+requests and policy: every token value it reads is the same on every
+rank, so the ranks admit, retire and serve alike, and ``run`` holds the
+ranks' completions to each other at its end. A gloo collective staged
+through host memory cannot be captured, so under a staging mesh the
+program runs its visits eagerly (``cuda_graphs`` False from the build).
+A data, seq or expert axis raises the JAX refusal, a pipe axis above 1
+the port's. A ``utils.resilience.FaultPlan`` injects admission faults
 (``serve_poison_rids``) and straggler delays (``serve_delay``) as the JAX
 engine does. Admission refuses a prompt token outside the vocabulary (a failed
 completion): the JAX gather clamps it, a CUDA embedding would fault.
@@ -120,9 +136,12 @@ import torch
 from ..models.generate import _attend_cached, model_on
 from ..models.transformer import (Transformer, compute_cast, embed_apply,
                                   head_apply, rope_table)
+from ..ops import collectives as col
 from ..ops.attention import Rope
 from ..parallel.pipeline import stack_stage_layers
-from ..parallel.pipelined_decode import spec_accept_len
+from ..parallel.pipelined_decode import spec_accept_len, vocab_parallel_greedy
+from ..parallel.tensor_parallel import (check_block_shard, check_decode_mesh,
+                                        check_tp, kv_shard_heads)
 from ..utils.config import ModelConfig, resolve_device, torch_dtype
 from ..utils.resilience import SimulatedFault
 from .paging import PagedKVAllocator
@@ -133,14 +152,6 @@ from .paging import PagedKVAllocator
 (_TOK, _EMITTED, _FINISHED, _T_FIRST, _T_FINISH, _BUDGET, _POS, _DPOS,
  _PLEN, _SPEC_VISITS, _SPEC_ACC, _ERR) = range(12)
 _NCOL = 12
-
-_NOT_PORTED = {
-    "tp": "ROADMAP.md Queue 1, item 11 (tensor parallelism)",
-}
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {_NOT_PORTED[key]}")
 
 
 @dataclasses.dataclass
@@ -333,7 +344,7 @@ def _apply_layers(cfg: ModelConfig, layers, h: torch.Tensor,
                   kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
                   rope: Optional[Rope], slot: torch.Tensor,
                   pt: Optional[torch.Tensor],
-                  ar_t: torch.Tensor) -> torch.Tensor:
+                  ar_t: torch.Tensor, tp=None) -> torch.Tensor:
     """A layer slice on one visit: h [1, S, dim] at positions ``pos``
     [S]. Writes the rows' k/v into the cache and attends the slot's
     cache under the band at those positions (the JAX
@@ -342,7 +353,8 @@ def _apply_layers(cfg: ModelConfig, layers, h: torch.Tensor,
     and the attention reads the slot's pages gathered in table order, a
     view of ``P_max * page_size`` rows). Caches: [L, M, T, Hkv, hd]
     contiguous, [L, n_pages, page_size, Hkv, hd] paged; ``ar_t`` is
-    ``arange`` of the rows the attention sees."""
+    ``arange`` of the rows the attention sees. ``tp``: the rank's mesh,
+    its blocks a model shard and its caches Hkv/T heads."""
     rope_at = None if rope is None else Rope(
         rope.cos.index_select(0, pos), rope.sin.index_select(0, pos))
     mask = pos[:, None] >= ar_t[None, :]
@@ -355,7 +367,8 @@ def _apply_layers(cfg: ModelConfig, layers, h: torch.Tensor,
         rows = (pt.index_select(0, pos // ps), pos % ps)
     for i, block in enumerate(layers):
         kl, vl = kc[i], vc[i]
-        q, k, v = block.qkv(cfg, block.attn_norm(h), rope_at)
+        a = col.tp_copy(block.attn_norm(h), tp)
+        q, k, v = block.qkv(cfg, a, rope_at)
         kl.index_put_(rows, k[0].to(kl.dtype))
         vl.index_put_(rows, v[0].to(vl.dtype))
         if pt is None:
@@ -363,14 +376,18 @@ def _apply_layers(cfg: ModelConfig, layers, h: torch.Tensor,
         else:
             ks = kl.index_select(0, pt).view(1, -1, *kl.shape[2:])
             vs = vl.index_select(0, pt).view(1, -1, *vl.shape[2:])
-        att = _attend_cached(q, ks, vs, 0, cfg.n_heads, mask=mask)
-        h = block.mlp(h + block.proj(att))
+        att = _attend_cached(q, ks, vs, 0, q.shape[2], mask=mask)
+        h = block.mlp(h + block.proj(att, tp), tp=tp)
     return h
 
 
-def _greedy(cfg: ModelConfig, model: Transformer,
-            y: torch.Tensor) -> torch.Tensor:
-    """Greedy tokens [N] of hidden rows y [N, dim]."""
+def _greedy(cfg: ModelConfig, model: Transformer, y: torch.Tensor,
+            tp=None, vocab_parallel: bool = False) -> torch.Tensor:
+    """Greedy tokens [N] of hidden rows y [N, dim]; split over the vocab
+    under ``vocab_parallel`` (rows are the batch, so the verify head takes
+    the same path per row)."""
+    if vocab_parallel:
+        return vocab_parallel_greedy(cfg, model, y, tp)
     return torch.argmax(head_apply(cfg, model, y), dim=-1)
 
 
@@ -386,7 +403,8 @@ class ServingProgram:
     draft's turns are CUDA graphs, captured by ``prepare`` and replayed
     for every visit; on the CPU they run eagerly. ``cuda_graphs = False``
     before ``prepare`` launches the same operations one by one on the
-    card too (``chip_smoke.py`` holds the graphs to that)."""
+    card too (``chip_smoke.py`` holds the graphs to that); a staging
+    ``mesh`` sets it False at the build (see the module doc)."""
 
     def __init__(self, cfg: ModelConfig, *, n_stages: int, n_slots: int,
                  max_len: int, prompt_max: int, out_max: int,
@@ -394,7 +412,8 @@ class ServingProgram:
                  eos_id: Optional[int], device: torch.device,
                  paged: bool = False, page_size: int = 0, n_pages: int = 0,
                  speculative: bool = False, gamma: int = 0,
-                 draft_cfg: Optional[ModelConfig] = None) -> None:
+                 draft_cfg: Optional[ModelConfig] = None,
+                 mesh=None) -> None:
         self.cfg = cfg
         self.n_stages = n_stages
         self.n_slots = n_slots
@@ -411,7 +430,12 @@ class ServingProgram:
         self.speculative = speculative
         self.gamma = gamma
         self.draft_cfg = draft_cfg
-        self.cuda_graphs = device.type == "cuda"
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.n_model
+        self.vocab_parallel = self.tp > 1 and cfg.vocab_size % self.tp == 0
+        # a collective staged through host memory cannot be captured
+        self.cuda_graphs = device.type == "cuda" and not (
+            self.tp > 1 and mesh.staging)
         self.n_captures = 0  # graph captures by prepare (one per weights)
         self._buf: Optional[Dict[str, Any]] = None
 
@@ -435,7 +459,9 @@ class ServingProgram:
         prompt buffer, the visits' inputs (a token row, each stage's
         positions, slot and page row, the head's row), and in speculative
         mode the draft's caches [L_draft, M, mlen_alloc, Hkv, hd], its
-        slot and prefill flag, and the verify head's proposals."""
+        slot and prefill flag, and the verify head's proposals. Under TP
+        the target's caches hold the rank's Hkv/T heads, the replicated
+        draft's all of its own."""
         if self._buf is None:
             cfg, D, M, C = self.cfg, self.n_stages, self.n_slots, \
                 self.prefill_chunk
@@ -449,7 +475,7 @@ class ServingProgram:
                                     device=dev) for _ in range(D)]
 
             lps = cfg.n_layers // D
-            kv = (cfg.kv_heads, cfg.head_dim)
+            kv = (kv_shard_heads(cfg, self.mesh), cfg.head_dim)
             if self.paged:
                 pmax = self.max_pages_per_slot
                 shape = (lps, self.n_pages, self.page_size) + kv
@@ -497,19 +523,21 @@ class ServingProgram:
         cfg, b = self.cfg, self._buffers()
         h = embed_apply(cfg, w.model, x, pos) if d == 0 else x
         return _apply_layers(cfg, w.stages[d], h, b["kc"][d], b["vc"][d],
-                             pos, w.rope, slot, pt, b["ar_t"])
+                             pos, w.rope, slot, pt, b["ar_t"], self.mesh)
 
     def _head(self, w: _Weights, y: torch.Tensor,
               row: torch.Tensor) -> torch.Tensor:
         """The greedy token [1] of row ``row`` [1] of the last stage's
         hidden state y [1, C, dim]."""
-        return _greedy(self.cfg, w.model, y.index_select(1, row)[:, 0])
+        return _greedy(self.cfg, w.model, y.index_select(1, row)[:, 0],
+                       self.mesh, self.vocab_parallel)
 
     def _verify_head(self, w: _Weights, y: torch.Tensor,
                      drafts: torch.Tensor) -> torch.Tensor:
         """A verify visit's head: the argmaxes of rows 0..gamma of y and
         the accepted length, as [gamma + 2]."""
-        ys = _greedy(self.cfg, w.model, y[0, :self.gamma + 1])
+        ys = _greedy(self.cfg, w.model, y[0, :self.gamma + 1], self.mesh,
+                     self.vocab_parallel)
         return torch.cat([ys, spec_accept_len(drafts, ys).view(1)])
 
     def _draft_row(self):
@@ -570,6 +598,7 @@ class ServingProgram:
         table, the draft (speculative) in its compute dtype, and on a CUDA
         device the visits' graphs (once per weights, not per block)."""
         model_on(model, self.device)
+        check_block_shard(model, self.mesh)
         model_c = compute_cast(self.cfg, model)
         stages = [chunks[0] for chunks in
                   stack_stage_layers(model_c.layers, self.n_stages)]
@@ -872,7 +901,7 @@ def make_serving_step_fn(cfg: ModelConfig, n_stages: int, *, n_slots: int,
                          n_pages: Optional[int] = None,
                          speculative: bool = False, gamma: int = 2,
                          draft_cfg: Optional[ModelConfig] = None,
-                         tp_size: int = 1, device="cuda") -> ServingProgram:
+                         mesh=None, device="cuda") -> ServingProgram:
     """Build the serving tick-block program over ``n_stages`` (D) lockstep
     stages on one device.
 
@@ -893,13 +922,17 @@ def make_serving_step_fn(cfg: ModelConfig, n_stages: int, *, n_slots: int,
     visit; ``prefill_chunk`` must be at least ``gamma + 1``. The two
     compose. The validation and its messages are the JAX
     ``make_serving_step_fn``'s.
+
+    ``mesh``: the rank's mesh of a (pipe 1, data 1, model T) world (see
+    the module doc); each rank's engine takes its model shard and the
+    whole draft.
     """
     if cfg.arch not in ("gpt2", "llama"):
         raise ValueError(
             f"generation is undefined for arch {cfg.arch!r} (see "
             "models.generate)")
-    if tp_size != 1:
-        raise _not_ported("a 'model' axis (tensor parallelism)", "tp")
+    T = check_decode_mesh(mesh, "serving")
+    check_tp(cfg, T)
     D = n_stages
     if cfg.n_layers % D:
         raise ValueError(f"n_layers={cfg.n_layers} must divide over {D} "
@@ -970,7 +1003,7 @@ def make_serving_step_fn(cfg: ModelConfig, n_stages: int, *, n_slots: int,
                           page_size=page_size if paged else 0,
                           n_pages=n_pages if paged else 0,
                           speculative=speculative, gamma=gamma,
-                          draft_cfg=draft_cfg)
+                          draft_cfg=draft_cfg, mesh=mesh)
 
 
 class ServingEngine:
@@ -1245,6 +1278,19 @@ class ServingEngine:
             self.acceptance_series.append(
                 (self._tick, round(ta / (p.gamma * tv), 6) if tv else None))
 
+    def _check_ranks_agree(self, result: ServeResult) -> None:
+        """Raise unless every model rank's completions (tokens, stamps,
+        status) equal this rank's: the SPMD scheduler's contract."""
+        mesh = self.program.mesh
+        mine = [(c.rid, c.tokens, c.slot, c.first_token_tick,
+                 c.finish_tick, c.status) for c in result.completions]
+        ranks = mesh.all_gather_object(mine, "model")
+        differ = [j for j, r in enumerate(ranks) if r != mine]
+        if differ:
+            raise RuntimeError(
+                f"the model ranks' completions differ: model rank "
+                f"{mesh.model}'s against those of model ranks {differ}")
+
     def run(self, requests: Sequence[Request], *,
             policy: str = "continuous",
             max_blocks: int = 200_000) -> ServeResult:
@@ -1362,6 +1408,8 @@ class ServingEngine:
                              busy_ticks=self._busy_ticks,
                              n_blocks=self._n_blocks,
                              host_syncs=self._host_syncs, **extra)
+        if p.tp > 1:
+            self._check_ranks_agree(result)
         if self.report is not None:
             # one event a run with the measured tick rate
             self.report.event(

@@ -25,6 +25,8 @@ from distributed_training_with_pipeline_parallelism_tpu.parallel.pipelined_decod
 import distributed_training_with_pipeline_parallelism_tpu_torch as port
 from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
     transformer_apply)
+from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+    mesh as tmesh)
 
 SIZE = dict(dim=64, n_layers=4, n_heads=4, vocab_size=97, ffn_dim=256,
             max_seq_len=32, arch="gpt2", use_flash_attention=True,
@@ -183,8 +185,11 @@ def test_pipelined_decode_errors(weights, prompt):
         port.make_pipeline_generate_fn(TCFG, 4, N, n_streams=3, device="cpu")
     with pytest.raises(ValueError, match="divide"):
         port.make_pipeline_generate_fn(TCFG, 3, N, device="cpu")
-    with pytest.raises(NotImplementedError):
-        port.make_pipeline_generate_fn(TCFG, 2, N, tp_size=2, device="cpu")
+    # a world with pipe > 1 would put the stages on ranks (ROADMAP.md)
+    pipe_world = tmesh.Mesh(2, 1, 0, "gloo", torch.device("cpu"), n_model=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port.make_pipeline_generate_fn(TCFG, 2, N, mesh=pipe_world,
+                                       device="cpu")
     with pytest.raises(ValueError, match="not divisible"):
         port.make_pipeline_generate_fn(TCFG, 2, N, n_streams=3,
                                        device="cpu")(weights[1], prompt[:4])

@@ -5,7 +5,7 @@ recycled slots included), and on one trace the port's tick stamps,
 tokens, occupancy and queue-depth series must equal the JAX
 ``ServingEngine``'s exactly, under both policies. Also: EOS retirement,
 the failed-request path, the build and submit validation with the JAX
-messages, the modes not ported yet, and the host-side pieces (traces,
+messages, the mesh refusals, and the host-side pieces (traces,
 workload mixes, the latency summary, the SLO accounting) against the JAX
 functions. Weights are seeded numpy trees in the JAX layout, loaded into
 the port through ``from_jax_params``."""
@@ -37,6 +37,8 @@ import distributed_training_with_pipeline_parallelism_tpu_torch as port
 from distributed_training_with_pipeline_parallelism_tpu_torch import serving
 from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
     cost_model as tcm)
+from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
+    mesh as tmesh)
 from distributed_training_with_pipeline_parallelism_tpu_torch.serving import (
     loadgen as tload, slo as tslo)
 from distributed_training_with_pipeline_parallelism_tpu_torch.utils import (
@@ -324,15 +326,24 @@ def test_submit_errors_match_jax(engines, prompt, budget):
         tengine.run([], policy="greedy")
 
 
-def test_modes_not_ported_raise(models):
-    """A tensor-parallel axis raises ``NotImplementedError`` naming its
-    ROADMAP item (paged KV and speculative decoding are ported:
-    ``test_torch_paging.py``, ``test_torch_spec.py``; the FaultPlan:
-    ``test_fault_plan_matches_jax_engine``; the RunReport:
-    ``test_report_events_match_jax_engine``)."""
-    _, _, tcfg, model = models["gpt2"]
+def test_mesh_refusals_raise(models):
+    """The engine serves a (pipe 1, data 1, model T) world
+    (``test_torch_tp_serving.py``): a seq axis raises the JAX executor's
+    message, word for word, and a pipe axis above 1 the port's, naming
+    its ROADMAP item."""
+    jcfg, _, tcfg, _ = models["gpt2"]
+    with pytest.raises(NotImplementedError) as want:
+        jeng.make_serving_step_fn(jcfg, make_mesh(n_pipe=2, n_model=2,
+                                                  n_seq=2), **PROGRAM)
+    seq_world = tmesh.Mesh(1, 1, 0, "gloo", torch.device("cpu"), n_model=2,
+                           n_seq=2)
+    with pytest.raises(NotImplementedError) as got:
+        port.make_serving_step_fn(tcfg, D, device="cpu", mesh=seq_world,
+                                  **PROGRAM)
+    assert str(got.value) == str(want.value)
+    pipe_world = tmesh.Mesh(2, 1, 0, "gloo", torch.device("cpu"), n_model=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.make_serving_step_fn(tcfg, D, device="cpu", tp_size=2,
+        port.make_serving_step_fn(tcfg, D, device="cpu", mesh=pipe_world,
                                   **PROGRAM)
 
 
