@@ -382,10 +382,11 @@ JAX. Phases, each fatal on failure:
     tokens/s, a rank's expert-stack and FSDP-shard bytes, the count and
     host ms of the all-to-alls, model all-reduces, gathers,
     reduce-scatters and hand-offs, and the idle share from the device's
-    own events, in [0, 1]. (c) ``train.py --moe-experts 8 --ep 2 --pipe 2
-    --tp 2`` and ``... --fsdp --data 2``, 2 steps each at 2 layers and S =
-    256, at once beside the world: exit 0 and a final loss within 1 of ln
-    V. The phase prints its seconds.
+    own events, in [0, 1]. (c) ``train.py --moe-experts 8 --ep 2 --tp 2
+    --fsdp --data 2 --pipe 1``, 2 steps at 2 layers and S = 256, beside
+    the world: exit 0 and a final loss within 1 of ln V (both
+    compositions in one world of 8, for the script's time). The phase
+    prints its seconds.
 
 17. TP in the pipelined decoder and the serving engine: one world of
     (pipe 1, data 1, model 2) processes on the card (gloo, staged), each
@@ -413,8 +414,43 @@ JAX. Phases, each fatal on failure:
     one profiled run the count and host ms of the model-axis all-reduces
     and all-gathers. The phase prints its seconds.
 
+18. The model sources (run right after phase 2, on the fresh card:
+    ~45 GB of it at the peak): HF-named state dicts made on the card by the
+    port's exporters (``models.hf.gpt2_state_dict``, ``llama_state_dict``)
+    from seeded port models, in the names and layouts of
+    ``GPT2LMHeadModel``, ``GemmaForCausalLM`` and ``Qwen2ForCausalLM``
+    (``hf_layout``; ``tests/test_torch_hf.py`` holds it to transformers'
+    own classes), read back by ``models.hf.from_hf`` under the published
+    config.json fields of openai-community/gpt2 (``GPT2Config()``'s
+    defaults), google/gemma-2b and Qwen/Qwen2-0.5B (``HF_CONFIGS``; no
+    transformers, no tokenizers, nothing downloaded): each config the
+    registry's but for max_seq_len, export and import bitwise both ways.
+    (a) The chain of the JAX package's ``scripts/hf_finetune.py`` on
+    GPT-2-small: the import as f32 masters under bf16 compute, ``fit``
+    for 10 steps of B = 8 x 1024 (1F1B, D = 2, M = 4) from a seeded token
+    file, the losses finite and falling and the launches the table's; 16
+    greedy tokens from 4 prompts through the pipelined decoder; the
+    trained model exported and imported again, its weights and f32 logits
+    bitwise. (b) Gemma-2B at full width (head_dim 256, 8 heads over 1 kv
+    head, GeGLU, scaled embeddings, vocabulary 256000): the f32 decode at
+    all 18 layers, D = 2 lockstep stages, M = 2, B = 4 prompts of 256
+    tokens, 16 new tokens, greedy, log-probs through K1 (phase 3's rule
+    against the plain run and single-device ``generate``); a f32 1F1B
+    gradient step at 4 of the 18 layers, B = 4 x 512, M = 2, D = 2,
+    within phase 4's bounds of the plain versions and single-device
+    autograd; a bf16 step over the f32 masters at all 18 layers, B = 8 x
+    1024, M = 4, D = 2, within phase 4's bf16 bounds of the plain versions
+    in bf16, then 3 timed steps (tokens/s of loss and gradients). (c)
+    Qwen2-0.5B at full width (q/k/v biases): (b)'s f32 decode gate. Every
+    counted run's launches equal the tick table's, each launch at the
+    shape its path gives (``launch_shapes``); the phase prints its
+    seconds and is held to 90.
+
 Phase 2's bf16 forward cases also hold every output row within 2 bf16
-ulps of its largest |o| of the plain version. Then it prints the kernel
+ulps of its largest |o| of the plain version; its cases include phase
+18's (head_dim 256 at Gemma-2B's bf16 microbatch and decode prefill, in
+bf16 and f32, forward and backward; the cross-entropy kernels at 256000
+columns; Qwen2-0.5B's prefill and log-probs). Then it prints the kernel
 record as one JSON line (times at the training shape in bf16; launches
 from the counted bf16 runs, which take the tensor-core attention kernels
 that are timed, by path, the llama decode's and the serving runs' among
@@ -434,7 +470,8 @@ shapes); phase 15's counted forward, MoE step and world steps by rank and
 summed; phase 16's counted f32 steps on its three meshes by rank and
 summed, and the cross-entropy kernels' times at its [1024, 50257]; phase
 17's f32 decode and serve runs by rank, and K1's f32 time at its
-decode log-probs' [2, 128256]),
+decode log-probs' [2, 128256]; phase 18's counted runs by path, and
+each kernel's times at Gemma-2B's shapes as ``gemma_shapes``),
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chip_smoke_out/chip_smoke.json``.
@@ -811,6 +848,10 @@ def phase_kernels(report):
         return rec
 
     tol = {"float32": 2e-5, "bfloat16": 2e-2}
+    # backward tolerances, relative to the largest reference gradient:
+    # f32 differs by summation order only; bf16 outputs round once (one
+    # bf16 ulp is 2^-8 of the value)
+    bwd_tol = {"float32": 1e-4, "bfloat16": 1e-2}
     main = {}
     for dtype in ("bfloat16", "float32"):
         # the training path's attention: one microbatch of B/M sequences
@@ -846,6 +887,19 @@ def phase_kernels(report):
         *PAR_SHAPE, "bfloat16", True, None, "packed", tol["bfloat16"])
     main[("flash_bwd_par", "bfloat16")] = flash_bwd_case(
         *PAR_SHAPE, "bfloat16", True, None, "packed", 1e-2)
+    # phase 18's Gemma-2B: head_dim 256 over 8 heads expanded from 1 (the
+    # JAX strided route, K2/K3), causal: the bf16 step's microbatch and the
+    # f32 decode's prefill, each in both dtypes; Qwen2-0.5B's prefill (K4,
+    # 14 heads from 2) in f32, its decode's dtype
+    for dtype in ("bfloat16", "float32"):
+        main[("flash_fwd_gemma", dtype)] = flash_case(
+            *GEMMA_SHAPE, dtype, True, None, "packed", tol[dtype])
+        main[("flash_bwd_gemma", dtype)] = flash_bwd_case(
+            *GEMMA_SHAPE, dtype, True, None, "packed", bwd_tol[dtype])
+        main[("flash_fwd_gemma_prefill", dtype)] = flash_case(
+            *GEMMA_PREFILL_SHAPE, dtype, True, None, "packed", tol[dtype])
+    flash_case(*QWEN_PREFILL_SHAPE, "float32", True, None, "packed",
+               tol["float32"])
     for dtype, rtol in (("bfloat16", 1e-3), ("float32", 1e-5)):
         # the training path's loss: one microbatch's rows of the vocab
         main[("xent_fwd", dtype)] = xent_case(TRAIN_B // TRAIN_M * TRAIN_S,
@@ -860,13 +914,16 @@ def phase_kernels(report):
         # phase 17's decode log-probs: B/M rows of Llama's vocabulary
         main[("xent_fwd_tps", dtype)] = xent_case(TPS_B // TPS_M, 128256,
                                                   dtype, rtol)
+        # phase 18: Gemma-2B's bf16 step's microbatch rows of its 256000
+        # vocabulary, and its and Qwen2-0.5B's decode log-probs
+        main[("xent_fwd_gemma", dtype)] = xent_case(GEMMA_XENT_ROWS,
+                                                    GEMMA_VOCAB, dtype, rtol)
+        main[("xent_fwd_gemma_decode", dtype)] = xent_case(
+            HF_B // HF_M, GEMMA_VOCAB, dtype, rtol)
+        xent_case(HF_B // HF_M, QWEN_VOCAB, dtype, rtol)
         # the decode path's head: B/M rows per stage call
         xent_case(B // M, 50257, dtype, rtol)
         xent_case(7, 50257, dtype, rtol)
-    # backward tolerances, relative to the largest reference gradient:
-    # f32 differs by summation order only; bf16 outputs round once (one
-    # bf16 ulp is 2^-8 of the value)
-    bwd_tol = {"float32": 1e-4, "bfloat16": 1e-2}
     for dtype in ("bfloat16", "float32"):
         # the training path's attention: one microbatch of B/M sequences
         main[("flash_bwd", dtype)] = flash_bwd_case(
@@ -889,6 +946,8 @@ def phase_kernels(report):
             PAR_XENT_ROWS, 50257, dtype, bwd_tol[dtype])
         main[("xent_bwd_moe", dtype)] = xent_bwd_case(
             MOE_XENT_ROWS, 50257, dtype, bwd_tol[dtype])
+        main[("xent_bwd_gemma", dtype)] = xent_bwd_case(
+            GEMMA_XENT_ROWS, GEMMA_VOCAB, dtype, bwd_tol[dtype])
         xent_bwd_case(7, 50257, dtype, bwd_tol[dtype], pad_row=3)
     for r in rows:
         print(f"  {r['kernel']} {r['shape']} {r['dtype']}"
@@ -4723,32 +4782,52 @@ def counted_launches(fn):
     return out, {k.name: k.launches for k in kernels}
 
 
+# spin kernels that open and close a trace of profiled_launches
+TRACE_EDGE = 256
+
+
 def profiled_launches(fn, want):
     """How many times the profiler saw each of the port's kernels run in
-    one call of ``fn``: the first of up to three traces that shows
-    ``want``, else the last. CUPTI has been seen to drop some of a
-    trace's kernel events late in the whole script (43 of 48 ``flash_fwd``
-    events in one trace whose wrappers counted 48; in one run in all
-    three traces), so a trace short of ``want`` is taken again, and each
-    trace waits a moment after it starts, before ``fn`` launches
-    anything: the short count was the same in every trace of that run,
-    as if its first launches came before the tracer was recording."""
+    one call of ``fn``, from the first whole trace of up to five: the
+    first that shows ``want``, else the last whole one. Fails if none is
+    whole. On the H100 host CUPTI drops records at the edges of a trace
+    once other processes have used the card: the first few records of
+    most traces (4 of 48 ``flash_fwd`` launches in phase 15, in every
+    trace of a run), and now and then all records after some point.
+    So ``fn`` runs between ``TRACE_EDGE`` spin kernels on each side, and
+    a trace is whole only if its first record is a spin kernel and its
+    last ``TRACE_EDGE`` records are: whatever was lost at an edge was
+    spin kernels, not ``fn``'s."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+
+    def edge():
+        for _ in range(TRACE_EDGE):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+
+    whole = None
+    for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.2)
+            edge()
             fn()
             torch.cuda.synchronize()
-        out = {k.name: 0 for k in all_kernels()}
-        for e in prof.key_averages():
-            for k in out:
-                if k in e.key and e.self_device_time_total > 0:
-                    out[k] += e.count
-        if out == want:
+            edge()
+        names = [e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        spin = ["spin_kernel" in n for n in names]
+        if not (spin and spin[0] and len(spin) > TRACE_EDGE
+                and all(spin[-TRACE_EDGE:])):
+            continue
+        whole = {k.name: sum(k.name in n for n in names)
+                 for k in all_kernels()}
+        if whole == want:
             break
-    return out
+    check(whole is not None, "the profiler kept no whole trace of five")
+    return whole
 
 
 def moe_profile(step, mesh=None):
@@ -5048,33 +5127,9 @@ def phase_fwd_moe(report, device="cuda"):
                                     device)
         torch.save({n: t.cpu() for n, t in moe_model.state_dict().items()},
                    spec["moe_whole"])
-        world = threading.Thread(target=run_world)
-        world.start()
-        trainer = threading.Thread(target=train_runs)
-        trainer.start()
-        sched = port.ScheduleConfig("1F1B", MOE_M)
-        try:  # (c)'s reference: the lockstep step at capacity E, aux 0
-            _, moe_ep = moe_setup(ep=True)
-            ref_model = copy.deepcopy(moe_model)
-            loss = port.make_pipeline_grad_fn(
-                cfg_m, sched, 2, device=device, moe=moe_ep)(
-                ref_model, *batch).item()
-            grads = {n: p.grad.detach().cpu()
-                     for n, p in ref_model.named_parameters()}
-            g_norm = math.sqrt(sum((x.double() ** 2).sum().item()
-                                   for x in grads.values()))
-            torch.save({"grads": grads, "loss": loss, "g_norm": g_norm},
-                       spec["moe_ref"])
-            res["ep_lockstep_loss"] = loss
-            del ref_model, grads
-            torch.cuda.empty_cache()
-            signal_file(spec["ready"], "ok")
-        except BaseException as e:
-            signal_file(spec["ready"], f"the launcher failed: {e!r}")
-            raise
-
         # (a) the lockstep forward, f32, against single-device
-        # transformer_apply; K4 only, M * L launches
+        # transformer_apply; K4 only, M * L launches; counted by the
+        # profiler too, before the world and train.py share the card
         fwd = port.make_pipeline_forward(
             cfg, port.ScheduleConfig("GPipe", FWD_M), FWD_D, device=device)
         tokens = fwd_tokens.to(device)
@@ -5099,6 +5154,31 @@ def phase_fwd_moe(report, device="cuda"):
         out["forward"] = launches
         del logits, ref, model, fwd
         torch.cuda.empty_cache()
+
+        world = threading.Thread(target=run_world)
+        world.start()
+        trainer = threading.Thread(target=train_runs)
+        trainer.start()
+        sched = port.ScheduleConfig("1F1B", MOE_M)
+        try:  # (c)'s reference: the lockstep step at capacity E, aux 0
+            _, moe_ep = moe_setup(ep=True)
+            ref_model = copy.deepcopy(moe_model)
+            loss = port.make_pipeline_grad_fn(
+                cfg_m, sched, 2, device=device, moe=moe_ep)(
+                ref_model, *batch).item()
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in ref_model.named_parameters()}
+            g_norm = math.sqrt(sum((x.double() ** 2).sum().item()
+                                   for x in grads.values()))
+            torch.save({"grads": grads, "loss": loss, "g_norm": g_norm},
+                       spec["moe_ref"])
+            res["ep_lockstep_loss"] = loss
+            del ref_model, grads
+            torch.cuda.empty_cache()
+            signal_file(spec["ready"], "ok")
+        except BaseException as e:
+            signal_file(spec["ready"], f"the launcher failed: {e!r}")
+            raise
 
         # (b) the lockstep MoE step, f32, against the per-microbatch oracle
         # on the plain versions
@@ -5287,16 +5367,18 @@ MOE_PAR_FIELDS = dict(MOE_EP_FIELDS, capacity_factor=MOE_FIELDS["n_experts"]
 MOE_PAR_MESHES = {"ep_tp": ((2, 1, 2, 1, 2), {}),
                   "fsdp_ep": ((2, 2, 1, 1, 2), {"fsdp": True}),
                   "seq_ep": ((2, 1, 1, 2, 2), {"sp_attn_impl": "ulysses"})}
-# (c): train.py, 2 steps each, as worlds of 8 beside the phase's, at 2
-# layers and S = 256 (the card's host runs 24 processes meanwhile)
+# (c): train.py, 2 steps, as one world of 8 beside the phase's, at 2
+# layers and S = 256: data 2 (FSDP) x model 2 x expert 2, both
+# compositions in one world, not a world each, for the script's time (the
+# card's host runs 16 processes meanwhile)
 MOE_PAR_TRAIN_COMMON = ["--model", "gpt2-small", "--tie-embeddings",
                         "--layers", "2", "--batch",
                         str(MOE_PAR_B), "--seq", "256",
                         "--microbatches", str(MOE_PAR_M), "--steps", "2",
                         "--fused-xent", "--moe-experts", "8", "--ep", "2",
-                        "--pipe", "2", "--backend", "gloo"]
-MOE_PAR_TRAIN_ARGS = {"ep_tp": ["--tp", "2"],
-                      "fsdp_ep": ["--fsdp", "--data", "2"]}
+                        "--backend", "gloo"]
+MOE_PAR_TRAIN_ARGS = {"fsdp_tp_ep": ["--pipe", "1", "--tp", "2", "--fsdp",
+                                     "--data", "2"]}
 
 
 def moe_par_model(cfg, moe, mesh, fsdp, whole, device):
@@ -5500,7 +5582,8 @@ def phase_moe_par(report, device="cuda"):
             box["error"] = e
 
     def train_runs():
-        """``train.py``'s two composed worlds, at once."""
+        """``train.py``'s composed world (every entry of
+        ``MOE_PAR_TRAIN_ARGS``, at once)."""
         t = time.perf_counter()
         procs = {name: subprocess.Popen(
             [sys.executable, "-m", f"{PKG}.train", *MOE_PAR_TRAIN_COMMON,
@@ -5602,7 +5685,7 @@ def phase_moe_par(report, device="cuda"):
                       f"outside [0, 1]")
         for name, tr in res["train_main"].items():
             print(f"  train.py {' '.join(MOE_PAR_TRAIN_ARGS[name])} --ep 2 "
-                  f"--pipe 2 --moe-experts 8: rc {tr['rc']}, final loss "
+                  f"--moe-experts 8: rc {tr['rc']}, final loss "
                   f"{tr['final_loss']:.4f}, {tr['seconds']:.1f} s")
             check(tr["rc"] == 0 and math.isfinite(tr["final_loss"])
                   and abs(tr["final_loss"] - math.log(cfg.vocab_size)) < 1.0,
@@ -5676,32 +5759,13 @@ def tps_cases():
 
 def tps_worker(mesh, spec):
     """One rank of phase 17's world: ``selftest.run_cases`` over
-    ``tps_cases``, with the shape (and dtype code) of every K4 and K1
-    launch counted."""
-    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
-        FLASH_FWD)
-    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
-        XENT_FWD)
+    ``tps_cases``, with the shape (and dtype code) of every kernel launch
+    counted (``launch_shapes``)."""
     from distributed_training_with_pipeline_parallelism_tpu_torch.parallel import (
         selftest)
-    shapes = {}
-
-    def record(kernel, dtype_at, dims):
-        call = kernel.call
-
-        def counted(fn, *args):
-            key = f"{kernel.name} {list(args[dims])} dtype {args[dtype_at]}"
-            shapes[key] = shapes.get(key, 0) + 1
-            return call(fn, *args)
-
-        kernel.call = counted
-
-    # flash_fwd's arguments: five pointers, the dtype code, b, s, h, dh;
-    # xent_fwd's: four pointers, the dtype code, n, v
-    record(FLASH_FWD, 5, slice(6, 10))
-    record(XENT_FWD, 4, slice(5, 7))
-    out = selftest.run_cases(mesh, spec)
-    out.update(shapes=shapes, describe=mesh.describe())
+    with launch_shapes() as rec:
+        out = selftest.run_cases(mesh, spec)
+    out.update(shapes=rec["shapes"], describe=mesh.describe())
     return out
 
 
@@ -6652,6 +6716,531 @@ def phase_calibration_serving(report, device="cuda"):
     return launches
 
 
+# The model sources (phase 18): HF-named state dicts made on the card by
+# the port's exporters from seeded port models, read back by
+# models.hf.from_hf under the published config.json fields of three
+# checkpoints (no transformers, no tokenizers, nothing downloaded)
+HF_CONFIGS = {
+    # openai-community/gpt2: GPT2Config()'s defaults
+    "gpt2": dict(model_type="gpt2", vocab_size=50257, n_positions=1024,
+                 n_embd=768, n_layer=12, n_head=12, n_inner=None,
+                 activation_function="gelu_new", layer_norm_epsilon=1e-5,
+                 tie_word_embeddings=True),
+    # google/gemma-2b (tie_word_embeddings: GemmaConfig's default)
+    "gemma-2b": dict(model_type="gemma", vocab_size=256000, hidden_size=2048,
+                     intermediate_size=16384, num_hidden_layers=18,
+                     num_attention_heads=8, num_key_value_heads=1,
+                     head_dim=256, hidden_act="gelu", hidden_activation=None,
+                     max_position_embeddings=8192, rms_norm_eps=1e-6,
+                     rope_theta=10000.0, rope_scaling=None,
+                     attention_bias=False, tie_word_embeddings=True),
+    # Qwen/Qwen2-0.5B
+    "qwen2-0.5b": dict(model_type="qwen2", vocab_size=151936, hidden_size=896,
+                       intermediate_size=4864, num_hidden_layers=24,
+                       num_attention_heads=14, num_key_value_heads=2,
+                       hidden_act="silu", max_position_embeddings=131072,
+                       rms_norm_eps=1e-6, rope_theta=1000000.0,
+                       use_sliding_window=False, sliding_window=131072,
+                       max_window_layers=24, tie_word_embeddings=True),
+}
+HF_D, HF_M = 2, 2  # (b), (c): decode over D lockstep stages, M streams
+HF_B, HF_P, HF_N = 4, 256, 16  # prompts, their length, new tokens
+# (a): fit over a seeded token file, then greedy tokens from 4 prompts
+HF_FIT_B, HF_FIT_M, HF_FIT_STEPS, HF_FIT_TOKENS = 8, 4, 10, 1 << 20
+# (b): the f32 gradient gate at 4 of Gemma-2B's 18 layers; the bf16 step
+# at all 18, timed over GEMMA_TIMED steps
+GEMMA_GATE_LAYERS, GEMMA_GATE_B, GEMMA_GATE_S, GEMMA_GATE_M = 4, 4, 512, 2
+GEMMA_B, GEMMA_M, GEMMA_TIMED = 8, 4, 3
+GEMMA_SHAPE = [GEMMA_B // GEMMA_M, TRAIN_S, 8, 256]  # 8 heads from 1
+GEMMA_PREFILL_SHAPE = [HF_B // HF_M, HF_P, 8, 256]
+GEMMA_XENT_ROWS, GEMMA_VOCAB = GEMMA_B // GEMMA_M * TRAIN_S, 256000
+QWEN_PREFILL_SHAPE, QWEN_VOCAB = [HF_B // HF_M, HF_P, 14, 64], 151936
+HF_BUDGET_S = 90.0  # phase 18 is held to this
+
+
+class HFSource:
+    """What ``models.hf.from_hf`` reads of a transformers causal LM: its
+    ``config`` (here the published config.json fields) and
+    ``state_dict()``."""
+
+    def __init__(self, name, state, **fields):
+        import types
+        self.config = types.SimpleNamespace(**dict(HF_CONFIGS[name],
+                                                   **fields))
+        self._state = state
+
+    def state_dict(self):
+        return self._state
+
+
+def hf_registry(name):
+    """The port's registry config of an HF_CONFIGS entry (f32, routing
+    as the registry leaves it)."""
+    from distributed_training_with_pipeline_parallelism_tpu_torch import (
+        gpt2_config, llama_config)
+    if name == "gpt2":  # the registry's GPT-2 is untied, GPT2Config() ties
+        return gpt2_config("small", tie_embeddings=True)
+    return llama_config(name)
+
+
+def hf_layout(c):
+    """{name: shape} of the state dict that the transformers class of
+    config ``c`` (a namespace of config.json fields) holds, less a tied
+    ``lm_head.weight`` (transformers ties it to the embedding):
+    ``GPT2LMHeadModel``'s ([in, out] ``Conv1D`` matrices, q/k/v packed in
+    ``c_attn``) or ``GemmaForCausalLM``'s / ``Qwen2ForCausalLM``'s
+    ([out, in] ``nn.Linear`` matrices; Qwen2's q/k/v biases)."""
+    if c.model_type == "gpt2":
+        d, f, v = c.n_embd, c.n_inner or 4 * c.n_embd, c.vocab_size
+        out = {"transformer.wte.weight": (v, d),
+               "transformer.wpe.weight": (c.n_positions, d),
+               "transformer.ln_f.weight": (d,), "transformer.ln_f.bias": (d,)}
+        for i in range(c.n_layer):
+            p = f"transformer.h.{i}."
+            out.update({
+                p + "ln_1.weight": (d,), p + "ln_1.bias": (d,),
+                p + "attn.c_attn.weight": (d, 3 * d),
+                p + "attn.c_attn.bias": (3 * d,),
+                p + "attn.c_proj.weight": (d, d), p + "attn.c_proj.bias": (d,),
+                p + "ln_2.weight": (d,), p + "ln_2.bias": (d,),
+                p + "mlp.c_fc.weight": (d, f), p + "mlp.c_fc.bias": (f,),
+                p + "mlp.c_proj.weight": (f, d), p + "mlp.c_proj.bias": (d,)})
+    else:
+        d, f, v = c.hidden_size, c.intermediate_size, c.vocab_size
+        hd = getattr(c, "head_dim", None) or d // c.num_attention_heads
+        q, kv = c.num_attention_heads * hd, c.num_key_value_heads * hd
+        out = {"model.embed_tokens.weight": (v, d), "model.norm.weight": (d,)}
+        for i in range(c.num_hidden_layers):
+            p = f"model.layers.{i}."
+            out.update({
+                p + "input_layernorm.weight": (d,),
+                p + "self_attn.q_proj.weight": (q, d),
+                p + "self_attn.k_proj.weight": (kv, d),
+                p + "self_attn.v_proj.weight": (kv, d),
+                p + "self_attn.o_proj.weight": (d, q),
+                p + "post_attention_layernorm.weight": (d,),
+                p + "mlp.gate_proj.weight": (f, d),
+                p + "mlp.up_proj.weight": (f, d),
+                p + "mlp.down_proj.weight": (d, f)})
+            if c.model_type == "qwen2":
+                out.update({p + "self_attn.q_proj.bias": (q,),
+                            p + "self_attn.k_proj.bias": (kv,),
+                            p + "self_attn.v_proj.bias": (kv,)})
+    if not c.tie_word_embeddings:
+        out["lm_head.weight"] = (v, d)
+    return out
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Inside the block, each launch of the four kernels by kernel, shape
+    and dtype code (``{"flash_fwd [2, 1024, 8, 256] dtype 1": n, ...}``),
+    the wrappers' counters set to 0 first; after it, ``out["launches"]``
+    holds the counters and ``out["shapes"]`` the shapes."""
+    import torch
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.flash_attention import (
+        FLASH_BWD, FLASH_FWD)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.ops.fused_xent import (
+        XENT_BWD, XENT_FWD)
+    # each C entry's dtype code and the dims after it: flash_fwd's five
+    # pointers and flash_bwd's ten, then b, s, h, dh; xent_fwd's four
+    # pointers and xent_bwd's five, then n, v
+    where = {FLASH_FWD: 5, FLASH_BWD: 10, XENT_FWD: 4, XENT_BWD: 5}
+    out = {"shapes": {}}
+    torch.cuda.synchronize()
+    real = {k: k.call for k in where}
+
+    def counting(kernel, at):
+        dims = 4 if kernel in (FLASH_FWD, FLASH_BWD) else 2
+
+        def call(fn, *args):
+            key = (f"{kernel.name} {list(args[at + 1:at + 1 + dims])} "
+                   f"dtype {args[at]}")
+            out["shapes"][key] = out["shapes"].get(key, 0) + 1
+            return real[kernel](fn, *args)
+        return call
+
+    for k, at in where.items():
+        k.launches = 0
+        k.call = counting(k, at)
+    try:
+        yield out
+        torch.cuda.synchronize()
+    finally:
+        for k in where:
+            k.call = real[k]
+    out["launches"] = {k.name: k.launches for k in where}
+
+
+def check_launch_shapes(what, rec, want, shapes):
+    """The counted launches equal the tick table's ``want``, and every
+    launch took one of ``shapes`` ({kernel: "[dims] dtype code"})."""
+    check(rec["launches"] == want, f"{what}: kernel launches "
+          f"{rec['launches']} != the table's {want}")
+    bad = {k: n for k, n in rec["shapes"].items()
+           if k.split(" ", 1)[1] != shapes.get(k.split(" ", 1)[0])}
+    check(not bad, f"{what}: launches at other shapes than {shapes}: {bad}")
+
+
+def pipeline_launches(n_layers, m, steps=1):
+    """A 1F1B step's launches under the rematerialising backward (phase
+    4's count): the forward kernel twice a (layer, microbatch), the
+    backward once, each xent kernel once a microbatch."""
+    return {"flash_fwd": 2 * m * n_layers * steps,
+            "flash_bwd": m * n_layers * steps,
+            "xent_fwd": m * steps, "xent_bwd": m * steps}
+
+
+def phase_model_sources(report, device="cuda"):
+    """The model sources on the card (see the module doc): (a) GPT-2-small
+    imported, fitted, decoded, exported and imported again; (b) Gemma-2B's
+    round trip, f32 decode, f32 gradient gate at 4 layers and bf16 step at
+    18; (c) Qwen2-0.5B's round trip and f32 decode. Returns each path's
+    launches."""
+    import shutil
+    import tempfile
+    import torch
+    import distributed_training_with_pipeline_parallelism_tpu_torch as port
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models import (
+        hf)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.models.transformer import (
+        transformer_apply, transformer_loss)
+    from distributed_training_with_pipeline_parallelism_tpu_torch.utils.data import (
+        TokenFileDataset, prefetch_to_device, write_token_file)
+    t0 = time.perf_counter()
+    card = report["card"]
+    res, paths = {}, {}
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+
+    def seconds():
+        return round(time.perf_counter() - t0, 1)
+
+    def export(cfg, model):
+        return (hf.gpt2_state_dict(cfg, model) if cfg.arch == "gpt2" else
+                hf.llama_state_dict(cfg, model,
+                                    1.0 if cfg.embed_scale else 0.0))
+
+    def same_weights(a, b, what):
+        sa, sb = a.state_dict(), b.state_dict()
+        check(sa.keys() == sb.keys(), f"{what}: other parameter names")
+        bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+        check(not bad, f"{what}: not bitwise equal at {bad[:4]}")
+
+    def source(name):
+        """The seeded port model of the registry config, its HF-named state
+        dict (the exporter's, on the card; layout checked) and the model
+        ``from_hf`` reads back from it, whose config must be the
+        registry's but for max_seq_len and the dtypes and whose weights
+        the seeded model's, bitwise; the re-export is the state dict,
+        bitwise."""
+        cfg = hf_registry(name)
+        model = port.init_params(
+            cfg, torch.Generator(device=device).manual_seed(SEED), device)
+        state = export(cfg, model)
+        src = HFSource(name, state)
+        layout = {k: tuple(v.shape) for k, v in state.items()}
+        want = hf_layout(src.config)
+        check(layout == want, f"{name}: exported layout differs from the HF "
+              f"class's at {sorted(set(layout.items()) ^ set(want.items()))[:4]}")
+        check(all(v.dtype == torch.float32 and v.device == model.tok.device
+                  for v in state.values()),
+              f"{name}: exported tensors not float32 on {device}")
+        got_cfg, got = hf.from_hf(src, device=device)
+        diff = [f.name for f in dataclasses.fields(cfg)
+                if f.name not in ("max_seq_len", "dtype", "param_dtype")
+                and getattr(cfg, f.name) != getattr(got_cfg, f.name)]
+        check(not diff, f"{name}: from_hf's config differs from the "
+              f"registry's in {diff}")
+        same_weights(model, got, f"{name}: export then import")
+        again = export(got_cfg, got)
+        bad = [k for k in state if not torch.equal(state[k], again[k])]
+        check(not bad, f"{name}: import then export not bitwise at {bad[:4]}")
+        n = sum(p.numel() for p in got.parameters())
+        print(f"  {name}: {n} params; {len(state)} HF-named tensors in the "
+              f"{'GPT2LMHeadModel' if cfg.arch == 'gpt2' else src.config.model_type} "
+              f"layout; from_hf's config the registry's; export and import "
+              f"bitwise both ways ({seconds()} s)")
+        del again, model
+        return src, got_cfg, got
+
+    def decode_gate(name, cfg, model, shapes):
+        """The f32 decode gate (phase 3's rule): the kernel run's tokens
+        those of the plain run and of single-device ``generate``, its
+        log-probs within 1e-4; K4/K2 at the prefill and K1 on the head,
+        counted at their shapes."""
+        prompt = torch.randint(0, cfg.vocab_size, (HF_B, HF_P),
+                               generator=torch.Generator().manual_seed(SEED + 7)
+                               ).to(device)
+        kern = dataclasses.replace(cfg, use_flash_attention=True,
+                                   use_fused_xent=True)
+        plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                    use_fused_xent=False)
+        with launch_shapes() as rec:
+            toks, lps = port.make_pipeline_generate_fn(
+                kern, HF_D, HF_N, n_streams=HF_M, return_logprobs=True,
+                device=device)(model, prompt)
+        want = {"flash_fwd": cfg.n_layers * HF_M, "flash_bwd": 0,
+                "xent_fwd": HF_M * HF_N, "xent_bwd": 0}
+        check_launch_shapes(f"{name} f32 decode", rec, want, shapes)
+        toks_p, lps_p = port.make_pipeline_generate_fn(
+            plain, HF_D, HF_N, n_streams=HF_M, return_logprobs=True,
+            device=device)(model, prompt)
+        toks_s, lps_s = port.generate(kern, model, prompt, HF_N,
+                                      return_logprobs=True, device=device)
+        check(toks.shape == (HF_B, HF_P + HF_N) and bool(
+            torch.isfinite(lps).all() and (lps <= 0).all()),
+            f"{name}: tokens {tuple(toks.shape)}, log-probs not finite")
+        out = dict(launches=rec["launches"], shapes=rec["shapes"])
+        out["vs_plain"] = compare_tokens(
+            f"{name} f32 decode vs plain", toks, toks_p, lps, lps_p,
+            top2_gap_of(cfg, model, toks_p, HF_P), p=HF_P, n=HF_N)
+        out["vs_generate"] = compare_tokens(
+            f"{name} f32 decode vs generate", toks, toks_s, lps, lps_s,
+            top2_gap_of(cfg, model, toks_s, HF_P), p=HF_P, n=HF_N)
+        print(f"  {name} f32 decode (D={HF_D}, M={HF_M}, B={HF_B}, P={HF_P}, "
+              f"N={HF_N}): launches {rec['shapes']} ({seconds()} s)")
+        return out
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-hf-"))
+    try:
+        # (a) the chain of the JAX package's scripts/hf_finetune.py
+        src, cfg, model = source("gpt2")
+        del src
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16",
+                                    param_dtype="float32",
+                                    use_flash_attention=True,
+                                    use_fused_xent=True)
+        path = tmp / "tokens.bin"
+        write_token_file(path, zipf_tokens(HF_FIT_TOKENS, cfg.vocab_size,
+                                           SEED))
+        data = prefetch_to_device(TokenFileDataset(
+            str(path), TRAIN_S, seed=SEED).batches(HF_FIT_B), 2, device)
+        t = time.perf_counter()
+        with launch_shapes() as rec:
+            model, history = port.fit(
+                cfg16, port.ScheduleConfig("1F1B", HF_FIT_M), HF_D, model,
+                data, HF_FIT_STEPS,
+                optimizer=port.adamw(warmup_steps=2,
+                                     total_steps=HF_FIT_STEPS),
+                log_every=1, verbose=False, device=device)
+        fit_s = time.perf_counter() - t
+        mb = HF_FIT_B // HF_FIT_M
+        check_launch_shapes(
+            "gpt2 fit", rec, pipeline_launches(cfg.n_layers, HF_FIT_M,
+                                               HF_FIT_STEPS),
+            {"flash_fwd": f"{[mb, TRAIN_S, 12, 64]} dtype 1",
+             "flash_bwd": f"{[mb, TRAIN_S, 12, 64]} dtype 1",
+             "xent_fwd": f"{[mb * TRAIN_S, cfg.vocab_size]} dtype 1",
+             "xent_bwd": f"{[mb * TRAIN_S, cfg.vocab_size]} dtype 1"})
+        losses = [x for _, x in history]
+        check(len(losses) == HF_FIT_STEPS and all(map(math.isfinite, losses))
+              and losses[-1] < losses[0], f"gpt2 fit: losses {losses}")
+        paths["hf_gpt2_fit"] = rec["launches"]
+        res["gpt2"] = dict(fit_losses=losses, fit_s=fit_s,
+                           fit_tokens_per_s=HF_FIT_STEPS * HF_FIT_B * TRAIN_S
+                           / fit_s, fit_shapes=rec["shapes"])
+        print(f"  gpt2 fit: {HF_FIT_STEPS} bf16 steps of B={HF_FIT_B} x "
+              f"{TRAIN_S} (1F1B, D={HF_D}, M={HF_FIT_M}) in {fit_s:.2f} s "
+              f"with its first step, losses {[round(x, 4) for x in losses]}; "
+              f"launches {rec['launches']} as the table predicts [{card}]")
+        prompt = torch.from_numpy(TokenFileDataset(
+            str(path), HF_P, seed=SEED + 1).sample(HF_B)[0]).to(device)
+        with launch_shapes() as rec:
+            toks = port.make_pipeline_generate_fn(
+                cfg16, HF_D, HF_N, n_streams=HF_M, device=device)(
+                    model, prompt)
+        check_launch_shapes(
+            "gpt2 greedy decode", rec,
+            {"flash_fwd": cfg.n_layers * HF_M, "flash_bwd": 0,
+             "xent_fwd": 0, "xent_bwd": 0},
+            {"flash_fwd": f"{[HF_B // HF_M, HF_P, 12, 64]} dtype 1"})
+        check(toks.shape == (HF_B, HF_P + HF_N) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"gpt2 decode: tokens {tuple(toks.shape)} or out of vocab")
+        paths["hf_gpt2_generate"] = rec["launches"]
+        state = export(cfg, model)
+        check({k: tuple(v.shape) for k, v in state.items()}
+              == hf_layout(HFSource("gpt2", {}).config),
+              "gpt2: the trained model's export left the HF layout")
+        _, back = hf.from_hf(HFSource("gpt2", state), device=device)
+        same_weights(model, back, "gpt2: the trained model exported and "
+                     "imported")
+        x = prompt[:, :TRAIN_S // 4]
+        with torch.no_grad():
+            check(torch.equal(transformer_apply(cfg, model, x),
+                              transformer_apply(cfg, back, x)),
+                  "gpt2: the re-imported model's logits are not bitwise "
+                  "the trained model's")
+        res["gpt2"]["generated"] = toks[:, HF_P:].tolist()
+        print(f"  gpt2: {HF_N} greedy tokens from {HF_B} prompts; the trained "
+              f"model exported and imported again: weights and f32 logits "
+              f"bitwise ({seconds()} s)")
+        del model, back, state, data
+        torch.cuda.empty_cache()
+
+        # (b) Gemma-2B at full width
+        src, cfg, model = source("gemma-2b")
+        small = {k: v for k, v in src.state_dict().items()
+                 if not k.startswith("model.layers.")
+                 or int(k.split(".")[2]) < GEMMA_GATE_LAYERS}
+        cfg4, model4 = hf.from_hf(
+            HFSource("gemma-2b", small, num_hidden_layers=GEMMA_GATE_LAYERS),
+            device=device)
+        del src, small
+        torch.cuda.empty_cache()
+        res["gemma"] = dict(decode=decode_gate(
+            "gemma-2b", cfg, model,
+            {"flash_fwd": f"{GEMMA_PREFILL_SHAPE} dtype 0",
+             "xent_fwd": f"{[HF_B // HF_M, GEMMA_VOCAB]} dtype 0"}))
+        paths["hf_gemma_decode"] = res["gemma"]["decode"]["launches"]
+
+        def step_of(c, m, sched, tokens, targets):
+            m.zero_grad(set_to_none=True)
+            loss = port.make_pipeline_grad_fn(c, sched, HF_D, device=device)(
+                m, tokens, targets)
+            torch.cuda.synchronize()
+            return loss.item()
+
+        def grads_of(m):
+            return {n: p.grad.clone() for n, p in m.named_parameters()}
+
+        g = torch.Generator().manual_seed(SEED + 8)
+        tokens, targets = (torch.randint(
+            0, cfg.vocab_size, (GEMMA_GATE_B, GEMMA_GATE_S),
+            generator=g).to(device) for _ in range(2))
+        kern4 = dataclasses.replace(cfg4, use_flash_attention=True,
+                                    use_fused_xent=True)
+        plain4 = dataclasses.replace(cfg4, use_flash_attention=False,
+                                     use_fused_xent=False)
+        sched = port.ScheduleConfig("1F1B", GEMMA_GATE_M)
+        mb = [GEMMA_GATE_B // GEMMA_GATE_M, GEMMA_GATE_S, 8, 256]
+        with launch_shapes() as rec:
+            loss_k = step_of(kern4, model4, sched, tokens, targets)
+        check_launch_shapes(
+            "gemma f32 step", rec,
+            pipeline_launches(GEMMA_GATE_LAYERS, GEMMA_GATE_M),
+            {"flash_fwd": f"{mb} dtype 0", "flash_bwd": f"{mb} dtype 0",
+             "xent_fwd": f"{[mb[0] * mb[1], GEMMA_VOCAB]} dtype 0",
+             "xent_bwd": f"{[mb[0] * mb[1], GEMMA_VOCAB]} dtype 0"})
+        paths["hf_gemma_f32_step"] = rec["launches"]
+        grads_k = grads_of(model4)
+        loss_p = step_of(plain4, model4, sched, tokens, targets)
+        grads_p = grads_of(model4)
+        model4.zero_grad(set_to_none=True)
+        loss_s = transformer_loss(kern4, model4, tokens, targets)
+        loss_s.backward()
+        loss_s = loss_s.item()
+        gate = dict(loss=loss_k, launches=rec["launches"],
+                    shapes=rec["shapes"])
+        for what, l_ref, g_ref in (
+                ("plain run", loss_p, grads_p),
+                ("single device", loss_s, {n: p.grad for n, p in
+                                           model4.named_parameters()})):
+            rel = abs(loss_k - l_ref) / abs(l_ref)
+            ratio, leaf, worst_rel = grad_errors(grads_k, g_ref)
+            print(f"  gemma f32 1F1B step ({GEMMA_GATE_LAYERS} layers, "
+                  f"B={GEMMA_GATE_B} x {GEMMA_GATE_S}, M={GEMMA_GATE_M}, "
+                  f"D={HF_D}) vs {what}: loss {loss_k:.6f} vs {l_ref:.6f} "
+                  f"(rel err {rel:.2e}), worst leaf {leaf} at {ratio:.3f} of "
+                  f"its bound, max leaf rel err {worst_rel:.2e}")
+            check(rel <= 1e-5, f"gemma f32 loss vs {what}: rel err {rel}")
+            check(ratio <= 1.0, f"gemma f32 grads vs {what}: leaf {leaf} "
+                  f"over its bound ({ratio})")
+            gate[f"vs_{what.replace(' ', '_')}"] = dict(
+                loss=l_ref, loss_rel_err=rel, worst_bound_ratio=ratio,
+                worst_leaf=leaf, max_leaf_rel_err=worst_rel)
+        res["gemma"]["f32_step"] = gate
+        del model4, grads_k, grads_p
+        torch.cuda.empty_cache()
+
+        # the bf16 step over the imported f32 masters, all 18 layers
+        g = torch.Generator().manual_seed(SEED + 9)
+        tokens, targets = (torch.randint(
+            0, cfg.vocab_size, (GEMMA_B, TRAIN_S), generator=g).to(device)
+            for _ in range(2))
+        kern16 = dataclasses.replace(cfg, dtype="bfloat16",
+                                     param_dtype="float32",
+                                     use_flash_attention=True,
+                                     use_fused_xent=True)
+        plain16 = dataclasses.replace(kern16, use_flash_attention=False,
+                                      use_fused_xent=False)
+        sched = port.ScheduleConfig("1F1B", GEMMA_M)
+        with launch_shapes() as rec:
+            loss_k = step_of(kern16, model, sched, tokens, targets)
+        rows = GEMMA_XENT_ROWS
+        check_launch_shapes(
+            "gemma bf16 step", rec, pipeline_launches(cfg.n_layers, GEMMA_M),
+            {"flash_fwd": f"{GEMMA_SHAPE} dtype 1",
+             "flash_bwd": f"{GEMMA_SHAPE} dtype 1",
+             "xent_fwd": f"{[rows, GEMMA_VOCAB]} dtype 1",
+             "xent_bwd": f"{[rows, GEMMA_VOCAB]} dtype 1"})
+        paths["hf_gemma_bf16_step"] = rec["launches"]
+        grads_k = grads_of(model)
+        loss_p = step_of(plain16, model, sched, tokens, targets)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        ratio, leaf, worst_rel = grad_errors(
+            grads_k, {n: p.grad for n, p in model.named_parameters()},
+            rtol=5e-2, atol=1e-3)
+        del grads_k
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        print(f"  gemma bf16 1F1B step ({cfg.n_layers} layers, B={GEMMA_B} x "
+              f"{TRAIN_S}, M={GEMMA_M}, D={HF_D}, f32 masters) vs plain "
+              f"bf16: loss {loss_k:.6f} vs {loss_p:.6f} (rel err {rel:.2e}), "
+              f"worst leaf {leaf} at {ratio:.3f} of its bound, max leaf rel "
+              f"err {worst_rel:.2e}; launches {rec['shapes']}")
+        check(math.isfinite(loss_k) and rel <= 1e-2,
+              f"gemma bf16 loss vs plain: {loss_k} vs {loss_p}")
+        check(ratio <= 1.0, f"gemma bf16 grads vs plain: leaf {leaf} over "
+              f"its bound ({ratio})")
+        fn = port.make_pipeline_grad_fn(kern16, sched, HF_D, device=device)
+        fn(model, tokens, targets)  # warm-up
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(GEMMA_TIMED):
+            model.zero_grad(set_to_none=True)
+            fn(model, tokens, targets)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t) / GEMMA_TIMED
+        res["gemma"]["bf16_step"] = dict(
+            loss=loss_k, loss_plain=loss_p, loss_rel_err=rel,
+            worst_bound_ratio=ratio, worst_leaf=leaf,
+            max_leaf_rel_err=worst_rel, launches=rec["launches"],
+            shapes=rec["shapes"], step_s=step_s,
+            tokens_per_s=GEMMA_B * TRAIN_S / step_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated()
+            if device != "cpu" else None)
+        print(f"  gemma bf16 step: {step_s * 1e3:.1f} ms, "
+              f"{GEMMA_B * TRAIN_S / step_s:.1f} tokens/s over "
+              f"{GEMMA_TIMED} steps (loss and gradients, no optimizer) "
+              f"[{card}] ({seconds()} s)")
+        del model, fn
+        torch.cuda.empty_cache()
+
+        # (c) Qwen2-0.5B at full width: q/k/v biases
+        src, cfg, model = source("qwen2-0.5b")
+        del src
+        res["qwen2"] = dict(decode=decode_gate(
+            "qwen2-0.5b", cfg, model,
+            {"flash_fwd": f"{QWEN_PREFILL_SHAPE} dtype 0",
+             "xent_fwd": f"{[HF_B // HF_M, QWEN_VOCAB]} dtype 0"}))
+        paths["hf_qwen2_decode"] = res["qwen2"]["decode"]["launches"]
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18: {res['seconds']:.1f} s (held to {HF_BUDGET_S:.0f})"
+          + (f", allocator peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+             f" GiB" if device != "cpu" else ""))
+    check(res["seconds"] <= HF_BUDGET_S,
+          f"phase 18 took {res['seconds']:.1f} s > {HF_BUDGET_S} s")
+    report["model_sources"] = res
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6684,6 +7273,12 @@ def main() -> int:
     phase(1, "device and toolchain", phase_toolchain, report)
     main_shapes = phase(2, "kernels against their plain versions",
                         phase_kernels, report)
+    # phase 18 runs on the fresh card: Gemma-2B's gates need ~45 GB of it
+    hf_launches = phase(
+        18, "the model sources: HF-named GPT-2-small, Gemma-2B and "
+        "Qwen2-0.5B through from_hf and the exporters, fit, decode and "
+        "steps", phase_model_sources, report)
+    torch.cuda.empty_cache()
     tables = []  # the verifier's reports of the tables phases 3-11 build
     from distributed_training_with_pipeline_parallelism_tpu_torch.analysis import (
         table_check)
@@ -6830,7 +7425,9 @@ def main() -> int:
                    for w, counts in moe_par_launches.items()},
                 **{f"tp_{w}_by_rank": [counts[r].get(name, 0)
                                        for r in sorted(counts)]
-                   for w, counts in tps_launches.items()}}))
+                   for w, counts in tps_launches.items()},
+                **{path: counts[name]
+                   for path, counts in hf_launches.items()}}))
         fields = ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
                   "bound_ms", "bound_by", "library_ms")
         kernels[-1]["par_shape"] = {
@@ -6857,6 +7454,15 @@ def main() -> int:
                                 "ms", "tflops", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")}, model=m)
                 for m in tp_shapes()]
+        gemma = {"flash_fwd": ("flash_fwd_gemma", "flash_fwd_gemma_prefill"),
+                 "flash_bwd": ("flash_bwd_gemma",),
+                 "xent_fwd": ("xent_fwd_gemma", "xent_fwd_gemma_decode"),
+                 "xent_bwd": ("xent_bwd_gemma",)}[name]
+        kernels[-1]["gemma_shapes"] = [
+            {k: main_shapes[(key, dtype)].get(k) for k in (
+                "shape", "dtype", "max_abs_err", "ms", "tflops", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+            for key in gemma for dtype in ("bfloat16", "float32")]
         if name == "flash_fwd":
             r = main_shapes[("flash_fwd_llama", "bfloat16")]
             kernels[-1]["llama_prefill"] = {

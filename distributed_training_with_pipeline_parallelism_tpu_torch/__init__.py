@@ -75,6 +75,10 @@ package's. Ported so far:
   (``check_tp`` holds the shapes to the Megatron contract);
 - run reports and pipeline telemetry, the static table verifier,
   certified schedule search and training dynamics;
+- the model sources (``models.hf``): Hugging Face GPT-2, Llama, Mistral,
+  Qwen2 and Gemma checkpoints in (``from_hf``) and out (``to_hf``,
+  ``python -m distributed_training_with_pipeline_parallelism_tpu_torch.export_hf``),
+  and the HF tokenizer route (``utils.data.encode_text_file_hf``);
 - the cost model's calibration (``analysis.calibration``: measured probes,
   the ledger, fitted per-hardware corrections that ``fit`` and the sweep
   apply; ``python -m

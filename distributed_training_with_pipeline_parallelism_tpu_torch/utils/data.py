@@ -193,10 +193,73 @@ def encode_text_file(text_path: str, out_path: str) -> int:
 
 def encode_text_file_hf(text_path: str, out_path: str, tokenizer="gpt2",
                         chunk_chars: int = 1 << 20) -> int:
-    """The JAX package's Hugging Face tokenizer route; not ported yet."""
-    raise NotImplementedError(
-        "encode_text_file_hf is not ported yet: ROADMAP.md Queue 1, item 11 "
-        "(models/hf.py from local files only)")
+    """Tokenize a UTF-8 text file into the packed format with a Hugging Face
+    tokenizer. ``tokenizer`` is a name or local path for
+    ``AutoTokenizer.from_pretrained`` ("gpt2" BPE by default — pair with
+    the gpt2-* models and their 50257 vocab) or an already-constructed
+    tokenizer object (any callable with ``len()`` returning
+    ``{"input_ids": [...]}``). Streams ``chunk_chars``-character chunks,
+    so a corpus of any size encodes in bounded memory. Returns the token
+    count.
+
+    uint16 packs vocabs < 65536; a larger tokenizer writes uint32 and a
+    ``<out_path>.meta.json`` sidecar that :class:`TokenFileDataset`
+    (``dtype=None``) reads; a stale sidecar from an earlier uint32
+    encoding of the same path is removed.
+
+    Chunks cut at whitespace so the stream matches one-shot encoding;
+    whitespace-free runs accumulate (up to 64x ``chunk_chars``) until a
+    cut point appears. Only a single whitespace-free run longer than that
+    bound is cut mid-run, where one token may split against one-shot
+    encoding. ``add_special_tokens=False``: no BOS/EOS lands at a chunk
+    boundary of one continuous corpus."""
+    if isinstance(tokenizer, str):
+        from transformers import AutoTokenizer
+        tok = AutoTokenizer.from_pretrained(tokenizer)
+    else:
+        tok = tokenizer
+    dtype = np.uint16 if len(tok) < (1 << 16) else np.uint32
+    sidecar = os.fspath(out_path) + ".meta.json"
+    if dtype != np.uint16:
+        # a uint32 file read as uint16 would train on half-tokens
+        with open(sidecar, "w") as f:
+            json.dump({"dtype": "uint32", "vocab_size": len(tok)}, f)
+    elif os.path.exists(sidecar):
+        os.remove(sidecar)
+    n = 0
+
+    def emit(text, out):
+        nonlocal n
+        ids = np.asarray(tok(text, add_special_tokens=False)["input_ids"],
+                         dtype=dtype)
+        ids.tofile(out)
+        n += int(ids.size)
+
+    carry = ""
+    with open(text_path, encoding="utf-8") as src, open(out_path, "wb") as out:
+        while True:
+            chunk = src.read(chunk_chars)
+            if not chunk:
+                break
+            chunk = carry + chunk
+            # cut at the last whitespace so no word (or BPE merge) straddles
+            # a chunk boundary; the whitespace travels with the next chunk
+            # (GPT-2-style BPE attaches the leading space to the word)
+            cut = max(chunk.rfind(" "), chunk.rfind("\n"))
+            if cut <= 0:
+                # no whitespace: keep accumulating, up to 64x chunk_chars,
+                # past which the chunk goes whole (the one documented split)
+                if len(chunk) < 64 * chunk_chars:
+                    carry = chunk
+                else:
+                    carry = ""
+                    emit(chunk, out)
+            else:
+                carry = chunk[cut:]
+                emit(chunk[:cut], out)
+        if carry:
+            emit(carry, out)
+    return n
 
 
 class DigestedBatch(tuple):

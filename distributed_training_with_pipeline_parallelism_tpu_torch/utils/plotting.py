@@ -1,9 +1,11 @@
 """The reference notebook's sweep figures (the port's own copy of the JAX
 package's ``utils/plotting.py``): speedup and scaling efficiency by model
-configuration, throughput against devices per (layers, heads), and the
-per-device timeline of a compiled tick table. pandas and matplotlib are
+configuration, throughput against devices per (layers, heads), the
+per-device timeline of a compiled tick table, that timeline over the
+measured tick cost of a ``PipelineTelemetry`` timeline, and serving's
+latency-against-load curve and queue depth. pandas and matplotlib are
 imported inside the functions (the H100 host has neither; the sweep's CSV
-is plotted where they are installed)."""
+and the run reports are plotted where they are installed)."""
 
 from __future__ import annotations
 
@@ -153,6 +155,159 @@ def plot_schedule_timeline(name_or_cs, n_devices: Optional[int] = None,
               else "backward", "weight grad"]
     n_leg = 3 if cs.split_backward else 2
     ax.legend(handles[:n_leg], labels[:n_leg], fontsize=7, loc="lower right")
+    fig.tight_layout()
+    if path:
+        fig.savefig(path, dpi=120)
+    return fig
+
+
+def plot_timeline_overlay(name_or_cs, timeline, n_devices: Optional[int] = None,
+                          n_virtual: int = 1, n_microbatches: int = 4,
+                          path: Optional[str] = None):
+    """Measured against simulated timeline, stacked on one tick axis.
+
+    Top panel: the compiled schedule's tick timeline
+    (:func:`plot_schedule_timeline`, unit-cost ticks). Bottom panel: the
+    measured cost of each segment of a ``utils.telemetry.PipelineTelemetry``
+    timeline (tick, phase or whole step) drawn over the ticks it covers at
+    height ``duration / n_ticks`` (ms a tick), so warm-up, steady state and
+    cool-down line up column for column with the schedule above. A flat
+    profile means the unit-cost simulation was a good model; spikes show
+    where real time departs from it.
+
+    ``timeline`` is ``PipelineTelemetry.timeline()``'s record list (or the
+    ``telemetry.timeline`` section of a run report)."""
+    from ..parallel.schedules import CompiledSchedule, compile_schedule
+    if isinstance(name_or_cs, CompiledSchedule):
+        cs = name_or_cs
+    else:
+        cs = compile_schedule(name_or_cs, n_devices, n_virtual,
+                              n_microbatches)
+    plt = _mpl()
+    fig, (ax_top, ax_bot) = plt.subplots(
+        2, 1, figsize=(max(6, 0.32 * cs.makespan), 0.6 * cs.n_devices + 3.4),
+        sharex=True, gridspec_kw={"height_ratios": [cs.n_devices, 2.2]})
+    plot_schedule_timeline(cs, ax=ax_top, annotate=cs.makespan <= 80)
+    ax_top.set_xlabel("")
+    for rec in timeline:
+        dur = rec.get("duration_s")
+        t0, n = rec.get("start_tick", 0), rec.get("n_ticks", 1)
+        if dur is None or n <= 0:
+            continue
+        per_tick_ms = dur / n * 1e3
+        ax_bot.fill_between([t0, t0 + n], 0.0, per_tick_ms,
+                            color="#4e9ad1", alpha=0.55,
+                            edgecolor="#2a6496", linewidth=0.8)
+        if "phase" in rec and cs.makespan <= 80:
+            ax_bot.text(t0 + n / 2.0, per_tick_ms, f"p{rec['phase']}",
+                        ha="center", va="bottom", fontsize=6, color="#2a6496")
+    ax_bot.set_xlim(0, cs.makespan)
+    ax_bot.set_ylim(bottom=0.0)
+    ax_bot.set_xlabel("tick")
+    ax_bot.set_ylabel("measured ms/tick")
+    ax_bot.grid(alpha=0.3)
+    ax_bot.set_title("measured segment cost (telemetry stamps)", fontsize=9)
+    fig.tight_layout()
+    if path:
+        fig.savefig(path, dpi=120)
+    return fig
+
+
+def _number(v) -> float:
+    return float(v) if isinstance(v, (int, float)) else float("nan")
+
+
+def plot_latency_curve(section, path: Optional[str] = None):
+    """Latency against offered load from a ``serving_load`` section
+    (``serving.loadgen.sweep_offered_load``).
+
+    Left panel: p50/p99 TTFT and the admission-wait p99 against offered
+    load (units of ring capacity), the SLO's p99 TTFT budget as a
+    horizontal line and the detected saturation knee as a vertical one.
+    Right panel: goodput and goodput under the SLO, which flatten (then
+    part) past the knee. Percentiles missing from a row (an empty point)
+    plot as gaps."""
+    plt = _mpl()
+    curve = section.get("curve", [])
+
+    def col(key, pct=None):
+        out = []
+        for row in curve:
+            v = row.get(key)
+            if pct is not None:
+                v = v.get(pct) if isinstance(v, dict) else None
+            out.append(_number(v))
+        return out
+
+    loads = [row.get("offered_load") for row in curve]
+    fig, (ax_l, ax_g) = plt.subplots(1, 2, figsize=(11, 4.2))
+    ax_l.plot(loads, col("ttft_ticks", "p99"), marker="o",
+              color="tab:red", label="TTFT p99")
+    ax_l.plot(loads, col("ttft_ticks", "p50"), marker="o",
+              color="tab:blue", label="TTFT p50")
+    ax_l.plot(loads, col("admit_wait_ticks", "p99"), marker="s",
+              color="tab:orange", linestyle="--", label="admission wait p99")
+    slo = section.get("slo") or {}
+    if isinstance(slo.get("ttft_p99_ticks"), (int, float)):
+        ax_l.axhline(slo["ttft_p99_ticks"], color="gray", linestyle=":",
+                     label=f"SLO p99 budget ({slo['ttft_p99_ticks']:g})")
+    knee = section.get("knee") or {}
+    for ax in (ax_l, ax_g):
+        if isinstance(knee.get("knee_load"), (int, float)):
+            ax.axvline(knee["knee_load"], color="black", linestyle="--",
+                       alpha=0.6,
+                       label=f"knee @ {knee['knee_load']:g} "
+                             f"({knee.get('reason')})")
+        ax.set_xlabel("offered load (x ring capacity)")
+        ax.grid(alpha=0.3)
+    ax_l.set_ylabel("latency (ticks)")
+    ax_l.set_title("tail latency vs offered load")
+    ax_l.legend(fontsize=8)
+    ax_g.plot(loads, col("goodput"), marker="o", color="tab:green",
+              label="goodput (tok/tick)")
+    ax_g.plot(loads, [_number((row.get("slo") or {}).get("goodput_under_slo"))
+                      for row in curve],
+              marker="s", color="tab:purple", linestyle="--",
+              label="goodput under SLO")
+    ax_g.set_ylabel("tokens / tick")
+    ax_g.set_title("goodput vs offered load")
+    ax_g.legend(fontsize=8)
+    fig.tight_layout()
+    if path:
+        fig.savefig(path, dpi=120)
+    return fig
+
+
+def plot_queue_depth(summary, path: Optional[str] = None):
+    """Queue depth and slot occupancy over ticks for one serving run: a
+    queue ramp that precedes the TTFT blow-up, against how full the
+    ring's slots are while it builds.
+
+    ``summary`` is a ``serving_summary`` dict (or a ``serving_load`` curve
+    row's ``summary``) with the block-boundary ``queue_depth`` /
+    ``occupancy`` series as ``[[tick, n], ...]``; the ``n_slots`` ceiling
+    is drawn when present. Step-drawn: each sample holds until the next
+    block boundary, so idle gaps show as zeros, not slopes."""
+    plt = _mpl()
+    fig, ax = plt.subplots(figsize=(9, 3.6))
+    for key, color, label in (("queue_depth", "tab:red", "admission queue"),
+                              ("occupancy", "tab:blue", "busy slots")):
+        series = summary.get(key) or []
+        if series:
+            ax.step([float(t) for t, _ in series],
+                    [int(n) for _, n in series], where="post", color=color,
+                    label=label)
+    n_slots = summary.get("n_slots")
+    if isinstance(n_slots, (int, float)):
+        ax.axhline(n_slots, color="gray", linestyle=":",
+                   label=f"slot count ({int(n_slots)})")
+    ax.set_xlabel("tick")
+    ax.set_ylabel("requests")
+    ax.set_ylim(bottom=0)
+    ax.set_title(f"queue depth & slot occupancy "
+                 f"({summary.get('policy', '?')} policy)", fontsize=10)
+    ax.grid(alpha=0.3)
+    ax.legend(fontsize=8)
     fig.tight_layout()
     if path:
         fig.savefig(path, dpi=120)

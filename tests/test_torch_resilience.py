@@ -106,11 +106,12 @@ def test_native_loader_bit_identical(token_file):
         tdata_native.NativeTokenLoader(token_file, 6000, 1)
 
 
-def test_unported_data_parts_raise():
+def test_unported_data_parts_raise(tmp_path):
     """``batch_sharding`` gives each rank of a 2 x 4 world the rows the JAX
     ``P(DATA_AXIS)`` split puts on the device at its coordinates of the
     simulated mesh, through the loaders and the prefetch alike;
-    ``encode_text_file_hf`` is still unported."""
+    ``encode_text_file_hf`` (ported since) writes the JAX function's
+    bytes for a tokenizer object."""
     import jax
     from distributed_training_with_pipeline_parallelism_tpu.parallel.mesh import (
         make_mesh)
@@ -139,8 +140,21 @@ def test_unported_data_parts_raise():
                 np.testing.assert_array_equal(fy.numpy(), y)
     with pytest.raises(ValueError, match="does not split"):
         tdata.BatchSharding(3, 0).rows(x)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdata.encode_text_file_hf("a", "b")
+
+    class CharTok:
+        def __len__(self):
+            return 97
+
+        def __call__(self, text, add_special_tokens=True):
+            return {"input_ids": [ord(c) % 97 for c in text
+                                  if not c.isspace()]}
+
+    src = tmp_path / "t.txt"
+    src.write_text("pipeline stages\nhand off activations " * 5)
+    for mod, out in ((jdata, tmp_path / "j.bin"), (tdata, tmp_path / "t.bin")):
+        assert mod.encode_text_file_hf(str(src), str(out), CharTok(),
+                                       chunk_chars=9) == 160
+    assert (tmp_path / "j.bin").read_bytes() == (tmp_path / "t.bin").read_bytes()
 
 
 def test_file_loaders_take_the_rank_slice(token_file):
